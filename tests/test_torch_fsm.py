@@ -1,0 +1,168 @@
+"""tpujpeg_torch FSM host half and plain scan == the JAX package's.
+
+Same numpy inputs on both sides; every comparison is exact (`==`):
+  * build_tables / build_plan, and convert.tables_from_jax /
+    plan_from_jax, field-equal to the JAX objects;
+  * the scan LUT == the JAX piece select tree (_bst_tree) on every peek;
+  * fsm_scan (plain, CPU) == JAX _fsm_scan: events, err_mal, err_env at
+    steps (1, 2), 1 and 3, on restart streams, on a noisy q95 stream that
+    leaves the envelope at steps 1, and on a 0xFF-tailed malformed stream;
+  * _dc_cumsum == JAX.
+The JAX scan runs under jit with its carry returned (XLA:CPU hangs on a
+scan whose carry is dead).
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpujpeg.io.parser import parse, parse_file
+from tpujpeg.ops import fsm as jfsm
+from tpujpeg_torch import convert
+from tpujpeg_torch.ops import fsm as tfsm
+
+from conftest import GOLDEN, fixture_path, make_jpeg_rst
+
+
+@functools.partial(jax.jit, static_argnames=("tables", "steps"))
+def _jax_scan(xs, seg_n, tables, steps):
+    events, (err_mal, err_env), state = jfsm._fsm_scan(
+        xs.T, seg_n, tables, steps=steps
+    )
+    return events, err_mal, err_env, state
+
+
+def _noisy_q95():
+    import cv2
+
+    rng = np.random.default_rng(11)
+    arr = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    ok, enc = cv2.imencode(
+        ".jpg", arr,
+        [cv2.IMWRITE_JPEG_QUALITY, 95, cv2.IMWRITE_JPEG_RST_INTERVAL, 2,
+         cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+         cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444],
+    )
+    assert ok
+    return parse(enc.tobytes())
+
+
+def _malformed():
+    img = parse(
+        make_jpeg_rst(shape=(48, 64), rst_interval=2, seed=21, quality=95)
+    )
+    img.scan_data = img.scan_data.copy()
+    img.scan_data[-img.scan_data.size // 3 :] = 0xFF
+    return img
+
+
+CORPORA = {
+    "rst": lambda: [
+        parse(make_jpeg_rst(shape=(48, 64), rst_interval=2, seed=s))
+        for s in (1, 2)
+    ],
+    "rst3_q30": lambda: [
+        parse(make_jpeg_rst(shape=(40, 56), rst_interval=3, seed=4,
+                            quality=30))
+    ],
+    "noisy_q95": lambda: [_noisy_q95()],
+    "malformed": lambda: [_malformed()],
+}
+
+
+@pytest.fixture(scope="module")
+def corpora():
+    return {name: make() for name, make in CORPORA.items()}
+
+
+def _fields_equal(a, b):
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, np.ndarray):
+            np.testing.assert_array_equal(va, vb, err_msg=f.name)
+        else:
+            assert va == vb, f.name
+
+
+@pytest.mark.parametrize("name", GOLDEN[:3] + list(CORPORA))
+def test_tables_and_plan_field_equal(corpora, name):
+    imgs = corpora.get(name) or [parse_file(fixture_path(name))]
+    jt = jfsm.build_tables(imgs[0])
+    tt = tfsm.build_tables(imgs[0])
+    for f in dataclasses.fields(tfsm.FsmTables):
+        assert getattr(tt, f.name) == getattr(jt, f.name), f.name
+    assert convert.tables_from_jax(jt) == tt
+    jp = jfsm.build_plan(imgs, split=False)
+    tp = tfsm.build_plan(imgs)
+    _fields_equal(tp, convert.plan_from_jax(jp))
+    (jxs, jsn), = jp.groups
+    np.testing.assert_array_equal(tp.xs, jxs)
+    np.testing.assert_array_equal(tp.seg_n_blocks, jsn)
+    assert (tp.max_blk, tp.layout, tp.n_blocks_total) == (
+        jp.max_blk, jp.layout, jp.n_blocks_total
+    )
+
+
+@pytest.mark.parametrize("name", ["rst", "noisy_q95"])
+def test_lut_matches_piece_tree_on_every_peek(corpora, name):
+    tables = tfsm.build_tables(corpora[name][0])
+    key = jnp.arange(tfsm.N_TABLES << 16, dtype=jnp.int32)
+    packed = np.asarray(
+        jfsm._bst_tree(key, tables.piece_keys, tables.piece_vals)
+    ).astype(np.int64)
+    length = packed >> 17
+    base = (packed & 0x1FFFF) - 0x10000
+    peek = np.arange(tfsm.N_TABLES << 16) & 0xFFFF
+    sym = (base + (peek >> np.clip(16 - length, 0, 16))) & 0xFF
+    lut = tfsm.symbol_lut(tables).reshape(-1).astype(np.int64)
+    np.testing.assert_array_equal(lut >> 8, length)
+    valid = length <= 16
+    assert valid.any() and (~valid).any()
+    np.testing.assert_array_equal((lut & 0xFF)[valid], sym[valid])
+
+
+@pytest.mark.parametrize("steps", [(1, 2), 1, 3])
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_plain_scan_matches_jax(corpora, name, steps):
+    plan = tfsm.build_plan(corpora[name])
+    # the JAX side runs its own tables (two-level symbol map and all)
+    want_ev, want_mal, want_env, _ = _jax_scan(
+        jnp.asarray(plan.xs), jnp.asarray(plan.seg_n_blocks),
+        jfsm.build_tables(corpora[name][0]), steps,
+    )
+    ev, mal, env = tfsm.fsm_scan(
+        torch.as_tensor(plan.xs), torch.as_tensor(plan.seg_n_blocks),
+        plan.tables, steps,
+    )
+    np.testing.assert_array_equal(ev.numpy(), np.asarray(want_ev))
+    np.testing.assert_array_equal(mal.numpy(), np.asarray(want_mal))
+    np.testing.assert_array_equal(env.numpy(), np.asarray(want_env))
+    if name == "noisy_q95" and steps == 1:
+        assert env.any()  # the case exercises the envelope latch
+    if name == "malformed":
+        assert mal.any()
+
+
+def test_scan_rejects_unported_specs(corpora):
+    plan = tfsm.build_plan(corpora["rst"])
+    with pytest.raises(NotImplementedError):
+        tfsm.fsm_scan(torch.as_tensor(plan.xs),
+                      torch.as_tensor(plan.seg_n_blocks), plan.tables, (2, 4))
+
+
+def test_dc_cumsum_matches_jax(corpora):
+    tables = tfsm.build_tables(corpora["rst"][0])
+    rng = np.random.default_rng(3)
+    max_blk = 40  # not a multiple of the 3 blocks per MCU: exercises the pad
+    dc = rng.integers(-2047, 2048, (128, max_blk)).astype(np.int32)
+    want = jfsm._dc_cumsum(
+        jnp.asarray(dc), jfsm.build_tables(corpora["rst"][0]), max_blk
+    )
+    got = tfsm._dc_cumsum(torch.as_tensor(dc), tables, max_blk)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

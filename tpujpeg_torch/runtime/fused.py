@@ -1,0 +1,91 @@
+"""Per-chunk decode: FSM scan -> materialize -> DC resolve -> assemble ->
+pixels, on one device.
+
+Counterpart of tpujpeg/runtime/fused.py::compiled_fused_decoder for a
+single-group restart plan.  PyTorch runs eagerly, so the chain is a plain
+function; the kernels launch on the current stream back to back and
+nothing returns to the host until the caller reads a result.
+
+  * the dense coefficient tensor stays int16 from materialize through
+    assembly;
+  * DC stays as DPCM differences in the dense tensor; the resolved
+    predictors ride a separate [L, max_blk] cumsum and replace the DC row
+    inside the pixel stage.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import fsm
+from ..pipeline import Geometry, device_decode_fn
+
+
+def assembly_index(layout, max_blk: int, device) -> torch.Tensor:
+    """Flat (lane * max_blk + blk) source of every block of every image,
+    in image order: int64 [n_imgs * n_blocks_img], built on `device`.
+
+    Every image of a chunk has the same block count; block j of an image
+    with layout (first, n_lanes, rib, last) sits in lane first + j // rib
+    while j < (n_lanes - 1) * rib, and in its last lane after that."""
+    _, n0, rib0, last0 = layout[0]
+    nb = (n0 - 1) * rib0 + last0
+    lay = torch.as_tensor(layout, dtype=torch.int64, device=device)
+    first, n_lanes, rib, last = (c[:, None] for c in lay.unbind(1))
+    n_full = (n_lanes - 1) * rib
+    j = torch.arange(nb, dtype=torch.int64, device=device)[None, :]
+    in_full = j < n_full
+    lane = torch.where(in_full, first + j // rib, first + n_lanes - 1)
+    blk = torch.where(in_full, j % rib, j - n_full)
+    return (lane * max_blk + blk).reshape(-1)
+
+
+def _assemble_rows(per_lane: torch.Tensor, layout, pad_to: int) -> torch.Tensor:
+    """[L, max_blk, ...] lane rows -> [pad_to, n_blocks_img, ...].
+
+    The slicing of the JAX package's _assemble_rows as one gather; images
+    past len(layout) are zero padding."""
+    L, max_blk = per_lane.shape[:2]
+    tail = per_lane.shape[2:]
+    idx = assembly_index(layout, max_blk, per_lane.device)
+    rows = per_lane.reshape((L * max_blk,) + tail).index_select(0, idx)
+    n_imgs = len(layout)
+    rows = rows.reshape((n_imgs, -1) + tail)
+    if pad_to > n_imgs:
+        pad = torch.zeros((pad_to - n_imgs,) + rows.shape[1:],
+                          dtype=rows.dtype, device=rows.device)
+        rows = torch.cat([rows, pad])
+    return rows
+
+
+def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
+                       pad_to: int, steps=fsm.STEPS_PRODUCTION,
+                       want_coeffs: bool = True, uploaded=None):
+    """Decode one restart plan on the device of `quant`.
+
+    quant: int32 [pad_to, 3, 64] zigzag quant tables.  `uploaded` is the
+    plan's (xs, seg_n_blocks) already on that device.
+
+    Returns (rgb uint8 [pad_to, 3, H, W], riskbits uint8 [pad_to, H, W/8],
+    coeffs int16 [pad_to, n_blocks, 64] with raw DC differences, dc int32
+    [pad_to, n_blocks] resolved, err_mal [L], err_env [L], err_slot [L]);
+    coeffs and dc are None when want_coeffs is False.
+    """
+    dev = quant.device
+    if uploaded is None:
+        uploaded = (torch.as_tensor(plan.xs).to(dev),
+                    torch.as_tensor(plan.seg_n_blocks).to(dev))
+    xs, seg_n = uploaded
+    events, err_mal, err_env = fsm.fsm_scan(xs, seg_n, plan.tables, steps)
+    n_cols, S, L = events.shape
+    ev = events.reshape(n_cols * S, L)
+    M = plan.max_blk * 64
+    coeffs_t, err_mal, err_slot = fsm.materialize_checked(ev, M, err_mal)
+    per_lane = coeffs_t.T.reshape(L, plan.max_blk, 64)
+    dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
+    coeffs = _assemble_rows(per_lane, plan.layout, pad_to)   # [B, nb, 64]
+    dc = _assemble_rows(dc_lane, plan.layout, pad_to)        # [B, nb]
+    rgb, risk = device_decode_fn(geom, coeffs, quant, dc=dc)
+    if not want_coeffs:
+        coeffs = dc = None
+    return rgb, risk, coeffs, dc, err_mal, err_env, err_slot

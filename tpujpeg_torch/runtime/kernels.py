@@ -1,0 +1,183 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources under tpujpeg_torch/csrc/*.cu expose a plain C ABI.  At first
+use they are compiled with nvcc for Hopper (sm_90a) into one shared
+library, tpujpeg_torch/_build/libtpjcuda.so, and loaded with ctypes:
+pointers travel as c_void_p (tensor.data_ptr()), the stream as the raw
+cudaStream_t of torch.cuda.current_stream().  Nothing here imports torch's
+C++ headers, so a build takes seconds, not minutes.
+
+The library is rebuilt when the hash of the sources and flags changes,
+under an exclusive file lock (several processes may race to build).  A
+failed build raises; there is no fallback.  Every C entry returns
+cudaGetLastError() after its launch and `launch` raises on a non-zero
+code, so a refused launch (bad grid, too much shared memory) never passes
+silently.
+
+`LAUNCHES` keeps one integer per kernel, bumped by `launch` and nowhere
+else, so a run can show that its main path went through each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIB_PATH = BUILD_DIR / "libtpjcuda.so"
+STAMP_PATH = BUILD_DIR / "libtpjcuda.hash"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # no FMA contraction anywhere: the pixel kernel's f32 colour math must
+    # round like the separate multiplies and adds of the reference
+    "-fmad=false",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C entry -> argtypes (all entries return int: a cudaError_t)
+_SIGNATURES = {
+    # xs, seg_n, lut, meta(host), events, err_mal, err_env,
+    # L, stride, steps, stream
+    "tpj_fsm_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # ev, out, err, N, M, L, stream
+    "tpj_place_events": [_P, _P, _P, _I, _I, _I, _P],
+    # zp, quant, dc, rg, bk, B, P, consts(host), stream
+    "tpj_pixels": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+}
+
+# kernel name (as counted) -> C entry
+KERNELS = {
+    "fsm_scan": "tpj_fsm_scan",
+    "place_events": "tpj_place_events",
+    "pixels": "tpj_pixels",
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    env = os.environ.get("NVCC")
+    if env:
+        return env
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into LIB_PATH if the sources changed; return it.
+
+    Raises RuntimeError (with nvcc's output) when the build fails."""
+    want = _source_hash()
+
+    def fresh() -> bool:
+        return (
+            LIB_PATH.exists()
+            and STAMP_PATH.exists()
+            and STAMP_PATH.read_text() == want
+        )
+
+    if fresh():
+        return LIB_PATH
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not fresh():
+                cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+                if not cu:
+                    raise FileNotFoundError(f"no CUDA sources in {SRC_DIR}")
+                tmp = LIB_PATH.with_suffix(".so.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+                try:
+                    res = subprocess.run(cmd, capture_output=True, text=True)
+                except OSError as e:
+                    raise RuntimeError(f"cannot run nvcc: {e}") from e
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        "nvcc failed (%d): %s\n%s\n%s" % (
+                            res.returncode, " ".join(cmd),
+                            res.stdout, res.stderr,
+                        )
+                    )
+                os.replace(tmp, LIB_PATH)
+                STAMP_PATH.write_text(want)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return LIB_PATH
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            dll = ctypes.CDLL(str(build()))
+            for fn, argtypes in _SIGNATURES.items():
+                f = getattr(dll, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _lib = dll
+    return _lib
+
+
+def current_stream(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel `name`'s C entry; raise if the launch was refused.
+
+    Counts the launch in LAUNCHES[name] (the only place counts change)."""
+    rc = getattr(library(), KERNELS[name])(*args)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+    LAUNCHES[name] += 1
+
+
+def check_cuda_tensor(name: str, t, dtype, ndim: int | None = None) -> None:
+    """Validate a tensor handed to a kernel (device, dtype, contiguity)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")
