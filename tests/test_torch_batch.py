@@ -92,9 +92,16 @@ def test_fsm_malformed_raises_without_skip():
 
 
 def test_fsm_without_restart_markers_is_not_implemented():
+    # The name is from when backend="fsm" refused streams without restart
+    # markers.  It takes them now: a small one packs as one lane per image
+    # and decodes on the fsm route, exactly
+    data = make_jpeg(shape=(32, 48), seed=2)
     dec = BatchDecoder(backend="fsm", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dec.decode([make_jpeg(shape=(32, 48), seed=2)])
+    got = dec.decode([data])
+    assert dec.stats.backend == "fsm", dec.stats.as_dict()
+    assert dec.stats.fsm_malformed_fallbacks == 0
+    assert dec.stats.fsm_envelope_fallbacks == 0
+    np.testing.assert_array_equal(got[0], _oracle([data])[0])
 
 
 def test_host_backend_goldens_and_parse_failures():

@@ -6,8 +6,9 @@ nothing of JAX, so they also run on a machine without it:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -m gpu
 
-Inputs are the committed restart corpus (tests/fixtures/rst640), a
-0xFF-tailed malformed copy of it, and seeded numpy data.
+Inputs are the committed restart corpus (tests/fixtures/rst640), the
+no-restart corpus (tests/fixtures/photo640) split into speculative
+lanes, a 0xFF-tailed malformed copy, and seeded numpy data.
 """
 
 import os
@@ -23,6 +24,7 @@ from tpujpeg_torch.pipeline import Geometry, soa_planes
 pytestmark = pytest.mark.gpu
 
 CORPUS = os.path.join(os.path.dirname(__file__), "fixtures", "rst640")
+PHOTO = os.path.join(os.path.dirname(__file__), "fixtures", "photo640")
 
 
 @pytest.fixture(scope="module")
@@ -116,3 +118,81 @@ def test_pixels_kernel_equals_plain(cuda, imgs, extreme):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == torch.int16 and torch.equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def spec_plan():
+    img = parse_file(os.path.join(PHOTO, "03.jpg"))
+    return fsm.build_spec_plan_batch([img], 1024)
+
+
+@pytest.mark.parametrize("mode", ["cold", "count", "entry", "stitch"])
+def test_fsm_scan_spec_kernel_equals_plain(cuda, spec_plan, mode):
+    plan = spec_plan
+    L = plan.xs.shape[0]
+    rng = np.random.default_rng(7)
+    xs = torch.as_tensor(plan.xs).to(cuda)
+    caps = torch.full((L,), plan.blk_cap, dtype=torch.int32, device=cuda)
+    cb = torch.as_tensor(plan.chunk_bits).to(cuda)
+    sb = torch.as_tensor(rng.integers(0, 3000, L).astype(np.int32)).to(cuda)
+    sm = torch.as_tensor(rng.integers(0, 3, L).astype(np.int32)).to(cuda)
+    kw = {"cold": dict(chunk_bits=cb, log_anchors=True),
+          "count": dict(start_bits=sb, start_bim=sm, chunk_bits=cb,
+                        emit=False),
+          "entry": dict(start_bits=sb, start_bim=sm),
+          "stitch": dict(start_bits=sb % 2048, start_bim=sm,
+                         chunk_bits=torch.clamp(cb, max=2048))}[mode]
+    if mode == "stitch":
+        xs = xs[:, :640]   # a column prefix, read in place
+    got = fsm.fsm_scan_spec(xs, caps, plan.tables, (1, 2), **kw)
+    want = fsm.fsm_scan_spec_plain(xs, caps, plan.tables, 2, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(fsm.ScanOut._fields, got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+    if mode == "cold":
+        assert bool((got.anchors >= 0).any())
+
+
+def _slot_events(rng, N, max_blk, L, mean_ev, heavy=()):
+    """Per lane, blocks with ascending distinct zigzag positions at
+    ascending rows (the scan's emission contract); `heavy` lanes stuff
+    their first 8 blocks full."""
+    ev = np.full((N, L), -1, np.int32)
+    for lane in range(L):
+        rows = []
+        for b in range(max_blk):
+            n = 64 if (lane in heavy and b < 8) else \
+                min(64, int(rng.poisson(mean_ev)))
+            for z in np.sort(rng.choice(64, n, replace=False)):
+                rows.append((b << 18) | (int(z) << 12)
+                            | int(rng.integers(0, 4096)))
+        pos = np.sort(rng.choice(N, len(rows), replace=False))
+        ev[pos, lane] = rows
+    ev[0, 1] = 0   # blk 0, z 0, val -2048 packs to 0
+    return ev
+
+
+@pytest.mark.parametrize("C", [64, 256])
+def test_slot_kernels_equal_plain(cuda, C):
+    rng = np.random.default_rng(C)
+    N, max_blk, L = 1500, 60, 160
+    M = max_blk * 64
+    ev = torch.as_tensor(_slot_events(rng, N, max_blk, L, 6,
+                                      heavy=(5,))).to(cuda)
+    p, o = materialize.compact_to_rank(ev)
+    pw, ow = materialize.compact_to_rank_plain(ev)
+    o2, ovf = materialize.slot_unpack(p, o, C, 8)
+    o2w, ovfw = materialize.slot_unpack_plain(p, o, C, 8)
+    dense = materialize.slot_expand(o2, p, M, C, 8)
+    densew = materialize.slot_expand_plain(o2, p, M, C, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(p, pw) and torch.equal(o, ow)
+    assert torch.equal(o2, o2w) and torch.equal(ovf, ovfw)
+    assert torch.equal(dense, densew)
+    assert bool(ovf[5])
+    classic = materialize.place_events(ev, M)
+    ok = ~ovf
+    assert torch.equal(dense[:, ok], classic[:, ok])
+    assert int(dense[0, 1]) == -2048

@@ -1,16 +1,21 @@
 """Where one 128-image chunk's device time goes in tpujpeg_torch (CUDA).
 
-Runs the fused chunk chain (runtime/fused.decode_chunk_fused) on the
-committed restart corpus (tests/fixtures/rst640, 16 streams x 8) with the
-plan already on the card, and reports:
+Two chunks, each 16 committed 640x640 q90 4:4:4 streams x 8, with the
+plan and scan bytes already on the card:
 
-  * per stage, the median of 5 warm runs timed with CUDA events, each
-    stage synchronised on its own (scan, materialize, lane transpose +
-    DC cumsum, assemble, pixel prologue, pixel kernel, unpack + raster
-    + pack_mask);
-  * the whole chain, unsynchronised, the same way;
-  * torch.profiler's CUDA-time table over 3 chain runs (also written to
-    OUT_FILE when one is given).
+  * restart: tests/fixtures/rst640 (a restart marker every MCU row)
+    through the fused chain (runtime/fused.decode_chunk_fused): scan,
+    materialize, lane transpose + DC cumsum, assemble, pixel prologue,
+    pixel kernel, the whole pixel stage;
+  * spec: tests/fixtures/photo640 (no restart markers) through the
+    single-pass speculative chain: cold + stitch scan, the resolve read,
+    merge, compact, unpack, expand (the slot route; the classic scatter
+    beside it), lane transpose + gather + DC cumsum, pixels.
+
+Per stage, the median of 5 warm runs timed with CUDA events, each stage
+synchronised on its own; then each whole chain, unsynchronised, the
+same way; then torch.profiler's CUDA-time table over 3 runs of each
+chain (also written to OUT_FILE when one is given).
 
 Needs a CUDA card.  Run from the repo root:
     python tools/profile_torch_chunk.py [OUT_FILE]
@@ -45,33 +50,38 @@ def _ms(fn, reps=5):
     return statistics.median(out)
 
 
-def main() -> int:
+def _corpus(name):
+    from tpujpeg.io.parser import parse_file
+
+    folder = os.path.join(ROOT, "tests", "fixtures", name)
+    names = sorted(os.listdir(folder))
+    return [parse_file(os.path.join(folder, n)) for n in names] \
+        * (CHUNK // 16)
+
+
+def _quant(imgs, dev):
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 1
-    from tpujpeg.io.parser import parse_file
+    return torch.as_tensor(np.stack([
+        np.stack([im.quant_tables[c.quant_id] for c in im.components])
+        for im in imgs
+    ]).astype(np.int32)).to(dev)
+
+
+def restart_stages(dev):
+    """(stages, chain, shapes) of the restart chunk."""
+    import torch
+
     from tpujpeg_torch.ops import fsm, pixels
     from tpujpeg_torch.pipeline import Geometry, device_decode_fn, soa_planes
     from tpujpeg_torch.runtime import fused
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-    ).stdout.strip()
-    corpus = os.path.join(ROOT, "tests", "fixtures", "rst640")
-    names = sorted(os.listdir(corpus))
-    imgs = [parse_file(os.path.join(corpus, n)) for n in names] * (CHUNK // 16)
-    dev = torch.device("cuda")
+    imgs = _corpus("rst640")
     plan = fsm.build_plan(imgs)
     xs = torch.as_tensor(plan.xs).to(dev)
     sn = torch.as_tensor(plan.seg_n_blocks).to(dev)
-    quant = torch.as_tensor(np.stack([
-        np.stack([im.quant_tables[c.quant_id] for c in im.components])
-        for im in imgs
-    ]).astype(np.int32)).to(dev)
+    quant = _quant(imgs, dev)
     geom = Geometry.of(imgs[0])
     L = xs.shape[0]
     M = plan.max_blk * 64
@@ -91,41 +101,124 @@ def main() -> int:
         fsm._dc_cumsum(pl[:, :, 0], plan.tables, plan.max_blk)
 
     stages = [
-        ("scan (kernel 1)", lambda: fsm.fsm_scan(xs, sn, plan.tables)),
-        ("materialize (kernel 2)",
+        ("scan (fsm_scan)", lambda: fsm.fsm_scan(xs, sn, plan.tables)),
+        ("materialize (place_events)",
          lambda: fsm.materialize_checked(ev, M, st["scan"][1])),
+        ("materialize, slot route C=256",
+         lambda: fsm.materialize_checked(ev, M, st["scan"][1], slots=256)),
         ("lane transpose + DC cumsum", transpose_dc),
         ("assemble (coeffs + dc)", lambda: (
             fused._assemble_rows(per_lane, plan.layout, CHUNK),
             fused._assemble_rows(dc_lane, plan.layout, CHUNK))),
         ("pixel prologue (soa_planes)",
          lambda: soa_planes(geom, coeffs, quant, dc)),
-        ("pixel kernel (kernel 3)", lambda: pixels.rgb_soa_fused(*planes)),
+        ("pixel kernel (pixels)", lambda: pixels.rgb_soa_fused(*planes)),
         ("pixels end to end (device_decode_fn)",
          lambda: device_decode_fn(geom, coeffs, quant, dc=dc)),
     ]
-    print(f"card: {smi}")
-    print(f"lane matrix {list(xs.shape)}, events {list(ev.shape)}, "
-          f"dense [{M}, {L}]")
-    for name, fn in stages:
-        print(f"stage {name}: {_ms(fn):.3f} ms")
-    chain = lambda: fused.decode_chunk_fused(  # noqa: E731
-        plan, quant, geom, CHUNK, uploaded=(xs, sn))
-    print(f"chain decode_chunk_fused: {_ms(chain):.3f} ms")
 
+    def chain():
+        return fused.decode_chunk_fused(plan, quant, geom, CHUNK,
+                                        uploaded=(xs, sn))
+
+    shapes = (f"lane matrix {list(xs.shape)}, events {list(ev.shape)}, "
+              f"dense [{M}, {L}]")
+    return stages, chain, shapes
+
+
+def spec_stages(dev):
+    """(stages, chain, shapes) of the speculative chunk."""
+    import torch
+
+    from tpujpeg_torch.ops import fsm, materialize
+    from tpujpeg_torch.pipeline import Geometry, device_decode_fn
+    from tpujpeg_torch.runtime import fused
+
+    imgs = _corpus("photo640")
+    plan = fsm.build_spec_plan_batch(imgs, 1024)
+    xs = torch.as_tensor(plan.xs).to(dev)
+    quant = _quant(imgs, dev)
+    geom = Geometry.of(imgs[0])
+    L = xs.shape[0]
+    nb = int(plan.img_blocks[0])
+    C, G = materialize.SLOT_C, materialize.SLOT_G
+
+    pending = fsm.spec_sync_start(imgs, plan=plan, xs_dev=xs)
+    quotas, cap_w = fsm.spec_sync_resolve_host(pending)
+    qd = torch.as_tensor(quotas).to(dev)
+    M = cap_w * 64
+    merge_args = (pending.ev1, pending.anchors, pending.ablk, pending.recm,
+                  pending.ev2, pending.end2, pending.b1, pending.blk2, qd)
+    ev, _ = fsm._spec_sync_merge(*merge_args)
+    p, o = materialize.compact_to_rank(ev)
+    o2, _ = materialize.slot_unpack(p, o, C, G)
+    dense = materialize.slot_expand(o2, p, M, C, G)
+    coeffs, dc = fsm._spec_gather16(dense.T.reshape(L, cap_w, 64), qd,
+                                    plan.tables, CHUNK, nb, CHUNK)
+
+    stages = [
+        ("cold + stitch scan (fsm_scan x2, spec_sync_start)",
+         lambda: fsm.spec_sync_start(imgs, plan=plan, xs_dev=xs)),
+        ("resolve read (spec_sync_resolve_host)",
+         lambda: fsm.spec_sync_resolve_host(pending)),
+        ("merge (_spec_sync_merge)", lambda: fsm._spec_sync_merge(*merge_args)),
+        ("compact", lambda: materialize.compact_to_rank(ev)),
+        ("slot_unpack", lambda: materialize.slot_unpack(p, o, C, G)),
+        ("slot_expand", lambda: materialize.slot_expand(o2, p, M, C, G)),
+        ("classic scatter instead (place_events)",
+         lambda: materialize.place_events(ev, M)),
+        ("lane transpose + gather + DC cumsum (_spec_gather16)",
+         lambda: fsm._spec_gather16(dense.T.reshape(L, cap_w, 64), qd,
+                                    plan.tables, CHUNK, nb, CHUNK)),
+        ("pixels end to end (device_decode_fn)",
+         lambda: device_decode_fn(geom, coeffs, quant, dc=dc)),
+    ]
+
+    def chain():
+        pend = fsm.spec_sync_start(imgs, plan=plan, xs_dev=xs)
+        return fused.decode_spec_sync_fused(pend, geom, quant, CHUNK, CHUNK,
+                                            slots=C)
+
+    shapes = (f"lane matrix {list(xs.shape)} ({plan.n_lanes} lanes), merged "
+              f"events {list(ev.shape)}, cap_w {cap_w}, dense [{M}, {L}]")
+    return stages, chain, shapes
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    dev = torch.device("cuda")
+    print(f"card: {smi}")
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            chain()
-        torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=30)
-    print(table)
+    tables = []
+    for name, build in (("restart", restart_stages), ("spec", spec_stages)):
+        stages, chain, shapes = build(dev)
+        print(f"{name} chunk: {shapes}")
+        for stage, fn in stages:
+            print(f"{name} stage {stage}: {_ms(fn):.3f} ms")
+        print(f"{name} chain: {_ms(chain):.3f} ms")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                chain()
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=30)
+        print(table)
+        tables.append(f"{name} chunk ({shapes})\n{table}")
+        del stages, chain
+        torch.cuda.empty_cache()
     if len(sys.argv) > 1:
         with open(sys.argv[1], "w") as f:
-            f.write(f"card: {smi}\n{table}\n")
+            f.write(f"card: {smi}\n" + "\n".join(tables) + "\n")
     return 0
 
 

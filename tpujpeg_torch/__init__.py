@@ -1,8 +1,11 @@
 """tpujpeg_torch — the PyTorch/CUDA port of tpujpeg for NVIDIA Hopper.
 
-Restart-marker batch decode runs on the card through three hand-written
-CUDA kernels (csrc/): the Huffman symbol FSM scan, the events -> dense
-coefficient scatter, and the fused dequant + IDCT + colour pixel stage.
+Batch decode of baseline 4:4:4 streams, with or without restart
+markers, runs on the card through six hand-written CUDA kernels
+(csrc/): the Huffman symbol FSM scan (restart lanes and the speculative
+modes), the events -> dense coefficient scatter, the slot route's
+compact, unpack and expand, and the fused dequant + IDCT + colour pixel
+stage.
 The JAX-free host layer of tpujpeg (parser, oracle, native C++ entropy
 decoder) is shared, not copied.  This package never imports jax.
 

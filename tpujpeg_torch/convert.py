@@ -1,8 +1,9 @@
 """Carry the JAX package's FSM tables and plans across to the port.
 
-`tables_from_jax` and `plan_from_jax` turn tpujpeg.ops.fsm's FsmTables and
-FsmPlan (numpy arrays and tuples) into the port's dataclasses, so a test
-can feed both packages identical inputs.  The JAX objects are read by
+`tables_from_jax`, `plan_from_jax` and `spec_plan_from_jax` turn
+tpujpeg.ops.fsm's FsmTables, FsmPlan and SpecBatchPlan (numpy arrays and
+tuples) into the port's dataclasses, so a test can feed both packages
+identical inputs.  The JAX objects are read by
 attribute only; this module imports nothing of JAX.  The two-level
 symbol map the JAX tables may carry (len_keys, len_vals, symtab) is a
 TPU device for the select tree and has no counterpart here.
@@ -42,3 +43,13 @@ def plan_from_jax(plan) -> fsm.FsmPlan:
         layout=plan.layout,
         n_blocks_total=plan.n_blocks_total,
     )
+
+
+def spec_plan_from_jax(plan) -> fsm.SpecBatchPlan:
+    """tpujpeg.ops.fsm.SpecBatchPlan -> the port's SpecBatchPlan."""
+    fields = {
+        f.name: getattr(plan, f.name)
+        for f in dataclasses.fields(fsm.SpecBatchPlan)
+    }
+    fields["tables"] = tables_from_jax(plan.tables)
+    return fsm.SpecBatchPlan(**fields)

@@ -1,7 +1,8 @@
-"""Restart-lane Huffman symbol FSM: host tables and plan, the scan
-(kernel 1), classic materialize and the DC resolve.
+"""Huffman symbol FSM: host tables and plans, the scan (kernel 1),
+materialize and the DC resolve, for restart lanes and for the
+speculative decode of streams without restart markers.
 
-Counterpart of tpujpeg/ops/fsm.py, restart mode only.  Each lane is one
+Counterpart of tpujpeg/ops/fsm.py.  In restart mode each lane is one
 restart segment; the scan walks byte columns, refills each lane's 32-bit
 bit buffer one byte per column and runs K symbol steps per column.  One
 step decodes a Huffman code and its magnitude bits, and also absorbs a
@@ -20,6 +21,10 @@ The host half (FsmTables, build_tables, FsmPlan, build_plan) is a numpy
 copy of the JAX package's, without the TPU's two-level symbol map: the
 scan looks (length, symbol) up in a flat per-table LUT of all 65,536
 16-bit peeks (`symbol_lut`), exact by construction.
+
+Streams without restart markers that do not fit one lane per image take
+the speculative decode at the end of this module (single pass with
+anchor logs, Jacobi fixed point as its fallback).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import os
 import threading
 from dataclasses import dataclass
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -370,9 +376,33 @@ def scan_meta(tables: FsmTables) -> np.ndarray:
     )
 
 
+class ScanOut(NamedTuple):
+    """Everything one scan returns (fsm_scan_spec).
+
+    events/anchors/ablk/recm are int32 [n_cols, K, L]: the packed events
+    (None when emit=False), and in anchor mode the per-step block-boundary
+    anchor `(bitpos << 3) | bim` (-1 elsewhere), the block count at that
+    anchor (0 elsewhere) and the recovery marker (-1 elsewhere); None
+    outside anchor mode.  The final state is int32 [L]: blk (blocks
+    decoded), end_bits / end_bim (bit position and MCU phase where the
+    lane stopped), rec_last (last recovery bit position, -1 if none or
+    outside anchor mode)."""
+
+    events: torch.Tensor | None
+    anchors: torch.Tensor | None
+    ablk: torch.Tensor | None
+    recm: torch.Tensor | None
+    err_mal: torch.Tensor
+    err_env: torch.Tensor
+    blk: torch.Tensor
+    end_bits: torch.Tensor
+    end_bim: torch.Tensor
+    rec_last: torch.Tensor
+
+
 def fsm_scan(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
              tables: FsmTables, steps=STEPS_PRODUCTION):
-    """Run the symbol FSM over the byte columns of a lane matrix.
+    """Run the symbol FSM over the byte columns of a restart lane matrix.
 
     xs: uint8 [L, stride] (one restart segment per row), seg_n_blocks:
     int32 [L].  Returns (events int32 [stride + FLUSH_COLS, K, L],
@@ -384,30 +414,94 @@ def fsm_scan(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
     k = _scan_steps(steps)
     if not xs.is_cuda:
         return fsm_scan_plain(xs, seg_n_blocks, tables, k)
+    out = _scan_cuda(xs, seg_n_blocks, tables, k, mode=0)
+    return out.events, out.err_mal, out.err_env
+
+
+def fsm_scan_spec(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
+                  tables: FsmTables, steps=STEPS_PRODUCTION, *,
+                  start_bits: torch.Tensor | None = None,
+                  start_bim: torch.Tensor | None = None,
+                  chunk_bits: torch.Tensor | None = None,
+                  log_anchors: bool = False, emit: bool = True) -> ScanOut:
+    """The scan's speculative modes (the JAX package's _fsm_scan with
+    start_bits / start_bim / chunk_bits / log_anchors).
+
+    xs: uint8 [L, n_data] (a column-prefix view of a wider row-major
+    matrix is read in place).  start_bits/start_bim (int32 [L]): each
+    lane's entry bit offset into its row and MCU phase; chunk_bits
+    (int32 [L]): stop at the first block boundary at or past it;
+    log_anchors: log block-boundary anchors and recover from errors
+    instead of latching them (err masks stay all-False).  emit=False
+    drops the events (count passes).  Returns a ScanOut.
+
+    CUDA tensors run kernel 1's speculative variants; CPU tensors run
+    `fsm_scan_spec_plain`.
+    """
+    k = _scan_steps(steps)
+    spec = dict(start_bits=start_bits, start_bim=start_bim,
+                chunk_bits=chunk_bits, log_anchors=log_anchors, emit=emit)
+    if not xs.is_cuda:
+        return fsm_scan_spec_plain(xs, seg_n_blocks, tables, k, **spec)
+    return _scan_cuda(xs, seg_n_blocks, tables, k,
+                      mode=2 if log_anchors else 1, **spec)
+
+
+def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
+               start_bim=None, chunk_bits=None, log_anchors=False,
+               emit=True) -> ScanOut:
+    """Launch kernel 1 in `mode` (0 restart, 1 speculative, 2 anchors)."""
     from ..runtime import kernels
 
-    kernels.check_cuda_tensor("xs", xs, torch.uint8, 2)
-    kernels.check_cuda_tensor("seg_n_blocks", seg_n_blocks, torch.int32, 1)
-    L, stride = xs.shape
-    if seg_n_blocks.shape[0] != L or stride % 16:
+    if not xs.is_cuda or xs.dtype != torch.uint8 or xs.dim() != 2:
+        raise ValueError("fsm_scan: xs must be a CUDA uint8 [L, n] tensor")
+    L, n_data = xs.shape
+    pitch = xs.stride(0)
+    # each lane reads its row four bytes at a time, in place
+    if xs.stride(1) != 1 or pitch % 4 or xs.data_ptr() % 4 or n_data > pitch:
         raise ValueError(
-            f"fsm_scan: bad lane matrix {tuple(xs.shape)} / "
-            f"{tuple(seg_n_blocks.shape)} (stride must be a multiple of 16)"
+            f"fsm_scan: rows must be unit-stride and 4-byte aligned "
+            f"(strides {xs.stride()})"
         )
-    lut = _device_lut(tables, xs.device)
+    dev = xs.device
+    ints = {"seg_n_blocks": seg_n_blocks, "start_bits": start_bits,
+            "start_bim": start_bim, "chunk_bits": chunk_bits}
+    for name, t in ints.items():
+        if t is not None:
+            kernels.check_cuda_tensor(name, t, torch.int32, 1)
+            if t.shape[0] != L:
+                raise ValueError(f"fsm_scan: {name} must be [L={L}]")
+    lut = _device_lut(tables, dev)
     meta = scan_meta(tables)
-    n_cols = stride + FLUSH_COLS
-    events = torch.empty((n_cols, k, L), dtype=torch.int32, device=xs.device)
-    err_mal = torch.empty(L, dtype=torch.bool, device=xs.device)
-    err_env = torch.empty(L, dtype=torch.bool, device=xs.device)
+    n_cols = n_data + FLUSH_COLS
+
+    def plane():
+        return torch.empty((n_cols, k, L), dtype=torch.int32, device=dev)
+
+    events = plane() if emit else None
+    anchors, ablk, recm = (plane(), plane(), plane()) if mode == 2 \
+        else (None, None, None)
+    err_mal = torch.empty(L, dtype=torch.bool, device=dev)
+    err_env = torch.empty(L, dtype=torch.bool, device=dev)
+    # the restart variant keeps no final state
+    state = torch.empty((4, L), dtype=torch.int32, device=dev) if mode \
+        else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     kernels.launch(
         "fsm_scan",
         xs.data_ptr(), seg_n_blocks.data_ptr(), lut.data_ptr(),
-        meta.ctypes.data, events.data_ptr(), err_mal.data_ptr(),
-        err_env.data_ptr(), L, stride, k,
-        kernels.current_stream(xs.device),
+        meta.ctypes.data, ptr(events), err_mal.data_ptr(),
+        err_env.data_ptr(), L, pitch, n_data, k, mode,
+        ptr(start_bits), ptr(start_bim), ptr(chunk_bits),
+        ptr(anchors), ptr(ablk), ptr(recm), ptr(state),
+        kernels.current_stream(dev),
     )
-    return events, err_mal, err_env
+    blk, end_bits, end_bim, rec_last = state if mode else (None,) * 4
+    return ScanOut(events, anchors, ablk, recm, err_mal, err_env,
+                   blk, end_bits, end_bim, rec_last)
 
 
 _lut_cache: dict = {}
@@ -426,8 +520,27 @@ def _device_lut(tables: FsmTables, device) -> torch.Tensor:
 
 def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
                    tables: FsmTables, k: int):
-    """Plain PyTorch version of the scan: a Python loop over byte columns,
-    each symbol step as vector ops over lanes (the JAX scan body).
+    """Plain PyTorch version of `fsm_scan` (restart mode, same contract)."""
+    out = _scan_plain(xs, seg_n_blocks, tables, k)
+    return out.events, out.err_mal, out.err_env
+
+
+def fsm_scan_spec_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
+                        tables: FsmTables, k: int, *, start_bits=None,
+                        start_bim=None, chunk_bits=None,
+                        log_anchors: bool = False,
+                        emit: bool = True) -> ScanOut:
+    """Plain PyTorch version of `fsm_scan_spec` (same contract)."""
+    out = _scan_plain(xs, seg_n_blocks, tables, k, start_bits, start_bim,
+                      chunk_bits, log_anchors)
+    return out if emit else out._replace(events=None)
+
+
+def _scan_plain(xs, seg_n_blocks, tables: FsmTables, k: int,
+                start_bits=None, start_bim=None, chunk_bits=None,
+                log_anchors: bool = False) -> ScanOut:
+    """Plain PyTorch scan: a Python loop over byte columns, each symbol
+    step as vector ops over lanes (the JAX scan body), every mode.
 
     The bit buffer is int64 masked to 32 bits after every refill, which is
     the uint32 buffer of the kernel; every read of it is masked to bits
@@ -437,6 +550,7 @@ def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
     L, stride = xs.shape
     n_cols = stride + FLUSH_COLS
     i64 = torch.int64
+    spec = start_bits is not None or chunk_bits is not None or log_anchors
     lut = torch.as_tensor(symbol_lut(tables).reshape(-1)).to(dev).to(i64)
     bpm = len(tables.tsel)
     tsel_of = torch.as_tensor(tables.tsel, dtype=i64, device=dev)
@@ -448,7 +562,12 @@ def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
     seg_n = seg_n_blocks.to(i64)
 
     zero = torch.zeros(L, dtype=i64, device=dev)
-    buf, navail, kk, blk, bim = zero, zero, zero, zero, zero
+    buf, navail, kk, blk = zero, zero, zero, zero
+    sbits = zero if start_bits is None else start_bits.to(i64)
+    bim = zero if start_bim is None else start_bim.to(i64)
+    cbits = None if chunk_bits is None else chunk_bits.to(i64)
+    bitpos, end_bits, end_bim = sbits, zero, bim
+    rec = rec_pend = torch.full((L,), -1, dtype=i64, device=dev)
     done = seg_n == 0
     err_mal = torch.zeros(L, dtype=torch.bool, device=dev)
     err_env = torch.zeros(L, dtype=torch.bool, device=dev)
@@ -457,15 +576,35 @@ def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
         """The n bits just below bit `navail` of the buffer."""
         return (buf >> torch.clamp(navail - n, 0, 31)) & ((1 << n) - 1)
 
-    events = torch.empty((n_cols, k, L), dtype=torch.int32, device=dev)
+    def plane():
+        return torch.empty((n_cols, k, L), dtype=torch.int32, device=dev)
+
+    events = plane()
+    anchors, ablk, recm = (plane(), plane(), plane()) if log_anchors \
+        else (None, None, None)
     for col in range(n_cols):
         # ---- refill one byte (none in the FLUSH_COLS tail)
         active = ~done & ~err_mal & ~err_env
         if col < stride:
             take = torch.where(active, 8, 0)
+            if spec:
+                # speculative entry: skip the bits before start_bits; a
+                # partial first byte contributes its low bits
+                take = take - torch.where(
+                    active, torch.clamp(sbits - col * 8, 0, 8), 0)
             overflow = navail + take > 32
-            err_env = err_env | (active & overflow)
-            take = torch.where(overflow, 0, take)
+            if log_anchors:
+                # recover: drop the backlog, resume at the refill frontier
+                spill = active & overflow & (take > 0)
+                bitpos = bitpos + torch.where(spill, navail, 0)
+                navail = torch.where(spill, 0, navail)
+                kk = torch.where(spill, 0, kk)
+                rec = torch.maximum(rec, torch.where(spill, bitpos, -1))
+                rec_pend = torch.maximum(
+                    rec_pend, torch.where(spill, bitpos, -1))
+            else:
+                err_env = err_env | (active & overflow & (take > 0))
+                take = torch.where(overflow, 0, take)
             buf = ((buf << take) | (cols[col] & ((1 << take) - 1))) \
                 & 0xFFFFFFFF
             navail = navail + take
@@ -487,7 +626,7 @@ def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
             run = sym >> 4
             need = length + size
             complete = active & (length <= 16) & (navail >= need)
-            err_mal = err_mal | (active & (length > 16) & (navail >= 16))
+            bad_code = active & (length > 16) & (navail >= 16)
             # magnitude bits + EXTEND
             mag = (buf >> torch.clamp(navail - need, 0, 31)) \
                 & ((1 << size) - 1)
@@ -497,7 +636,8 @@ def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
             z = torch.where(is_dc, 0, kk + run)
             bad_z = complete & ~is_dc & (z > 63)
             emit = complete & (size > 0) & ~bad_z
-            err_mal = err_mal | (complete & (size > 0) & bad_z)
+            if not log_anchors:
+                err_mal = err_mal | bad_code | (complete & (size > 0) & bad_z)
             events[col, s] = torch.where(
                 emit, (blk << 18) | (z << 12) | (val + 2048), -1
             ).to(torch.int32)
@@ -506,21 +646,37 @@ def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
                 torch.where(is_dc, 1, torch.where(eob, 64, z + 1)),
                 kk,
             )
-            navail = navail - torch.where(complete, need, 0)
+            consumed = torch.where(complete, need, 0)
             # trailing EOB of this table set
             el = eob_len[tsel]
             eob_fire = (
-                complete & (k2 < 64) & (el > 0) & (navail >= el)
-                & (bits(buf, navail, el) == eob_code[tsel])
+                complete & (k2 < 64) & (el > 0) & (navail - consumed >= el)
+                & (bits(buf, navail - consumed, el) == eob_code[tsel])
             )
-            navail = navail - torch.where(eob_fire, el, 0)
+            consumed = consumed + torch.where(eob_fire, el, 0)
+            navail = navail - consumed
             block_end = (complete & (k2 >= 64)) | eob_fire
             blk = blk + block_end.to(i64)
             bim = torch.where(
                 block_end, torch.where(bim + 1 == bpm, 0, bim + 1), bim
             )
             k3 = torch.where(block_end, 0, k2)
-            done = done | (block_end & (blk >= seg_n))
+            done_now = block_end & (blk >= seg_n)
+            if spec:
+                bitpos = bitpos + consumed
+                if log_anchors:
+                    anchors[col, s] = torch.where(
+                        block_end, (bitpos << 3) | bim, -1).to(torch.int32)
+                    ablk[col, s] = torch.where(block_end, blk, 0) \
+                        .to(torch.int32)
+                if cbits is not None:
+                    # stop at the first block boundary at or past the
+                    # lane's chunk end
+                    done_now = done_now | (block_end & (bitpos >= cbits))
+                newly = done_now & ~done
+                end_bits = torch.where(newly, bitpos, end_bits)
+                end_bim = torch.where(newly, bim, end_bim)
+            done = done | done_now
             # trailing size-0 DC of the next block
             ts2 = tsel_of[bim]
             dl = dc0_len[ts2]
@@ -530,11 +686,34 @@ def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
             )
             navail = navail - torch.where(dc0_fire, dl, 0)
             kk = torch.where(dc0_fire, 1, k3)
+            if spec:
+                bitpos = bitpos + torch.where(dc0_fire, dl, 0)
+            if log_anchors:
+                # recover, don't latch: drop the backlog, realign to the
+                # refill frontier; one marker per step slot (a refill
+                # recovery waits for the next slot without one)
+                rec_now = bad_code | bad_z
+                bitpos = bitpos + torch.where(rec_now, navail, 0)
+                navail = torch.where(rec_now, 0, navail)
+                kk = torch.where(rec_now, 0, kk)
+                rec = torch.maximum(rec, torch.where(rec_now, bitpos, -1))
+                recm[col, s] = torch.where(rec_now, bitpos, rec_pend) \
+                    .to(torch.int32)
+                rec_pend = torch.where(rec_now, rec_pend, -1)
     # a lane undone at the end is truncated, or starved of steps with
-    # whole bytes still buffered (an envelope condition)
-    undone = ~done
-    starved = undone & (navail >= 8)
-    return events, err_mal | (undone & ~starved), err_env | starved
+    # whole bytes still buffered (an envelope condition); anchor mode
+    # latches nothing
+    if not log_anchors:
+        undone = ~done
+        starved = undone & (navail >= 8)
+        err_mal = err_mal | (undone & ~starved)
+        err_env = err_env | starved
+    state = (blk, end_bits, end_bim, rec) if spec else (None,) * 4
+    blk, end_bits, end_bim, rec = (
+        None if t is None else t.to(torch.int32) for t in state
+    )
+    return ScanOut(events, anchors, ablk, recm, err_mal, err_env,
+                   blk, end_bits, end_bim, rec)
 
 
 # ---------------------------------------------------------------------------
@@ -542,22 +721,36 @@ def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def materialize_checked(ev: torch.Tensor, M: int, err_mal: torch.Tensor):
-    """Classic materialize: events [N, L] -> dense int16 [M, L].
+def materialize_checked(ev: torch.Tensor, M: int, err_mal: torch.Tensor,
+                        slots: bool | int | None = False):
+    """Materialize events [N, L] -> dense int16 [M, L], checked.
 
-    Returns (coeffs_t int16 [M, L], err_mal, err_slot).  err_slot is
-    all-False (the slot path is not ported).  An event whose target is
-    outside [0, M) latches its lane's err_mal.  Under TPUJPEG_SELFCHECK=1
-    a per-lane checksum sum(val * (target + 1)) of the event stream is
-    compared with sum(value * (row + 1)) of the dense tensor, in int32
-    wraparound, and a mismatch latches err_mal.
+    slots: False = the classic scatter (place_events); None / True = the
+    slot route (materialize.place_events_slots) at the default capacity
+    when `materialize.slot_gate` allows it; an int = the slot route at
+    that capacity C.  Returns (coeffs_t int16 [M, L], err_mal, err_slot
+    bool [L]): err_slot marks slot-overflow lanes (their dense rows are
+    undefined; callers re-decode the chunk with slots=False), all-False
+    on the classic route.  The classic route latches err_mal for an event
+    whose target is outside [0, M).  Under TPUJPEG_SELFCHECK=1 a per-lane
+    checksum sum(val * (target + 1)) of the event stream is compared with
+    sum(value * (row + 1)) of the dense tensor, in int32 wraparound, and a
+    mismatch latches err_mal outside the overflow lanes.
     """
-    from .materialize import place_events
+    from . import materialize
 
-    L = ev.shape[1]
+    N, L = ev.shape
     err_mal = err_mal.clone()
-    coeffs_t = place_events(ev, M, err_mal)
-    err_slot = torch.zeros(L, dtype=torch.bool, device=ev.device)
+    C = None
+    if slots is not False:
+        C = materialize.SLOT_C if slots is None or slots is True else slots
+        if not materialize.slot_gate(N, M, C):
+            C = None
+    if C is None:
+        coeffs_t = materialize.place_events(ev, M, err_mal)
+        err_slot = torch.zeros(L, dtype=torch.bool, device=ev.device)
+    else:
+        coeffs_t, err_slot = materialize.place_events_slots(ev, M, C)
     if os.environ.get("TPUJPEG_SELFCHECK", "auto") == "1":
         valid = ev >= 0
         e = ev.to(torch.int64)
@@ -567,7 +760,7 @@ def materialize_checked(ev: torch.Tensor, M: int, err_mal: torch.Tensor):
         w = torch.arange(1, M + 1, dtype=torch.int64, device=ev.device)
         chk_mat = (coeffs_t.to(torch.int64) * w[:, None]).sum(dim=0) \
             & 0xFFFFFFFF
-        err_mal = err_mal | (chk_ev != chk_mat)
+        err_mal = err_mal | ((chk_ev != chk_mat) & ~err_slot)
     return coeffs_t, err_mal, err_slot
 
 
@@ -593,3 +786,565 @@ def _dc_cumsum(dc: torch.Tensor, tables: FsmTables, max_blk: int):
         cols.append(acc.reshape(L, n_mcu, nb))
         base += nb
     return torch.cat(cols, dim=2).reshape(L, n_mcu * bpm)[:, :max_blk]
+
+
+# ---------------------------------------------------------------------------
+# Speculative decode of streams without restart markers
+# ---------------------------------------------------------------------------
+#
+# A stream without restart markers is split at equal byte boundaries into
+# lanes of one matrix (all images of a chunk stacked).  Lane i's true
+# entry state is lane i-1's end state; lane 0 of each image is exact.
+#
+# Single pass (spec_sync_start -> spec_sync_resolve_host -> the spec
+# tail): every lane COLD-decodes its chunk from bit 0, logging block
+# anchors `(bitpos << 3) | phase` with the running block count, and
+# recovering (not latching) from the garbage a misaligned start decodes.
+# A stitch pass re-decodes each lane from its true entry (the
+# predecessor's cold end) for SPEC_STITCH_BYTES; where the stitch end
+# state appears in the lane's anchor log, the cold events from that
+# anchor on are the true decode and are adopted, rebased.  Correctness
+# is inductive per image; the host resolve requires every lane to hit.
+#
+# Jacobi fallback (spec_start -> decode_speculative_batch), the target
+# of a resolve miss: count passes iterate lane handoff states to a fixed
+# point, then one write pass decodes every lane from its converged state.
+#
+# DC is emitted as differences everywhere; the tail resolves DPCM with
+# one per-component cumsum per image.
+
+SPEC_OVERLAP = 384  # bytes a block may straddle past its chunk (max ~213)
+
+# Stitch window: pass 2 re-decodes each lane from its true entry for up
+# to this many bytes (Huffman self-synchronization plus the entry
+# offset <= SPEC_OVERLAP); its slice adds SPEC_OVERLAP for the straddle.
+SPEC_STITCH_BYTES = 256
+
+
+class SpecEnvelopeError(JpegError):
+    """Speculative pass latched envelope lanes: the stream is denser than
+    the current symbol-step budget (callers retry at STEPS_SAFE)."""
+
+
+class SpecSyncMiss(JpegError):
+    """The single-pass resolve could not adopt every lane (callers fall
+    back to the Jacobi path)."""
+
+
+@dataclass(frozen=True)
+class SpecBatchPlan:
+    """Speculative plan of a chunk: every image's equal-split lanes
+    stacked into one matrix (the JAX package's SpecBatchPlan)."""
+
+    xs: np.ndarray            # uint8 [L, chunk + overlap]
+    chunk_bits: np.ndarray    # int32 [L]
+    img_first: np.ndarray     # int32 [n_imgs]
+    img_lanes: np.ndarray     # int32 [n_imgs]
+    img_blocks: np.ndarray    # int64 [n_imgs]
+    blk_cap: int
+    tables: FsmTables
+    chunk_bytes: int
+    n_lanes: int
+    bpm: int
+
+
+def build_spec_plan_batch(imgs: list[JpegImage],
+                          chunk_bytes: int = 2048) -> SpecBatchPlan:
+    """Split every image's scan into chunk_bytes lanes (+ SPEC_OVERLAP
+    bytes of the next chunk), lanes padded to a multiple of 128.  Raises
+    JpegError when the batch mixes geometries or tables."""
+    tables = build_tables(imgs[0])
+    pattern0 = imgs[0].mcu_block_pattern()
+    stride = chunk_bytes + SPEC_OVERLAP
+    firsts, lanes, blocks = [], [], []
+    total = 0
+    for img in imgs:
+        if img.mcu_block_pattern() != pattern0 or build_tables(img) != tables:
+            raise JpegError("fsm: batch mixes geometries or Huffman tables")
+        S = max(1, -(-img.scan_data.size // chunk_bytes))
+        firsts.append(total)
+        lanes.append(S)
+        blocks.append(img.n_mcus * img.blocks_per_mcu)
+        total += S
+    L = _round_up(total, 128)
+    xs = np.zeros((L, stride), np.uint8)
+    chunk_bits = np.zeros(L, np.int32)
+    for img, first, S in zip(imgs, firsts, lanes):
+        scan = img.scan_data
+        for i in range(S):
+            part = scan[i * chunk_bytes : i * chunk_bytes + stride]
+            xs[first + i, : part.size] = part
+            chunk_bits[first + i] = (
+                min(chunk_bytes, scan.size - i * chunk_bytes) * 8
+            )
+    # counting cap: 4x the average blocks per lane, plus headroom
+    cap = 8
+    worst = max(4 * (nb // S + 1) + 64 for nb, S in zip(blocks, lanes))
+    while cap < min(worst, MAX_BLOCKS_PER_LANE):
+        cap *= 2
+    return SpecBatchPlan(
+        xs=xs,
+        chunk_bits=chunk_bits,
+        img_first=np.asarray(firsts, np.int32),
+        img_lanes=np.asarray(lanes, np.int32),
+        img_blocks=np.asarray(blocks, np.int64),
+        blk_cap=cap,
+        tables=tables,
+        chunk_bytes=chunk_bytes,
+        n_lanes=total,
+        bpm=imgs[0].blocks_per_mcu,
+    )
+
+
+def _lane_masks(plan: SpecBatchPlan):
+    """(inherit, body) bool [L]: lanes that take a predecessor's end
+    state, and lanes with a successor in their image."""
+    L = plan.chunk_bits.shape[0]
+    inherit = np.ones(L, bool)
+    inherit[plan.img_first] = False
+    inherit[plan.n_lanes:] = False
+    body = np.zeros(L, bool)
+    body[: plan.n_lanes] = True
+    body[plan.img_first + plan.img_lanes - 1] = False
+    return inherit, body
+
+
+def _upload_spec(plan: SpecBatchPlan, xs_dev, device):
+    """The plan's byte matrix on the device (xs_dev when given)."""
+    if xs_dev is not None:
+        return xs_dev
+    return torch.as_tensor(plan.xs).to(device or "cpu")
+
+
+def _handoff(end_bits, end_bim, inherit, chunk_bytes: int, max_start=None):
+    """Each lane's entry state from its predecessor's end state, rebased
+    into the lane's row; non-inheriting lanes start at (0, 0)."""
+    P = torch.roll(end_bits, 1) - chunk_bytes * 8
+    P = torch.clamp(P, 0, max_start) if max_start is not None \
+        else torch.clamp(P, min=0)
+    zero = torch.zeros_like(P)
+    return (torch.where(inherit, P, zero),
+            torch.where(inherit, torch.roll(end_bim, 1), zero))
+
+
+@dataclass
+class SpecSyncPending:
+    """A sync-spec chunk after its cold + stitch scans (device tensors);
+    the resolve fetch is still to come."""
+
+    plan: SpecBatchPlan
+    ev1: torch.Tensor       # [N1, L] cold events (pass 1)
+    anchors: torch.Tensor   # [N1, L] pass-1 block-boundary anchors
+    ablk: torch.Tensor      # [N1, L] pass-1 block count per anchor
+    recm: torch.Tensor      # [N1, L] pass-1 recovery markers (-1 = none)
+    ev2: torch.Tensor       # [N2, L] stitch events (pass 2)
+    end2: torch.Tensor      # [L] stitch-point bit position
+    b1: torch.Tensor        # [L] pass-1 block count at the stitch point
+    blk2: torch.Tensor      # [L] pass-2 decoded block count
+    packed: torch.Tensor    # [3L + 2]: quotas, hits, blk2, mal, env
+    steps: object
+
+
+def _spec_sync_scan(xs, chunk_bits, inherit, body, tables: FsmTables,
+                    blk_cap: int, steps, anchor_rows: int):
+    """The two speculative passes and the on-device part of the resolve
+    (the JAX package's _spec_sync_scan_jit, without its XLA:CPU probe
+    term).  Returns (ev1, anchors, ablk, recm, ev2, end2, b1, blk2,
+    packed [3L + 2])."""
+    L = chunk_bits.shape[0]
+    chunk_bytes = xs.shape[1] - SPEC_OVERLAP
+    caps = torch.full((L,), blk_cap, dtype=torch.int32, device=xs.device)
+    cold = fsm_scan_spec(xs, caps, tables, steps, chunk_bits=chunk_bits,
+                         log_anchors=True)
+    ev1, anchors, ablk, recm = (
+        t.reshape(-1, L)
+        for t in (cold.events, cold.anchors, cold.ablk, cold.recm)
+    )
+    # true entry per lane = the predecessor's cold end (exact iff the
+    # predecessor hits, which the host resolve certifies chunk-wide)
+    P, bim_t = _handoff(cold.end_bits, cold.end_bim, inherit, chunk_bytes)
+
+    w2 = min(SPEC_STITCH_BYTES, chunk_bytes)
+    wslice = min(w2 + SPEC_OVERLAP, xs.shape[1])
+    st2 = fsm_scan_spec(
+        xs[:, :wslice], caps, tables, steps, start_bits=P, start_bim=bim_t,
+        chunk_bits=torch.clamp(chunk_bits, max=w2 * 8),
+    )
+    ev2 = st2.events.reshape(-1, L)
+    em2, ee2, end2, blk2 = st2.err_mal, st2.err_env, st2.end_bits, st2.blk
+
+    # membership: has the cold trajectory visited the stitch state?
+    target = (end2 << 3) | st2.end_bim
+    rows = min(anchor_rows, anchors.shape[0])
+    match = anchors[:rows] == target[None, :]
+    synced = match.any(dim=0)
+    b1 = torch.where(match, ablk[:rows], 0).amax(dim=0)
+    quota = blk2 + torch.clamp(cold.blk - b1, min=0)
+    # envelope pressure: a pass-2 latch on a body lane, or a pass-1
+    # recovery past the stitch point on a lane that synced (its cold
+    # trajectory from there is the true stream)
+    deep = synced & (cold.rec_last > end2) & body
+    env = ((ee2 & body & ~em2) | deep).any()
+    mal = (em2 & body).any()
+    hit = synced & ~(em2 | ee2) & ~deep
+    packed = torch.cat([
+        quota, hit.to(torch.int32), blk2,
+        torch.stack([mal, env]).to(torch.int32),
+    ])
+    return ev1, anchors, ablk, recm, ev2, end2, b1, blk2, packed
+
+
+def spec_sync_start(imgs: list[JpegImage], chunk_bytes: int = 1024,
+                    plan: SpecBatchPlan | None = None, xs_dev=None,
+                    steps=STEPS_PRODUCTION, device=None) -> SpecSyncPending:
+    """Run a chunk's cold + stitch scans on the device of `xs_dev` (or
+    `device`, default CPU).  Raises SpecSyncMiss for more than 8 blocks
+    per MCU (the anchor's phase field is 3 bits)."""
+    if plan is None:
+        plan = build_spec_plan_batch(imgs, chunk_bytes)
+    if plan.bpm > 8:
+        raise SpecSyncMiss("spec-sync: > 8 blocks per MCU")
+    xs = _upload_spec(plan, xs_dev, device)
+    dev = xs.device
+    inherit, body = (torch.as_tensor(m).to(dev) for m in _lane_masks(plan))
+    bpc, spc = _steps_spec(steps)
+    rows = (SPEC_STITCH_BYTES + SPEC_OVERLAP + 64) * 2 * spc // (bpc * 2)
+    out = _spec_sync_scan(
+        xs, torch.as_tensor(plan.chunk_bits).to(dev), inherit, body,
+        plan.tables, plan.blk_cap, steps, rows,
+    )
+    return SpecSyncPending(plan, *out, steps)
+
+
+def _cap_w(quotas: np.ndarray, blk_cap: int) -> int:
+    """Write width: the largest quota's pow2 bucket (>= 16, <= blk_cap)."""
+    cap_w = 16
+    while cap_w < int(quotas.max(initial=1)):
+        cap_w *= 2
+    return min(cap_w, blk_cap)
+
+
+def spec_sync_resolve_host(pending: SpecSyncPending):
+    """The one host read of the sync path: quotas and hits, each image's
+    last-lane remainder, the per-image chain check.
+
+    Returns (quotas int32 [L], cap_w) or raises SpecEnvelopeError /
+    SpecSyncMiss for the caller's retry ladder."""
+    plan = pending.plan
+    T = plan.n_lanes
+    L = plan.chunk_bits.shape[0]
+    fetched = pending.packed.cpu().numpy()
+    quotas = fetched[:L].astype(np.int32)
+    hits = fetched[L : 2 * L].astype(bool)
+    blk2 = fetched[2 * L : 3 * L].astype(np.int32)
+    any_env = int(fetched[3 * L + 1])
+    quotas[T:] = 0
+    hits[T:] = True
+
+    w2 = min(SPEC_STITCH_BYTES, plan.chunk_bytes)
+    ok = True
+    for first, S, nb in zip(plan.img_first, plan.img_lanes, plan.img_blocks):
+        # a LAST lane counts past the stream end into padding: its quota
+        # is the image remainder; when the remainder fits the stitch
+        # window, pass 2's prefix is the whole decode and must cover it
+        li = first + S - 1
+        last = int(nb) - int(quotas[first:li].sum())
+        quotas[li] = last
+        if int(plan.chunk_bits[li]) <= w2 * 8:
+            hits[li] = blk2[li] >= last
+        span = quotas[first : first + S]
+        if (last < 0 or int(span.max(initial=0)) > plan.blk_cap
+                or int(span.min(initial=0)) < 0):
+            ok = False
+            break
+    if not (ok and hits[:T].all()):
+        if any_env:
+            raise SpecEnvelopeError(
+                "spec-sync cold pass latched envelope lanes"
+            )
+        raise SpecSyncMiss(
+            "spec-sync: cold decode failed to resolve every lane"
+        )
+    return quotas, _cap_w(quotas, plan.blk_cap)
+
+
+def _gather_index(quotas: torch.Tensor, cap: int, nb: int, n_imgs: int):
+    """Flat (lane * cap + slot) source row of every block of every image,
+    int64 [n_imgs * nb], built on the device from the [L] quotas: lanes
+    are image-major and each image's quotas sum to nb, so block g sits in
+    the last lane whose quota prefix is <= g.  Lane markers are scattered
+    at the prefix sums and forward-filled with a running max; zero-quota
+    lanes park their marker out of range."""
+    L = quotas.shape[0]
+    dev = quotas.device
+    total = n_imgs * nb
+    q = quotas.to(torch.int64)
+    off = torch.cumsum(q, 0) - q
+    lanes = torch.arange(L, dtype=torch.int64, device=dev)
+    keep = (q > 0) & (off < total)
+    lane_at = torch.zeros(total, dtype=torch.int64, device=dev)
+    off_at = torch.zeros(total, dtype=torch.int64, device=dev)
+    lane_at.scatter_reduce_(0, off[keep], lanes[keep], reduce="amax")
+    off_at.scatter_reduce_(0, off[keep], off[keep], reduce="amax")
+    lane_of = torch.cummax(lane_at, 0).values
+    off_of = torch.cummax(off_at, 0).values
+    g = torch.arange(total, dtype=torch.int64, device=dev)
+    return lane_of * cap + (g - off_of)
+
+
+def _pad_imgs(x: torch.Tensor, pad_to: int) -> torch.Tensor:
+    if pad_to <= x.shape[0]:
+        return x
+    pad = torch.zeros((pad_to - x.shape[0],) + x.shape[1:], dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad])
+
+
+def _spec_gather16(per_lane, quotas, tables: FsmTables, pad_to: int,
+                   nb: int, n_imgs: int):
+    """Lane rows [L, cap, 64] -> (coeffs int16 [pad_to, nb, 64] with raw
+    DC differences, dc int32 [pad_to, nb] resolved)."""
+    L, cap, _ = per_lane.shape
+    idx = _gather_index(quotas, cap, nb, n_imgs)
+    coeffs = per_lane.reshape(L * cap, 64).index_select(0, idx) \
+        .reshape(n_imgs, nb, 64)
+    dc = _dc_cumsum(coeffs[:, :, 0], tables, nb)
+    return _pad_imgs(coeffs, pad_to), _pad_imgs(dc, pad_to)
+
+
+def _spec_gather(per_lane, quotas, tables: FsmTables, pad_to: int, nb: int,
+                 n_imgs: int):
+    """Lane rows [L, cap, 64] -> int32 coeffs [pad_to, nb, 64], DC
+    resolved."""
+    coeffs, dc = _spec_gather16(per_lane, quotas, tables, pad_to, nb, n_imgs)
+    coeffs = coeffs.to(torch.int32)
+    coeffs[:, :, 0] = dc
+    return coeffs
+
+
+def _spec_sync_merge(ev1, anchors, ablk, recm, ev2, end2, b1, blk2, quotas):
+    """Merge stitch events with the adopted, rebased cold events.
+
+    Returns (events int32 [N2 + N1, L], err bool [L]).  A lane is valid
+    (else latched in err) when the anchor that ends its adopted span
+    exists and no pass-1 recovery marker lies between the stitch point
+    and that anchor.  The merged stream is monotone per lane (stitch
+    blocks [0, take2), then rebased cold blocks [blk2, quota)), so the
+    slot route takes it."""
+    take2 = torch.minimum(blk2, quotas)
+    rest = torch.clamp(quotas - blk2, min=0)
+
+    blk2ev = (ev2 >> 18) & 0x1FFF
+    part2 = torch.where((ev2 >= 0) & (blk2ev < take2[None, :]), ev2, -1)
+    blk1ev = (ev1 >> 18) & 0x1FFF
+    keep1 = (ev1 >= 0) & (blk1ev >= b1[None, :]) \
+        & (blk1ev < (b1 + rest)[None, :])
+    # rebase: final block index = blk1 - b1 + blk2 (only bits >= 18 move;
+    # applied to kept events only, whose rebased value is in range)
+    shift = ((b1 - blk2) * (1 << 18))[None, :]
+    part1 = torch.where(keep1, ev1 - torch.where(keep1, shift, 0), -1)
+    ev = torch.cat([part2, part1], dim=0)
+
+    # adopted-span validity
+    big = 0x7FFFFFFF
+    at_end = (anchors >= 0) & (ablk == (b1 + rest)[None, :])
+    E = torch.where(at_end, anchors >> 3, big).amin(dim=0)
+    found = (rest == 0) | (E < big)
+    bad_span = (rest > 0) & ((recm > end2[None, :])
+                             & (recm <= E[None, :])).any(dim=0)
+    return ev, (quotas > 0) & (~found | bad_span)
+
+
+def _spec_sync_assemble(ev1, anchors, ablk, recm, ev2, end2, b1, blk2,
+                        quotas, tables: FsmTables, pad_to: int, nb: int,
+                        n_imgs: int, cap_w: int, slots=None):
+    """The spec tail: merge (`_spec_sync_merge`), materialize, gather
+    into per-image rows, resolve DC.  Returns (coeffs int16 [pad_to, nb,
+    64] raw DC, dc int32 [pad_to, nb], err [L], err_slot [L])."""
+    L = ev1.shape[1]
+    ev, err = _spec_sync_merge(ev1, anchors, ablk, recm, ev2, end2, b1,
+                               blk2, quotas)
+    coeffs_t, err, err_slot = materialize_checked(ev, cap_w * 64, err,
+                                                  slots=slots)
+    per_lane = coeffs_t.T.reshape(L, cap_w, 64)
+    coeffs, dc = _spec_gather16(per_lane, quotas, tables, pad_to, nb, n_imgs)
+    return coeffs, dc, err, err_slot
+
+
+def _uniform_blocks(plan) -> int:
+    nbs = {int(nb) for nb in plan.img_blocks}
+    if len(nbs) != 1:
+        raise JpegError("device_out requires a uniform-geometry batch")
+    return nbs.pop()
+
+
+def decode_speculative_sync(imgs: list[JpegImage], chunk_bytes: int = 1024,
+                            pad_to: int | None = None,
+                            plan: SpecBatchPlan | None = None, xs_dev=None,
+                            steps=STEPS_PRODUCTION,
+                            pending: SpecSyncPending | None = None,
+                            device=None):
+    """Single-pass speculative batch decode, staged: start, resolve, the
+    tail on the classic materialize.  Returns (coeffs int32 [pad_to, nb,
+    64] DC resolved, (err, all-False)) on the device, like
+    decode_speculative_batch.  Raises SpecSyncMiss / SpecEnvelopeError."""
+    if pending is None:
+        pending = spec_sync_start(imgs, chunk_bytes, plan, xs_dev, steps,
+                                  device)
+    plan = pending.plan
+    nb = _uniform_blocks(plan)
+    quotas, cap_w = spec_sync_resolve_host(pending)
+    coeffs16, dc, err, _ = _spec_sync_assemble(
+        pending.ev1, pending.anchors, pending.ablk, pending.recm,
+        pending.ev2, pending.end2, pending.b1, pending.blk2,
+        torch.as_tensor(quotas).to(pending.ev1.device), plan.tables,
+        pad_to or len(imgs), nb, len(imgs), cap_w, slots=False,
+    )
+    coeffs = coeffs16.to(torch.int32)
+    coeffs[:, :, 0] = dc
+    return coeffs, (err, torch.zeros_like(err))
+
+
+# -- Jacobi fallback --------------------------------------------------------
+
+
+@dataclass
+class SpecPending:
+    """A Jacobi chunk after convergence: start states on the device and
+    the [L + 3] block counts and flags still to be read."""
+
+    plan: SpecBatchPlan
+    xs: torch.Tensor      # device scan bytes
+    sb: torch.Tensor      # device start bits (converged)
+    sm: torch.Tensor      # device start phases
+    packed: torch.Tensor  # device [L + 3]: blocks, mal, env, changed
+    steps: object
+
+
+def _spec_converge(xs, chunk_bits, inherit, max_iters: int,
+                   tables: FsmTables, blk_cap: int, steps=STEPS_PRODUCTION):
+    """The Jacobi boundary fixed point: each iteration is one count-mode
+    scan; lane i's next start is lane i-1's end (rebased) where `inherit`
+    holds.  One device flag is read per iteration.  Returns (start_bits,
+    start_bim, blk, err_mal, err_env, changed, iters): changed is True
+    when max_iters ran out first."""
+    L = chunk_bits.shape[0]
+    stride = xs.shape[1]
+    caps = torch.full((L,), blk_cap, dtype=torch.int32, device=xs.device)
+    sb = torch.zeros(L, dtype=torch.int32, device=xs.device)
+    sm = torch.zeros_like(sb)
+    blk = sb
+    err_mal = err_env = torch.zeros(L, dtype=torch.bool, device=xs.device)
+    changed, it = True, 0
+    while changed and it < max_iters:
+        st = fsm_scan_spec(xs, caps, tables, steps, start_bits=sb,
+                           start_bim=sm, chunk_bits=chunk_bits, emit=False)
+        nb, nm = _handoff(st.end_bits, st.end_bim, inherit,
+                          stride - SPEC_OVERLAP, max_start=stride * 8 - 1)
+        changed = bool(((nb != sb) | (nm != sm)).any())
+        sb, sm, blk, err_mal, err_env = nb, nm, st.blk, st.err_mal, st.err_env
+        it += 1
+    return sb, sm, blk, err_mal, err_env, changed, it
+
+
+def spec_start(imgs: list[JpegImage], chunk_bytes: int = 2048,
+               max_iters: int | None = None,
+               plan: SpecBatchPlan | None = None, xs_dev=None,
+               steps=STEPS_PRODUCTION, device=None) -> SpecPending:
+    """Converge a chunk's lane handoff states on the device."""
+    if plan is None:
+        plan = build_spec_plan_batch(imgs, chunk_bytes)
+    T = plan.n_lanes
+    L = plan.chunk_bits.shape[0]
+    xs = _upload_spec(plan, xs_dev, device)
+    dev = xs.device
+    inherit, _ = _lane_masks(plan)
+    iters = max_iters or int(plan.img_lanes.max()) + 1
+    sb, sm, blocks, err_mal, err_env, changed, _ = _spec_converge(
+        xs, torch.as_tensor(plan.chunk_bits).to(dev),
+        torch.as_tensor(inherit).to(dev), iters, plan.tables,
+        plan.blk_cap, steps,
+    )
+    # count latches on an image's LAST lane are benign (it runs past the
+    # true end into the padding after its last boundary): only body lanes
+    # classify
+    countable = np.ones(L, bool)
+    countable[T:] = False
+    countable[plan.img_first + plan.img_lanes - 1] = False
+    packed = _spec_fetch_pack(blocks, err_mal, err_env, changed,
+                              torch.as_tensor(countable).to(dev))
+    return SpecPending(plan, xs, sb, sm, packed, steps)
+
+
+def _spec_fetch_pack(blocks, err_mal, err_env, changed: bool, countable):
+    """The chunk's single read: [L] block counts + 3 flag ints."""
+    flags = torch.stack([
+        (err_mal & countable).any(), (err_env & countable).any(),
+        torch.tensor(changed, device=blocks.device),
+    ]).to(torch.int32)
+    return torch.cat([blocks, flags])
+
+
+def decode_speculative_batch(imgs: list[JpegImage], chunk_bytes: int = 2048,
+                             max_iters: int | None = None,
+                             device_out: bool = True,
+                             pad_to: int | None = None,
+                             plan: SpecBatchPlan | None = None, xs_dev=None,
+                             steps=STEPS_PRODUCTION,
+                             pending: SpecPending | None = None,
+                             device=None):
+    """Jacobi speculative batch decode of a uniform-geometry chunk.
+
+    Returns (coeffs int32 [pad_to or B, nb, 64] DC resolved, (err_mal,
+    err_env) [L]) on the device: one host read (block counts and flags)
+    after convergence, then the write pass (scan from the converged
+    states with per-lane quotas, classic materialize) and the on-device
+    gather.  Raises SpecEnvelopeError when the count pass latched
+    envelope lanes under `steps`, JpegError on malformed streams or
+    non-convergence.  Only device_out=True is ported (ROADMAP)."""
+    if not device_out:
+        raise NotImplementedError(
+            "decode_speculative_batch(device_out=False) is not ported"
+        )
+    if pending is None:
+        pending = spec_start(imgs, chunk_bytes, max_iters, plan, xs_dev,
+                             steps, device)
+    plan, xs, sb, sm, steps = (pending.plan, pending.xs, pending.sb,
+                               pending.sm, pending.steps)
+    nb = _uniform_blocks(plan)
+    T = plan.n_lanes
+    L = plan.chunk_bits.shape[0]
+    fetched = pending.packed.cpu().numpy()
+    any_mal, any_env, changed = (int(v) for v in fetched[L : L + 3])
+    if changed:
+        raise JpegError("speculative split did not converge")
+    if any_mal:
+        raise JpegError("speculative count pass latched malformed lanes")
+    if any_env:
+        raise SpecEnvelopeError(
+            "speculative count pass latched envelope lanes "
+            f"(stream denser than steps={steps})"
+        )
+    quotas = fetched[:L].astype(np.int32)
+    quotas[T:] = 0
+    for first, S, nbi in zip(plan.img_first, plan.img_lanes,
+                             plan.img_blocks):
+        body = quotas[first : first + S - 1]
+        last = int(nbi) - int(body.sum())
+        # last == 0 is legitimate: a split boundary right after the final
+        # block leaves the trailing lane only padding
+        if last < 0 or last > plan.blk_cap or np.any(body >= plan.blk_cap):
+            raise JpegError("speculative split found inconsistent block counts")
+        quotas[first + S - 1] = last
+    cap_w = _cap_w(quotas, plan.blk_cap)
+    quotas_dev = torch.as_tensor(quotas).to(xs.device)
+    # write pass: every lane from its converged state, DC left as diffs
+    out = fsm_scan_spec(xs, quotas_dev, plan.tables, steps, start_bits=sb,
+                        start_bim=sm)
+    coeffs_t, err_mal, _ = materialize_checked(
+        out.events.reshape(-1, L), cap_w * 64, out.err_mal, slots=False
+    )
+    per_lane = coeffs_t.T.reshape(L, cap_w, 64)
+    coeffs = _spec_gather(per_lane, quotas_dev, plan.tables,
+                          pad_to or len(imgs), nb, len(imgs))
+    return coeffs, (err_mal, out.err_env)

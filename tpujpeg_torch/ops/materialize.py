@@ -1,25 +1,54 @@
-"""Events -> dense coefficients (kernel 2 of the port).
+"""Events -> dense coefficients: the classic scatter and the slot route.
 
 Contract of tpujpeg/ops/materialize.py::place_events_v3 and of
 fsm._materialize_events: packed events int32 [N, L]
 (`blk << 18 | z << 12 | (val + 2048)`, valid when >= 0) go to row
 64*blk + z of their lane in an int16 [M, L] tensor; every other row is 0.
 
-On the TPU this takes a stable compaction and a monotone spread through
-butterfly networks (the Pallas kernels _fine_compact_rank_kernel and
+Classic route (kernel "place_events", csrc/materialize.cu).  On the TPU
+this takes a stable compaction and a monotone spread through butterfly
+networks (the Pallas kernels _fine_compact_rank_kernel and
 _fine_spread_kernel plus their XLA coarse stages), because XLA:TPU
 scatters serially.  Hopper scatters natively, so the joint contract is
 one kernel: per lane, walk the event rows in order and store each event
 at its target.  Per-lane targets are strictly increasing, so stores never
 collide.
 
-`place_events` launches the CUDA kernel (csrc/materialize.cu) for CUDA
-tensors and runs `place_events_plain` for CPU tensors.
+Slot route (`place_events_slots`, kernels "compact", "slot_unpack" and
+"slot_expand", csrc/slots.cu): the JAX package's place_events_slots.
+G consecutive blocks of a lane share C slots; an event's slot is
+`group * C + rank_in_group` with group = blk >> log2(G).  The three
+stages keep the TPU kernels' contracts:
+
+  compact    events [N, L] -> (p int32, o int16) [N, L]: valid events
+             stably at their per-lane rank rows, o == 0 there, p == 0
+             and o == -1 elsewhere;
+  unpack     (p, o) -> o2 int16 [N, L] = slot - row (-1 where empty or
+             overflowed) + a per-lane overflow flag (a group holding more
+             than C events);
+  expand     (o2, p) -> dense int16 [M, L] at row
+             (slot >> log2 C) * 64G + 64 * (blk mod G) + z = 64 * blk + z.
+
+Validity comes from o >= 0 and o2 >= 0, never from p != 0: the blk 0 /
+z 0 / val -2048 event packs to 0 and is placed like any other.  The
+butterflies and VMEM windows of the TPU version are not contracts; on
+Hopper the expand is a scatter from slot coordinates.  Overflow lanes
+leave their dense rows undefined; callers re-decode with the classic
+route.
+
+Every wrapper launches its CUDA kernel for CUDA tensors and runs its
+plain PyTorch version (`*_plain`) for CPU tensors.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+SLOT_C = 256   # default capacity: slots per group
+SLOT_G = 8     # blocks per group
+SLOT_W = 1024   # the JAX package's slot window: C must divide it
+INT16_SPAN = 32768  # rank and slot rows are int16 offsets
 
 
 def place_events_plain(ev: torch.Tensor, M: int,
@@ -45,7 +74,7 @@ def place_events(ev: torch.Tensor, M: int,
 
     An event whose target row is >= M is not stored; when `err_mal`
     (bool [L]) is given, its lane is latched in place.  CUDA tensors run
-    kernel 2; CPU tensors run the plain version.
+    kernel "place_events"; CPU tensors run the plain version.
     """
     if not ev.is_cuda:
         return place_events_plain(ev, M, err_mal)
@@ -65,3 +94,212 @@ def place_events(ev: torch.Tensor, M: int,
         N, M, L, kernels.current_stream(ev.device),
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# Slot route
+# ---------------------------------------------------------------------------
+
+
+def _log2(x: int) -> int:
+    """log2 of a power of two; raises ValueError for anything else."""
+    if x < 1 or x & (x - 1):
+        raise ValueError(f"slot route: {x} is not a power of two")
+    return x.bit_length() - 1
+
+
+def slot_gate(N: int, M: int, C: int | None = None,
+              G: int | None = None) -> bool:
+    """Whether the slot route takes events [N, L] -> dense [M, L] at
+    capacity C: C and G are powers of two with C dividing SLOT_W and
+    C <= 64 G, and the rank rows N and the slot rows ceil(M / 64 / G) * C
+    fit the int16 offsets."""
+    C = SLOT_C if C is None else C
+    G = SLOT_G if G is None else G
+    if C < 1 or G < 1 or C & (C - 1) or G & (G - 1):
+        return False
+    if SLOT_W % C or C > 64 * G:
+        return False
+    Ms = -(-(M // 64) // G) * C
+    return N <= INT16_SPAN and Ms <= INT16_SPAN
+
+
+def events_per_block(coeffs: np.ndarray) -> np.ndarray:
+    """Upper bound of the scan's events per block from host coefficients
+    [n_blocks, 64]: the nonzero AC count plus one for DC, counted
+    whatever its value (a resolved DC says nothing about its DPCM
+    difference, which is what the scan emits)."""
+    return (np.asarray(coeffs)[:, 1:] != 0).sum(1) + 1
+
+
+def suggest_slot_c(per_block, G: int | None = None) -> int:
+    """Smallest power-of-two C in [64, 256] covering every G-block window
+    of an image's event counts (`events_per_block`), or 0 when even 256
+    cannot (callers take the classic route).
+
+    The bound is the maximum over ALL sliding G-block windows, the tail
+    included: a lane's slot groups are G consecutive blocks counted from
+    the lane's first block, which is any block of the image for
+    speculative lanes and a restart-segment start (not necessarily a
+    multiple of G) for restart lanes."""
+    G = SLOT_G if G is None else G
+    nz = np.asarray(per_block, np.int64)
+    if len(nz) <= G:
+        gmax = int(nz.sum())
+    else:
+        cs = np.concatenate([[0], np.cumsum(nz)])
+        gmax = int((cs[G:] - cs[:-G]).max())
+    c = 64
+    while c < gmax:
+        c *= 2
+    return c if c <= 256 else 0
+
+
+def compact_to_rank_plain(ev: torch.Tensor):
+    """Plain PyTorch version of `compact_to_rank` (same contract)."""
+    N, L = ev.shape
+    valid = ev >= 0
+    rank = torch.cumsum(valid.to(torch.int64), dim=0) - 1
+    lane = torch.arange(L, device=ev.device).expand(N, L)
+    p = torch.zeros((N, L), dtype=torch.int32, device=ev.device)
+    o = torch.full((N, L), -1, dtype=torch.int16, device=ev.device)
+    p[rank[valid], lane[valid]] = ev[valid]
+    o[rank[valid], lane[valid]] = 0
+    return p, o
+
+
+def compact_to_rank(ev: torch.Tensor):
+    """events int32 [N, L] -> (p int32, o int16) [N, L].
+
+    The valid events (>= 0) of each lane, in row order, at rows 0..n-1
+    (their rank) with o == 0; p == 0 and o == -1 on the rows after.
+    Contract of the JAX package's _compact_to_rank (stop_after="compact"
+    of place_events_slots), without its padding of N to the TPU window.
+    CUDA tensors run kernel "compact"; CPU tensors the plain version."""
+    if not ev.is_cuda:
+        return compact_to_rank_plain(ev)
+    from ..runtime import kernels
+
+    kernels.check_cuda_tensor("ev", ev, torch.int32, 2)
+    N, L = ev.shape
+    p = torch.empty((N, L), dtype=torch.int32, device=ev.device)
+    o = torch.empty((N, L), dtype=torch.int16, device=ev.device)
+    kernels.launch("compact", ev.data_ptr(), p.data_ptr(), o.data_ptr(),
+                   N, L, kernels.current_stream(ev.device))
+    return p, o
+
+
+def slot_unpack_plain(p: torch.Tensor, o: torch.Tensor, C: int, G: int):
+    """Plain PyTorch version of `slot_unpack` (same contract)."""
+    _log2(C)
+    Np, L = p.shape
+    dev = p.device
+    live = torch.cumprod((o >= 0).to(torch.int32), dim=0).bool()
+    grp = ((p >> 18) & 0x1FFF) >> _log2(G)
+    row = torch.arange(Np, dtype=torch.int64, device=dev)[:, None]
+    prev = torch.cat([torch.full((1, L), -1, dtype=grp.dtype, device=dev),
+                      grp[:-1]])
+    boundary = live & ((row == 0) | (grp != prev))
+    start = torch.cummax(torch.where(boundary, row, -1), dim=0).values
+    rib = row - start
+    ovf = live & (rib >= C)
+    o2 = torch.where(live & ~ovf, grp.to(torch.int64) * C + rib - row, -1)
+    return o2.to(torch.int16), ovf.any(dim=0)
+
+
+def slot_unpack(p: torch.Tensor, o: torch.Tensor, C: int, G: int):
+    """Compacted rows (p int32, o int16) [Np, L] -> (o2 int16 [Np, L],
+    overflow bool [L]).
+
+    A lane's events are its rows before the first o < 0.  Each starts a
+    new group when it is the lane's first or its group blk >> log2(G)
+    differs from the row before; rank_in_group = row - group start.  A
+    row with rank_in_group >= C overflows (o2 = -1, the lane's flag set);
+    every other event gets o2 = group * C + rank_in_group - row, its
+    offset to the slot row.  Empty rows get -1.  Contract of the JAX
+    package's _slot_unpack_kernel, with validity from o >= 0.
+    CUDA tensors run kernel "slot_unpack"; CPU tensors the plain one."""
+    if not p.is_cuda:
+        return slot_unpack_plain(p, o, C, G)
+    from ..runtime import kernels
+
+    kernels.check_cuda_tensor("p", p, torch.int32, 2)
+    kernels.check_cuda_tensor("o", o, torch.int16, 2)
+    if p.shape != o.shape:
+        raise ValueError("slot_unpack: p and o must have one shape")
+    _log2(C)
+    Np, L = p.shape
+    o2 = torch.empty((Np, L), dtype=torch.int16, device=p.device)
+    ovf = torch.empty(L, dtype=torch.bool, device=p.device)
+    kernels.launch("slot_unpack", p.data_ptr(), o.data_ptr(), o2.data_ptr(),
+                   ovf.data_ptr(), Np, L, C, _log2(G),
+                   kernels.current_stream(p.device))
+    return o2, ovf
+
+
+def slot_expand_plain(o2: torch.Tensor, p: torch.Tensor, M: int, C: int,
+                      G: int) -> torch.Tensor:
+    """Plain PyTorch version of `slot_expand` (same contract)."""
+    Np, L = o2.shape
+    dev = o2.device
+    valid = o2 >= 0
+    row = torch.arange(Np, dtype=torch.int64, device=dev)[:, None]
+    slot = row + o2.to(torch.int64)
+    e = p.to(torch.int64)
+    target = (slot >> _log2(C)) * (64 * G) + ((e >> 18) & (G - 1)) * 64 \
+        + ((e >> 12) & 63)
+    keep = valid & (target < M)
+    lane = torch.arange(L, device=dev).expand(Np, L)
+    out = torch.zeros((M, L), dtype=torch.int16, device=dev)
+    out[target[keep], lane[keep]] = ((e & 0xFFF) - 2048)[keep] \
+        .to(torch.int16)
+    return out
+
+
+def slot_expand(o2: torch.Tensor, p: torch.Tensor, M: int, C: int,
+                G: int) -> torch.Tensor:
+    """(o2 int16, payload p int32) [Np, L] -> dense int16 [M, L].
+
+    Every row with o2 >= 0 sits at slot row + o2 of group
+    slot >> log2(C); its event goes to dense row group * 64G +
+    64 * (blk mod G) + z of its lane (targets >= M are dropped); every
+    other dense row is 0.  Contract of the JAX package's
+    _fine_spread_expand_kernel with the coarse slot-spread stages before
+    it.  CUDA tensors run kernel "slot_expand"; CPU tensors the plain
+    version."""
+    if not o2.is_cuda:
+        return slot_expand_plain(o2, p, M, C, G)
+    from ..runtime import kernels
+
+    kernels.check_cuda_tensor("o2", o2, torch.int16, 2)
+    kernels.check_cuda_tensor("p", p, torch.int32, 2)
+    if p.shape != o2.shape:
+        raise ValueError("slot_expand: o2 and p must have one shape")
+    Np, L = o2.shape
+    if Np > INT16_SPAN:
+        raise ValueError(f"slot_expand: {Np} rows exceed the int16 offsets")
+    out = torch.empty((M, L), dtype=torch.int16, device=o2.device)
+    kernels.launch("slot_expand", o2.data_ptr(), p.data_ptr(),
+                   out.data_ptr(), Np, M, L, _log2(C), _log2(G),
+                   kernels.current_stream(o2.device))
+    return out
+
+
+def place_events_slots(ev: torch.Tensor, M: int, C: int | None = None,
+                       G: int | None = None, stop_after: str | None = None):
+    """events int32 [N, L] -> (dense int16 [M, L], overflow bool [L])
+    through the slot route: compact, unpack, expand.
+
+    Dense rows equal `place_events` on every lane whose overflow flag is
+    clear.  stop_after="compact" returns (p, o); "unpack" returns
+    (o2, p, overflow): the cuts of the JAX package's place_events_slots.
+    """
+    C = SLOT_C if C is None else C
+    G = SLOT_G if G is None else G
+    p, o = compact_to_rank(ev)
+    if stop_after == "compact":
+        return p, o
+    o2, overflow = slot_unpack(p, o, C, G)
+    if stop_after == "unpack":
+        return o2, p, overflow
+    return slot_expand(o2, p, M, C, G), overflow

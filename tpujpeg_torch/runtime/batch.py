@@ -1,26 +1,39 @@
 """Batched decode engine on one CUDA device.
 
-Counterpart of tpujpeg/runtime/batch.py for the restart-marker path:
+Counterpart of tpujpeg/runtime/batch.py:
 
   1. parse (host, shared tpujpeg.io parser);
   2. chunking by geometry, stride-sorted (similar segment lengths share a
      chunk, so the scan's column count follows the longest segment of a
      tighter group);
-  3. per chunk, backend 'fsm': the lane plan is uploaded and
-     runtime.fused.decode_chunk_fused runs scan -> materialize -> DC
-     resolve -> assemble -> pixels on the device; backend 'host': the
-     native C++ entropy decoder on the host, then the pixel stage;
-  4. `_finish`: the retry ladder and the strict repair.  A chunk whose
-     envelope latch is set is decoded again on the device at STEPS_SAFE
-     (counted in fsm_k_retries); a malformed latch, or an envelope latch
-     that survives the retry, sends the chunk to the host route (counted
-     in fsm_malformed_fallbacks / fsm_envelope_fallbacks), which raises
-     or, with on_error='skip', records a precise error per image.  Strict
-     mode recomputes risk-flagged pixels with the oracle's exact math.
+  3. per chunk, backend 'fsm': when the chunk packs into lanes
+     (fsm.build_plan: one lane per restart segment, and one lane per
+     image for a stream without restart markers of at most 8191
+     blocks), the lane plan is uploaded and runtime.fused.
+     decode_chunk_fused runs scan -> classic materialize -> DC resolve ->
+     assemble -> pixels on the device.  Otherwise the chunk takes the
+     speculative path: the single-pass sync decode through the slot
+     materialize (backend 'fsm-spec-sync'), or after a resolve miss the
+     Jacobi fixed point ('fsm-spec', counted in spec_sync_misses).  A chunk outside every
+     device envelope raises JpegError, or under on_error='skip' goes to
+     the host route.  Backend 'host': the native C++ entropy decoder on
+     the host, then the pixel stage;
+  4. `_finish`: the retry ladder and the strict repair, behind one
+     4-flag device read per chunk.  A spec chunk whose slot materialize
+     overflowed is decoded again with the classic materialize (counted
+     in fsm_slot_retries; later chunks move to the next capacity); a
+     chunk whose envelope latch is set is decoded again on the device at
+     STEPS_SAFE (counted in fsm_k_retries, with the spec path's inline
+     retries); a malformed latch, an envelope latch that survives the
+     retry, or a retry that produced nothing sends the chunk to the host
+     route (fsm_malformed_fallbacks / fsm_envelope_fallbacks), which
+     raises or, with on_error='skip', records a precise error per image.
+     Strict mode recomputes risk-flagged pixels with the oracle's exact
+     math.
 
-Not ported yet (ROADMAP): streams without restart markers (queue 1 item
-10), size buckets (11), subsampled and grayscale streams (12), several
-devices (13), the prep-pool overlap of plan building with device work.
+Not ported yet (ROADMAP): size buckets (queue 1 item 11), subsampled and
+grayscale streams (12), several devices (13), the prep-pool overlap of
+plan building with device work.
 """
 
 from __future__ import annotations
@@ -57,6 +70,8 @@ class BatchStats:
     fsm_envelope_fallbacks: int = 0   # chunks redone on host: outside envelope
     fsm_k_retries: int = 0            # chunks re-decoded at STEPS_SAFE
     fsm_malformed_fallbacks: int = 0  # chunks redone on host: bad stream
+    spec_sync_misses: int = 0         # spec chunks that fell back to Jacobi
+    fsm_slot_retries: int = 0         # chunks re-decoded with slots=False
 
     def as_dict(self) -> dict:
         return dict(self.__dict__)
@@ -68,13 +83,20 @@ class _Chunk:
     indices: list[int]
     imgs: list[JpegImage]
     coeffs: np.ndarray | None = None   # host coefficients (host route)
-    coeffs_dev: object = None          # device coeffs, raw DC diffs (fsm)
-    dc_dev: object = None              # resolved DC [B, n_blocks] (fsm)
-    plan: object = None                # FsmPlan, kept for the K retry
+    coeffs_dev: object = None          # device coeffs (fsm routes)
+    dc_dev: object = None              # resolved DC [B, n_blocks] (None:
+    #                                    coeffs_dev holds it, Jacobi route)
+    plan: object = None                # FsmPlan, kept for the retries
     uploaded: object = None            # plan's (xs, seg_n) on the device
+    spec_plan: object = None           # fsm.SpecBatchPlan of the sync path
+    spec_xs: object = None             # its scan bytes on the device
     steps: object = None               # FSM steps spec of the last decode
+    spec_k_retries: int = 0            # inline STEPS_SAFE retries (spec)
+    spec_sync_misses: int = 0          # sync resolve misses -> Jacobi
+    slots_off: bool = False            # slot overflow: classic from now on
     err_mal: object = None
     err_env: object = None
+    err_slot: object = None
     out: object = None                 # device (rgb, riskbits)
     backend: str = ""
     failed: dict | None = None         # local index -> message (skip mode)
@@ -96,6 +118,16 @@ def _try_parse(data: bytes):
         return str(e)
 
 
+def _pack_fence(rgb, err_mal, err_env, err_slot=None) -> torch.Tensor:
+    """A chunk's completion fence: one real output element and the three
+    error bits, int32 [4], read in one transfer."""
+    flags = [rgb[..., :1, :1, :1].sum().to(torch.int32)]
+    for e in (err_mal, err_env, err_slot):
+        flags.append(torch.zeros((), dtype=torch.int32, device=rgb.device)
+                     if e is None else e.any().to(torch.int32))
+    return torch.stack(flags)
+
+
 class BatchDecoder:
     """Reusable batched decoder on one explicit device."""
 
@@ -109,6 +141,9 @@ class BatchDecoder:
         self.device = torch.device(device)
         self.pool = ThreadPoolExecutor()
         self.stats = BatchStats()
+        # slot capacity for every later chunk: None until sampled, then
+        # an int C (0 = classic materialize)
+        self._slot_c: int | None = None
 
     def close(self) -> None:
         self.pool.shutdown()
@@ -170,56 +205,170 @@ class BatchDecoder:
         )
         chunk.coeffs = coeffs
         chunk.coeffs_dev = chunk.dc_dev = None
-        chunk.err_mal = chunk.err_env = None
+        chunk.err_mal = chunk.err_env = chunk.err_slot = None
         chunk.backend = "host"
 
-    def _process_chunk_fsm(self, chunk: _Chunk, steps=None) -> None:
-        """Scan bytes up, then the fused device chain (runtime/fused.py).
+    def _slot_capacity(self, chunk: _Chunk):
+        """The materialize route for a speculative chunk: False (classic)
+        for a chunk that overflowed once, else the decoder's slot capacity
+        C (False when it is 0).  Chunks packed one lane per segment or
+        image always take the classic route, which measured faster than
+        the slot route on them on the H100 (PERF.md).
 
-        Raises NotImplementedError for streams without restart markers
-        (the speculative paths are ROADMAP queue 1 item 10) and JpegError
-        when the chunk cannot be packed into restart lanes."""
+        C comes from a host sample of the first chunk's first image
+        (materialize.suggest_slot_c over the native decoder's
+        coefficients, DC counted always); without the native decoder it
+        is the default materialize.SLOT_C.  A slot overflow moves it up
+        one step for the chunks dispatched after it (_finish)."""
+        from ..ops import materialize
+
+        if chunk.slots_off:
+            return False
+        if self._slot_c is None:
+            from tpujpeg.runtime import host
+
+            self._slot_c = materialize.SLOT_C
+            if host._load_native() is not None:
+                try:
+                    coeffs = host.entropy_decode(chunk.imgs[0])
+                except JpegError:
+                    pass  # a bad stream says nothing about the load
+                else:
+                    self._slot_c = materialize.suggest_slot_c(
+                        materialize.events_per_block(coeffs)
+                    )
+        return self._slot_c or False
+
+    def _bump_slot_capacity(self) -> None:
+        """After an overflow: the next capacity up, or classic past 256."""
+        if self._slot_c:
+            self._slot_c = self._slot_c * 2 if self._slot_c < 256 else 0
+
+    def _process_chunk_fsm(self, chunk: _Chunk, steps=None) -> bool:
+        """Pack the chunk into lanes and run the fused device chain
+        (runtime/fused.py); a chunk that does not pack (fsm.build_plan
+        raises JpegError) takes the speculative path.  Returns False when
+        the chunk is outside every device envelope."""
         from ..ops import fsm
         from . import fused
 
         check_supported(chunk.geom)
-        if any(not img.restart_interval for img in chunk.imgs):
-            raise NotImplementedError(
-                "backend='fsm' decodes restart-marker streams only; streams "
-                "without restart markers are ROADMAP queue 1 item 10 "
-                "(use backend='host')"
-            )
         if chunk.plan is None:
             try:
                 chunk.plan = fsm.build_plan(chunk.imgs)
-            except JpegError as e:
-                raise JpegError(
-                    f"fsm: chunk outside the FSM decode envelope ({e})"
-                ) from e
+            except JpegError:
+                return self._process_chunk_spec(chunk, steps)
             chunk.uploaded = (
                 torch.as_tensor(chunk.plan.xs).to(self.device),
                 torch.as_tensor(chunk.plan.seg_n_blocks).to(self.device),
             )
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
         B = len(chunk.imgs)
-        rgb, risk, coeffs, dc, err_mal, err_env, _ = fused.decode_chunk_fused(
-            chunk.plan, self._quant_block(chunk, B), chunk.geom, B,
-            steps=chunk.steps, want_coeffs=self.strict,
-            uploaded=chunk.uploaded,
+        rgb, risk, coeffs, dc, err_mal, err_env, err_slot = (
+            fused.decode_chunk_fused(
+                chunk.plan, self._quant_block(chunk, B), chunk.geom, B,
+                steps=chunk.steps, want_coeffs=self.strict,
+                uploaded=chunk.uploaded, slots=False,
+            )
         )
         chunk.out = (rgb, risk)
         chunk.coeffs_dev = coeffs
         chunk.dc_dev = dc
         chunk.err_mal = err_mal
         chunk.err_env = err_env
+        chunk.err_slot = err_slot
         chunk.backend = "fsm"
+        return True
+
+    def _process_chunk_spec(self, chunk: _Chunk, steps=None) -> bool:
+        """Speculative device decode of a chunk of streams without restart
+        markers that do not fit one lane per image.
+
+        The single-pass sync path first (fused.decode_spec_sync_fused,
+        backend 'fsm-spec-sync'); on a resolve miss the Jacobi fixed point
+        (fsm.decode_speculative_batch, backend 'fsm-spec', counted in
+        spec_sync_misses).  Streams denser than the production step budget
+        retry on the device at STEPS_SAFE (counted in spec_k_retries).
+        Returns False when the chunk is outside every speculative
+        envelope."""
+        from ..ops import fsm
+        from . import fused
+
+        geom = chunk.geom
+        B = len(chunk.imgs)
+        # every spec route needs one block count per chunk; the check is
+        # host-known, so a mixed chunk never reaches the device
+        if len({(im.n_mcus, im.blocks_per_mcu) for im in chunk.imgs}) != 1:
+            return False
+        chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
+        quant = self._quant_block(chunk, B)
+        try:
+            try:
+                if chunk.spec_plan is None:
+                    chunk.spec_plan = fsm.build_spec_plan_batch(
+                        chunk.imgs, 1024)
+                    chunk.spec_xs = torch.as_tensor(
+                        chunk.spec_plan.xs).to(self.device)
+                pending = fsm.spec_sync_start(
+                    chunk.imgs, plan=chunk.spec_plan, xs_dev=chunk.spec_xs,
+                    steps=chunk.steps,
+                )
+                rgb, risk, coeffs16, dc, err, err_slot = (
+                    fused.decode_spec_sync_fused(
+                        pending, geom, quant, B, len(chunk.imgs),
+                        want_coeffs=self.strict,
+                        slots=self._slot_capacity(chunk),
+                    )
+                )
+                chunk.out = (rgb, risk)
+                chunk.coeffs_dev = coeffs16
+                chunk.dc_dev = dc
+                chunk.err_mal = err
+                chunk.err_env = torch.zeros_like(err)
+                chunk.err_slot = err_slot
+                chunk.backend = "fsm-spec-sync"
+                return True
+            except fsm.SpecEnvelopeError:
+                if fsm.steps_below_safe(chunk.steps):
+                    raise  # the outer ladder retries the sync at SAFE
+                # envelope at SAFE can be a broken-chain artifact of the
+                # sync scheme: the Jacobi path gets its own try
+                chunk.spec_sync_misses += 1
+            except fsm.SpecSyncMiss:
+                chunk.spec_sync_misses += 1
+            coeffs_dev, (err_mal, err_env) = fsm.decode_speculative_batch(
+                chunk.imgs, device_out=True, pad_to=B, steps=chunk.steps,
+                device=self.device,
+            )
+        except fsm.SpecEnvelopeError:
+            if not fsm.steps_below_safe(chunk.steps):
+                return False
+            chunk.spec_k_retries += 1
+            return self._process_chunk_spec(chunk, steps=fsm.STEPS_SAFE)
+        except JpegError:
+            return False
+        chunk.out = device_decode_fn(geom, coeffs_dev, quant)
+        chunk.coeffs_dev = coeffs_dev if self.strict else None
+        chunk.dc_dev = None
+        chunk.err_mal = err_mal
+        chunk.err_env = err_env
+        chunk.err_slot = None
+        chunk.backend = "fsm-spec"
+        return True
+
+    def _redecode(self, chunk: _Chunk, steps) -> bool:
+        """Decode a device chunk again through its own route."""
+        if chunk.backend.startswith("fsm-spec"):
+            return self._process_chunk_spec(chunk, steps)
+        return self._process_chunk_fsm(chunk, steps)
 
     def _dispatch_chunk(self, chunk: _Chunk, isolate: bool) -> None:
         if self.backend == "host":
             self._process_chunk_host(chunk, isolate=isolate)
             return
         try:
-            self._process_chunk_fsm(chunk)
+            if not self._process_chunk_fsm(chunk):
+                raise JpegError("fsm: chunk outside the FSM decode envelope")
         except JpegError:
             if not isolate:
                 raise
@@ -247,23 +396,38 @@ class BatchDecoder:
                 t_ent: float, isolate: bool):
         from ..ops import fsm
 
-        n_env = n_mal = n_k = 0
+        n_env = n_mal = n_k = n_slot = 0
         t0 = time.perf_counter()
         for chunk in chunks:
             if chunk.err_mal is None:
                 continue
-            mal, env = self._flags(chunk)
-            if env and not mal and fsm.steps_below_safe(chunk.steps):
+            mal, env, slot = self._flags(chunk)
+            failed = False
+            if slot and not chunk.slots_off:
+                # a slot group overflowed its capacity: decode the chunk
+                # again through the classic materialize, and serve later
+                # chunks at the next capacity up (or classic)
+                chunk.slots_off = True
+                n_slot += 1
+                self._bump_slot_capacity()
+                failed = not self._redecode(chunk, chunk.steps)
+                if not failed:
+                    mal, env, slot = self._flags(chunk)
+            if (not failed and env and not mal
+                    and fsm.steps_below_safe(chunk.steps)):
                 # denser than the fast symbol-step envelope: decode the
                 # chunk again on the device at the safe step count
                 n_k += 1
-                self._process_chunk_fsm(chunk, steps=fsm.STEPS_SAFE)
-                mal, env = self._flags(chunk)
-            if mal or env:
-                # bad stream, or outside the envelope even at STEPS_SAFE:
-                # the host route raises (or records) a precise JpegError
-                n_mal += int(mal)
-                n_env += int(env and not mal)
+                failed = not self._redecode(chunk, fsm.STEPS_SAFE)
+                if not failed:
+                    mal, env, slot = self._flags(chunk)
+            if mal or env or failed:
+                # bad stream, outside the envelope even at STEPS_SAFE, or
+                # a retry that produced nothing (its chunk keeps no stale
+                # output): the host route raises (or records) a precise
+                # JpegError
+                n_mal += int(mal and not failed)
+                n_env += int(failed or (env and not mal))
                 self._process_chunk_host(chunk, isolate=isolate)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -281,7 +445,9 @@ class BatchDecoder:
             chunks=len(chunks),
             fsm_envelope_fallbacks=n_env,
             fsm_malformed_fallbacks=n_mal,
-            fsm_k_retries=n_k,
+            fsm_k_retries=n_k + sum(c.spec_k_retries for c in chunks),
+            spec_sync_misses=sum(c.spec_sync_misses for c in chunks),
+            fsm_slot_retries=n_slot,
         )
         for chunk in chunks:
             if chunk.failed:
@@ -306,11 +472,7 @@ class BatchDecoder:
                     mask = unpack_mask(risk_h[bi], img.width)[: img.height]
                     if mask.any():
                         if coeffs_h is None:
-                            # fsm route: the dense DC rows are raw DPCM
-                            # differences; the resolved plane rides apart
-                            coeffs_h = chunk.coeffs_dev[:n].cpu().numpy()
-                            coeffs_h = coeffs_h.astype(np.int32)
-                            coeffs_h[:, :, 0] = chunk.dc_dev[:n].cpu().numpy()
+                            coeffs_h = self._device_coeffs(chunk, n)
                         _repair(img, coeffs_h[bi], out, mask)
                         repaired += int(mask.sum())
                 results[i] = out.astype(np.uint8)
@@ -319,11 +481,23 @@ class BatchDecoder:
         return results
 
     @staticmethod
-    def _flags(chunk: _Chunk) -> tuple[bool, bool]:
-        """(any malformed lane, any envelope lane): one device read."""
-        flags = torch.stack([chunk.err_mal.any(), chunk.err_env.any()])
-        mal, env = flags.cpu().tolist()
-        return bool(mal), bool(env)
+    def _device_coeffs(chunk: _Chunk, n: int) -> np.ndarray:
+        """A device chunk's coefficients on the host with DC resolved (the
+        fused routes keep raw DPCM differences in the dense DC rows and
+        the resolved plane apart)."""
+        coeffs = chunk.coeffs_dev[:n].cpu().numpy().astype(np.int32)
+        if chunk.dc_dev is not None:
+            coeffs[:, :, 0] = chunk.dc_dev[:n].cpu().numpy()
+        return coeffs
+
+    @staticmethod
+    def _flags(chunk: _Chunk) -> tuple[bool, bool, bool]:
+        """(any malformed lane, any envelope lane, any slot-overflow lane):
+        one device read, which also fences the chunk's pixels."""
+        fence = _pack_fence(chunk.out[0], chunk.err_mal, chunk.err_env,
+                            chunk.err_slot)
+        _, mal, env, slot = fence.cpu().tolist()
+        return bool(mal), bool(env), bool(slot)
 
     def decode(self, datas: list[bytes], on_error: str = "raise"):
         """Parse + decode a batch of JPEG byte strings.

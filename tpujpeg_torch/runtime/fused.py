@@ -1,10 +1,12 @@
 """Per-chunk decode: FSM scan -> materialize -> DC resolve -> assemble ->
 pixels, on one device.
 
-Counterpart of tpujpeg/runtime/fused.py::compiled_fused_decoder for a
-single-group restart plan.  PyTorch runs eagerly, so the chain is a plain
-function; the kernels launch on the current stream back to back and
-nothing returns to the host until the caller reads a result.
+Counterparts of tpujpeg/runtime/fused.py: compiled_fused_decoder for a
+single-group restart plan (`decode_chunk_fused`) and the sync-spec tail
+(`decode_spec_sync_fused`).  PyTorch runs eagerly, so each chain is a
+plain function; the kernels launch on the current stream back to back
+and nothing returns to the host until the caller reads a result (the
+spec tail's one resolve read aside).
 
   * the dense coefficient tensor stays int16 from materialize through
     assembly;
@@ -60,11 +62,14 @@ def _assemble_rows(per_lane: torch.Tensor, layout, pad_to: int) -> torch.Tensor:
 
 def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
                        pad_to: int, steps=fsm.STEPS_PRODUCTION,
-                       want_coeffs: bool = True, uploaded=None):
+                       want_coeffs: bool = True, uploaded=None,
+                       slots: bool | int | None = False):
     """Decode one restart plan on the device of `quant`.
 
     quant: int32 [pad_to, 3, 64] zigzag quant tables.  `uploaded` is the
-    plan's (xs, seg_n_blocks) already on that device.
+    plan's (xs, seg_n_blocks) already on that device.  slots: the
+    materialize route (fsm.materialize_checked): False, the default, is
+    the classic scatter; a caller that asks for slots reads err_slot.
 
     Returns (rgb uint8 [pad_to, 3, H, W], riskbits uint8 [pad_to, H, W/8],
     coeffs int16 [pad_to, n_blocks, 64] with raw DC differences, dc int32
@@ -80,7 +85,8 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     n_cols, S, L = events.shape
     ev = events.reshape(n_cols * S, L)
     M = plan.max_blk * 64
-    coeffs_t, err_mal, err_slot = fsm.materialize_checked(ev, M, err_mal)
+    coeffs_t, err_mal, err_slot = fsm.materialize_checked(ev, M, err_mal,
+                                                          slots=slots)
     per_lane = coeffs_t.T.reshape(L, plan.max_blk, 64)
     dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
     coeffs = _assemble_rows(per_lane, plan.layout, pad_to)   # [B, nb, 64]
@@ -89,3 +95,28 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     if not want_coeffs:
         coeffs = dc = None
     return rgb, risk, coeffs, dc, err_mal, err_env, err_slot
+
+
+def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
+                           quant: torch.Tensor, pad_to: int, n_imgs: int,
+                           want_coeffs: bool = True,
+                           slots: bool | int | None = False):
+    """Finish a spec_sync_start chunk: the host resolve (one read), then
+    merge -> materialize -> gather -> DC resolve -> pixels on the device.
+
+    Raises SpecEnvelopeError / SpecSyncMiss from the resolve.  Returns
+    (rgb, risk, coeffs int16 [pad_to, nb, 64] raw DC, dc int32 [pad_to,
+    nb], err [L], err_slot [L]); coeffs and dc are None when want_coeffs
+    is False."""
+    plan = pending.plan
+    quotas, cap_w = fsm.spec_sync_resolve_host(pending)
+    coeffs, dc, err, err_slot = fsm._spec_sync_assemble(
+        pending.ev1, pending.anchors, pending.ablk, pending.recm,
+        pending.ev2, pending.end2, pending.b1, pending.blk2,
+        torch.as_tensor(quotas).to(quant.device), plan.tables, pad_to,
+        int(plan.img_blocks[0]), n_imgs, cap_w, slots=slots,
+    )
+    rgb, risk = device_decode_fn(geom, coeffs, quant, dc=dc)
+    if not want_coeffs:
+        coeffs = dc = None
+    return rgb, risk, coeffs, dc, err, err_slot

@@ -1,8 +1,9 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources under tpujpeg_torch/csrc/*.cu expose a plain C ABI.  At first
-use they are compiled with nvcc for Hopper (sm_90a) into one shared
-library, tpujpeg_torch/_build/libtpjcuda.so, and loaded with ctypes:
+use they are compiled with nvcc for Hopper (sm_90a), one nvcc per source
+started together, and linked into one shared library,
+tpujpeg_torch/_build/libtpjcuda.so, loaded with ctypes:
 pointers travel as c_void_p (tensor.data_ptr()), the stream as the raw
 cudaStream_t of torch.cuda.current_stream().  Nothing here imports torch's
 C++ headers, so a build takes seconds, not minutes.
@@ -37,7 +38,7 @@ STAMP_PATH = BUILD_DIR / "libtpjcuda.hash"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # no FMA contraction anywhere: the pixel kernel's f32 colour math must
     # round like the separate multiplies and adds of the reference
     "-fmad=false",
@@ -49,10 +50,18 @@ _I = ctypes.c_int
 # C entry -> argtypes (all entries return int: a cudaError_t)
 _SIGNATURES = {
     # xs, seg_n, lut, meta(host), events, err_mal, err_env,
-    # L, stride, steps, stream
-    "tpj_fsm_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # L, pitch, n_data, steps, mode, start_bits, start_bim, chunk_bits,
+    # anchors, ablk, recm, state, stream
+    "tpj_fsm_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _P, _P, _P, _P, _P, _P, _P, _P],
     # ev, out, err, N, M, L, stream
     "tpj_place_events": [_P, _P, _P, _I, _I, _I, _P],
+    # ev, p, o, N, L, stream
+    "tpj_compact": [_P, _P, _P, _I, _I, _P],
+    # p, o, o2, ovf, Np, L, C, gshift, stream
+    "tpj_slot_unpack": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # o2, p, dense, Np, M, L, cshift, gshift, stream
+    "tpj_slot_expand": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # zp, quant, dc, rg, bk, B, P, consts(host), stream
     "tpj_pixels": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
@@ -61,6 +70,9 @@ _SIGNATURES = {
 KERNELS = {
     "fsm_scan": "tpj_fsm_scan",
     "place_events": "tpj_place_events",
+    "compact": "tpj_compact",
+    "slot_unpack": "tpj_slot_unpack",
+    "slot_expand": "tpj_slot_expand",
     "pixels": "tpj_pixels",
 }
 
@@ -118,27 +130,50 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not fresh():
-                cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-                if not cu:
-                    raise FileNotFoundError(f"no CUDA sources in {SRC_DIR}")
-                tmp = LIB_PATH.with_suffix(".so.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-                try:
-                    res = subprocess.run(cmd, capture_output=True, text=True)
-                except OSError as e:
-                    raise RuntimeError(f"cannot run nvcc: {e}") from e
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        "nvcc failed (%d): %s\n%s\n%s" % (
-                            res.returncode, " ".join(cmd),
-                            res.stdout, res.stderr,
-                        )
-                    )
-                os.replace(tmp, LIB_PATH)
+                _compile_and_link()
                 STAMP_PATH.write_text(want)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return LIB_PATH
+
+
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run commands side by side; (returncode, output) of each."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ))
+    except OSError as e:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise RuntimeError(f"cannot run nvcc: {e}") from e
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def _compile_and_link() -> None:
+    """One nvcc per source, all started together, then one link."""
+    cu = [p for p in _sources() if p.suffix == ".cu"]
+    if not cu:
+        raise FileNotFoundError(f"no CUDA sources in {SRC_DIR}")
+    objs = [BUILD_DIR / (p.stem + ".o") for p in cu]
+    compile_cmds = [
+        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+        for p, o in zip(cu, objs)
+    ]
+    tmp = LIB_PATH.with_suffix(".so.tmp")
+    link_cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+    for cmds in (compile_cmds, [link_cmd]):
+        for cmd, (rc, out) in zip(cmds, _run_all(cmds)):
+            if rc != 0:
+                raise RuntimeError(
+                    "nvcc failed (%d): %s\n%s" % (rc, " ".join(cmd), out)
+                )
+    os.replace(tmp, LIB_PATH)
 
 
 def library() -> ctypes.CDLL:
