@@ -6,14 +6,17 @@
 Phases (any failure exits non-zero; there is no CPU fallback):
   0. the card: nvidia-smi's name and power limit, torch and CUDA versions;
   1. build the CUDA kernels from tpujpeg_torch/csrc (one nvcc per source,
-     started together, sm_90a);
+     started together, sm_90a) and the port's native host library
+     (tpujpeg_torch/runtime/native, g++; without OpenMP where that link
+     fails), both into tpujpeg_torch/_build;
   2. restart path: BatchDecoder(backend="fsm", chunk_size=128) on one
      128-image chunk (the 16 committed 640x640 q90 4:4:4 restart-every-
      MCU-row streams of tests/fixtures/rst640, each 8 times): every
-     output equals the host reference decoder's (tpujpeg.runtime.host:
-     native C++, or the numpy oracle where the native library does not
-     build), two equal the numpy oracle's, no host fallback; the engine
-     materializes packed lanes through the classic scatter;
+     output equals the host reference decoder's
+     (tpujpeg_torch.runtime.host: native C++, or the numpy oracle where
+     the native library does not build), two equal the numpy oracle's, no
+     host fallback; the engine materializes packed lanes through the
+     classic scatter;
   3. speculative path: the same engine on the 128-image chunk of the
      no-restart streams of tests/fixtures/photo640 (640x640 q90 4:4:4,
      ~123 lanes per image), materialized through the slot route: backend
@@ -30,17 +33,29 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      through backend="host" equal the reference's .array outputs;
      4_800x600 (22,500 blocks) through the speculative path equals the
      oracle;
+  6b. mixed sizes: BatchDecoder(backend="fsm", size_buckets=True) on one
+     128-image chunk of the 16 committed mixed-size streams of
+     tests/fixtures/mixed_rst (624-800 px a side, 4:4:4 q90, a restart
+     marker every MCU row, one 101 x 101 MCU bucket; each 8 times), once
+     per materialize route ("scatter", "ranked", "full"): backend
+     "fsm-bucketed", no fallback, outputs as in phase 2, and each route
+     launched its own kernels and no other route's;
   7. each kernel against its plain PyTorch version on the chunks' real
      inputs (torch.equal), with both times (CUDA events; kernels warm,
-     median of 5; a plain version that takes seconds is timed once);
-  8. throughput: end to end for both chunks, and the device chain with
-     the slot route and with the classic scatter.
+     median of 5; a plain version that takes seconds is timed once), its
+     bound (the bytes it must move over 3.35 TB/s, or its operations over
+     67 Top/s, whichever is larger) and, where one PyTorch call computes
+     the same function, that call's time;
+  8. throughput: end to end for the three chunks, and the device chain of
+     each with the slot route, the classic scatter and, for the mixed
+     chunk, each materialize route.
 
-Each path of phases 2-6 runs with the launch counts set to 0 just before
+Each path of phases 2-6b runs with the launch counts set to 0 just before
 it and read just after, and fails if a kernel it must run was not
 launched.  The second-to-last line is a JSON object with one entry per
-kernel (launches summed over those paths); the last line is
-{"ok": true, "device": {...}}.  The script imports nothing of JAX.
+kernel (launches summed over those paths, and per 128-image chunk of
+each path); the last line is {"ok": true, "device": {...}}.  The script
+imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +71,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 RST = os.path.join(FIXTURES, "rst640")
 PHOTO = os.path.join(FIXTURES, "photo640")
+MIXED = os.path.join(FIXTURES, "mixed_rst")
 GOLDEN = ["1_320x240", "2_400x400", "3_120x120", "5_200x200", "6_225x168",
           "8_401x363"]
 # denser than STEPS_SAFE symbols per byte: the scan latches the envelope
@@ -64,6 +80,12 @@ DENSE_GOLDEN = "8_401x363"
 CHUNK = 128
 REPEAT = CHUNK // 16
 SLOT_KERNELS = ("compact", "slot_unpack", "slot_expand")
+# materialize route -> the kernels only it launches on a bucketed chunk
+ROUTE_KERNELS = {"scatter": ("place_events",),
+                 "ranked": ("compact_offsets", "spread_full"),
+                 "full": ("compact_full", "spread_full")}
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores
 
 
 def check(cond: bool, msg: str) -> None:
@@ -130,6 +152,22 @@ def equal_all(got, want, what: str) -> int:
     return max_abs_err(got, want)
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the bytes a function must move
+    (each input read once, each output written once) over the memory
+    rate, or its operations over the 32-bit rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": int(nbytes), "bound_ops": int(ops)}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 def read_streams(folder: str) -> list[bytes]:
     names = sorted(f for f in os.listdir(folder) if f.endswith(".jpg"))
     check(len(names) == 16, f"expected 16 streams in {folder}, found "
@@ -152,13 +190,12 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from tpujpeg.io.arrayio import read_array
-    from tpujpeg.io.parser import parse
-    from tpujpeg.oracle import decoder as oracle
-    from tpujpeg.runtime import host
+    from tpujpeg_torch.io.arrayio import read_array
+    from tpujpeg_torch.io.parser import parse
     from tpujpeg_torch.ops import fsm, materialize, pixels
-    from tpujpeg_torch.pipeline import Geometry, soa_planes
-    from tpujpeg_torch.runtime import fused, kernels
+    from tpujpeg_torch.oracle import decoder as oracle
+    from tpujpeg_torch.pipeline import Geometry, bucket_geometry, soa_planes
+    from tpujpeg_torch.runtime import fused, host, kernels
     from tpujpeg_torch.runtime.batch import BatchDecoder
 
     # ---- phase 0: the card
@@ -180,20 +217,28 @@ def main() -> int:
     print(f"phase 1: built {kernels.LIB_PATH.name} from "
           f"{len(kernels._sources())} sources in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"phase 1: host reference decoder {host.backend_name()} "
+          f"(tpujpeg_torch/runtime/native, {time.perf_counter() - t0:.1f} s)")
 
     totals = {name: 0 for name in kernels.KERNELS}
+    by_path = {}
 
-    def run_path(name: str, fn, need=(), any_of=()):
+    def run_path(name: str, fn, need=(), any_of=(), never=()):
         """Run one path with the counts reset before and read after;
-        check it launched every kernel of `need` and, for each group of
-        `any_of`, all kernels of at least one alternative."""
+        check it launched every kernel of `need`, none of `never` and,
+        for each group of `any_of`, all kernels of at least one
+        alternative."""
         kernels.reset_launches()
         out = fn()
         torch.cuda.synchronize()
         counts = dict(kernels.LAUNCHES)
+        by_path[name] = counts
         print(f"{name}: launches {json.dumps(counts)}")
         for k in need:
             check(counts[k] > 0, f"{name}: kernel {k} was not launched")
+        for k in never:
+            check(counts[k] == 0, f"{name}: kernel {k} was launched")
         for alternatives in any_of:
             check(any(all(counts[k] > 0 for k in alt)
                       for alt in alternatives),
@@ -359,8 +404,75 @@ def main() -> int:
           f"(one lane each, routes above) and host; 4_800x600 bit-exact "
           f"through fsm-spec-sync")
 
+    # ---- phase 6b: mixed sizes through the size buckets, per route
+    mstreams = read_streams(MIXED)
+    mdatas = mstreams * REPEAT
+    mimgs = [parse(d) for d in mdatas]
+    t0 = time.perf_counter()
+    mrefs = [host.decode_cpu(parse(d)) for d in mstreams]
+    sizes = sorted({(im.width, im.height) for im in mimgs})
+    buckets = {bucket_geometry(Geometry.of(im)) for im in mimgs}
+    check(len(sizes) == 16 and len(buckets) == 1,
+          f"mixed corpus: {len(sizes)} sizes, {len(buckets)} buckets")
+    bucket = buckets.pop()
+    print(f"phase 6b: reference decoder {host.backend_name()}, 16 streams "
+          f"of {len(sizes)} sizes ({sizes[0]} .. {sizes[-1]}) in "
+          f"{time.perf_counter() - t0:.1f} s; bucket {bucket.mcus_x} x "
+          f"{bucket.mcus_y} MCUs")
+    mwant = {i: oracle.decode(parse(mstreams[i])).astype(np.uint8)
+             for i in (4, 11)}
+    mdecs = {}
+    for route, own in ROUTE_KERNELS.items():
+        others = {k for r, ks in ROUTE_KERNELS.items() if r != route
+                  for k in ks} - set(own)
+        mdec = BatchDecoder(backend="fsm", chunk_size=CHUNK, strict=True,
+                            device="cuda", size_buckets=True,
+                            materialize_route=route)
+        mout = run_path(f"phase 6b {route}", lambda: mdec.decode(mdatas),
+                        need=("fsm_scan", "pixels") + own,
+                        never=tuple(others) + SLOT_KERNELS)
+        mstats = mdec.stats
+        print(f"phase 6b {route}: stats {json.dumps(mstats.as_dict())}")
+        check(len(mout) == CHUNK, "output count")
+        for i, got in enumerate(mout):
+            check(got is not None and np.array_equal(got, mrefs[i % 16]),
+                  f"mixed {route} output {i} differs from "
+                  f"{host.backend_name()}")
+        for i, want in mwant.items():
+            check(np.array_equal(mout[i], want),
+                  f"mixed {route} output {i} differs from oracle")
+        check(mstats.backend == "fsm-bucketed", f"backend {mstats.backend}")
+        check(mstats.chunks == 1, f"chunks {mstats.chunks}")
+        check(mstats.fsm_malformed_fallbacks == 0, "malformed fallback")
+        check(mstats.fsm_envelope_fallbacks == 0, "envelope fallback")
+        print(f"phase 6b {route}: {CHUNK} outputs of 16 sizes bit-exact vs "
+              f"{host.backend_name()}, 2 vs oracle; k_retries "
+              f"{mstats.fsm_k_retries}, repaired pixels "
+              f"{mstats.repaired_pixels}")
+        mdecs[route] = mdec
+        del mout
+
     # ---- phase 7: kernels against their plain versions, real inputs
     rows = []
+    chunk_paths = {"restart": "phase 2", "spec": "phase 3"}
+    chunk_paths.update({f"bucketed {r}": f"phase 6b {r}"
+                        for r in ROUTE_KERNELS})
+
+    def per_chunk(kernel: str) -> dict:
+        """Launches of `kernel` per 128-image chunk of each path."""
+        return {label: by_path[path][kernel]
+                for label, path in chunk_paths.items()
+                if by_path[path][kernel]}
+
+    def scan_bound(xs_t, n_planes: int, K: int) -> dict:
+        """Bound of one scan over xs_t [L, n]: the byte matrix, quotas and
+        the 1 MB table read, n_planes int32 [n + 6, K, L] planes and two
+        latches written; ~60 32-bit operations per symbol step."""
+        Ls, n = xs_t.shape
+        steps_total = (n + fsm.FLUSH_COLS) * K * Ls
+        return bound(Ls * n + 4 * Ls + 4 * fsm.N_TABLES * 65536
+                     + 4 * n_planes * steps_total + 2 * Ls,
+                     60 * steps_total)
     imgs = [parse(d) for d in datas]
     plan = fsm.build_plan(imgs)
     xs = torch.as_tensor(plan.xs).to(dev)
@@ -421,12 +533,54 @@ def main() -> int:
     print(f"phase 7: fsm_scan spec chunk [{SL}, {splan.xs.shape[1]}]: "
           f"anchor mode and speculative entry (stitch window) equal")
     del got, want
+
+    # the bucket-raster emission on the mixed chunk's lanes
+    bplan = fsm.build_plan_bucketed(mimgs, bucket)
+    bup = tuple(torch.as_tensor(a).to(dev) for a in
+                (bplan.xs, bplan.seg_n, bplan.wrap_at, bplan.skip))
+    bxs, bsn, bwrap, bskip = bup
+    BL, bstride = bplan.xs.shape
+
+    def pad_scan(plain=False, lanes=BL, pad=(bwrap, bskip)):
+        args = (bxs[:lanes], bsn[:lanes], bplan.tables)
+        pad = (pad[0][:lanes], pad[1][:lanes])
+        if plain:
+            return fsm.fsm_scan_plain(*args, k_prod, pad_info=pad)
+        return fsm.fsm_scan(*args, pad_info=pad)
+
+    got = pad_scan()
+    want, pad_plain_ms = timed_once(lambda: pad_scan(plain=True))
+    scan_err = max(scan_err, equal_all(got, want, "fsm_scan pad_info"))
+    pad_ms = cuda_ms(pad_scan)
+    check(not bool(got[1].any() | got[2].any()), "pad scan latched lanes")
+    mev = got[0].reshape(-1, BL)
+    merr = got[1]
+    del got, want
+    # this corpus has one MCU row per lane, so a lane ends where its row
+    # wraps; cut the rows in four with 7 padding slots after each to make
+    # the counters wrap and skip inside the lanes (first 1024 lanes)
+    synth = (torch.clamp(bwrap // 4, min=1), torch.full_like(bskip, 7))
+    got = pad_scan(lanes=1024, pad=synth)
+    want = pad_scan(plain=True, lanes=1024, pad=synth)
+    scan_err = max(scan_err, equal_all(got, want, "fsm_scan pad_info wraps"))
+    check(not torch.equal(got[0], pad_scan(lanes=1024)[0]),
+          "synthetic pad counters changed nothing")
+    print(f"phase 7: fsm_scan pad_info on the mixed chunk [{BL}, {bstride}] "
+          f"(max_blk {bplan.max_blk}, {bplan.lanes_per_img} lanes per "
+          f"image) equal; wrapping counters equal on 1024 lanes")
+    del got, want
     rows.append(dict(
         name="fsm_scan", route="cuda", source="tpujpeg_torch/csrc/fsm_scan.cu",
         replaces="tpujpeg/ops/fsm.py:702", launches=totals["fsm_scan"],
+        launches_per_chunk=per_chunk("fsm_scan"),
         max_abs_err=scan_err, ms=scan_ms, plain_ms=scan_plain_ms,
+        **scan_bound(xs, 1, k_prod), library_ms=None,
         ms_anchor_mode=cold_ms, plain_ms_anchor_mode=cold_plain_ms,
+        bound_ms_anchor_mode=scan_bound(sxs, 4, k_prod)["bound_ms"],
         ms_entry_mode=entry_ms, plain_ms_entry_mode=entry_plain_ms,
+        bound_ms_entry_mode=scan_bound(xs2, 1, k_prod)["bound_ms"],
+        ms_pad_mode=pad_ms, plain_ms_pad_mode=pad_plain_ms,
+        bound_ms_pad_mode=scan_bound(bxs, 1, k_prod)["bound_ms"],
     ))
 
     # the classic scatter on the restart chunk
@@ -439,16 +593,41 @@ def main() -> int:
     want = materialize.place_events_plain(ev, M, err_p)
     pe_err = equal_all([got, err_k], [want, err_p], "place_events")
     print(f"phase 7: place_events [{ev.shape[0]}, {L}] -> [{M}, {L}] equal")
+
+    def scatter_call(events_t, rows_out, valid):
+        """One PyTorch call for events -> dense: a zero fill and one
+        index_put_ with the targets, lanes and values prepared outside."""
+        e = events_t[valid].to(torch.int64)
+        tgt = ((e >> 18) & 0x1FFF) * 64 + ((e >> 12) & 63)
+        lanes = torch.arange(events_t.shape[1], device=dev) \
+            .expand(events_t.shape)[valid]
+        keep = tgt < rows_out
+        idx = (tgt[keep], lanes[keep])
+        vals = ((e & 0xFFF) - 2048).to(torch.int16)[keep]
+        out = torch.empty((rows_out, events_t.shape[1]), dtype=torch.int16,
+                          device=dev)
+
+        def call():
+            out.zero_()
+            return out.index_put_(idx, vals)
+
+        return call
+
+    lib_call = scatter_call(ev, M, ev >= 0)
+    check(torch.equal(lib_call(), got), "index_put_ != place_events")
     rows.append(dict(
         name="place_events", route="cuda",
         source="tpujpeg_torch/csrc/materialize.cu",
         replaces="tpujpeg/ops/materialize.py:205,314",
-        launches=totals["place_events"], max_abs_err=pe_err,
+        launches=totals["place_events"],
+        launches_per_chunk=per_chunk("place_events"), max_abs_err=pe_err,
         ms=cuda_ms(lambda: materialize.place_events(ev, M)),
         plain_ms=cuda_ms(lambda: materialize.place_events_plain(ev, M)),
+        **bound(nbytes(ev, got), 8 * ev.numel()),
+        library_ms=cuda_ms(lib_call),
     ))
     restart_dense = got
-    del want
+    del want, lib_call
 
     # the slot kernels on the spec chunk's merged events
     sev, _ = fsm._spec_sync_merge(
@@ -459,6 +638,7 @@ def main() -> int:
     G = materialize.SLOT_G
     slot_err = {k: 0 for k in SLOT_KERNELS}
     overflowed = {}
+    slot_bound = {}
     for C in (256, 64):
         p, o = materialize.compact_to_rank(sev)
         slot_err["compact"] = max(slot_err["compact"], equal_all(
@@ -476,6 +656,14 @@ def main() -> int:
               f"[{sev.shape[0]}, {SL}] -> [{SM}, {SL}]: compact, unpack, "
               f"expand equal; overflow lanes {overflowed[C]}")
         if C == 256:
+            # unpack reads each lane's event prefix (and the row after it)
+            n_ev = int((o >= 0).sum())
+            slot_bound = {
+                "compact": bound(nbytes(sev, p, o), 4 * sev.numel()),
+                "slot_unpack": bound((n_ev + SL) * 6 + nbytes(o2) + SL,
+                                     10 * n_ev),
+                "slot_expand": bound(nbytes(o2, p, dense), 8 * o2.numel()),
+            }
             slot_ms = {
                 "compact": (cuda_ms(lambda: materialize.compact_to_rank(sev)),
                             cuda_ms(lambda: materialize.compact_to_rank_plain(
@@ -500,10 +688,84 @@ def main() -> int:
         rows.append(dict(
             name=k, route="cuda", source="tpujpeg_torch/csrc/slots.cu",
             replaces=replaces[k], launches=totals[k],
+            launches_per_chunk=per_chunk(k),
             max_abs_err=slot_err[k], ms=slot_ms[k][0],
-            plain_ms=slot_ms[k][1],
+            plain_ms=slot_ms[k][1], **slot_bound[k], library_ms=None,
         ))
     del sev
+
+    # the two other routes' kernels on the mixed chunk's events
+    BM = bplan.max_blk * 64
+    BN = mev.shape[0]
+    p0, o0 = materialize.compact_to_rank(mev, rank_kernel=False,
+                                         stop_after="init")
+    cpo = materialize.compact_offsets(p0, o0)
+    co_err = equal_all(cpo, materialize.compact_offsets_plain(p0, o0),
+                       "compact_offsets")
+    check(all(torch.equal(a, b) for a, b in
+              zip(cpo, materialize.compact_to_rank(mev))),
+          "compact_offsets != compact")
+    cpf = materialize.compact_full(mev)
+    cf_err = equal_all((cpf,), (materialize.compact_full_plain(mev),),
+                       "compact_full")
+    errs = [torch.zeros(BL, dtype=torch.bool, device=dev) for _ in range(4)]
+    d_full = materialize.spread_full(cpf, BM, err_mal=errs[0])
+    sf_err = equal_all(
+        (d_full, errs[0]),
+        (materialize.spread_full_plain(cpf, BM, err_mal=errs[1]), errs[1]),
+        "spread_full")
+    d_rank = materialize.spread_full(cpo[0], BM, o=cpo[1], err_mal=errs[2])
+    sf_err = max(sf_err, equal_all(
+        (d_rank, errs[2]),
+        (materialize.spread_full_plain(cpo[0], BM, o=cpo[1],
+                                       err_mal=errs[3]), errs[3]),
+        "spread_full with offsets"))
+    d_scatter = materialize.place_events(mev, BM)
+    check(torch.equal(d_full, d_scatter) and torch.equal(d_rank, d_scatter),
+          "the three routes' dense tensors differ")
+    print(f"phase 7: compact_offsets, compact_full, spread_full on the "
+          f"mixed chunk's events [{BN}, {BL}] -> [{BM}, {BL}] equal; the "
+          f"three routes' dense tensors equal")
+    lib_call = scatter_call(cpf, BM, cpf >= 0)
+    check(torch.equal(lib_call(), d_full), "index_put_ != spread_full")
+    spread_lib_ms = cuda_ms(lib_call)
+    del lib_call, d_rank, d_scatter, errs
+    init_ms = cuda_ms(lambda: materialize.compact_to_rank(
+        mev, rank_kernel=False, stop_after="init"))
+    route_rows = [
+        ("compact_offsets", "tpujpeg/ops/materialize.py:271", co_err,
+         lambda: materialize.compact_offsets(p0, o0),
+         lambda: materialize.compact_offsets_plain(p0, o0),
+         bound(nbytes(p0, o0, *cpo), 4 * p0.numel()), None),
+        ("compact_full", "tpujpeg/ops/materialize.py:102", cf_err,
+         lambda: materialize.compact_full(mev),
+         lambda: materialize.compact_full_plain(mev),
+         bound(nbytes(mev, cpf), 4 * mev.numel()), None),
+        ("spread_full", "tpujpeg/ops/materialize.py:130", sf_err,
+         lambda: materialize.spread_full(cpf, BM),
+         lambda: materialize.spread_full_plain(cpf, BM),
+         bound(nbytes(cpf, d_full), 8 * cpf.numel()), spread_lib_ms),
+    ]
+    for name, replaces_at, err, fn, plain_fn, bnd, lib_ms in route_rows:
+        rows.append(dict(
+            name=name, route="cuda", source="tpujpeg_torch/csrc/routes.cu",
+            replaces=replaces_at, launches=totals[name],
+            launches_per_chunk=per_chunk(name), max_abs_err=err,
+            ms=cuda_ms(fn), plain_ms=cuda_ms(plain_fn), **bnd,
+            library_ms=lib_ms,
+        ))
+    spread_o_ms = cuda_ms(
+        lambda: materialize.spread_full(cpo[0], BM, o=cpo[1]))
+    route_ms = {r: cuda_ms(lambda: fsm.materialize_events(mev, BM, r))
+                for r in ROUTE_KERNELS}
+    compact_mixed_ms = cuda_ms(lambda: materialize.compact_to_rank(mev))
+    print(f"phase 7: materialize on the mixed chunk by route: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in route_ms.items())
+          + f"; ranked = cumsum init {init_ms:.4f} + compact_offsets + "
+          f"spread_full with offsets {spread_o_ms:.4f}; compact (one "
+          f"thread per lane) on the same events {compact_mixed_ms:.4f} ms "
+          f"[{card}]")
+    del p0, o0, cpo, cpf, d_full
 
     # the pixel kernel on the restart chunk
     geom = Geometry.of(imgs[0])
@@ -524,20 +786,37 @@ def main() -> int:
     rows.append(dict(
         name="pixels", route="cuda", source="tpujpeg_torch/csrc/pixels.cu",
         replaces="tpujpeg/ops/pixels_pallas.py:84",
-        launches=totals["pixels"], max_abs_err=px_err,
+        launches=totals["pixels"], launches_per_chunk=per_chunk("pixels"),
+        max_abs_err=px_err,
         ms=cuda_ms(lambda: pixels.rgb_soa_fused(zp, q, dcp)),
         plain_ms=cuda_ms(lambda: pixels.rgb_soa_fused_plain(zp, q, dcp)),
+        # ~1,200 32-bit operations per 8x8 block (dequant, two IDCT
+        # passes, colour and risk flags)
+        **bound(nbytes(zp, q, dcp, *got), 1200 * zp.numel() // 64),
+        library_ms=None,
     ))
     for r in rows:
-        print(f"phase 7: {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms [{card}]")
-    print(f"phase 7: fsm_scan anchor mode {cold_ms:.4f} ms (plain "
-          f"{cold_plain_ms:.4f}), speculative entry {entry_ms:.4f} ms "
-          f"(plain {entry_plain_ms:.4f}) [{card}]")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"phase 7: {r['name']}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['bound_bytes']} bytes; share "
+              f"{r['bound_ms'] / r['ms']:.3f}), plain {r['plain_ms']:.4f} "
+              f"ms, one PyTorch call {lib} ms; launches per chunk "
+              f"{json.dumps(r['launches_per_chunk'])} [{card}]")
+    scan = rows[0]
+    print(f"phase 7: fsm_scan anchor mode {cold_ms:.4f} ms (bound "
+          f"{scan['bound_ms_anchor_mode']:.4f}, plain {cold_plain_ms:.4f}), "
+          f"speculative entry {entry_ms:.4f} ms (bound "
+          f"{scan['bound_ms_entry_mode']:.4f}, plain {entry_plain_ms:.4f}), "
+          f"pad_info {pad_ms:.4f} ms (bound "
+          f"{scan['bound_ms_pad_mode']:.4f}, plain {pad_plain_ms:.4f}) "
+          f"[{card}]")
     del events, ev, per_lane, got, want, zp, dcp, restart_dense
 
     # ---- phase 8: throughput
-    for name, d, data in (("restart", dec, datas), ("spec", sdec, pdatas)):
+    e2e = [("restart", dec, datas), ("spec", sdec, pdatas)]
+    e2e += [(f"bucketed {r}", d, mdatas) for r, d in mdecs.items()]
+    for name, d, data in e2e:
         d.decode(data)  # warm
         times = []
         for _ in range(3):
@@ -590,6 +869,27 @@ def main() -> int:
               f"resident; {stages}) {ms:.2f} ms: "
               f"{CHUNK / ms * 1e3:.1f} images/s, "
               f"{mb / ms * 1e3:.2f} compressed MB/s [{card}]")
+
+    mquant = torch.as_tensor(np.stack([
+        np.stack([im.quant_tables[c.quant_id] for c in im.components])
+        for im in mimgs
+    ]).astype(np.int32)).to(dev)
+    mb = sum(len(x) for x in mdatas) / 1e6
+    for route in ROUTE_KERNELS:
+        def bucket_chain():
+            return fused.decode_chunk_bucketed(
+                bplan, mquant, bucket, CHUNK, uploaded=bup, route=route)
+
+        out = bucket_chain()
+        check(not bool(out[4].any() | out[5].any()),
+              f"bucketed {route}: latched lanes")
+        del out
+        ms = cuda_ms(bucket_chain)
+        print(f"phase 8: device chain bucketed route={route} (plan and "
+              f"bytes resident; pad scan, materialize, DC, static "
+              f"assemble + DC mask, pixels at {bucket.width}x"
+              f"{bucket.height}) {ms:.2f} ms: {CHUNK / ms * 1e3:.1f} "
+              f"images/s, {mb / ms * 1e3:.2f} compressed MB/s [{card}]")
 
     # the Jacobi path's entropy decode alone (its own 2048-byte plan, bytes
     # resident): count passes to the fixed point, the write pass, gather

@@ -79,7 +79,7 @@ def test_fsm_malformed_falls_back_to_host_and_counts():
 
 
 def test_fsm_malformed_raises_without_skip():
-    from tpujpeg.errors import JpegError
+    from tpujpeg_torch import JpegError
 
     img = parse(
         make_jpeg_rst(shape=(48, 64), rst_interval=2, seed=21, quality=95)

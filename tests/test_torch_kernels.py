@@ -8,6 +8,7 @@ nothing of JAX, so they also run on a machine without it:
 
 Inputs are the committed restart corpus (tests/fixtures/rst640), the
 no-restart corpus (tests/fixtures/photo640) split into speculative
+lanes, the mixed-size corpus (tests/fixtures/mixed_rst) in bucket-raster
 lanes, a 0xFF-tailed malformed copy, and seeded numpy data.
 """
 
@@ -17,14 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from tpujpeg.io.parser import parse_file
+from tpujpeg_torch.io.parser import parse_file
 from tpujpeg_torch.ops import fsm, materialize, pixels
-from tpujpeg_torch.pipeline import Geometry, soa_planes
+from tpujpeg_torch.pipeline import Geometry, bucket_geometry, soa_planes
 
 pytestmark = pytest.mark.gpu
 
 CORPUS = os.path.join(os.path.dirname(__file__), "fixtures", "rst640")
 PHOTO = os.path.join(os.path.dirname(__file__), "fixtures", "photo640")
+MIXED = os.path.join(os.path.dirname(__file__), "fixtures", "mixed_rst")
 
 
 @pytest.fixture(scope="module")
@@ -91,7 +93,7 @@ def test_place_events_kernel_equals_plain(cuda):
 
 @pytest.mark.parametrize("extreme", [False, True])
 def test_pixels_kernel_equals_plain(cuda, imgs, extreme):
-    from tpujpeg.runtime.host import entropy_decode
+    from tpujpeg_torch.runtime.host import entropy_decode
 
     geom = Geometry.of(imgs[0])
     coeffs = np.stack([entropy_decode(im) for im in imgs])
@@ -196,3 +198,80 @@ def test_slot_kernels_equal_plain(cuda, C):
     ok = ~ovf
     assert torch.equal(dense[:, ok], classic[:, ok])
     assert int(dense[0, 1]) == -2048
+
+
+@pytest.mark.parametrize("malformed", [False, True])
+@pytest.mark.parametrize("steps", [(1, 2), 3])
+def test_fsm_scan_pad_kernel_equals_plain(cuda, steps, malformed):
+    names = sorted(os.listdir(MIXED))[:3]
+    use = [parse_file(os.path.join(MIXED, n)) for n in names]
+    if malformed:
+        use[1] = _malformed(use[1])
+    bucket = bucket_geometry(Geometry.of(use[0]))
+    plan = fsm.build_plan_bucketed(use, bucket)
+    assert plan.skip.any() and len(set(plan.wrap_at[:303].tolist())) == 3
+    xs = torch.as_tensor(plan.xs).to(cuda)
+    sn = torch.as_tensor(plan.seg_n).to(cuda)
+    # the plan's own counters (one MCU row per lane: a lane ends where its
+    # row wraps), then rows cut in four with 7 padding slots after each,
+    # so the counters wrap and skip inside every lane
+    for wrap_at, skip in ((plan.wrap_at, plan.skip),
+                          (np.maximum(plan.wrap_at // 4, 1),
+                           np.full_like(plan.skip, 7))):
+        pad = (torch.as_tensor(wrap_at).to(cuda),
+               torch.as_tensor(skip).to(cuda))
+        got = fsm.fsm_scan(xs, sn, plan.tables, steps, pad_info=pad)
+        want = fsm.fsm_scan_plain(xs, sn, plan.tables,
+                                  fsm._scan_steps(steps), pad_info=pad)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w)
+        assert bool(got[1].any()) == malformed
+    # the second emission differs from the restart scan's in its block
+    # fields only: quotas and latches count real blocks
+    restart = fsm.fsm_scan(xs, sn, plan.tables, steps)
+    assert not torch.equal(restart[0], got[0])
+    assert torch.equal(restart[0] & 0x3FFFF, got[0] & 0x3FFFF)
+    assert torch.equal(restart[1], got[1]) and torch.equal(restart[2], got[2])
+
+
+@pytest.mark.parametrize("shape", [(1500, 60, 160), (300, 120, 130),
+                                   (2100, 20, 33)])
+def test_route_kernels_equal_plain(cuda, shape):
+    # N > M, N < M, and a lane count that fills no warp or block evenly
+    N, max_blk, L = shape
+    rng = np.random.default_rng(N)
+    M = max_blk * 64
+    mean = min(6.0, 0.5 * N / max_blk)
+    ev_h = _slot_events(rng, N, max_blk, L, mean)
+    ev_h[:, 1:3] = -1
+    ev_h[0, 1] = 0                         # blk 0, z 0, val -2048 packs to 0
+    ev_h[-1, 2] = (max_blk << 18) | 2048   # target past M: latches lane 2
+    ev = torch.as_tensor(ev_h).to(cuda)
+    p0, o0 = materialize.compact_to_rank(ev, rank_kernel=False,
+                                         stop_after="init")
+    p, o = materialize.compact_offsets(p0, o0)
+    pw, ow = materialize.compact_offsets_plain(p0, o0)
+    cp = materialize.compact_full(ev)
+    cpw = materialize.compact_full_plain(ev)
+    errs = [torch.zeros(L, dtype=torch.bool, device=cuda) for _ in range(4)]
+    d_o = materialize.spread_full(p, M, o=o, err_mal=errs[0])
+    d_ow = materialize.spread_full_plain(p, M, o=o, err_mal=errs[1])
+    d_c = materialize.spread_full(cp, M, err_mal=errs[2])
+    d_cw = materialize.spread_full_plain(cp, M, err_mal=errs[3])
+    torch.cuda.synchronize()
+    assert torch.equal(p, pw) and torch.equal(o, ow)
+    pk, ok = materialize.compact_to_rank(ev)
+    assert torch.equal(p, pk) and torch.equal(o, ok)
+    assert cp.dtype == torch.int32 and torch.equal(cp, cpw)
+    assert torch.equal(d_o, d_ow) and torch.equal(d_c, d_cw)
+    assert torch.equal(d_o, d_c)
+    for e in errs[1:]:
+        assert torch.equal(errs[0], e)
+    assert bool(errs[0][2]) and int(errs[0].sum()) == 1
+    classic = materialize.place_events(ev, M)
+    assert torch.equal(d_c, classic)
+    assert int(d_c[0, 1]) == -2048     # the event that packs to 0
+    for route in ("ranked", "full"):
+        assert torch.equal(fsm.materialize_events(ev, M, route), classic)

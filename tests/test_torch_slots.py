@@ -18,13 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from tpujpeg.errors import JpegError
 from tpujpeg.io.parser import parse
 from tpujpeg.oracle import decoder as oracle
 from tpujpeg.ops import materialize as jmat
-from tpujpeg.runtime import host
+from tpujpeg_torch import JpegError
 from tpujpeg_torch.ops import fsm as tfsm
 from tpujpeg_torch.ops import materialize as tmat
+from tpujpeg_torch.runtime import host
 from tpujpeg_torch.runtime.batch import BatchDecoder
 
 from conftest import make_jpeg, make_jpeg_rst

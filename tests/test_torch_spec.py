@@ -30,14 +30,14 @@ import numpy as np
 import pytest
 import torch
 
-from tpujpeg.errors import JpegError
+from tpujpeg.errors import JpegError as JaxJpegError
 from tpujpeg.io.arrayio import read_array
 from tpujpeg.io.parser import parse
 from tpujpeg.oracle import decoder as oracle
 from tpujpeg.ops import fsm as jfsm
 from tpujpeg.runtime import host
 from tpujpeg.runtime.batch import BatchDecoder as JaxBatchDecoder
-from tpujpeg_torch import convert
+from tpujpeg_torch import JpegError, convert
 from tpujpeg_torch.ops import fsm as tfsm
 from tpujpeg_torch.runtime.batch import BatchDecoder
 
@@ -155,7 +155,7 @@ def test_scan_modes_match_jax(corpora, name, mode):
 def _resolve(fsm_mod, pending):
     try:
         return fsm_mod.spec_sync_resolve_host(pending)
-    except JpegError as e:
+    except (JaxJpegError, JpegError) as e:
         return type(e).__name__
 
 

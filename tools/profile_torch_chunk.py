@@ -1,7 +1,7 @@
 """Where one 128-image chunk's device time goes in tpujpeg_torch (CUDA).
 
-Two chunks, each 16 committed 640x640 q90 4:4:4 streams x 8, with the
-plan and scan bytes already on the card:
+Three chunks, each 16 committed q90 4:4:4 streams x 8, with the plan and
+scan bytes already on the card:
 
   * restart: tests/fixtures/rst640 (a restart marker every MCU row)
     through the fused chain (runtime/fused.decode_chunk_fused): scan,
@@ -10,7 +10,13 @@ plan and scan bytes already on the card:
   * spec: tests/fixtures/photo640 (no restart markers) through the
     single-pass speculative chain: cold + stitch scan, the resolve read,
     merge, compact, unpack, expand (the slot route; the classic scatter
-    beside it), lane transpose + gather + DC cumsum, pixels.
+    beside it), lane transpose + gather + DC cumsum, pixels;
+  * bucketed: tests/fixtures/mixed_rst (16 sizes of 624-800 px, a
+    restart marker every MCU row) through the size-bucketed chain
+    (runtime/fused.decode_chunk_bucketed): pad_info scan, materialize by
+    route (scatter; ranked = cumsum init, compact_offsets, spread_full;
+    full = compact_full, spread_full), lane transpose + DC cumsum, the
+    static assemble + DC mask, pixels at the bucket's size.
 
 Per stage, the median of 5 warm runs timed with CUDA events, each stage
 synchronised on its own; then each whole chain, unsynchronised, the
@@ -51,7 +57,7 @@ def _ms(fn, reps=5):
 
 
 def _corpus(name):
-    from tpujpeg.io.parser import parse_file
+    from tpujpeg_torch.io.parser import parse_file
 
     folder = os.path.join(ROOT, "tests", "fixtures", name)
     names = sorted(os.listdir(folder))
@@ -184,6 +190,74 @@ def spec_stages(dev):
     return stages, chain, shapes
 
 
+def bucketed_stages(dev):
+    """(stages, chain, shapes) of the mixed-size chunk; the chain is the
+    scatter route's, the other routes' chains are stages."""
+    import torch
+
+    from tpujpeg_torch.ops import fsm, materialize
+    from tpujpeg_torch.pipeline import (Geometry, bucket_geometry,
+                                        device_decode_fn)
+    from tpujpeg_torch.runtime import fused
+
+    imgs = _corpus("mixed_rst")
+    bucket = bucket_geometry(Geometry.of(imgs[0]))
+    plan = fsm.build_plan_bucketed(imgs, bucket)
+    up = tuple(torch.as_tensor(a).to(dev)
+               for a in (plan.xs, plan.seg_n, plan.wrap_at, plan.skip))
+    xs, sn, wrap_at, skip = up
+    quant = _quant(imgs, dev)
+    L = xs.shape[0]
+    M = plan.max_blk * 64
+
+    def scan():
+        return fsm.fsm_scan(xs, sn, plan.tables, pad_info=(wrap_at, skip))
+
+    ev = scan()[0].reshape(-1, L)
+    p0, o0 = materialize.compact_to_rank(ev, rank_kernel=False,
+                                         stop_after="init")
+    p, o = materialize.compact_offsets(p0, o0)
+    cp = materialize.compact_full(ev)
+    dense = materialize.place_events(ev, M)
+    rgb, risk, coeffs, dc = fused.decode_chunk_bucketed(
+        plan, quant, bucket, CHUNK, uploaded=up)[:4]
+    del rgb, risk
+
+    def transpose_dc():
+        pl = dense.T.reshape(L, plan.max_blk, 64)
+        fsm._dc_cumsum(pl[:, :, 0], plan.tables, plan.max_blk)
+
+    def chain(route="scatter"):
+        return fused.decode_chunk_bucketed(plan, quant, bucket, CHUNK,
+                                           uploaded=up, route=route)
+
+    stages = [
+        ("scan (fsm_scan, pad_info)", scan),
+        ("materialize scatter (place_events)",
+         lambda: materialize.place_events(ev, M)),
+        ("materialize ranked: cumsum init (torch)",
+         lambda: materialize.compact_to_rank(ev, rank_kernel=False,
+                                             stop_after="init")),
+        ("materialize ranked: compact_offsets",
+         lambda: materialize.compact_offsets(p0, o0)),
+        ("materialize ranked: spread_full with offsets",
+         lambda: materialize.spread_full(p, M, o=o)),
+        ("materialize full: compact_full",
+         lambda: materialize.compact_full(ev)),
+        ("materialize full: spread_full",
+         lambda: materialize.spread_full(cp, M)),
+        ("lane transpose + DC cumsum", transpose_dc),
+        ("pixels end to end at bucket size (device_decode_fn)",
+         lambda: device_decode_fn(bucket, coeffs, quant, dc=dc)),
+        ("chain, route ranked", lambda: chain("ranked")),
+        ("chain, route full", lambda: chain("full")),
+    ]
+    shapes = (f"lane matrix {list(xs.shape)}, bucket {bucket.mcus_x} x "
+              f"{bucket.mcus_y} MCUs, events {list(ev.shape)}, dense "
+              f"[{M}, {L}]")
+    return stages, chain, shapes
+
+
 def main() -> int:
     import torch
 
@@ -199,7 +273,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     tables = []
-    for name, build in (("restart", restart_stages), ("spec", spec_stages)):
+    for name, build in (("restart", restart_stages), ("spec", spec_stages),
+                        ("bucketed", bucketed_stages)):
         stages, chain, shapes = build(dev)
         print(f"{name} chunk: {shapes}")
         for stage, fn in stages:

@@ -1,18 +1,22 @@
 """tpujpeg_torch — the PyTorch/CUDA port of tpujpeg for NVIDIA Hopper.
 
 Batch decode of baseline 4:4:4 streams, with or without restart
-markers, runs on the card through six hand-written CUDA kernels
-(csrc/): the Huffman symbol FSM scan (restart lanes and the speculative
-modes), the events -> dense coefficient scatter, the slot route's
-compact, unpack and expand, and the fused dequant + IDCT + colour pixel
-stage.
-The JAX-free host layer of tpujpeg (parser, oracle, native C++ entropy
-decoder) is shared, not copied.  This package never imports jax.
+markers, of one exact size or of mixed sizes (size-class buckets), runs
+on the card through hand-written CUDA kernels (csrc/): the Huffman
+symbol FSM scan (restart lanes, bucket-raster emission, the speculative
+modes), the events -> dense coefficient scatter and its two other
+routes (offset compaction, full-height compaction and spread), the slot
+route's compact, unpack and expand, and the fused dequant + IDCT +
+colour pixel stage.
+
+The package stands alone: it keeps its own copy of the host layer
+(errors, constants, io/, oracle/, runtime/host.py, runtime/native/) and
+imports neither jax nor the tpujpeg package.
 
 The device is always explicit; the default is "cuda".
 """
 
-from tpujpeg.errors import JpegError
+from .errors import JpegError
 
 __all__ = ["JpegError", "decode", "decode_batch"]
 
@@ -24,11 +28,11 @@ def decode(data, backend: str = "cuda", device="cuda"):
     `device` with strict repair (bit-exact with the reference decoder);
     backend='oracle' runs the NumPy reference decoder.
     """
-    from tpujpeg.io.parser import parse, parse_file
+    from .io.parser import parse, parse_file
 
     img = parse_file(data) if isinstance(data, str) else parse(data)
     if backend == "oracle":
-        from tpujpeg.oracle import decoder as oracle
+        from .oracle import decoder as oracle
 
         return oracle.decode(img)
     if backend != "cuda":

@@ -1,8 +1,9 @@
 // Huffman symbol FSM scan (kernel 1 of tpujpeg_torch).
 //
 // Replaces: tpujpeg/ops/fsm.py::_fsm_scan (an XLA lax.scan on the TPU)
-// in its four uses: restart lanes, the speculative count pass (start
-// state + chunk-end stop), the stitch pass, and the cold pass that logs
+// in its five uses: restart lanes, restart lanes with bucket-raster
+// emission (pad_info), the speculative count pass (start state +
+// chunk-end stop), the stitch pass, and the cold pass that logs
 // block-boundary anchors.  Contract: tpujpeg_torch/ops/fsm.py::
 // _scan_plain (fsm_scan_plain / fsm_scan_spec_plain).
 //
@@ -28,8 +29,13 @@
 // The modes are compile-time variants of one kernel: kSpec adds the bit
 // position, the per-lane start state (a partial first byte), the
 // chunk-end stop and the final state; kAnchors adds the anchor logs and
-// turns error latches into recoveries.  The restart variant compiles
-// none of that and keeps its registers for the latency-bound chain.
+// turns error latches into recoveries; kPad (restart lanes of a
+// size-class bucket chunk) adds two counters per lane: an event's block
+// field becomes the output position that skips `skip` slots after every
+// `wrap_at` completed blocks (one padded MCU row of the bucket grid),
+// while quotas and latches go on counting real blocks.  The restart
+// variant compiles none of that and keeps its registers for the
+// latency-bound chain.
 //
 // Bit-exactness with the JAX scan: the buffer is uint32_t and every read
 // of it is masked below `navail`, so logical shifts give the bits of the
@@ -65,12 +71,14 @@ struct SpecIo {
   int32_t* state;             // [4, L] blk, end_bits, end_bim, rec_last
 };
 
-template <bool kSpec, bool kAnchors>
+template <bool kSpec, bool kAnchors, bool kPad>
 __global__ void fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch,
                                 int n_data,
                                 const int32_t* __restrict__ seg_n,
                                 const int32_t* __restrict__ lut,
                                 ScanMeta meta, SpecIo io,
+                                const int32_t* __restrict__ pad_wrap,
+                                const int32_t* __restrict__ pad_skip,
                                 int32_t* __restrict__ events,
                                 uint8_t* __restrict__ err_mal_out,
                                 uint8_t* __restrict__ err_env_out,
@@ -95,6 +103,12 @@ __global__ void fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch,
     if (io.chunk_bits != nullptr) cbits = io.chunk_bits[lane];
     bitpos = sbits;
     end_bim = bim;
+  }
+  // bucket-raster output counters (dead outside the pad variant)
+  int wrap_at = 1, skip_n = 0, ocol = 0, oblk = 0;
+  if (kPad) {
+    wrap_at = pad_wrap[lane];
+    skip_n = pad_skip[lane];
   }
 
   for (int col = 0; col < n_cols; ++col) {
@@ -171,7 +185,7 @@ __global__ void fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch,
             if (bad_z) {
               if (!kAnchors) err_mal = true;
             } else {
-              ev = (blk << 18) | (z << 12) | (val + 2048);
+              ev = ((kPad ? oblk : blk) << 18) | (z << 12) | (val + 2048);
             }
           }
           if (kAnchors && bad_z) rec_now = true;
@@ -193,6 +207,16 @@ __global__ void fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch,
           if (k2 >= 64 || eob_fire) {
             // block end
             blk += 1;
+            if (kPad) {
+              // after wrap_at blocks of a row, jump the bucket's padding
+              ocol += 1;
+              if (ocol >= wrap_at) {
+                ocol = 0;
+                oblk += skip_n + 1;
+              } else {
+                oblk += 1;
+              }
+            }
             bim = bim + 1 == meta.bpm ? 0 : bim + 1;
             k = 0;
             if (kAnchors) {
@@ -273,9 +297,11 @@ __global__ void fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch,
 // meta_host: int32 [25] = bpm, tsel[16], eob_len[2], eob_code[2],
 // dc0_len[2], dc0_code[2] (ops/fsm.py::scan_meta), read on the host.
 // xs is [L, pitch] row-major; the scan reads the first n_data bytes of
-// each row.  mode: 0 restart, 1 speculative, 2 speculative with anchors
-// (start_bits, start_bim, chunk_bits, state may be null in modes 1-2;
-// anchors, ablk, recm are used in mode 2 only; events may be null).
+// each row.  mode: 0 restart, 1 speculative, 2 speculative with anchors,
+// 3 restart with bucket-raster emission (start_bits, start_bim,
+// chunk_bits, state may be null in modes 1-2; anchors, ablk, recm are used
+// in mode 2 only; wrap_at and skip, int32 [L], in mode 3 only; events may
+// be null).
 extern "C" int tpj_fsm_scan(const uint8_t* xs, const int32_t* seg_n,
                             const int32_t* lut, const int32_t* meta_host,
                             int32_t* events, uint8_t* err_mal,
@@ -284,6 +310,7 @@ extern "C" int tpj_fsm_scan(const uint8_t* xs, const int32_t* seg_n,
                             const int32_t* start_bim,
                             const int32_t* chunk_bits, int32_t* anchors,
                             int32_t* ablk, int32_t* recm, int32_t* state,
+                            const int32_t* wrap_at, const int32_t* skip,
                             cudaStream_t stream) {
   ScanMeta meta;
   meta.bpm = meta_host[0];
@@ -304,17 +331,24 @@ extern "C" int tpj_fsm_scan(const uint8_t* xs, const int32_t* seg_n,
   constexpr int kThreads = 32;
   const int blocks = (L + kThreads - 1) / kThreads;
   if (mode == 0) {
-    fsm_scan_kernel<false, false><<<blocks, kThreads, 0, stream>>>(
-        xs, pitch, n_data, seg_n, lut, meta, io, events, err_mal, err_env,
-        L, steps);
+    fsm_scan_kernel<false, false, false><<<blocks, kThreads, 0, stream>>>(
+        xs, pitch, n_data, seg_n, lut, meta, io, nullptr, nullptr, events,
+        err_mal, err_env, L, steps);
   } else if (mode == 1) {
-    fsm_scan_kernel<true, false><<<blocks, kThreads, 0, stream>>>(
-        xs, pitch, n_data, seg_n, lut, meta, io, events, err_mal, err_env,
-        L, steps);
+    fsm_scan_kernel<true, false, false><<<blocks, kThreads, 0, stream>>>(
+        xs, pitch, n_data, seg_n, lut, meta, io, nullptr, nullptr, events,
+        err_mal, err_env, L, steps);
   } else if (mode == 2) {
-    fsm_scan_kernel<true, true><<<blocks, kThreads, 0, stream>>>(
-        xs, pitch, n_data, seg_n, lut, meta, io, events, err_mal, err_env,
-        L, steps);
+    fsm_scan_kernel<true, true, false><<<blocks, kThreads, 0, stream>>>(
+        xs, pitch, n_data, seg_n, lut, meta, io, nullptr, nullptr, events,
+        err_mal, err_env, L, steps);
+  } else if (mode == 3) {
+    if (wrap_at == nullptr || skip == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    fsm_scan_kernel<false, false, true><<<blocks, kThreads, 0, stream>>>(
+        xs, pitch, n_data, seg_n, lut, meta, io, wrap_at, skip, events,
+        err_mal, err_env, L, steps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

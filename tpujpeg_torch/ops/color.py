@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpujpeg.constants import C_BLUE, C_GY_B, C_GY_DIV, C_GY_R, C_RED
+from ..constants import C_BLUE, C_GY_B, C_GY_DIV, C_GY_R, C_RED
 
 EPS = np.float32(1e-3)
 

@@ -22,6 +22,11 @@ copy of the JAX package's, without the TPU's two-level symbol map: the
 scan looks (length, symbol) up in a flat per-table LUT of all 65,536
 16-bit peeks (`symbol_lut`), exact by construction.
 
+Mixed-size chunks pack into bucket-raster lanes (`build_plan_bucketed`):
+every image of a size-class bucket gives the same number of lanes, and
+the scan's `pad_info` mode emits each event at its position in the
+bucket's padded MCU raster, so assembly is one static reshape.
+
 Streams without restart markers that do not fit one lane per image take
 the speculative decode at the end of this module (single pass with
 anchor logs, Jacobi fixed point as its fallback).
@@ -38,9 +43,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpujpeg.errors import JpegError
-from tpujpeg.io.huffman import HuffmanTable
-from tpujpeg.io.parser import JpegImage
+from ..errors import JpegError
+from ..io.huffman import HuffmanTable
+from ..io.parser import JpegImage
 
 MAX_BLOCKS_PER_LANE = 8191  # blk field is 13 bits in the packed event
 MAX_PIECES = 512
@@ -357,6 +362,112 @@ def build_plan(imgs: list[JpegImage]) -> FsmPlan:
     )
 
 
+@dataclass(frozen=True)
+class FsmBucketPlan:
+    """Bucket-raster lane plan of a mixed-size chunk.
+
+    Every image contributes exactly `lanes_per_img` lanes (zero-quota
+    padding lanes after its real rows); each lane covers `k` MCU rows of
+    its image and emits events at bucket-raster output positions (the
+    scan's pad_info counters), so the per-lane rows are the bucket's padded
+    layout and assembly is one static reshape.  Requires row-aligned
+    restart intervals (ri == k * mcus_x); the batch engine keys chunks on
+    (bucket, k) and sends anything else to the host-bucketed route.
+    """
+
+    xs: np.ndarray            # uint8 [L, stride]
+    seg_n: np.ndarray         # int32 [L] real-block quotas
+    wrap_at: np.ndarray       # int32 [L] blocks per real MCU row
+    skip: np.ndarray          # int32 [L] padding slots after each row
+    tables: FsmTables
+    k: int                    # MCU rows per lane (uniform across the chunk)
+    lanes_per_img: int        # uniform lane count per image
+    max_blk: int              # k * bucket.mcus_x * bpm (lane capacity)
+    extents: np.ndarray       # int32 [n_imgs, 2] true (mcus_y, mcus_x)
+    n_imgs: int
+
+
+def bucket_lane_k(img: JpegImage) -> int | None:
+    """MCU rows per restart segment, or None when not row-aligned."""
+    ri = img.restart_interval
+    if not ri or ri % img.mcus_x:
+        return None
+    if img.segment_offsets.size < -(-img.n_mcus // ri):
+        return None  # missing restart segments
+    return ri // img.mcus_x
+
+
+def build_plan_bucketed(imgs: list[JpegImage], bucket,
+                        pad_imgs: int | None = None) -> FsmBucketPlan:
+    """Pack a mixed-size chunk into bucket-raster lanes (FsmBucketPlan).
+
+    `bucket` is the size-class Geometry (pipeline.bucket_geometry); every
+    image must fit it, share tables and subsampling, and have the same
+    row-aligned restart k.  Raises JpegError otherwise (callers take the
+    host-bucketed route).  pad_imgs pads the lane count as if the chunk
+    held that many images (padding lanes are inert: zero quota, done
+    before the first scan column).
+    """
+    tables = build_tables(imgs[0])
+    pattern0 = imgs[0].mcu_block_pattern()
+    bpm = len(pattern0)
+    k = bucket_lane_k(imgs[0])
+    if k is None:
+        raise JpegError("fsm-bucket: restart interval not row-aligned")
+    lanes_per_img = -(-bucket.mcus_y // k)
+    max_blk = k * bucket.mcus_x * bpm
+    if max_blk > MAX_BLOCKS_PER_LANE:
+        raise JpegError("fsm-bucket: bucket row capacity overflows events")
+
+    seg_bytes: list[np.ndarray] = []
+    quotas: list[int] = []
+    wraps: list[int] = []
+    skips: list[int] = []
+    extents = np.zeros((len(imgs), 2), np.int32)
+    for ii, img in enumerate(imgs):
+        if img.mcu_block_pattern() != pattern0 or build_tables(img) != tables:
+            raise JpegError("fsm: batch mixes subsampling or Huffman tables")
+        if bucket_lane_k(img) != k:
+            raise JpegError("fsm-bucket: mixed restart row counts")
+        if img.mcus_x > bucket.mcus_x or img.mcus_y > bucket.mcus_y:
+            raise JpegError("fsm-bucket: image exceeds its bucket")
+        ri = k * img.mcus_x
+        need = -(-img.n_mcus // ri)
+        if need > lanes_per_img:
+            raise JpegError("fsm-bucket: image exceeds bucket row count")
+        offs = img.segment_offsets
+        ends = np.append(offs[1:need], img.scan_data.size)
+        scan = img.scan_data
+        extents[ii] = (img.mcus_y, img.mcus_x)
+        for s in range(lanes_per_img):
+            if s < need:
+                seg_bytes.append(scan[int(offs[s]) : int(ends[s])])
+                quotas.append(min(ri, img.n_mcus - s * ri) * bpm)
+            else:
+                seg_bytes.append(np.zeros(0, np.uint8))
+                quotas.append(0)
+            wraps.append(max(img.mcus_x * bpm, 1))
+            skips.append((bucket.mcus_x - img.mcus_x) * bpm)
+
+    n_real = len(seg_bytes)
+    stride = _stride_bucket(max(max(b.size for b in seg_bytes), 64))
+    L = _round_up(max(n_real, (pad_imgs or 0) * lanes_per_img, 8), 128)
+    xs = np.zeros((L, stride), np.uint8)
+    for row, b in enumerate(seg_bytes):
+        xs[row, : b.size] = b
+    seg_n = np.zeros(L, np.int32)
+    seg_n[:n_real] = quotas
+    wrap_at = np.ones(L, np.int32)
+    wrap_at[:n_real] = wraps
+    skip = np.zeros(L, np.int32)
+    skip[:n_real] = skips
+    return FsmBucketPlan(
+        xs=xs, seg_n=seg_n, wrap_at=wrap_at, skip=skip, tables=tables,
+        k=k, lanes_per_img=lanes_per_img, max_blk=max_blk,
+        extents=extents, n_imgs=len(imgs),
+    )
+
+
 # ---------------------------------------------------------------------------
 # The scan (kernel 1)
 # ---------------------------------------------------------------------------
@@ -401,20 +512,27 @@ class ScanOut(NamedTuple):
 
 
 def fsm_scan(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
-             tables: FsmTables, steps=STEPS_PRODUCTION):
+             tables: FsmTables, steps=STEPS_PRODUCTION, pad_info=None):
     """Run the symbol FSM over the byte columns of a restart lane matrix.
 
     xs: uint8 [L, stride] (one restart segment per row), seg_n_blocks:
     int32 [L].  Returns (events int32 [stride + FLUSH_COLS, K, L],
     err_mal bool [L], err_env bool [L]), K symbol steps per column.
 
+    pad_info: optional pair (wrap_at, skip) of int32 [L]: bucket-raster
+    emission for a size-class bucket chunk (FsmBucketPlan).  The event's
+    block field becomes the output position that skips `skip` slots after
+    every `wrap_at` completed blocks (one padded MCU row of the bucket
+    grid); quotas and latches still count real blocks.
+
     CUDA tensors run kernel 1 (csrc/fsm_scan.cu); CPU tensors run
     `fsm_scan_plain`.
     """
     k = _scan_steps(steps)
     if not xs.is_cuda:
-        return fsm_scan_plain(xs, seg_n_blocks, tables, k)
-    out = _scan_cuda(xs, seg_n_blocks, tables, k, mode=0)
+        return fsm_scan_plain(xs, seg_n_blocks, tables, k, pad_info)
+    out = _scan_cuda(xs, seg_n_blocks, tables, k,
+                     mode=0 if pad_info is None else 3, pad_info=pad_info)
     return out.events, out.err_mal, out.err_env
 
 
@@ -449,8 +567,9 @@ def fsm_scan_spec(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
 
 def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
                start_bim=None, chunk_bits=None, log_anchors=False,
-               emit=True) -> ScanOut:
-    """Launch kernel 1 in `mode` (0 restart, 1 speculative, 2 anchors)."""
+               emit=True, pad_info=None) -> ScanOut:
+    """Launch kernel 1 in `mode` (0 restart, 1 speculative, 2 anchors,
+    3 restart with bucket-raster emission)."""
     from ..runtime import kernels
 
     if not xs.is_cuda or xs.dtype != torch.uint8 or xs.dim() != 2:
@@ -464,8 +583,10 @@ def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
             f"(strides {xs.stride()})"
         )
     dev = xs.device
+    wrap_at, skip = pad_info if pad_info is not None else (None, None)
     ints = {"seg_n_blocks": seg_n_blocks, "start_bits": start_bits,
-            "start_bim": start_bim, "chunk_bits": chunk_bits}
+            "start_bim": start_bim, "chunk_bits": chunk_bits,
+            "wrap_at": wrap_at, "skip": skip}
     for name, t in ints.items():
         if t is not None:
             kernels.check_cuda_tensor(name, t, torch.int32, 1)
@@ -484,7 +605,8 @@ def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
     err_mal = torch.empty(L, dtype=torch.bool, device=dev)
     err_env = torch.empty(L, dtype=torch.bool, device=dev)
     # the restart variant keeps no final state
-    state = torch.empty((4, L), dtype=torch.int32, device=dev) if mode \
+    spec = mode in (1, 2)
+    state = torch.empty((4, L), dtype=torch.int32, device=dev) if spec \
         else None
 
     def ptr(t):
@@ -497,9 +619,9 @@ def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
         err_env.data_ptr(), L, pitch, n_data, k, mode,
         ptr(start_bits), ptr(start_bim), ptr(chunk_bits),
         ptr(anchors), ptr(ablk), ptr(recm), ptr(state),
-        kernels.current_stream(dev),
+        ptr(wrap_at), ptr(skip), kernels.current_stream(dev),
     )
-    blk, end_bits, end_bim, rec_last = state if mode else (None,) * 4
+    blk, end_bits, end_bim, rec_last = state if spec else (None,) * 4
     return ScanOut(events, anchors, ablk, recm, err_mal, err_env,
                    blk, end_bits, end_bim, rec_last)
 
@@ -519,9 +641,9 @@ def _device_lut(tables: FsmTables, device) -> torch.Tensor:
 
 
 def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
-                   tables: FsmTables, k: int):
+                   tables: FsmTables, k: int, pad_info=None):
     """Plain PyTorch version of `fsm_scan` (restart mode, same contract)."""
-    out = _scan_plain(xs, seg_n_blocks, tables, k)
+    out = _scan_plain(xs, seg_n_blocks, tables, k, pad_info=pad_info)
     return out.events, out.err_mal, out.err_env
 
 
@@ -538,7 +660,7 @@ def fsm_scan_spec_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
 
 def _scan_plain(xs, seg_n_blocks, tables: FsmTables, k: int,
                 start_bits=None, start_bim=None, chunk_bits=None,
-                log_anchors: bool = False) -> ScanOut:
+                log_anchors: bool = False, pad_info=None) -> ScanOut:
     """Plain PyTorch scan: a Python loop over byte columns, each symbol
     step as vector ops over lanes (the JAX scan body), every mode.
 
@@ -569,6 +691,11 @@ def _scan_plain(xs, seg_n_blocks, tables: FsmTables, k: int,
     bitpos, end_bits, end_bim = sbits, zero, bim
     rec = rec_pend = torch.full((L,), -1, dtype=i64, device=dev)
     done = seg_n == 0
+    # bucket-raster output counters (pad_info): blocks done in the current
+    # padded MCU row, and the output position of the block being decoded
+    ocol = oblk = zero
+    if pad_info is not None:
+        wrap_at, skip = (t.to(i64) for t in pad_info)
     err_mal = torch.zeros(L, dtype=torch.bool, device=dev)
     err_env = torch.zeros(L, dtype=torch.bool, device=dev)
 
@@ -638,8 +765,9 @@ def _scan_plain(xs, seg_n_blocks, tables: FsmTables, k: int,
             emit = complete & (size > 0) & ~bad_z
             if not log_anchors:
                 err_mal = err_mal | bad_code | (complete & (size > 0) & bad_z)
+            eblk = blk if pad_info is None else oblk
             events[col, s] = torch.where(
-                emit, (blk << 18) | (z << 12) | (val + 2048), -1
+                emit, (eblk << 18) | (z << 12) | (val + 2048), -1
             ).to(torch.int32)
             k2 = torch.where(
                 complete,
@@ -657,6 +785,14 @@ def _scan_plain(xs, seg_n_blocks, tables: FsmTables, k: int,
             navail = navail - consumed
             block_end = (complete & (k2 >= 64)) | eob_fire
             blk = blk + block_end.to(i64)
+            if pad_info is not None:
+                # after wrap_at blocks of a row, jump the bucket's column
+                # padding; oblk stays strictly increasing
+                ocol = ocol + block_end.to(i64)
+                wrapped = ocol >= wrap_at
+                oblk = oblk + torch.where(
+                    block_end, torch.where(wrapped, skip + 1, 1), 0)
+                ocol = torch.where(wrapped, 0, ocol)
             bim = torch.where(
                 block_end, torch.where(bim + 1 == bpm, 0, bim + 1), bim
             )
@@ -721,8 +857,38 @@ def _scan_plain(xs, seg_n_blocks, tables: FsmTables, k: int,
 # ---------------------------------------------------------------------------
 
 
+def materialize_events(ev: torch.Tensor, M: int, route: str = "scatter",
+                       err_mal: torch.Tensor | None = None) -> torch.Tensor:
+    """Packed events [N, L] -> dense int16 [M, L] by the classic contract,
+    through one of three routes (the JAX package's _materialize_events
+    dispatch, with the route an argument and not an environment switch):
+
+      "scatter"  one kernel, `materialize.place_events` (the default);
+      "ranked"   column cumsum, `compact_offsets`, `spread_full` (the JAX
+                 package with TPUJPEG_RANK_KERNEL=0);
+      "full"     `compact_full`, `spread_full` (TPUJPEG_PALLAS=1).
+
+    All three give the same tensor and latch `err_mal` (bool [L], in
+    place) for an event whose target is outside [0, M).  "ranked" and
+    "full" carry int16 offsets, so shapes outside `materialize.route_gate`
+    take the scatter, as the JAX dispatch leaves its kernels for another
+    implementation there."""
+    from . import materialize
+
+    N = ev.shape[0]
+    if not materialize.route_gate(route, N, M):
+        route = "scatter"
+    if route == "ranked":
+        p, o = materialize.compact_to_rank(ev, rank_kernel=False)
+        return materialize.spread_full(p, M, o=o, err_mal=err_mal)
+    if route == "full":
+        return materialize.place_events_full(ev, M, err_mal)
+    return materialize.place_events(ev, M, err_mal)
+
+
 def materialize_checked(ev: torch.Tensor, M: int, err_mal: torch.Tensor,
-                        slots: bool | int | None = False):
+                        slots: bool | int | None = False,
+                        route: str = "scatter"):
     """Materialize events [N, L] -> dense int16 [M, L], checked.
 
     slots: False = the classic scatter (place_events); None / True = the
@@ -732,7 +898,10 @@ def materialize_checked(ev: torch.Tensor, M: int, err_mal: torch.Tensor,
     bool [L]): err_slot marks slot-overflow lanes (their dense rows are
     undefined; callers re-decode the chunk with slots=False), all-False
     on the classic route.  The classic route latches err_mal for an event
-    whose target is outside [0, M).  Under TPUJPEG_SELFCHECK=1 a per-lane
+    whose target is outside [0, M).  route: how the classic route places
+    the events (`materialize_events`); on the slot route "ranked" swaps
+    the compact stage, which both families share, and "full" changes
+    nothing.  Under TPUJPEG_SELFCHECK=1 a per-lane
     checksum sum(val * (target + 1)) of the event stream is compared with
     sum(value * (row + 1)) of the dense tensor, in int32 wraparound, and a
     mismatch latches err_mal outside the overflow lanes.
@@ -747,10 +916,12 @@ def materialize_checked(ev: torch.Tensor, M: int, err_mal: torch.Tensor,
         if not materialize.slot_gate(N, M, C):
             C = None
     if C is None:
-        coeffs_t = materialize.place_events(ev, M, err_mal)
+        coeffs_t = materialize_events(ev, M, route, err_mal)
         err_slot = torch.zeros(L, dtype=torch.bool, device=ev.device)
     else:
-        coeffs_t, err_slot = materialize.place_events_slots(ev, M, C)
+        materialize.route_gate(route, N, M)   # raises on an unknown route
+        coeffs_t, err_slot = materialize.place_events_slots(
+            ev, M, C, rank_kernel=route != "ranked")
     if os.environ.get("TPUJPEG_SELFCHECK", "auto") == "1":
         valid = ev >= 0
         e = ev.to(torch.int64)
@@ -1157,15 +1328,17 @@ def _spec_sync_merge(ev1, anchors, ablk, recm, ev2, end2, b1, blk2, quotas):
 
 def _spec_sync_assemble(ev1, anchors, ablk, recm, ev2, end2, b1, blk2,
                         quotas, tables: FsmTables, pad_to: int, nb: int,
-                        n_imgs: int, cap_w: int, slots=None):
-    """The spec tail: merge (`_spec_sync_merge`), materialize, gather
-    into per-image rows, resolve DC.  Returns (coeffs int16 [pad_to, nb,
+                        n_imgs: int, cap_w: int, slots=None,
+                        route: str = "scatter"):
+    """The spec tail: merge (`_spec_sync_merge`), materialize (slots and
+    route as in `materialize_checked`), gather into per-image rows,
+    resolve DC.  Returns (coeffs int16 [pad_to, nb,
     64] raw DC, dc int32 [pad_to, nb], err [L], err_slot [L])."""
     L = ev1.shape[1]
     ev, err = _spec_sync_merge(ev1, anchors, ablk, recm, ev2, end2, b1,
                                blk2, quotas)
     coeffs_t, err, err_slot = materialize_checked(ev, cap_w * 64, err,
-                                                  slots=slots)
+                                                  slots=slots, route=route)
     per_lane = coeffs_t.T.reshape(L, cap_w, 64)
     coeffs, dc = _spec_gather16(per_lane, quotas, tables, pad_to, nb, n_imgs)
     return coeffs, dc, err, err_slot
@@ -1292,14 +1465,14 @@ def decode_speculative_batch(imgs: list[JpegImage], chunk_bytes: int = 2048,
                              plan: SpecBatchPlan | None = None, xs_dev=None,
                              steps=STEPS_PRODUCTION,
                              pending: SpecPending | None = None,
-                             device=None):
+                             device=None, route: str = "scatter"):
     """Jacobi speculative batch decode of a uniform-geometry chunk.
 
     Returns (coeffs int32 [pad_to or B, nb, 64] DC resolved, (err_mal,
     err_env) [L]) on the device: one host read (block counts and flags)
     after convergence, then the write pass (scan from the converged
-    states with per-lane quotas, classic materialize) and the on-device
-    gather.  Raises SpecEnvelopeError when the count pass latched
+    states with per-lane quotas, classic materialize by `route`) and the
+    on-device gather.  Raises SpecEnvelopeError when the count pass latched
     envelope lanes under `steps`, JpegError on malformed streams or
     non-convergence.  Only device_out=True is ported (ROADMAP)."""
     if not device_out:
@@ -1342,7 +1515,8 @@ def decode_speculative_batch(imgs: list[JpegImage], chunk_bytes: int = 2048,
     out = fsm_scan_spec(xs, quotas_dev, plan.tables, steps, start_bits=sb,
                         start_bim=sm)
     coeffs_t, err_mal, _ = materialize_checked(
-        out.events.reshape(-1, L), cap_w * 64, out.err_mal, slots=False
+        out.events.reshape(-1, L), cap_w * 64, out.err_mal, slots=False,
+        route=route,
     )
     per_lane = coeffs_t.T.reshape(L, cap_w, 64)
     coeffs = _spec_gather(per_lane, quotas_dev, plan.tables,

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from tpujpeg.constants import C1, C2, C3, C5, C6, C7
+from ..constants import C1, C2, C3, C5, C6, C7
 
 _2_31 = 1 << 31
 _MASK32 = (1 << 32) - 1

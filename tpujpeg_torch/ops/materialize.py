@@ -1,4 +1,5 @@
-"""Events -> dense coefficients: the classic scatter and the slot route.
+"""Events -> dense coefficients: the classic scatter, its two other
+routes, and the slot route.
 
 Contract of tpujpeg/ops/materialize.py::place_events_v3 and of
 fsm._materialize_events: packed events int32 [N, L]
@@ -35,6 +36,24 @@ butterflies and VMEM windows of the TPU version are not contracts; on
 Hopper the expand is a scatter from slot coordinates.  Overflow lanes
 leave their dense rows undefined; callers re-decode with the classic
 route.
+
+Two more routes of the classic contract (kernels "compact_offsets",
+"compact_full" and "spread_full", csrc/routes.cu), selected by the
+`route` argument of ops/fsm.materialize_events:
+
+  "ranked"   the JAX package's _compact_to_rank with the rank kernel off
+             (TPUJPEG_RANK_KERNEL=0): offsets pos - rank from a column
+             cumsum (`compact_to_rank(ev, rank_kernel=False)`, cut 'init'),
+             then `compact_offsets` moves every event up by its offset
+             (cut 'compact'), then `spread_full` places the rank rows;
+  "full"     the JAX package's place_events_pallas (TPUJPEG_PALLAS=1):
+             `compact_full` (ranks inside the kernel, payload only) then
+             `spread_full` (`place_events_full`).
+
+`compact_full` marks its empty rows with -1, not with the 0 of the JAX
+kernel, whose spread then takes `cp > 0` for validity and drops the event
+that packs to 0.  Offsets are int16 on both routes, so they take event and
+dense heights below 32768 only (`route_gate`).
 
 Every wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (`*_plain`) for CPU tensors.
@@ -168,14 +187,43 @@ def compact_to_rank_plain(ev: torch.Tensor):
     return p, o
 
 
-def compact_to_rank(ev: torch.Tensor):
+def compact_to_rank(ev: torch.Tensor, rank_kernel: bool = True,
+                    stop_after: str | None = None):
     """events int32 [N, L] -> (p int32, o int16) [N, L].
 
     The valid events (>= 0) of each lane, in row order, at rows 0..n-1
     (their rank) with o == 0; p == 0 and o == -1 on the rows after.
     Contract of the JAX package's _compact_to_rank (stop_after="compact"
     of place_events_slots), without its padding of N to the TPU window.
-    CUDA tensors run kernel "compact"; CPU tensors the plain version."""
+
+    rank_kernel=True: kernel "compact" derives the ranks itself (the JAX
+    package's rank-in-kernel default).  rank_kernel=False: the ranks come
+    from a column cumsum outside, as with TPUJPEG_RANK_KERNEL=0:
+    stop_after="init" returns (p, o) with o = row - rank on valid rows
+    (-1 elsewhere) and p the event (0 elsewhere); kernel
+    "compact_offsets" then moves every event up by its offset
+    (stop_after="compact" or None).  CPU tensors run the plain versions.
+    """
+    if stop_after not in (None, "init", "compact"):
+        raise ValueError(f"compact_to_rank: stop_after={stop_after!r}")
+    if not rank_kernel:
+        N = ev.shape[0]
+        if N > INT16_SPAN:
+            raise ValueError(
+                f"compact_to_rank: {N} rows exceed the int16 offsets")
+        valid = ev >= 0
+        vi = valid.to(torch.int32)
+        rank = torch.cumsum(vi, dim=0, dtype=torch.int32) - vi
+        pos = torch.arange(N, dtype=torch.int32, device=ev.device)[:, None]
+        o = torch.where(valid, pos - rank, -1).to(torch.int16)
+        p = torch.where(valid, ev, 0)
+        if stop_after == "init":
+            return p, o
+        return compact_offsets(p, o)
+    if stop_after == "init":
+        raise ValueError(
+            "compact_to_rank: the 'init' cut exists with rank_kernel=False "
+            "only (the rank kernel has no offsets outside it)")
     if not ev.is_cuda:
         return compact_to_rank_plain(ev)
     from ..runtime import kernels
@@ -187,6 +235,160 @@ def compact_to_rank(ev: torch.Tensor):
     kernels.launch("compact", ev.data_ptr(), p.data_ptr(), o.data_ptr(),
                    N, L, kernels.current_stream(ev.device))
     return p, o
+
+
+def compact_offsets_plain(p: torch.Tensor, o: torch.Tensor):
+    """Plain PyTorch version of `compact_offsets` (same contract)."""
+    Np, L = p.shape
+    row = torch.arange(Np, dtype=torch.int64, device=p.device)[:, None]
+    dst = row - o.to(torch.int64)
+    valid = (o >= 0) & (dst >= 0)
+    lane = torch.arange(L, device=p.device).expand(Np, L)
+    p_out = torch.zeros_like(p)
+    o_out = torch.full_like(o, -1)
+    p_out[dst[valid], lane[valid]] = p[valid]
+    o_out[dst[valid], lane[valid]] = 0
+    return p_out, o_out
+
+
+def compact_offsets(p: torch.Tensor, o: torch.Tensor):
+    """(p int32, o int16) [Np, L] -> (p, o) [Np, L], compacted.
+
+    A valid row holds o = row - rank >= 0, its distance to its rank row;
+    the output has each valid event at row - o with o == 0 there, and
+    p == 0, o == -1 elsewhere: exactly `compact_to_rank`'s output.
+    Contract of the JAX package's _fine_compact_kernel with the coarse
+    stages after it (materialize._compact_to_rank with the rank kernel
+    off).  CUDA tensors run kernel "compact_offsets" (one thread per
+    element, a scatter by offset); CPU tensors the plain version."""
+    if not p.is_cuda:
+        return compact_offsets_plain(p, o)
+    from ..runtime import kernels
+
+    kernels.check_cuda_tensor("p", p, torch.int32, 2)
+    kernels.check_cuda_tensor("o", o, torch.int16, 2)
+    if p.shape != o.shape:
+        raise ValueError("compact_offsets: p and o must have one shape")
+    Np, L = p.shape
+    if Np > INT16_SPAN:
+        raise ValueError(
+            f"compact_offsets: {Np} rows exceed the int16 offsets")
+    p_out = torch.empty_like(p)
+    o_out = torch.empty_like(o)
+    kernels.launch("compact_offsets", p.data_ptr(), o.data_ptr(),
+                   p_out.data_ptr(), o_out.data_ptr(), Np, L,
+                   kernels.current_stream(p.device))
+    return p_out, o_out
+
+
+def compact_full_plain(ev: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `compact_full` (same contract)."""
+    N, L = ev.shape
+    valid = ev >= 0
+    rank = torch.cumsum(valid.to(torch.int64), dim=0) - 1
+    lane = torch.arange(L, device=ev.device).expand(N, L)
+    cp = torch.full_like(ev, -1)
+    cp[rank[valid], lane[valid]] = ev[valid]
+    return cp
+
+
+def compact_full(ev: torch.Tensor) -> torch.Tensor:
+    """events int32 [N, L] -> compacted payload int32 [N, L].
+
+    The valid events (>= 0) of each lane, in row order, at rows 0..n-1;
+    -1 on the rows after.  Contract of the JAX package's _compact_kernel
+    (place_events_pallas), which writes 0 in the empty rows: here
+    validity stays a sign, so the event that packs to 0 survives.  CUDA
+    tensors run kernel "compact_full"; CPU tensors the plain version."""
+    if not ev.is_cuda:
+        return compact_full_plain(ev)
+    from ..runtime import kernels
+
+    kernels.check_cuda_tensor("ev", ev, torch.int32, 2)
+    N, L = ev.shape
+    cp = torch.empty_like(ev)
+    kernels.launch("compact_full", ev.data_ptr(), cp.data_ptr(), N, L,
+                   kernels.current_stream(ev.device))
+    return cp
+
+
+def spread_full_plain(cp: torch.Tensor, M: int,
+                      o: torch.Tensor | None = None,
+                      err_mal: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of `spread_full` (same contract)."""
+    N, L = cp.shape
+    e = cp.to(torch.int64)
+    valid = (e >= 0) if o is None else (o >= 0)
+    target = ((e >> 18) & 0x1FFF) * 64 + ((e >> 12) & 63)
+    inside = valid & (target < M)
+    if err_mal is not None:
+        err_mal |= (valid & ~inside).any(dim=0)
+    lane = torch.arange(L, device=cp.device).expand(N, L)
+    out = torch.zeros((M, L), dtype=torch.int16, device=cp.device)
+    out[target[inside], lane[inside]] = ((e & 0xFFF) - 2048)[inside] \
+        .to(torch.int16)
+    return out
+
+
+def spread_full(cp: torch.Tensor, M: int, o: torch.Tensor | None = None,
+                err_mal: torch.Tensor | None = None) -> torch.Tensor:
+    """compacted events int32 [N, L] -> dense int16 [M, L].
+
+    Every valid row is unpacked (blk = (cp >> 18) & 0x1FFF, z = (cp >> 12)
+    & 63, val = (cp & 0xFFF) - 2048) and stored at row 64 * blk + z of its
+    lane; every other dense row is 0.  A row is valid when cp >= 0, or,
+    when the caller passes the offsets `o` of `compact_to_rank`, when
+    o >= 0 (its p is 0 on empty rows); never when cp > 0.  A valid event
+    whose target is >= M is not stored; when `err_mal` (bool [L]) is
+    given, its lane is latched in place.  M may be above or below N.
+    Contract of the JAX package's _spread_kernel.  CUDA tensors run kernel
+    "spread_full" (one thread per element, a scatter); CPU tensors the
+    plain version."""
+    if not cp.is_cuda:
+        return spread_full_plain(cp, M, o, err_mal)
+    from ..runtime import kernels
+
+    kernels.check_cuda_tensor("cp", cp, torch.int32, 2)
+    N, L = cp.shape
+    if N > 65535:
+        raise ValueError(f"spread_full: {N} rows exceed the launch grid")
+    if o is not None:
+        kernels.check_cuda_tensor("o", o, torch.int16, 2)
+        if o.shape != cp.shape:
+            raise ValueError("spread_full: o must have cp's shape")
+    if err_mal is not None:
+        kernels.check_cuda_tensor("err_mal", err_mal, torch.bool, 1)
+        if err_mal.shape[0] != L:
+            raise ValueError("spread_full: err_mal must be [L]")
+    out = torch.empty((M, L), dtype=torch.int16, device=cp.device)
+    kernels.launch(
+        "spread_full", cp.data_ptr(),
+        None if o is None else o.data_ptr(), out.data_ptr(),
+        None if err_mal is None else err_mal.data_ptr(),
+        N, M, L, kernels.current_stream(cp.device),
+    )
+    return out
+
+
+def place_events_full(ev: torch.Tensor, M: int,
+                      err_mal: torch.Tensor | None = None) -> torch.Tensor:
+    """events int32 [N, L] -> values int16 [M, L] through `compact_full`
+    then `spread_full`: the contract of the JAX package's
+    place_events_pallas, equal to `place_events` on every input."""
+    return spread_full(compact_full(ev), M, err_mal=err_mal)
+
+
+ROUTES = ("scatter", "ranked", "full")
+
+
+def route_gate(route: str, N: int, M: int) -> bool:
+    """Whether `route` takes events [N, L] -> dense [M, L]: "scatter"
+    always; "ranked" and "full" carry int16 offsets in their contracts
+    (rank rows below N, spread rows below max(N, M)), so both heights must
+    stay below 32768, the gate of the JAX package's kernels."""
+    if route not in ROUTES:
+        raise ValueError(f"unknown materialize route {route!r}")
+    return route == "scatter" or (N < INT16_SPAN and M < INT16_SPAN)
 
 
 def slot_unpack_plain(p: torch.Tensor, o: torch.Tensor, C: int, G: int):
@@ -286,17 +488,21 @@ def slot_expand(o2: torch.Tensor, p: torch.Tensor, M: int, C: int,
 
 
 def place_events_slots(ev: torch.Tensor, M: int, C: int | None = None,
-                       G: int | None = None, stop_after: str | None = None):
+                       G: int | None = None, stop_after: str | None = None,
+                       rank_kernel: bool = True):
     """events int32 [N, L] -> (dense int16 [M, L], overflow bool [L])
     through the slot route: compact, unpack, expand.
 
     Dense rows equal `place_events` on every lane whose overflow flag is
     clear.  stop_after="compact" returns (p, o); "unpack" returns
     (o2, p, overflow): the cuts of the JAX package's place_events_slots.
+    rank_kernel=False takes the compact stage through the cumsum and
+    `compact_offsets` (`compact_to_rank`), the stage both materialize
+    families share.
     """
     C = SLOT_C if C is None else C
     G = SLOT_G if G is None else G
-    p, o = compact_to_rank(ev)
+    p, o = compact_to_rank(ev, rank_kernel=rank_kernel)
     if stop_after == "compact":
         return p, o
     o2, overflow = slot_unpack(p, o, C, G)

@@ -6,8 +6,12 @@ function here takes a leading batch dimension B.
 
   * `device_decode_fn(geom, coeffs, quant, dc)`: [B, n_blocks, 64] zigzag
     coefficients -> (rgb uint8 [B, 3, H, W], riskbits uint8 [B, H, W/8]);
-  * `decode(img, device)`: host entropy (the native C++ decoder, shared
-    with the JAX package) + the pixel stage + strict repair.
+  * `decode(img, device)`: host entropy (the native C++ decoder of
+    runtime/native) + the pixel stage + strict repair.
+
+  * `bucket_geometry(geom)`: the size-class bucket of a geometry, with
+    `pad_coeffs_to_bucket` / `unpad_coeffs_from_bucket` for the host side
+    of mixed-size chunks.
 
 Only three full-resolution components are ported.  Any other geometry
 raises NotImplementedError naming the ROADMAP item that ports it.
@@ -15,12 +19,14 @@ raises NotImplementedError naming the ROADMAP item that ports it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from tpujpeg.constants import ZIGZAG_TO_NATURAL
-from tpujpeg.io.parser import JpegImage
-from tpujpeg.oracle import decoder as oracle
+from .constants import ZIGZAG_TO_NATURAL
+from .io.parser import JpegImage
+from .oracle import decoder as oracle
 
 from .ops.color import pack_mask, unpack_mask
 from .ops.pixels import KMAJOR_OF_NATURAL, TILE, rgb_soa_fused, unpack_pixels
@@ -67,6 +73,63 @@ class Geometry(tuple):
     @property
     def n_blocks(self) -> int:
         return self.n_mcus * self.blocks_per_mcu
+
+
+# ---------------------------------------------------------------------------
+# Size-class buckets (mixed-size chunks)
+# ---------------------------------------------------------------------------
+#
+# A chunk is one set of tensors of one shape, so images of different sizes
+# share a chunk by snapping each MCU grid UP to a geometric ladder of
+# bucket sizes: coefficients sit in the bucket's MCU raster, zero padded;
+# the pixel stage runs at the bucket's size, and the host crops each image
+# back to its true height and width.  4:4:4 pixels are pointwise in the
+# block domain, so the true extents never reach the pixel stage.
+
+
+@functools.lru_cache(maxsize=None)
+def bucket_up(n: int) -> int:
+    """Smallest ladder value >= n (geometric ladder, base 4, ratio 1.3)."""
+    b = 4
+    while b < n:
+        b = -(-b * 13 // 10)  # ceil(b * 1.3), exact in ints
+    return b
+
+
+def bucket_geometry(geom: Geometry) -> Geometry:
+    """Snap a geometry's MCU grid up to its size-class bucket.
+
+    Width and height are the bucket's full padded raster; callers crop
+    fetched pixels to each image's true (height, width)."""
+    bx = bucket_up(geom.mcus_x)
+    by = bucket_up(geom.mcus_y)
+    return Geometry(
+        (bx * 8 * geom.max_h, by * 8 * geom.max_v, bx, by, geom.comps)
+    )
+
+
+def pad_coeffs_to_bucket(geom: Geometry, bucket: Geometry,
+                         coeffs: np.ndarray, out: np.ndarray) -> None:
+    """Scatter real-layout coefficients into a bucket-layout row (host).
+
+    Block order is MCU-raster, so each real MCU row lands at the same row
+    of the bucket grid, followed by zero padding MCUs.  `out` must be a
+    zeroed [bucket.n_blocks, 64] view."""
+    bpm = geom.blocks_per_mcu
+    view = out.reshape(bucket.mcus_y, bucket.mcus_x, bpm, 64)
+    view[: geom.mcus_y, : geom.mcus_x] = coeffs.reshape(
+        geom.mcus_y, geom.mcus_x, bpm, 64
+    )
+
+
+def unpad_coeffs_from_bucket(geom: Geometry, bucket: Geometry,
+                             out: np.ndarray) -> np.ndarray:
+    """Real-layout [n_blocks, 64] copy of a bucket-layout row (host)."""
+    bpm = geom.blocks_per_mcu
+    view = out.reshape(bucket.mcus_y, bucket.mcus_x, bpm, 64)
+    return np.ascontiguousarray(
+        view[: geom.mcus_y, : geom.mcus_x]
+    ).reshape(geom.n_blocks, 64)
 
 
 def check_supported(geom: Geometry) -> None:
@@ -147,7 +210,7 @@ def device_decode_fn(geom: Geometry, coeffs: torch.Tensor,
 
 def build_plan(img: JpegImage) -> tuple[Geometry, np.ndarray, np.ndarray]:
     """Host side: entropy-decode the scan and pack device inputs."""
-    from tpujpeg.runtime.host import entropy_decode
+    from .runtime.host import entropy_decode
 
     coeffs = entropy_decode(img)
     quant = np.stack(

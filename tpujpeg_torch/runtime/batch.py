@@ -2,10 +2,12 @@
 
 Counterpart of tpujpeg/runtime/batch.py:
 
-  1. parse (host, shared tpujpeg.io parser);
+  1. parse (host, io/parser.py);
   2. chunking by geometry, stride-sorted (similar segment lengths share a
      chunk, so the scan's column count follows the longest segment of a
-     tighter group);
+     tighter group).  With size_buckets=True chunks group by size-class
+     bucket and restart row count k instead (`_chunk_key`), so images of
+     different sizes share a chunk;
   3. per chunk, backend 'fsm': when the chunk packs into lanes
      (fsm.build_plan: one lane per restart segment, and one lane per
      image for a stream without restart markers of at most 8191
@@ -31,9 +33,21 @@ Counterpart of tpujpeg/runtime/batch.py:
      Strict mode recomputes risk-flagged pixels with the oracle's exact
      math.
 
-Not ported yet (ROADMAP): size buckets (queue 1 item 11), subsampled and
-grayscale streams (12), several devices (13), the prep-pool overlap of
-plan building with device work.
+A bucketed chunk (size_buckets=True) whose images carry row-aligned
+restart intervals runs runtime.fused.decode_chunk_bucketed (backend
+'fsm-bucketed': bucket-raster scan, materialize, static assemble, pixels
+at the bucket's size); every other bucketed chunk takes the host-bucketed
+route ('host-bucketed': host entropy, coefficients padded into the
+bucket's MCU raster).  Both go through the same ladder in `_finish`,
+which crops each image to its true height and width.
+
+materialize_route names how the classic materialize places events
+(ops/fsm.materialize_events): "scatter" (default), "ranked" (the JAX
+package's TPUJPEG_RANK_KERNEL=0) or "full" (TPUJPEG_PALLAS=1).
+
+Not ported yet (ROADMAP): subsampled and grayscale streams (queue 1
+item 12), several devices (13), the prep-pool overlap of plan building
+with device work.
 """
 
 from __future__ import annotations
@@ -45,11 +59,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from tpujpeg.errors import JpegError
-from tpujpeg.io.parser import JpegImage, parse
-
+from ..errors import JpegError
+from ..io.parser import JpegImage, parse
 from ..ops.color import unpack_mask
-from ..pipeline import Geometry, _repair, check_supported, device_decode_fn
+from ..pipeline import (Geometry, _repair, bucket_geometry, check_supported,
+                        device_decode_fn, pad_coeffs_to_bucket,
+                        unpad_coeffs_from_bucket)
 
 
 @dataclass
@@ -86,8 +101,8 @@ class _Chunk:
     coeffs_dev: object = None          # device coeffs (fsm routes)
     dc_dev: object = None              # resolved DC [B, n_blocks] (None:
     #                                    coeffs_dev holds it, Jacobi route)
-    plan: object = None                # FsmPlan, kept for the retries
-    uploaded: object = None            # plan's (xs, seg_n) on the device
+    plan: object = None                # FsmPlan / FsmBucketPlan (retries)
+    uploaded: object = None            # plan's arrays on the device
     spec_plan: object = None           # fsm.SpecBatchPlan of the sync path
     spec_xs: object = None             # its scan bytes on the device
     steps: object = None               # FSM steps spec of the last decode
@@ -100,6 +115,8 @@ class _Chunk:
     out: object = None                 # device (rgb, riskbits)
     backend: str = ""
     failed: dict | None = None         # local index -> message (skip mode)
+    bucketed: bool = False             # geom is a size-class bucket: crop
+    #                                    each output to its image's size
 
 
 def _stride_key(img: JpegImage) -> int:
@@ -132,10 +149,24 @@ class BatchDecoder:
     """Reusable batched decoder on one explicit device."""
 
     def __init__(self, backend: str = "fsm", chunk_size: int = 32,
-                 strict: bool = True, device="cuda"):
+                 strict: bool = True, device="cuda",
+                 size_buckets: bool = False,
+                 materialize_route: str = "scatter"):
+        """size_buckets=True decodes corpora of mixed sizes: images group
+        by size-class bucket (pipeline.bucket_geometry) instead of exact
+        geometry, every chunk has the bucket's shapes, and outputs are
+        cropped to each image's true size on the host.  materialize_route
+        is the classic materialize's route (module docstring)."""
+        from ..ops import materialize
+
         if backend not in ("fsm", "host"):
             raise ValueError(f"unknown backend {backend!r}")
+        if materialize_route not in materialize.ROUTES:
+            raise ValueError(
+                f"unknown materialize_route {materialize_route!r}")
         self.backend = backend
+        self.size_buckets = size_buckets
+        self.route = materialize_route
         self.chunk_size = chunk_size
         self.strict = strict
         self.device = torch.device(device)
@@ -150,16 +181,33 @@ class BatchDecoder:
 
     # -- chunking -----------------------------------------------------------
 
+    def _chunk_key(self, img: JpegImage) -> tuple:
+        """Chunk grouping key; element [0] is the chunk's Geometry.
+
+        size_buckets groups by size-class bucket; on the fsm backend the
+        key also carries the restart row count k (or None), so each chunk
+        is uniform for the bucket-raster lane plan."""
+        geom = Geometry.of(img)
+        if not self.size_buckets:
+            return (geom,)
+        bucket = bucket_geometry(geom)
+        if self.backend == "fsm":
+            from ..ops.fsm import bucket_lane_k
+
+            return (bucket, bucket_lane_k(img))
+        return (bucket,)
+
     def _make_chunks(self, imgs: list[JpegImage]) -> list[_Chunk]:
-        buckets: dict[Geometry, list[int]] = {}
+        buckets: dict[tuple, list[int]] = {}
         for i, img in enumerate(imgs):
-            buckets.setdefault(Geometry.of(img), []).append(i)
+            buckets.setdefault(self._chunk_key(img), []).append(i)
         chunks = []
-        for geom, idxs in buckets.items():
+        for (geom, *_), idxs in buckets.items():
             idxs = sorted(idxs, key=lambda i: _stride_key(imgs[i]))
             for j in range(0, len(idxs), self.chunk_size):
                 part = idxs[j : j + self.chunk_size]
-                chunks.append(_Chunk(geom, part, [imgs[i] for i in part]))
+                chunks.append(_Chunk(geom, part, [imgs[i] for i in part],
+                                     bucketed=self.size_buckets))
         return chunks
 
     def _quant_block(self, chunk: _Chunk, B: int) -> torch.Tensor:
@@ -176,8 +224,13 @@ class BatchDecoder:
         """Native host entropy -> coefficient upload -> pixel stage.
 
         isolate=True decodes failing images one by one: a bad one yields
-        zero coefficients and lands in chunk.failed instead of raising."""
-        from tpujpeg.runtime import host
+        zero coefficients and lands in chunk.failed instead of raising.
+
+        A bucketed chunk (the host-bucketed route) decodes each image into
+        its real MCU layout and pads it into the bucket's MCU raster on
+        the host (pipeline.pad_coeffs_to_bucket); the pixel stage runs at
+        the bucket's size and `_finish` crops."""
+        from . import host
 
         geom = chunk.geom
         check_supported(geom)
@@ -197,6 +250,9 @@ class BatchDecoder:
                 if chunk.failed is None:
                     chunk.failed = {}
                 chunk.failed[bi] = str(res)
+            elif chunk.bucketed:
+                pad_coeffs_to_bucket(Geometry.of(chunk.imgs[bi]), geom, res,
+                                     coeffs[bi])
             else:
                 coeffs[bi] = res
         chunk.out = device_decode_fn(
@@ -206,7 +262,7 @@ class BatchDecoder:
         chunk.coeffs = coeffs
         chunk.coeffs_dev = chunk.dc_dev = None
         chunk.err_mal = chunk.err_env = chunk.err_slot = None
-        chunk.backend = "host"
+        chunk.backend = "host-bucketed" if chunk.bucketed else "host"
 
     def _slot_capacity(self, chunk: _Chunk):
         """The materialize route for a speculative chunk: False (classic)
@@ -225,7 +281,7 @@ class BatchDecoder:
         if chunk.slots_off:
             return False
         if self._slot_c is None:
-            from tpujpeg.runtime import host
+            from . import host
 
             self._slot_c = materialize.SLOT_C
             if host._load_native() is not None:
@@ -253,6 +309,8 @@ class BatchDecoder:
         from . import fused
 
         check_supported(chunk.geom)
+        if chunk.bucketed:
+            return self._process_chunk_fsm_bucketed(chunk, steps)
         if chunk.plan is None:
             try:
                 chunk.plan = fsm.build_plan(chunk.imgs)
@@ -268,7 +326,7 @@ class BatchDecoder:
             fused.decode_chunk_fused(
                 chunk.plan, self._quant_block(chunk, B), chunk.geom, B,
                 steps=chunk.steps, want_coeffs=self.strict,
-                uploaded=chunk.uploaded, slots=False,
+                uploaded=chunk.uploaded, slots=False, route=self.route,
             )
         )
         chunk.out = (rgb, risk)
@@ -278,6 +336,51 @@ class BatchDecoder:
         chunk.err_env = err_env
         chunk.err_slot = err_slot
         chunk.backend = "fsm"
+        return True
+
+    def _process_chunk_fsm_bucketed(self, chunk: _Chunk, steps=None) -> bool:
+        """Device decode of a size-class bucket chunk (mixed exact
+        geometries): scan bytes up, bucket-raster scan, materialize,
+        static assemble, pixels at the bucket's size
+        (fused.decode_chunk_bucketed).  Returns False when the chunk is
+        outside the bucket-FSM envelope (no or unaligned restarts, exotic
+        tables, a row capacity past the route's int16 gate), and the
+        caller takes the host-bucketed route.  A kernel that fails to
+        build or launch raises; it is never turned into a fallback."""
+        from ..ops import fsm, materialize
+        from . import fused
+
+        if chunk.plan is None:
+            try:
+                chunk.plan = fsm.build_plan_bucketed(chunk.imgs, chunk.geom)
+            except JpegError:
+                return False
+        plan = chunk.plan
+        if (self.route != "scatter"
+                and plan.max_blk * 64 > materialize.INT16_SPAN):
+            # the dense rows pass the int16 offsets of the "ranked" and
+            # "full" routes; the scatter has no such limit
+            return False
+        if chunk.uploaded is None:
+            chunk.uploaded = tuple(
+                torch.as_tensor(a).to(self.device)
+                for a in (plan.xs, plan.seg_n, plan.wrap_at, plan.skip))
+        chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
+        B = len(chunk.imgs)
+        rgb, risk, coeffs, dc, err_mal, err_env, err_slot = (
+            fused.decode_chunk_bucketed(
+                plan, self._quant_block(chunk, B), chunk.geom, B,
+                steps=chunk.steps, want_coeffs=self.strict,
+                uploaded=chunk.uploaded, slots=False, route=self.route,
+            )
+        )
+        chunk.out = (rgb, risk)
+        chunk.coeffs_dev = coeffs
+        chunk.dc_dev = dc
+        chunk.err_mal = err_mal
+        chunk.err_env = err_env
+        chunk.err_slot = err_slot
+        chunk.backend = "fsm-bucketed"
         return True
 
     def _process_chunk_spec(self, chunk: _Chunk, steps=None) -> bool:
@@ -317,7 +420,7 @@ class BatchDecoder:
                     fused.decode_spec_sync_fused(
                         pending, geom, quant, B, len(chunk.imgs),
                         want_coeffs=self.strict,
-                        slots=self._slot_capacity(chunk),
+                        slots=self._slot_capacity(chunk), route=self.route,
                     )
                 )
                 chunk.out = (rgb, risk)
@@ -338,7 +441,7 @@ class BatchDecoder:
                 chunk.spec_sync_misses += 1
             coeffs_dev, (err_mal, err_env) = fsm.decode_speculative_batch(
                 chunk.imgs, device_out=True, pad_to=B, steps=chunk.steps,
-                device=self.device,
+                device=self.device, route=self.route,
             )
         except fsm.SpecEnvelopeError:
             if not fsm.steps_below_safe(chunk.steps):
@@ -368,6 +471,11 @@ class BatchDecoder:
             return
         try:
             if not self._process_chunk_fsm(chunk):
+                if chunk.bucketed:
+                    # a mixed-size chunk the bucket FSM cannot take (no or
+                    # unaligned restarts): host-bucketed, not an error
+                    self._process_chunk_host(chunk, isolate=isolate)
+                    return
                 raise JpegError("fsm: chunk outside the FSM decode envelope")
         except JpegError:
             if not isolate:
@@ -468,12 +576,20 @@ class BatchDecoder:
                     continue
                 img = chunk.imgs[bi]
                 out = rgb_h[bi]
+                if chunk.bucketed:
+                    # bucket rasters carry padding: crop to the true image
+                    out = out[: img.height, : img.width]
                 if self.strict:
                     mask = unpack_mask(risk_h[bi], img.width)[: img.height]
                     if mask.any():
                         if coeffs_h is None:
                             coeffs_h = self._device_coeffs(chunk, n)
-                        _repair(img, coeffs_h[bi], out, mask)
+                        ci = coeffs_h[bi]
+                        if chunk.bucketed:
+                            # the repair indexes blocks in the real layout
+                            ci = unpad_coeffs_from_bucket(
+                                Geometry.of(img), chunk.geom, ci)
+                        _repair(img, ci, out, mask)
                         repaired += int(mask.sum())
                 results[i] = out.astype(np.uint8)
         self.stats.repaired_pixels = repaired

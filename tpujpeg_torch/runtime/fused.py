@@ -2,7 +2,9 @@
 pixels, on one device.
 
 Counterparts of tpujpeg/runtime/fused.py: compiled_fused_decoder for a
-single-group restart plan (`decode_chunk_fused`) and the sync-spec tail
+single-group restart plan (`decode_chunk_fused`), compiled_fused_bucketed
+for a size-class bucket chunk of mixed exact geometries
+(`decode_chunk_bucketed`) and the sync-spec tail
 (`decode_spec_sync_fused`).  PyTorch runs eagerly, so each chain is a
 plain function; the kernels launch on the current stream back to back
 and nothing returns to the host until the caller reads a result (the
@@ -17,6 +19,7 @@ spec tail's one resolve read aside).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import fsm
@@ -63,13 +66,15 @@ def _assemble_rows(per_lane: torch.Tensor, layout, pad_to: int) -> torch.Tensor:
 def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
                        pad_to: int, steps=fsm.STEPS_PRODUCTION,
                        want_coeffs: bool = True, uploaded=None,
-                       slots: bool | int | None = False):
+                       slots: bool | int | None = False,
+                       route: str = "scatter"):
     """Decode one restart plan on the device of `quant`.
 
     quant: int32 [pad_to, 3, 64] zigzag quant tables.  `uploaded` is the
     plan's (xs, seg_n_blocks) already on that device.  slots: the
     materialize route (fsm.materialize_checked): False, the default, is
     the classic scatter; a caller that asks for slots reads err_slot.
+    route: the classic materialize's route (fsm.materialize_events).
 
     Returns (rgb uint8 [pad_to, 3, H, W], riskbits uint8 [pad_to, H, W/8],
     coeffs int16 [pad_to, n_blocks, 64] with raw DC differences, dc int32
@@ -85,8 +90,8 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     n_cols, S, L = events.shape
     ev = events.reshape(n_cols * S, L)
     M = plan.max_blk * 64
-    coeffs_t, err_mal, err_slot = fsm.materialize_checked(ev, M, err_mal,
-                                                          slots=slots)
+    coeffs_t, err_mal, err_slot = fsm.materialize_checked(
+        ev, M, err_mal, slots=slots, route=route)
     per_lane = coeffs_t.T.reshape(L, plan.max_blk, 64)
     dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
     coeffs = _assemble_rows(per_lane, plan.layout, pad_to)   # [B, nb, 64]
@@ -97,10 +102,92 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     return rgb, risk, coeffs, dc, err_mal, err_env, err_slot
 
 
+def _pad_lanes(x: torch.Tensor, need: int) -> torch.Tensor:
+    """Zero lanes appended to [L, ...] up to `need` lanes."""
+    if need <= x.shape[0]:
+        return x
+    pad = torch.zeros((need - x.shape[0],) + x.shape[1:], dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad])
+
+
+def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
+                          bucket: Geometry, pad_to: int,
+                          steps=fsm.STEPS_PRODUCTION,
+                          want_coeffs: bool = True, uploaded=None,
+                          slots: bool | int | None = False,
+                          route: str = "scatter"):
+    """Decode one size-class bucket chunk of mixed exact geometries on the
+    device of `quant`: scan bytes -> bucket-raster rgb, risk and errors.
+
+    Per-image variation (true MCU extents, real lane quotas, raster
+    padding) rides as vectors: quotas/wrap_at/skip drive the scan's
+    bucket-raster emission (fsm.fsm_scan pad_info), so the per-lane rows
+    land in the bucket's padded layout and assembly is a static reshape.
+    `_dc_cumsum` carries each lane's predictor through the padding slots,
+    so DC is zeroed outside each image's true extent afterwards.
+
+    quant: int32 [pad_to, 3, 64]; `uploaded` is the plan's (xs, seg_n,
+    wrap_at, skip) already on that device; slots and route as in
+    `decode_chunk_fused`.
+
+    Returns (rgb uint8 [pad_to, 3, Hb, Wb], riskbits uint8 [pad_to, Hb,
+    Wb/8], coeffs int16 [pad_to, nb_b, 64] with raw DC differences, dc
+    int32 [pad_to, nb_b] resolved and masked, err_mal [L], err_env [L],
+    err_slot [L]) at the bucket's size; callers crop each image.  coeffs
+    and dc are None when want_coeffs is False.
+    """
+    dev = quant.device
+    if uploaded is None:
+        uploaded = tuple(
+            torch.as_tensor(a).to(dev)
+            for a in (plan.xs, plan.seg_n, plan.wrap_at, plan.skip))
+    xs, seg_n, wrap_at, skip = uploaded
+    bpm = bucket.blocks_per_mcu
+    wb_bpm = bucket.mcus_x * bpm
+    max_blk, k, lanes_per_img = plan.max_blk, plan.k, plan.lanes_per_img
+    if max_blk != k * wb_bpm:
+        raise ValueError("decode_chunk_bucketed: plan and bucket disagree")
+    nb_b = bucket.n_blocks
+    need = pad_to * lanes_per_img
+
+    events, err_mal, err_env = fsm.fsm_scan(xs, seg_n, plan.tables, steps,
+                                            pad_info=(wrap_at, skip))
+    n_cols, S, L = events.shape
+    ev = events.reshape(n_cols * S, L)
+    coeffs_t, err_mal, err_slot = fsm.materialize_checked(
+        ev, max_blk * 64, err_mal, slots=slots, route=route)
+    per_lane = coeffs_t.T.reshape(L, max_blk, 64)
+    dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, max_blk)
+    # static bucket-raster assembly: lane rows are padded MCU rows
+    rows = lanes_per_img * k
+    coeffs = _pad_lanes(per_lane, need)[:need] \
+        .reshape(pad_to, rows, wb_bpm, 64)[:, : bucket.mcus_y] \
+        .reshape(pad_to, nb_b, 64)
+    dc = _pad_lanes(dc_lane, need)[:need] \
+        .reshape(pad_to, rows, wb_bpm)[:, : bucket.mcus_y] \
+        .reshape(pad_to, nb_b)
+    # zero DC outside each image's true extent, so the pixel stage and any
+    # fetched coefficients see clean padding
+    ext = np.zeros((pad_to, 2), np.int32)
+    ext[: plan.n_imgs] = plan.extents
+    ext = torch.as_tensor(ext).to(dev)
+    mcu = torch.arange(nb_b, dtype=torch.int32, device=dev) // bpm
+    row = (mcu // bucket.mcus_x)[None, :]
+    col = (mcu % bucket.mcus_x)[None, :]
+    real = (row < ext[:, 0:1]) & (col < ext[:, 1:2])
+    dc = torch.where(real, dc, 0)
+    rgb, risk = device_decode_fn(bucket, coeffs, quant, dc=dc)
+    if not want_coeffs:
+        coeffs = dc = None
+    return rgb, risk, coeffs, dc, err_mal, err_env, err_slot
+
+
 def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
                            quant: torch.Tensor, pad_to: int, n_imgs: int,
                            want_coeffs: bool = True,
-                           slots: bool | int | None = False):
+                           slots: bool | int | None = False,
+                           route: str = "scatter"):
     """Finish a spec_sync_start chunk: the host resolve (one read), then
     merge -> materialize -> gather -> DC resolve -> pixels on the device.
 
@@ -114,7 +201,7 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
         pending.ev1, pending.anchors, pending.ablk, pending.recm,
         pending.ev2, pending.end2, pending.b1, pending.blk2,
         torch.as_tensor(quotas).to(quant.device), plan.tables, pad_to,
-        int(plan.img_blocks[0]), n_imgs, cap_w, slots=slots,
+        int(plan.img_blocks[0]), n_imgs, cap_w, slots=slots, route=route,
     )
     rgb, risk = device_decode_fn(geom, coeffs, quant, dc=dc)
     if not want_coeffs:

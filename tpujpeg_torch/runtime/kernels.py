@@ -51,9 +51,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # xs, seg_n, lut, meta(host), events, err_mal, err_env,
     # L, pitch, n_data, steps, mode, start_bits, start_bim, chunk_bits,
-    # anchors, ablk, recm, state, stream
+    # anchors, ablk, recm, state, wrap_at, skip, stream
     "tpj_fsm_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P, _P, _P, _P],
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # ev, out, err, N, M, L, stream
     "tpj_place_events": [_P, _P, _P, _I, _I, _I, _P],
     # ev, p, o, N, L, stream
@@ -62,6 +62,12 @@ _SIGNATURES = {
     "tpj_slot_unpack": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # o2, p, dense, Np, M, L, cshift, gshift, stream
     "tpj_slot_expand": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # p, o, p_out, o_out, Np, L, stream
+    "tpj_compact_offsets": [_P, _P, _P, _P, _I, _I, _P],
+    # ev, out, N, L, stream
+    "tpj_compact_full": [_P, _P, _I, _I, _P],
+    # cp, o, dense, err, N, M, L, stream
+    "tpj_spread_full": [_P, _P, _P, _P, _I, _I, _I, _P],
     # zp, quant, dc, rg, bk, B, P, consts(host), stream
     "tpj_pixels": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
@@ -73,6 +79,9 @@ KERNELS = {
     "compact": "tpj_compact",
     "slot_unpack": "tpj_slot_unpack",
     "slot_expand": "tpj_slot_expand",
+    "compact_offsets": "tpj_compact_offsets",
+    "compact_full": "tpj_compact_full",
+    "spread_full": "tpj_spread_full",
     "pixels": "tpj_pixels",
 }
 
