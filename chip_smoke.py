@@ -40,17 +40,41 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      per materialize route ("scatter", "ranked", "full"): backend
      "fsm-bucketed", no fallback, outputs as in phase 2, and each route
      launched its own kernels and no other route's;
+  6c. 4:2:0, with box and with fancy chroma upsampling (fancy=False,
+     True), 128 images each: the restart chunk (tests/fixtures/rst640_420,
+     5,120 lanes of 240 blocks, backend "fsm"), the chunk without restart
+     markers (tests/fixtures/photo640_420: the single-pass resolve misses
+     on these streams, as in the JAX engine, because some lanes do not
+     find the MCU phase again inside the stitch window, so the chunk is
+     decoded by the Jacobi path, backend "fsm-spec", still on the card),
+     and the mixed sizes (tests/fixtures/mixed_rst_420, four size-class
+     buckets, backend "fsm-bucketed", route "scatter").  Every output
+     equals the host reference decoder's with the same `fancy`, two per
+     chunk equal the oracle's, no host fallback, and the pixel kernel is
+     not launched: subsampled pixels take the plane path (torch ops).
+     Then the slot route at 6 blocks per MCU (the 4:2:0 restart chunk
+     through fused.decode_chunk_fused(slots=C) equals the classic
+     scatter, no overflow), and the five small streams of
+     tests/fixtures/sampling_small (4:2:2, 4:4:0, 4:1:1, grayscale with
+     and without restart markers) through backend "fsm" and "host";
+  6d. the probe tools: tools/bench_torch_gather.py and
+     tools/bench_torch_materialize.py run in this process, which drives
+     the six probe kernels (gather_rows, gather_table, chain,
+     compact_fine, compact_staged, spread_ranked);
   7. each kernel against its plain PyTorch version on the chunks' real
      inputs (torch.equal), with both times (CUDA events; kernels warm,
-     median of 5; a plain version that takes seconds is timed once), its
+     median of 5; a plain version that takes seconds is timed once, the
+     STEPS_SAFE and 4:2:0 plain scans on the first 1,024 lanes), its
      bound (the bytes it must move over 3.35 TB/s, or its operations over
      67 Top/s, whichever is larger) and, where one PyTorch call computes
      the same function, that call's time;
-  8. throughput: end to end for the three chunks, and the device chain of
-     each with the slot route, the classic scatter and, for the mixed
-     chunk, each materialize route.
+  8. throughput: end to end for the 4:4:4 chunks (restart, speculative,
+     mixed on "scatter") and the three 4:2:0 chunks with both `fancy`
+     values (two timed decodes each, after the phase's own decode), the
+     device chain of each, and the plane path's stage times (IDCT, block
+     -> raster, upsample, colour, pack).
 
-Each path of phases 2-6b runs with the launch counts set to 0 just before
+Each path of phases 2-6d runs with the launch counts set to 0 just before
 it and read just after, and fails if a kernel it must run was not
 launched.  The second-to-last line is a JSON object with one entry per
 kernel (launches summed over those paths, and per 128-image chunk of
@@ -72,6 +96,10 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 RST = os.path.join(FIXTURES, "rst640")
 PHOTO = os.path.join(FIXTURES, "photo640")
 MIXED = os.path.join(FIXTURES, "mixed_rst")
+RST420 = os.path.join(FIXTURES, "rst640_420")
+PHOTO420 = os.path.join(FIXTURES, "photo640_420")
+MIXED420 = os.path.join(FIXTURES, "mixed_rst_420")
+SMALL = os.path.join(FIXTURES, "sampling_small")
 GOLDEN = ["1_320x240", "2_400x400", "3_120x120", "5_200x200", "6_225x168",
           "8_401x363"]
 # denser than STEPS_SAFE symbols per byte: the scan latches the envelope
@@ -168,10 +196,10 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def read_streams(folder: str) -> list[bytes]:
+def read_streams(folder: str, count: int = 16) -> list[bytes]:
     names = sorted(f for f in os.listdir(folder) if f.endswith(".jpg"))
-    check(len(names) == 16, f"expected 16 streams in {folder}, found "
-          f"{len(names)}")
+    check(len(names) == count, f"expected {count} streams in {folder}, "
+          f"found {len(names)}")
     out = []
     for n in names:
         with open(os.path.join(folder, n), "rb") as f:
@@ -192,7 +220,9 @@ def main() -> int:
 
     from tpujpeg_torch.io.arrayio import read_array
     from tpujpeg_torch.io.parser import parse
-    from tpujpeg_torch.ops import fsm, materialize, pixels
+    from tpujpeg_torch import pipeline
+    from tpujpeg_torch.ops import fsm, materialize, pixels, probes
+    from tpujpeg_torch.ops.color import color_channels, pack_mask
     from tpujpeg_torch.oracle import decoder as oracle
     from tpujpeg_torch.pipeline import Geometry, bucket_geometry, soa_planes
     from tpujpeg_torch.runtime import fused, host, kernels
@@ -452,11 +482,175 @@ def main() -> int:
         mdecs[route] = mdec
         del mout
 
+    # ---- phase 6c: 4:2:0 chunks, box and fancy; the other samplings
+    def quant_of(images):
+        return torch.as_tensor(np.stack([
+            np.stack([im.quant_tables[c.quant_id] for c in im.components])
+            for im in images
+        ]).astype(np.int32)).to(dev)
+
+    plane_never = ("pixels",) + SLOT_KERNELS
+    sub = {}   # chunk name -> streams, data, parsed images
+    for name, folder in (("restart", RST420), ("spec", PHOTO420),
+                         ("mixed", MIXED420)):
+        st = read_streams(folder)
+        sub[name] = (st, st * REPEAT, [parse(d) for d in st * REPEAT])
+    check(all(im.blocks_per_mcu == 6 and im.sampling == "4:2:0"
+              for _, _, ims in sub.values() for im in ims), "4:2:0 corpora")
+    check(all(im.restart_interval == im.mcus_x
+              for n in ("restart", "mixed") for im in sub[n][2])
+          and all(im.restart_interval == 0 for im in sub["spec"][2]),
+          "4:2:0 corpora restart intervals")
+    buckets420 = sorted({bucket_geometry(Geometry.of(im))
+                         for im in sub["mixed"][2]})
+    in_bucket = {b: [im for im in sub["mixed"][2]
+                     if bucket_geometry(Geometry.of(im)) == b]
+                 for b in buckets420}
+    print(f"phase 6c: mixed 4:2:0 corpus in {len(buckets420)} size-class "
+          f"buckets: " + ", ".join(
+              f"{b.mcus_x} x {b.mcus_y} MCUs ({len(ims)} images)"
+              for b, ims in in_bucket.items()))
+    want_backend = {"restart": ("fsm",), "mixed": ("fsm-bucketed",),
+                    # the single-pass resolve, or after its miss the Jacobi
+                    # path: both decode on the card
+                    "spec": ("fsm-spec", "fsm-spec-sync")}
+    decs420 = {}
+    for fancy in (False, True):
+        for name, (st, data, ims) in sub.items():
+            tag = f"phase 6c {name} 4:2:0 fancy={fancy}"
+            t0 = time.perf_counter()
+            refs420 = [host.decode_cpu(parse(d), fancy=fancy) for d in st]
+            t_ref = time.perf_counter() - t0
+            d420 = BatchDecoder(backend="fsm", chunk_size=CHUNK, strict=True,
+                                device="cuda", fancy=fancy,
+                                size_buckets=name == "mixed")
+            out420 = run_path(tag, lambda: d420.decode(data),
+                              need=("fsm_scan", "place_events"),
+                              never=plane_never)
+            s420 = d420.stats
+            print(f"{tag}: stats {json.dumps(s420.as_dict())}")
+            check(len(out420) == CHUNK, f"{tag}: output count")
+            for i, got in enumerate(out420):
+                check(got is not None and np.array_equal(got, refs420[i % 16]),
+                      f"{tag}: output {i} differs from {host.backend_name()}")
+            for i in (1, 14):
+                want = oracle.decode(parse(st[i]), fancy=fancy) \
+                    .astype(np.uint8)
+                check(np.array_equal(out420[i], want),
+                      f"{tag}: output {i} differs from oracle")
+            check(s420.backend in want_backend[name],
+                  f"{tag}: backend {s420.backend}")
+            check(s420.chunks == (len(buckets420) if name == "mixed" else 1),
+                  f"{tag}: chunks {s420.chunks}")
+            check(s420.fsm_malformed_fallbacks == 0
+                  and s420.fsm_envelope_fallbacks == 0,
+                  f"{tag}: host fallback")
+            why = ""
+            if name == "spec" and s420.spec_sync_misses:
+                why = ("; the single-pass resolve missed (some lanes do not "
+                       "find the MCU phase again inside the "
+                       f"{fsm.SPEC_STITCH_BYTES}-byte stitch window, as in "
+                       "the JAX engine) and the Jacobi path decoded the "
+                       "chunk on the card")
+            print(f"{tag}: {CHUNK} outputs bit-exact vs "
+                  f"{host.backend_name()} ({t_ref:.1f} s for 16), 2 vs "
+                  f"oracle; backend {s420.backend}, sync misses "
+                  f"{s420.spec_sync_misses}, k_retries {s420.fsm_k_retries}, "
+                  f"repaired pixels {s420.repaired_pixels}{why}")
+            decs420[(name, fancy)] = d420
+            del out420
+
+    # the slot route at 6 blocks per MCU: 240-block restart lanes whose
+    # 8-block slot groups straddle the six-block MCUs
+    rimgs420 = sub["restart"][2]
+    plan420 = fsm.build_plan(rimgs420)
+    up420 = (torch.as_tensor(plan420.xs).to(dev),
+             torch.as_tensor(plan420.seg_n_blocks).to(dev))
+    quant420 = quant_of(rimgs420)
+    geom420 = Geometry.of(rimgs420[0])
+    c420 = materialize.suggest_slot_c(materialize.events_per_block(
+        host.entropy_decode(rimgs420[0]))) or 512
+    classic420 = fused.decode_chunk_fused(plan420, quant420, geom420, CHUNK,
+                                          uploaded=up420, fancy=True)
+    slotted420 = run_path(
+        "phase 6c slots 4:2:0", lambda: fused.decode_chunk_fused(
+            plan420, quant420, geom420, CHUNK, uploaded=up420, fancy=True,
+            slots=c420),
+        need=("fsm_scan",) + SLOT_KERNELS, never=("pixels", "place_events"))
+    if bool(slotted420[-1].any()):
+        # the sampled image is not the densest of the chunk
+        c420 = 512
+        slotted420 = fused.decode_chunk_fused(
+            plan420, quant420, geom420, CHUNK, uploaded=up420, fancy=True,
+            slots=c420)
+    check(not bool(slotted420[-1].any()), "4:2:0 slot route overflowed")
+    check(all(torch.equal(a, b) for a, b in zip(slotted420, classic420)),
+          "4:2:0 slot route != classic scatter")
+    print(f"phase 6c: 4:2:0 restart chunk (max_blk {plan420.max_blk}) "
+          f"through the slot route at C={c420}: no overflow, equal to the "
+          f"classic scatter")
+    del slotted420, classic420
+
+    # 4:2:2, 4:4:0, 4:1:1, grayscale (with and without restart markers)
+    small = read_streams(SMALL, 5)
+    simgs = [parse(d) for d in small]
+    kinds = [f"{im.sampling}{' rst' if im.restart_interval else ''}"
+             for im in simgs]
+    check({im.sampling for im in simgs} == {"4:2:2", "4:4:0", "4:1:1", "gray"},
+          f"small corpus samplings {kinds}")
+    for fancy in (False, True):
+        swant = [oracle.decode(im, fancy=fancy).astype(np.uint8)
+                 for im in simgs]
+        for i, im in enumerate(simgs):
+            check(np.array_equal(host.decode_cpu(im, fancy=fancy), swant[i]),
+                  f"small stream {kinds[i]}: host reference != oracle")
+        for backend in ("fsm", "host"):
+            sd = BatchDecoder(backend=backend, device="cuda", fancy=fancy)
+            tag = f"phase 6c small {backend} fancy={fancy}"
+            sout = run_path(
+                tag, lambda: sd.decode(small),
+                need=("fsm_scan", "place_events") if backend == "fsm" else (),
+                never=plane_never)
+            sd.close()
+            for i, got in enumerate(sout):
+                check(got is not None and np.array_equal(got, swant[i]),
+                      f"{tag}: {kinds[i]} differs from the oracle")
+            check(sd.stats.backend == backend
+                  and sd.stats.chunks == len({Geometry.of(im)
+                                              for im in simgs})
+                  and sd.stats.fsm_malformed_fallbacks == 0
+                  and sd.stats.fsm_envelope_fallbacks == 0,
+                  f"{tag}: route {sd.stats.as_dict()}")
+            print(f"{tag}: {', '.join(kinds)} bit-exact vs the oracle and "
+                  f"{host.backend_name()}; backend {sd.stats.backend}, "
+                  f"repaired pixels {sd.stats.repaired_pixels}")
+
+    # ---- phase 6d: the probe tools, in this process
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import bench_torch_gather
+    import bench_torch_materialize
+
+    check(run_path("phase 6d gather tool", bench_torch_gather.main,
+                   need=("gather_rows", "gather_table", "chain")) == 0,
+          "tools/bench_torch_gather.py failed")
+    check(run_path("phase 6d materialize tool",
+                   lambda: bench_torch_materialize.main(
+                       ["--corpus", "rst640_420"]),
+                   need=("fsm_scan", "place_events", "compact_offsets",
+                         "compact_fine", "compact_staged",
+                         "spread_ranked")) == 0,
+          "tools/bench_torch_materialize.py failed")
+    torch.cuda.empty_cache()
+
     # ---- phase 7: kernels against their plain versions, real inputs
     rows = []
     chunk_paths = {"restart": "phase 2", "spec": "phase 3"}
     chunk_paths.update({f"bucketed {r}": f"phase 6b {r}"
                         for r in ROUTE_KERNELS})
+    chunk_paths.update({f"4:2:0 {n}": f"phase 6c {n} 4:2:0 fancy=True"
+                        for n in sub})
+    chunk_paths.update({"gather tool": "phase 6d gather tool",
+                        "materialize tool": "phase 6d materialize tool"})
 
     def per_chunk(kernel: str) -> dict:
         """Launches of `kernel` per 128-image chunk of each path."""
@@ -484,14 +678,17 @@ def main() -> int:
     scan_plain_ms = None
     for steps in (fsm.STEPS_PRODUCTION, fsm.STEPS_SAFE):
         k = fsm._scan_steps(steps)
-        got = fsm.fsm_scan(xs, sn, plan.tables, steps)
+        # lanes are independent: the retry's step count is held against
+        # its plain version on the first 1,024 lanes
+        n = L if steps == fsm.STEPS_PRODUCTION else 1024
+        got = fsm.fsm_scan(xs[:n], sn[:n], plan.tables, steps)
         want, ms = timed_once(
-            lambda: fsm.fsm_scan_plain(xs, sn, plan.tables, k))
+            lambda: fsm.fsm_scan_plain(xs[:n], sn[:n], plan.tables, k))
         if steps == fsm.STEPS_PRODUCTION:
             scan_plain_ms = ms
         scan_err = max(scan_err, equal_all(got, want, f"fsm_scan {steps}"))
-        print(f"phase 7: fsm_scan restart steps {steps}: equal; lanes mal "
-              f"{int(got[1].sum())} env {int(got[2].sum())}")
+        print(f"phase 7: fsm_scan restart steps {steps} on {n} lanes: equal; "
+              f"lanes mal {int(got[1].sum())} env {int(got[2].sum())}")
     scan_ms = cuda_ms(lambda: fsm.fsm_scan(xs, sn, plan.tables))
 
     # the speculative modes on the spec chunk's inputs
@@ -569,6 +766,23 @@ def main() -> int:
           f"(max_blk {bplan.max_blk}, {bplan.lanes_per_img} lanes per "
           f"image) equal; wrapping counters equal on 1024 lanes")
     del got, want
+    # the restart scan at 6 blocks per MCU, at the 4:2:0 chunk's shape
+    xs420, sn420 = up420
+    L420, stride420 = plan420.xs.shape
+    got = fsm.fsm_scan(xs420, sn420, plan420.tables)
+    want, sub_plain_ms = timed_once(lambda: fsm.fsm_scan_plain(
+        xs420[:1024], sn420[:1024], plan420.tables, k_prod))
+    scan_err = max(scan_err, equal_all(
+        (got[0][:, :, :1024], got[1][:1024], got[2][:1024]), want,
+        "fsm_scan 4:2:0"))
+    check(not bool(got[1].any() | got[2].any()), "4:2:0 scan latched lanes")
+    sub_ms = cuda_ms(lambda: fsm.fsm_scan(xs420, sn420, plan420.tables))
+    ev420 = got[0].reshape(-1, L420)
+    print(f"phase 7: fsm_scan on the 4:2:0 restart chunk [{L420}, "
+          f"{stride420}] (max_blk {plan420.max_blk}, 6 blocks per MCU) "
+          f"equal to the plain scan on the first 1024 lanes; events "
+          f"{list(ev420.shape)}, dense [{plan420.max_blk * 64}, {L420}]")
+    del got, want
     rows.append(dict(
         name="fsm_scan", route="cuda", source="tpujpeg_torch/csrc/fsm_scan.cu",
         replaces="tpujpeg/ops/fsm.py:702", launches=totals["fsm_scan"],
@@ -581,7 +795,18 @@ def main() -> int:
         bound_ms_entry_mode=scan_bound(xs2, 1, k_prod)["bound_ms"],
         ms_pad_mode=pad_ms, plain_ms_pad_mode=pad_plain_ms,
         bound_ms_pad_mode=scan_bound(bxs, 1, k_prod)["bound_ms"],
+        ms_420_chunk=sub_ms, plain_ms_420_chunk_1024_lanes=sub_plain_ms,
+        bound_ms_420_chunk=scan_bound(xs420, 1, k_prod)["bound_ms"],
     ))
+    sub_place_ms = cuda_ms(lambda: materialize.place_events(
+        ev420, plan420.max_blk * 64))
+    check(torch.equal(
+        materialize.place_events(ev420, plan420.max_blk * 64),
+        materialize.place_events_plain(ev420, plan420.max_blk * 64)),
+        "place_events 4:2:0 kernel != plain")
+    print(f"phase 7: place_events on the 4:2:0 chunk's events equal; "
+          f"{sub_place_ms:.4f} ms [{card}]")
+    del ev420
 
     # the classic scatter on the restart chunk
     events, err_mal, _ = fsm.fsm_scan(xs, sn, plan.tables)
@@ -765,6 +990,128 @@ def main() -> int:
           f"spread_full with offsets {spread_o_ms:.4f}; compact (one "
           f"thread per lane) on the same events {compact_mixed_ms:.4f} ms "
           f"[{card}]")
+    # the probe kernels: the three stage probes on the mixed chunk's
+    # offsets, the lookups at the tools' shapes
+    W = probes.FINE_W
+    fine = probes.compact_fine(p0, o0, W)
+    fine_err = equal_all(fine, probes.compact_fine_plain(p0, o0, W),
+                         "compact_fine")
+    check(not torch.equal(fine[1], cpo[1]) and bool(
+        ((fine[1].to(torch.int32) & (W - 1))[fine[1] >= 0] == 0).all()),
+        "compact_fine left low offset bits or did the whole compact")
+    staged = probes.compact_staged(p0, o0, W)
+    staged_err = equal_all(staged, probes.compact_staged_plain(p0, o0, W),
+                           "compact_staged")
+    check(all(torch.equal(a, b) for a, b in zip(staged, cpo)),
+          "compact_staged != one full compact_offsets")
+    d_probe = probes.spread_ranked(*staged, BM)
+    spread_err = equal_all((d_probe,),
+                           (probes.spread_ranked_plain(*staged, BM),),
+                           "spread_ranked")
+    check(torch.equal(d_probe, d_full), "spread_ranked != spread_full")
+    lib_call = scatter_call(staged[0], BM, staged[1] >= 0)
+    check(torch.equal(lib_call(), d_probe), "index_put_ != spread_ranked")
+    ranked_lib_ms = cuda_ms(lib_call)
+    del lib_call
+    print(f"phase 7: compact_fine (window {W}), compact_staged, "
+          f"spread_ranked on the mixed chunk's offsets [{BN}, {BL}] equal "
+          f"to their plain versions; staged == one full compact")
+    offs_bound = bound(nbytes(p0, o0, *cpo), 4 * p0.numel())
+    probe_rows = [
+        ("compact_fine", "tools/bench_materialize2.py:141", fine_err,
+         lambda: probes.compact_fine(p0, o0, W),
+         lambda: probes.compact_fine_plain(p0, o0, W), offs_bound, None),
+        ("compact_staged", "tools/bench_materialize2.py:98", staged_err,
+         lambda: probes.compact_staged(p0, o0, W),
+         lambda: probes.compact_staged_plain(p0, o0, W), offs_bound, None),
+        ("spread_ranked", "tools/bench_materialize2.py:172", spread_err,
+         lambda: probes.spread_ranked(*staged, BM),
+         lambda: probes.spread_ranked_plain(*staged, BM),
+         bound(nbytes(*staged, d_probe), 8 * p0.numel()), ranked_lib_ms),
+    ]
+    for name, replaces_at, err, fn, plain_fn, bnd, lib_ms in probe_rows:
+        rows.append(dict(
+            name=name, route="cuda", source="tpujpeg_torch/csrc/routes.cu",
+            replaces=replaces_at, launches=totals[name],
+            launches_per_chunk=per_chunk(name), max_abs_err=err,
+            ms=cuda_ms(fn), plain_ms=cuda_ms(plain_fn), **bnd,
+            library_ms=lib_ms,
+        ))
+    del fine, staged, d_probe
+
+    rng = np.random.default_rng(0)
+    g_t = torch.as_tensor(np.broadcast_to(
+        rng.integers(0, 255, 256, np.int32), (1024, 256)).copy()).to(dev)
+    g_i = torch.as_tensor(
+        rng.integers(0, 256, (1024, 1024)).astype(np.int32)).to(dev)
+    g_il = g_i.long()
+    got = probes.gather_rows(g_t, g_i)
+    rows.append(dict(
+        name="gather_rows", route="cuda",
+        source="tpujpeg_torch/csrc/probes.cu",
+        replaces="tools/bench_gather.py:115", launches=totals["gather_rows"],
+        launches_per_chunk=per_chunk("gather_rows"),
+        max_abs_err=equal_all((got,), (probes.gather_rows_plain(g_t, g_i),),
+                              "gather_rows"),
+        ms=cuda_ms(lambda: probes.gather_rows(g_t, g_i)),
+        plain_ms=cuda_ms(lambda: probes.gather_rows_plain(g_t, g_i)),
+        **bound(nbytes(g_t, g_i, got), g_i.numel()),
+        library_ms=cuda_ms(lambda: torch.gather(g_t, 1, g_il)),
+    ))
+    v_t = g_t[0].contiguous()
+    v_i = g_i.reshape(-1)[: 1 << 18].contiguous()
+    v_il = v_i.long()
+    got = probes.gather_table(v_t, v_i)
+    rows.append(dict(
+        name="gather_table", route="cuda",
+        source="tpujpeg_torch/csrc/probes.cu",
+        replaces="tools/bench_gather.py:137",
+        launches=totals["gather_table"],
+        launches_per_chunk=per_chunk("gather_table"),
+        max_abs_err=equal_all((got,), (probes.gather_table_plain(v_t, v_i),),
+                              "gather_table"),
+        ms=cuda_ms(lambda: probes.gather_table(v_t, v_i)),
+        plain_ms=cuda_ms(lambda: probes.gather_table_plain(v_t, v_i)),
+        **bound(nbytes(v_t, v_i, got), v_i.numel()),
+        library_ms=cuda_ms(lambda: v_t.index_select(0, v_il)),
+    ))
+    c_t = torch.as_tensor(
+        rng.integers(0, 4096, (4096, 1)).astype(np.int32)).to(dev)
+    c_seed = torch.tensor([3], dtype=torch.int32, device=dev)
+    n_short, n_long = 4096, 65536
+    c_want, chain_plain_ms = timed_once(
+        lambda: probes.chain_plain(c_t, c_seed, n_short))
+    c_want_long = probes.chain_plain(c_t, c_seed, n_long)
+    chain_err = 0
+    chain_ms, chain_step_ns = {}, {}
+    for source in probes.CHAIN_SOURCES:
+        chain_err = max(chain_err, equal_all(
+            (probes.chain(c_t, c_seed, n_short, source),
+             probes.chain(c_t, c_seed, n_long, source)),
+            (c_want, c_want_long), f"chain from {source}"))
+        chain_ms[source] = cuda_ms(
+            lambda: probes.chain(c_t, c_seed, n_short, source))
+        long_ms = cuda_ms(lambda: probes.chain(c_t, c_seed, n_long, source))
+        chain_step_ns[source] = (long_ms - chain_ms[source]) \
+            / (n_long - n_short) * 1e6
+    rows.append(dict(
+        name="chain", route="cuda", source="tpujpeg_torch/csrc/probes.cu",
+        replaces="tools/bench_gather.py:163", launches=totals["chain"],
+        launches_per_chunk=per_chunk("chain"), max_abs_err=chain_err,
+        ms=chain_ms["l2"], plain_ms=chain_plain_ms,
+        # nothing overlaps in a dependent chain: its bytes and operations
+        # bound it far below the latency that sets its time
+        **bound(nbytes(c_t, c_seed) + 4, 4 * n_short), library_ms=None,
+        ms_shared=chain_ms["shared"], ms_readonly=chain_ms["readonly"],
+        ns_per_dependent_step=chain_step_ns,
+    ))
+    print("phase 7: chain of dependent lookups, ns per step net of launch "
+          f"({n_long} against {n_short} steps): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in chain_step_ns.items())
+          + f"; the restart scan takes {scan_ms / (stride + 6) * 1e3:.1f} us "
+          f"per byte column of {k_prod} symbol steps at {L} lanes and "
+          f"{sub_ms / (stride420 + 6) * 1e3:.1f} us at {L420} lanes [{card}]")
+    del g_t, g_i, g_il, got
     del p0, o0, cpo, cpf, d_full
 
     # the pixel kernel on the restart chunk
@@ -809,28 +1156,34 @@ def main() -> int:
           f"speculative entry {entry_ms:.4f} ms (bound "
           f"{scan['bound_ms_entry_mode']:.4f}, plain {entry_plain_ms:.4f}), "
           f"pad_info {pad_ms:.4f} ms (bound "
-          f"{scan['bound_ms_pad_mode']:.4f}, plain {pad_plain_ms:.4f}) "
-          f"[{card}]")
+          f"{scan['bound_ms_pad_mode']:.4f}, plain {pad_plain_ms:.4f}), "
+          f"4:2:0 restart chunk {sub_ms:.4f} ms (bound "
+          f"{scan['bound_ms_420_chunk']:.4f}, plain on 1024 lanes "
+          f"{sub_plain_ms:.4f}) [{card}]")
     del events, ev, per_lane, got, want, zp, dcp, restart_dense
 
     # ---- phase 8: throughput
-    e2e = [("restart", dec, datas), ("spec", sdec, pdatas)]
-    e2e += [(f"bucketed {r}", d, mdatas) for r, d in mdecs.items()]
+    # (each decoder is warm: its phase decoded the same chunk once)
+    e2e = [("restart", dec, datas), ("spec", sdec, pdatas),
+           ("bucketed scatter", mdecs["scatter"], mdatas)]
+    e2e += [(f"4:2:0 {name} fancy={fancy}", d, sub[name][1])
+            for (name, fancy), d in decs420.items()]
     for name, d, data in e2e:
-        d.decode(data)  # warm
         times = []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             d.decode(data)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        d.close()
-        t = statistics.median(times)
+        t = min(times)
         mb = d.stats.compressed_bytes / 1e6
         print(f"phase 8: {name} chunk end to end (parse, plan, upload, "
-              f"device, fetch, repair) {CHUNK} images in {t * 1e3:.1f} ms "
-              f"(median of 3): {CHUNK / t:.1f} images/s, {mb / t:.2f} "
+              f"device, fetch, repair) {CHUNK} images in "
+              f"{times[0] * 1e3:.1f} and {times[1] * 1e3:.1f} ms (two warm "
+              f"runs); the faster: {CHUNK / t:.1f} images/s, {mb / t:.2f} "
               f"compressed MB/s, backend {d.stats.backend} [{card}]")
+    for d in [x[1] for x in e2e] + list(mdecs.values()):
+        d.close()
 
     squant = torch.as_tensor(np.stack([
         np.stack([im.quant_tables[c.quant_id] for c in im.components])
@@ -890,6 +1243,115 @@ def main() -> int:
               f"assemble + DC mask, pixels at {bucket.width}x"
               f"{bucket.height}) {ms:.2f} ms: {CHUNK / ms * 1e3:.1f} "
               f"images/s, {mb / ms * 1e3:.2f} compressed MB/s [{card}]")
+
+    # the 4:2:0 chunks' device chains (plans and bytes resident)
+    simgs420 = sub["spec"][2]
+    splan420 = fsm.build_spec_plan_batch(simgs420, 1024)
+    sxs420 = torch.as_tensor(splan420.xs).to(dev)
+    jplan420 = fsm.build_spec_plan_batch(simgs420, 2048)
+    jxs420 = torch.as_tensor(jplan420.xs).to(dev)
+    squant420 = quant_of(simgs420)
+    mixed_parts = []
+    for b, ims in in_bucket.items():
+        bp = fsm.build_plan_bucketed(ims, b)
+        mixed_parts.append((b, bp, tuple(
+            torch.as_tensor(a).to(dev)
+            for a in (bp.xs, bp.seg_n, bp.wrap_at, bp.skip)),
+            quant_of(ims), len(ims)))
+    print(f"phase 8: 4:2:0 shapes: restart lane matrix "
+          f"{list(plan420.xs.shape)}, max_blk {plan420.max_blk}; spec lane matrix "
+          f"{list(splan420.xs.shape)} ({splan420.n_lanes} lanes; Jacobi plan "
+          f"{list(jplan420.xs.shape)}, {jplan420.n_lanes} lanes); mixed "
+          + "; ".join(f"{n} images in bucket {b.mcus_x} x {b.mcus_y}: lane "
+                      f"matrix {list(bp.xs.shape)}, max_blk {bp.max_blk}"
+                      for b, bp, _, _, n in mixed_parts))
+
+    def restart420(fancy):
+        return fused.decode_chunk_fused(plan420, quant420, geom420, CHUNK,
+                                        uploaded=up420, fancy=fancy)
+
+    def spec420(fancy):
+        # what the engine does: the single-pass attempt, and after its
+        # resolve miss the Jacobi decode, then the pixel stage
+        try:
+            pend = fsm.spec_sync_start(simgs420, plan=splan420,
+                                       xs_dev=sxs420)
+            return fused.decode_spec_sync_fused(
+                pend, geom420, squant420, CHUNK, CHUNK, fancy=fancy)[:2]
+        except fsm.SpecSyncMiss:
+            coeffs, _ = fsm.decode_speculative_batch(
+                simgs420, device_out=True, pad_to=CHUNK, plan=jplan420,
+                xs_dev=jxs420)
+            return pipeline.device_decode_fn(geom420, coeffs, squant420,
+                                             fancy=fancy)
+
+    def mixed420(fancy):
+        return [fused.decode_chunk_bucketed(bp, q, b, n, uploaded=up,
+                                            fancy=fancy)[:2]
+                for b, bp, up, q, n in mixed_parts]
+
+    chains420 = [
+        ("restart", restart420, "scan, materialize, DC, assemble, plane "
+         "path"),
+        ("spec", spec420, "cold + stitch scan, resolve read (miss), Jacobi "
+         "count passes, write pass, materialize, gather, plane path"),
+        ("mixed", mixed420, f"{len(mixed_parts)} bucket chunks: pad scan, "
+         "materialize, DC, static assemble + DC mask, plane path at the "
+         "bucket's size"),
+    ]
+    for name, fn, stages in chains420:
+        mb = sum(len(x) for x in sub[name][1]) / 1e6
+        for fancy in (False, True):
+            ms = cuda_ms(lambda: fn(fancy), reps=3)
+            print(f"phase 8: device chain 4:2:0 {name} fancy={fancy} (plans "
+                  f"and bytes resident; {stages}) {ms:.2f} ms: "
+                  f"{CHUNK / ms * 1e3:.1f} images/s, "
+                  f"{mb / ms * 1e3:.2f} compressed MB/s [{card}]")
+    del mixed_parts, sxs420, jxs420
+
+    # the plane path's stages on the 4:2:0 restart chunk's coefficients
+    coeffs420, dc420 = restart420(False)[2:4]
+    pix420 = pipeline._idct_planar(geom420, coeffs420, quant420, dc420)
+
+    def rasters():
+        out, base = [], 0
+        for h, v, _ in geom420.comps:
+            n = geom420.n_mcus * h * v
+            out.append(pipeline._plane_from_soa(
+                geom420, pix420[:, :, base : base + n], h, v).contiguous())
+            base += n
+        return out
+
+    planes420 = rasters()
+    full420 = {f: pipeline.upsample_planes(geom420, planes420, f)
+               for f in (False, True)}
+    crop420 = [p[:, : geom420.height, : geom420.width] for p in full420[True]]
+    risky420 = color_channels(*crop420)[1]
+    plane_stages = [
+        ("IDCT (dequant, inverse zigzag, _idct_planar)",
+         lambda: pipeline._idct_planar(geom420, coeffs420, quant420, dc420)),
+        ("block -> raster (_plane_from_soa x3)", rasters),
+        ("upsample, box", lambda: [p.contiguous() for p in
+                                   pipeline.upsample_planes(
+                                       geom420, planes420, False)]),
+        ("upsample, fancy",
+         lambda: pipeline.upsample_planes(geom420, planes420, True)),
+        ("colour (color_channels + stack)",
+         lambda: torch.stack(color_channels(*crop420)[0], dim=1)),
+        ("pack (pack_mask)", lambda: pack_mask(risky420)),
+        ("whole pixel stage, box (device_decode_fn)",
+         lambda: pipeline.device_decode_fn(geom420, coeffs420, quant420,
+                                           dc=dc420)),
+        ("whole pixel stage, fancy (device_decode_fn)",
+         lambda: pipeline.device_decode_fn(geom420, coeffs420, quant420,
+                                           fancy=True, dc=dc420)),
+    ]
+    for stage, fn in plane_stages:
+        print(f"phase 8: plane path stage, 4:2:0 restart chunk "
+              f"({CHUNK} x {geom420.width}x{geom420.height}): {stage} "
+              f"{cuda_ms(fn, reps=3):.3f} ms [{card}]")
+    del pix420, planes420, full420, crop420, risky420, coeffs420, dc420
+    torch.cuda.empty_cache()
 
     # the Jacobi path's entropy decode alone (its own 2048-byte plan, bytes
     # resident): count passes to the fixed point, the write pass, gather

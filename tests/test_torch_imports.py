@@ -69,7 +69,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                               "tpujpeg_torch."))
     assert "tpujpeg_torch.runtime.ladder" in mods
     assert "tpujpeg_torch.runtime.native.lib" in mods
+    assert "tpujpeg_torch.ops.upsample" in mods
+    assert "tpujpeg_torch.ops.probes" in mods
     data = make_jpeg_rst(shape=(16, 24), rst_interval=3, seed=3)
+    data420 = make_jpeg(shape=(16, 32), subsampling=2, seed=3)
     out = _run_isolated(f"""
         import importlib, sys
         import tpujpeg_torch
@@ -80,11 +83,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             rgb = tpujpeg_torch.decode_batch([data], backend=backend,
                                              device="cpu")[0]
             print(backend, rgb.shape, rgb.dtype)
+            sub = tpujpeg_torch.decode_batch([{data420!r}], backend=backend,
+                                             device="cpu", fancy=True)[0]
+            print(backend, "420", sub.shape)
         rgb1 = tpujpeg_torch.decode({fixture_path(GOLDEN[2])!r}, device="cpu")
         print(rgb1.shape)
     """)
     assert _foreign(out) == "FOREIGN []", out
     assert "fsm (16, 24, 3) uint8" in out and "(120, 120, 3)" in out
+    assert "fsm 420 (16, 32, 3)" in out and "host 420 (16, 32, 3)" in out
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -99,7 +106,9 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     assert _foreign(out) == "FOREIGN []", out
 
 
-@pytest.mark.parametrize("tool", ["profile_torch_chunk", "make_torch_corpus"])
+@pytest.mark.parametrize("tool", ["profile_torch_chunk", "make_torch_corpus",
+                                  "bench_torch_gather",
+                                  "bench_torch_materialize"])
 def test_tools_import_neither_jax_nor_the_jax_package(tool):
     import os
 

@@ -9,7 +9,9 @@ nothing of JAX, so they also run on a machine without it:
 Inputs are the committed restart corpus (tests/fixtures/rst640), the
 no-restart corpus (tests/fixtures/photo640) split into speculative
 lanes, the mixed-size corpus (tests/fixtures/mixed_rst) in bucket-raster
-lanes, a 0xFF-tailed malformed copy, and seeded numpy data.
+lanes, a 0xFF-tailed malformed copy, the 4:2:0 and grayscale restart
+streams (tests/fixtures/rst640_420, tests/fixtures/sampling_small) for
+the scan at 6 and at 1 blocks per MCU, and seeded numpy data.
 """
 
 import os
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from tpujpeg_torch.io.parser import parse_file
-from tpujpeg_torch.ops import fsm, materialize, pixels
+from tpujpeg_torch.ops import fsm, materialize, pixels, probes
 from tpujpeg_torch.pipeline import Geometry, bucket_geometry, soa_planes
 
 pytestmark = pytest.mark.gpu
@@ -27,6 +29,8 @@ pytestmark = pytest.mark.gpu
 CORPUS = os.path.join(os.path.dirname(__file__), "fixtures", "rst640")
 PHOTO = os.path.join(os.path.dirname(__file__), "fixtures", "photo640")
 MIXED = os.path.join(os.path.dirname(__file__), "fixtures", "mixed_rst")
+RST420 = os.path.join(os.path.dirname(__file__), "fixtures", "rst640_420")
+SMALL = os.path.join(os.path.dirname(__file__), "fixtures", "sampling_small")
 
 
 @pytest.fixture(scope="module")
@@ -275,3 +279,102 @@ def test_route_kernels_equal_plain(cuda, shape):
     assert int(d_c[0, 1]) == -2048     # the event that packs to 0
     for route in ("ranked", "full"):
         assert torch.equal(fsm.materialize_events(ev, M, route), classic)
+
+
+@pytest.mark.parametrize("steps", [(1, 2), 3])
+@pytest.mark.parametrize("corpus", ["420", "gray", "411"])
+def test_fsm_scan_kernel_equals_plain_by_blocks_per_mcu(cuda, corpus, steps):
+    # 6 blocks per MCU on two table sets, 1 block on one set (the second
+    # set's LUT planes are never selected), 6 blocks with a 4-wide luma
+    path = {"420": os.path.join(RST420, "03.jpg"),
+            "gray": os.path.join(SMALL, "gray_rst.jpg"),
+            "411": os.path.join(SMALL, "411_rst.jpg")}[corpus]
+    img = parse_file(path)
+    assert img.blocks_per_mcu == {"420": 6, "gray": 1, "411": 6}[corpus]
+    plan = fsm.build_plan([img])
+    xs = torch.as_tensor(plan.xs).to(cuda)
+    sn = torch.as_tensor(plan.seg_n_blocks).to(cuda)
+    got = fsm.fsm_scan(xs, sn, plan.tables, steps)
+    want = fsm.fsm_scan_plain(xs, sn, plan.tables, fsm._scan_steps(steps))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    assert not bool(got[1].any())
+    # and through materialize and the DC resolve: the host decoder's
+    # coefficients
+    from tpujpeg_torch.runtime import fused
+    from tpujpeg_torch.runtime.host import entropy_decode
+
+    if not bool(got[2].any()):
+        L = xs.shape[0]
+        dense = materialize.place_events(got[0].reshape(-1, L),
+                                         plan.max_blk * 64)
+        per_lane = dense.T.reshape(L, plan.max_blk, 64)
+        dc = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
+        coeffs = fused._assemble_rows(per_lane, plan.layout, 1)[0] \
+            .to(torch.int32)
+        coeffs[:, 0] = fused._assemble_rows(dc, plan.layout, 1)[0]
+        assert np.array_equal(coeffs.cpu().numpy(), entropy_decode(img))
+
+
+def test_gather_kernels_equal_plain(cuda):
+    rng = np.random.default_rng(11)
+    for R, T, K in ((1024, 256, 1024), (7, 300, 1000), (3, 12288, 50)):
+        t = torch.as_tensor(rng.integers(-9, 255, (R, T)).astype(np.int32)) \
+            .to(cuda)
+        i = torch.as_tensor(rng.integers(0, T, (R, K)).astype(np.int32)) \
+            .to(cuda)
+        got = probes.gather_rows(t, i)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32
+        assert torch.equal(got, probes.gather_rows_plain(t, i))
+    for T, N in ((256, 1 << 18), (5, 77), (12288, 400_000)):
+        t = torch.as_tensor(rng.integers(-9, 255, T).astype(np.int32)) \
+            .to(cuda)
+        i = torch.as_tensor(rng.integers(0, T, N).astype(np.int32)).to(cuda)
+        got = probes.gather_table(t, i)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probes.gather_table_plain(t, i))
+    big = torch.zeros((2, 12289), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        probes.gather_rows(big, torch.zeros((2, 4), dtype=torch.int32,
+                                            device=cuda))
+
+
+@pytest.mark.parametrize("source", ["l2", "shared", "readonly"])
+def test_chain_kernel_equals_plain(cuda, source):
+    rng = np.random.default_rng(12)
+    tbl = torch.as_tensor(
+        rng.integers(0, 4096, (4096, 1)).astype(np.int32)).to(cuda)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    for steps in (0, 1, 4096, 20000):
+        got = probes.chain(tbl, seed, steps, source)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32
+        assert torch.equal(got, probes.chain_plain(tbl, seed, steps))
+
+
+@pytest.mark.parametrize("W", [128, 1024])
+def test_compact_offsets_mask_and_probe_stages_equal_plain(cuda, W):
+    rng = np.random.default_rng(W)
+    N, max_blk, L = 2100, 40, 160
+    M = max_blk * 64
+    ev = torch.as_tensor(_slot_events(rng, N, max_blk, L, 6)).to(cuda)
+    p0, o0 = probes.offsets_init(ev)
+    assert int(o0.max()) > W
+    fine = probes.compact_fine(p0, o0, W)
+    staged = probes.compact_staged(p0, o0, W)
+    whole = materialize.compact_offsets(p0, o0)
+    coarse = materialize.compact_offsets(*fine, mask=~(W - 1))
+    dense = probes.spread_ranked(*staged, M)
+    torch.cuda.synchronize()
+    for got, want in ((fine, probes.compact_fine_plain(p0, o0, W)),
+                      (staged, probes.compact_staged_plain(p0, o0, W)),
+                      (staged, whole), (coarse, whole),
+                      (whole, materialize.compact_offsets_plain(p0, o0))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(fine[0], whole[0])
+    assert torch.equal(dense, probes.spread_ranked_plain(*staged, M))
+    assert torch.equal(dense, materialize.place_events(ev, M))
+    assert int(dense[0, 1]) == -2048     # the event that packs to 0

@@ -47,7 +47,7 @@ def _both(monkeypatch, geom, coeffs, quant, dc=None):
     got = tpipe.device_decode_fn(
         tpipe.Geometry(geom), torch.as_tensor(coeffs)[None],
         torch.as_tensor(quant)[None],
-        None if dc is None else torch.as_tensor(dc)[None],
+        dc=None if dc is None else torch.as_tensor(dc)[None],
     )
     return want, got
 
@@ -114,6 +114,15 @@ def test_port_decode_matches_golden(name):
 
 
 def test_unsupported_geometry_raises():
-    data = make_jpeg(shape=(32, 48), subsampling=2, seed=1)   # 4:2:0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpujpeg_torch.decode(data, device="cpu")
+    # The name is from when the port refused every geometry but 4:4:4.  It
+    # decodes them now: 4:2:0 and grayscale through the plane path equal
+    # the oracle, with box and with fancy upsampling
+    from tpujpeg.oracle import decoder as oracle
+
+    for kw in (dict(subsampling=2), dict(gray=True)):
+        data = make_jpeg(shape=(32, 48), seed=1, **kw)
+        for fancy in (False, True):
+            got = tpujpeg_torch.decode(data, device="cpu", fancy=fancy)
+            np.testing.assert_array_equal(
+                got, oracle.decode(parse(data), fancy=fancy))
+    assert not hasattr(tpipe, "check_supported")

@@ -1,0 +1,178 @@
+"""tpujpeg_torch probe kernels' plain versions == what the JAX tools'
+Pallas kernels compute.
+
+ops/probes.py on CPU tensors (every wrapper takes its plain version
+there) against: jnp.take_along_axis and jnp.take (vkernel2 and vkernel
+of tools/bench_gather.py), a numpy walk of the dependent chain (skernel),
+and the JAX package's _fine_compact_kernel in interpret mode at kc = 1
+and a small window (compact_fine_only / compact_only of
+tools/bench_materialize2.py; the tool's own partial no longer passes the
+kernel's required `kc`, so the kernel is driven directly, as
+tests/test_torch_routes.py drives the full-height kernels).  Every
+comparison is `==` (integers, tolerance 0).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpujpeg.ops import materialize as jmat
+from tpujpeg_torch.ops import materialize as tmat
+from tpujpeg_torch.ops import probes
+
+from test_materialize import _block_events
+
+
+def _np(t):
+    return t.cpu().numpy()
+
+
+def test_gather_rows_matches_take_along_axis():
+    rng = np.random.default_rng(0)
+    t = rng.integers(0, 255, (16, 256)).astype(np.int32)
+    i = rng.integers(0, 256, (16, 96)).astype(np.int32)
+    want = np.asarray(jnp.take_along_axis(jnp.asarray(t), jnp.asarray(i),
+                                          axis=1))
+    got = probes.gather_rows(torch.as_tensor(t), torch.as_tensor(i))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), want)
+    np.testing.assert_array_equal(
+        _np(probes.gather_rows_plain(torch.as_tensor(t), torch.as_tensor(i))),
+        want)
+
+
+def test_gather_table_matches_take():
+    rng = np.random.default_rng(1)
+    t = rng.integers(0, 255, 256).astype(np.int32)
+    i = rng.integers(0, 256, 5000).astype(np.int32)
+    want = np.asarray(jnp.take(jnp.asarray(t), jnp.asarray(i)))
+    got = probes.gather_table(torch.as_tensor(t), torch.as_tensor(i))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 4096])
+def test_chain_matches_a_numpy_walk(steps):
+    rng = np.random.default_rng(2)
+    tbl = rng.integers(0, 4096, (4096, 1)).astype(np.int32)
+    idx = 3
+    for _ in range(steps):
+        idx = (int(tbl[idx, 0]) * 7 + 1) % 4096
+    for source in probes.CHAIN_SOURCES:
+        got = probes.chain(torch.as_tensor(tbl),
+                           torch.tensor([3], dtype=torch.int32), steps,
+                           source)
+        assert got.dtype == torch.int32 and got.tolist() == [idx]
+    with pytest.raises(ValueError, match="unknown source"):
+        probes.chain(torch.as_tensor(tbl),
+                     torch.tensor([3], dtype=torch.int32), 1, "l1")
+
+
+def test_chain_matches_the_pallas_chain_in_interpret_mode():
+    # skernel of tools/bench_gather.py, with its chain length a parameter
+    from jax.experimental import pallas as pl
+
+    steps = 64
+
+    def skernel(t_ref, s_ref, o_ref):
+        def body(k, idx):
+            return (t_ref[idx, 0] * 7 + 1) % 4096
+
+        o_ref[0] = jax.lax.fori_loop(0, steps, body, s_ref[0])
+
+    rng = np.random.default_rng(4)
+    tbl = rng.integers(0, 4096, (4096, 1)).astype(np.int32)
+    want = pl.pallas_call(
+        skernel, out_shape=jax.ShapeDtypeStruct((1,), jnp.int32),
+        interpret=True,
+    )(jnp.asarray(tbl), jnp.asarray([3], jnp.int32))
+    got = probes.chain(torch.as_tensor(tbl),
+                       torch.tensor([3], dtype=torch.int32), steps)
+    assert got.tolist() == np.asarray(want).tolist()
+
+
+def _jax_fine_compact(p, o, W):
+    """_fine_compact_kernel at kc = 1 over windows of W rows (the call of
+    compact_fine_only in tools/bench_materialize2.py, plus `kc`)."""
+    from jax.experimental import pallas as pl
+
+    Np, L = p.shape
+    n_win = Np // W
+    cur = pl.BlockSpec((W, 128), lambda q, i: (q, i))
+    succ = pl.BlockSpec((W, 128),
+                        lambda q, i: (jnp.minimum(q + 1, n_win - 1), i))
+    jp, jo = pl.pallas_call(
+        functools.partial(jmat._fine_compact_kernel, n_win=n_win, kc=1),
+        out_shape=(jax.ShapeDtypeStruct((Np, L), jnp.int32),
+                   jax.ShapeDtypeStruct((Np, L), jnp.int16)),
+        grid=(n_win, L // 128),
+        in_specs=[cur, succ, cur, succ],
+        out_specs=(cur, cur),
+        interpret=True,
+    )(jnp.asarray(p), jnp.asarray(p), jnp.asarray(o), jnp.asarray(o))
+    return np.asarray(jp), np.asarray(jo)
+
+
+@pytest.fixture(scope="module")
+def offsets():
+    # decode-realistic events over several windows of rows: offsets grow
+    # past every window size tried below
+    rng = np.random.default_rng(5)
+    ev, _, _ = _block_events(rng, 1024, 40, 128, 6)
+    ev[0, 1] = 0   # blk 0, z 0, val -2048 packs to 0 and is an event
+    p0, o0 = probes.offsets_init(torch.as_tensor(ev))
+    assert int(o0.max()) > 512
+    return ev, p0, o0
+
+
+@pytest.mark.parametrize("W", [128, 256, 512])
+def test_compact_fine_matches_the_pallas_fine_kernel(offsets, W):
+    ev, p0, o0 = offsets
+    jp, jo = _jax_fine_compact(_np(p0), _np(o0), W)
+    p, o = probes.compact_fine(p0, o0, W)
+    assert p.dtype == torch.int32 and o.dtype == torch.int16
+    np.testing.assert_array_equal(_np(p), jp)
+    np.testing.assert_array_equal(_np(o), jo)
+    # every residual offset is a multiple of W; the stage moved something
+    # and left something for the coarse stages
+    res = _np(o)[_np(o) >= 0]
+    assert (res % W == 0).all() and (res > 0).any()
+    assert not torch.equal(p, p0)
+    # the event that packs to 0 is kept: validity is o >= 0
+    assert int(o[0, 1]) == 0 and int(p[0, 1]) == 0
+
+
+@pytest.mark.parametrize("W", [128, 1024])
+def test_compact_staged_equals_one_full_compact(offsets, W):
+    ev, p0, o0 = offsets
+    whole = tmat.compact_offsets(p0, o0)
+    staged = probes.compact_staged(p0, o0, W)
+    ranked = tmat.compact_to_rank_plain(torch.as_tensor(ev))
+    for a, b, c in zip(staged, whole, ranked):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    plain = probes.compact_staged_plain(p0, o0, W)
+    assert all(torch.equal(a, b) for a, b in zip(plain, staged))
+    # the coarse stages alone, on offsets whose low bits are already spent
+    fine = probes.compact_fine(p0, o0, W)
+    coarse = tmat.compact_offsets(*fine, mask=~(W - 1))
+    assert torch.equal(coarse[0], whole[0]) and torch.equal(coarse[1], whole[1])
+    with pytest.raises(ValueError, match="power of two"):
+        probes.compact_fine(p0, o0, 100)
+
+
+def test_spread_ranked_equals_the_scatter(offsets):
+    ev, p0, o0 = offsets
+    M = 40 * 64
+    cp, co = probes.compact_staged(p0, o0, 256)
+    dense = probes.spread_ranked(cp, co, M)
+    assert dense.dtype == torch.int16 and tuple(dense.shape) == (M, 128)
+    assert torch.equal(dense, tmat.place_events(torch.as_tensor(ev), M))
+    assert torch.equal(dense, probes.spread_ranked_plain(cp, co, M))
+    want = np.asarray(jmat.place_events_v3(jnp.asarray(ev), M=M,
+                                           interpret=True))
+    np.testing.assert_array_equal(_np(dense), want[:M])
+    assert int(dense[0, 1]) == -2048

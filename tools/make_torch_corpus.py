@@ -16,6 +16,22 @@ And sixteen photo mosaics of mixed sizes for the size-bucketed path:
     101 x 101 MCU size-class bucket), 4:4:4, quality 90, a restart marker
     every MCU row (the row-aligned intervals the bucket plan needs).
 
+The same three corpora once more with 4:2:0 chroma (16 x 16 px MCUs):
+
+  * tests/fixtures/rst640_420/NN.jpg: the 640x640 images, a restart
+    marker every MCU row (interval = ceil(w / 16) = 40 MCUs), OpenCV;
+  * tests/fixtures/photo640_420/NN.jpg: the same images without restart
+    markers (PIL, subsampling=2);
+  * tests/fixtures/mixed_rst_420/NN_WxH.jpg: the 16 mixed sizes, a
+    restart marker every MCU row.
+
+And one small stream (200x152, quality 90, seed 7) per remaining
+sampling, for the routes that the 4:2:0 chunks do not reach:
+
+  * tests/fixtures/sampling_small/{422,440,411,gray}_rst.jpg: 4:2:2,
+    4:4:0, 4:1:1 and grayscale with a restart marker every MCU row, and
+    gray.jpg: grayscale without restart markers.
+
 The machine that runs chip_smoke.py has no JPEG encoder, so the streams
 ship as files.
 
@@ -33,6 +49,44 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 SIZE, QUALITY, N_SEEDS = 640, 90, 16
 CORPORA = {"rst640": 1, "photo640": 0}   # directory -> restart rows
 MIXED, MIXED_SEED, MIXED_LO, MIXED_HI = "mixed_rst", 2024, 624, 800
+SMALL, SMALL_W, SMALL_H, SMALL_SEED = "sampling_small", 200, 152, 7
+
+
+def encode_sampled(arr, quality: int, sampling: str, rst_rows: int) -> bytes:
+    """Encode RGB `arr` with chroma `sampling` ("420", "422", "440",
+    "411", or "gray" for the first channel alone); rst_rows > 0 puts a
+    restart marker every rst_rows MCU rows (OpenCV; the interval counts
+    MCUs, which are 8 * h_max px wide), 0 none (PIL for "420")."""
+    import cv2
+
+    mcu_w = {"420": 16, "422": 16, "440": 8, "411": 32, "gray": 8}[sampling]
+    if not rst_rows and sampling == "420":
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", quality=quality, subsampling=2)
+        return buf.getvalue()
+    flags = [cv2.IMWRITE_JPEG_QUALITY, quality,
+             cv2.IMWRITE_JPEG_RST_INTERVAL,
+             rst_rows * -(-arr.shape[1] // mcu_w)]
+    if sampling == "gray":
+        src = arr[:, :, 0]
+    else:
+        flags += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                  getattr(cv2, "IMWRITE_JPEG_SAMPLING_FACTOR_" + sampling)]
+        src = arr[:, :, ::-1]
+    ok, enc = cv2.imencode(".jpg", src, flags)
+    assert ok
+    return enc.tobytes()
+
+
+def _write(folder: str, name: str, data: bytes) -> int:
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, name), "wb") as f:
+        f.write(data)
+    return len(data)
 
 
 def main() -> None:
@@ -65,6 +119,33 @@ def main() -> None:
             f.write(data)
         total += len(data)
     print(f"wrote {N_SEEDS} mixed-size streams, {total} bytes, to {out}")
+
+    # the 4:2:0 corpora: the same images, 16 x 16 px MCUs
+    for name, rst_rows in CORPORA.items():
+        out = os.path.join(FIXTURES, name + "_420")
+        total = sum(
+            _write(out, f"{seed:02d}.jpg",
+                   encode_sampled(arr, QUALITY, "420", rst_rows))
+            for seed, arr in enumerate(arrs))
+        print(f"wrote {N_SEEDS} 4:2:0 streams, {total} bytes, to {out}")
+    out = os.path.join(FIXTURES, MIXED + "_420")
+    total = 0
+    for seed, (w, h) in enumerate(sizes.tolist()):
+        arr = bench._make_photo_image(max(w, h), 100 + seed)[:h, :w]
+        total += _write(out, f"{seed:02d}_{w}x{h}.jpg", encode_sampled(
+            np.ascontiguousarray(arr), QUALITY, "420", 1))
+    print(f"wrote {N_SEEDS} mixed-size 4:2:0 streams, {total} bytes, to {out}")
+
+    # one small stream per remaining sampling
+    small = np.ascontiguousarray(
+        bench._make_photo_image(SMALL_W, SMALL_SEED)[:SMALL_H, :SMALL_W])
+    out = os.path.join(FIXTURES, SMALL)
+    total = 0
+    for sampling in ("422", "440", "411", "gray"):
+        total += _write(out, f"{sampling}_rst.jpg",
+                        encode_sampled(small, QUALITY, sampling, 1))
+    total += _write(out, "gray.jpg", encode_sampled(small, QUALITY, "gray", 0))
+    print(f"wrote 5 small streams, {total} bytes, to {out}")
 
 
 if __name__ == "__main__":

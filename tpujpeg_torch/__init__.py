@@ -1,13 +1,18 @@
 """tpujpeg_torch — the PyTorch/CUDA port of tpujpeg for NVIDIA Hopper.
 
-Batch decode of baseline 4:4:4 streams, with or without restart
-markers, of one exact size or of mixed sizes (size-class buckets), runs
-on the card through hand-written CUDA kernels (csrc/): the Huffman
-symbol FSM scan (restart lanes, bucket-raster emission, the speculative
-modes), the events -> dense coefficient scatter and its two other
-routes (offset compaction, full-height compaction and spread), the slot
-route's compact, unpack and expand, and the fused dequant + IDCT +
-colour pixel stage.
+Batch decode of baseline streams (4:4:4, 4:2:0, 4:2:2, 4:4:0, 4:1:1 and
+grayscale), with or without restart markers, of one exact size or of
+mixed sizes (size-class buckets), runs on the card through hand-written
+CUDA kernels (csrc/): the Huffman symbol FSM scan (restart lanes,
+bucket-raster emission, the speculative modes), the events -> dense
+coefficient scatter and its two other routes (offset compaction,
+full-height compaction and spread), the slot route's compact, unpack and
+expand, and the fused dequant + IDCT + colour pixel stage of 4:4:4.
+Subsampled and grayscale pixels take the plane path (IDCT, block ->
+raster, box or fancy chroma upsampling, colour), plain PyTorch on the
+card as it is plain XLA in the JAX package.  csrc/probes.cu holds the
+lookup and materialize-stage probes that tools/bench_torch_gather.py and
+tools/bench_torch_materialize.py time.
 
 The package stands alone: it keeps its own copy of the host layer
 (errors, constants, io/, oracle/, runtime/host.py, runtime/native/) and
@@ -21,12 +26,14 @@ from .errors import JpegError
 __all__ = ["JpegError", "decode", "decode_batch"]
 
 
-def decode(data, backend: str = "cuda", device="cuda"):
+def decode(data, backend: str = "cuda", device="cuda", fancy: bool = False):
     """Decode a JPEG (path or bytes) to an int32 [H, W, 3] RGB array.
 
     backend='cuda' runs host entropy decode, then the port's pixel stage on
     `device` with strict repair (bit-exact with the reference decoder);
-    backend='oracle' runs the NumPy reference decoder.
+    backend='oracle' runs the NumPy reference decoder.  fancy=True
+    upsamples subsampled chroma with libjpeg's triangle filter (box
+    replication otherwise).
     """
     from .io.parser import parse, parse_file
 
@@ -34,19 +41,20 @@ def decode(data, backend: str = "cuda", device="cuda"):
     if backend == "oracle":
         from .oracle import decoder as oracle
 
-        return oracle.decode(img)
+        return oracle.decode(img, fancy=fancy)
     if backend != "cuda":
         raise ValueError(f"unknown backend {backend!r}")
     from . import pipeline
 
-    return pipeline.decode(img, device=device)
+    return pipeline.decode(img, device=device, fancy=fancy)
 
 
 def decode_batch(datas, **kwargs):
     """Decode a batch of JPEG byte strings -> list of uint8 [H, W, 3].
 
     Thin wrapper over runtime.batch.BatchDecoder (keyword arguments go to
-    its constructor)."""
+    its constructor: backend, chunk_size, strict, device, size_buckets,
+    materialize_route, fancy)."""
     from .runtime.batch import BatchDecoder
 
     dec = BatchDecoder(**kwargs)

@@ -6,7 +6,11 @@
 //                       XLA coarse compact stages of _compact_to_rank
 //                       (materialize.py:575-613): the compaction whose
 //                       offsets pos - rank were computed outside, by a
-//                       column cumsum;
+//                       column cumsum.  With a mask it is one group of the
+//                       network's stages alone (each event moves up by
+//                       o & mask and keeps the rest of its offset): the
+//                       fine stage and the coarse stages that
+//                       tools/bench_materialize2.py times apart;
 //   * compact_full    — _compact_kernel (materialize.py:102): full-height
 //                       stable compaction with the ranks computed inside,
 //                       payload only;
@@ -49,16 +53,19 @@ constexpr int kSegs = 32;         // compact_full: row segments (warps)
 __global__ void compact_offsets_kernel(const int32_t* __restrict__ p,
                                        const int16_t* __restrict__ o,
                                        int32_t* __restrict__ p_out,
-                                       int16_t* __restrict__ o_out, int L) {
+                                       int16_t* __restrict__ o_out, int L,
+                                       int mask) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y;
   if (lane >= L) return;
   const size_t i = static_cast<size_t>(r) * L + lane;
   const int off = __ldg(o + i);
-  if (off < 0 || off > r) return;  // empty row (or an offset past row 0)
-  const size_t dst = static_cast<size_t>(r - off) * L + lane;
+  if (off < 0) return;             // empty row
+  const int move = off & mask;     // the stages this call runs
+  if (move > r) return;            // an offset past row 0
+  const size_t dst = static_cast<size_t>(r - move) * L + lane;
   p_out[dst] = __ldg(p + i);
-  o_out[dst] = 0;
+  o_out[dst] = static_cast<int16_t>(off - move);
 }
 
 __global__ void __launch_bounds__(kTileLanes * kSegs)
@@ -121,11 +128,12 @@ dim3 row_grid(int rows, int L) {
 }  // namespace
 
 // (p int32, o int16) [Np, L], o = row - rank >= 0 on valid rows ->
-// (p_out, o_out) [Np, L]: each valid event at row - o with o_out == 0,
-// p_out == 0 and o_out == -1 elsewhere.  Np must be <= 65535.
+// (p_out, o_out) [Np, L]: each valid event at row - (o & mask) with
+// o_out = o - (o & mask) there (0 when mask is -1), p_out == 0 and
+// o_out == -1 elsewhere.  Np must be <= 65535.
 extern "C" int tpj_compact_offsets(const int32_t* p, const int16_t* o,
                                    int32_t* p_out, int16_t* o_out, int Np,
-                                   int L, cudaStream_t stream) {
+                                   int L, int mask, cudaStream_t stream) {
   const size_t n = static_cast<size_t>(Np) * L;
   cudaError_t rc = cudaMemsetAsync(p_out, 0, n * sizeof(int32_t), stream);
   if (rc == cudaSuccess) {
@@ -134,7 +142,7 @@ extern "C" int tpj_compact_offsets(const int32_t* p, const int16_t* o,
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if (Np == 0 || L == 0) return static_cast<int>(cudaGetLastError());
   compact_offsets_kernel<<<row_grid(Np, L), kRowThreads, 0, stream>>>(
-      p, o, p_out, o_out, L);
+      p, o, p_out, o_out, L, mask);
   return static_cast<int>(cudaGetLastError());
 }
 

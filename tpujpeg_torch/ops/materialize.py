@@ -237,21 +237,24 @@ def compact_to_rank(ev: torch.Tensor, rank_kernel: bool = True,
     return p, o
 
 
-def compact_offsets_plain(p: torch.Tensor, o: torch.Tensor):
+def compact_offsets_plain(p: torch.Tensor, o: torch.Tensor, mask: int = -1):
     """Plain PyTorch version of `compact_offsets` (same contract)."""
     Np, L = p.shape
     row = torch.arange(Np, dtype=torch.int64, device=p.device)[:, None]
-    dst = row - o.to(torch.int64)
+    off = o.to(torch.int64)
+    move = off & mask
+    dst = row - move
     valid = (o >= 0) & (dst >= 0)
     lane = torch.arange(L, device=p.device).expand(Np, L)
     p_out = torch.zeros_like(p)
     o_out = torch.full_like(o, -1)
     p_out[dst[valid], lane[valid]] = p[valid]
-    o_out[dst[valid], lane[valid]] = 0
+    o_out[dst[valid], lane[valid]] = (off - move)[valid].to(o.dtype)
     return p_out, o_out
 
 
-def compact_offsets(p: torch.Tensor, o: torch.Tensor):
+def compact_offsets(p: torch.Tensor, o: torch.Tensor, mask: int = -1,
+                    counted_as: str = "compact_offsets"):
     """(p int32, o int16) [Np, L] -> (p, o) [Np, L], compacted.
 
     A valid row holds o = row - rank >= 0, its distance to its rank row;
@@ -259,10 +262,22 @@ def compact_offsets(p: torch.Tensor, o: torch.Tensor):
     p == 0, o == -1 elsewhere: exactly `compact_to_rank`'s output.
     Contract of the JAX package's _fine_compact_kernel with the coarse
     stages after it (materialize._compact_to_rank with the rank kernel
-    off).  CUDA tensors run kernel "compact_offsets" (one thread per
-    element, a scatter by offset); CPU tensors the plain version."""
+    off).
+
+    mask (default -1: all of the offset) selects one group of the
+    compaction network's stages: every valid event moves up by
+    `o & mask` and keeps the residual `o - (o & mask)`.  mask = W - 1 is
+    the fine stage alone (the contract of _fine_compact_kernel at kc = 1
+    with window W: stages d < W); mask = ~(W - 1) the coarse stages
+    after it.  The network runs its stages low bits first, so the masks
+    compose in that order only: fine, then coarse, equals one full call.
+
+    CUDA tensors run kernel "compact_offsets" (one thread per element, a
+    scatter by offset); CPU tensors the plain version.  counted_as: the
+    name the launch is counted under (the probes of ops/probes.py count
+    their own)."""
     if not p.is_cuda:
-        return compact_offsets_plain(p, o)
+        return compact_offsets_plain(p, o, mask)
     from ..runtime import kernels
 
     kernels.check_cuda_tensor("p", p, torch.int32, 2)
@@ -275,8 +290,8 @@ def compact_offsets(p: torch.Tensor, o: torch.Tensor):
             f"compact_offsets: {Np} rows exceed the int16 offsets")
     p_out = torch.empty_like(p)
     o_out = torch.empty_like(o)
-    kernels.launch("compact_offsets", p.data_ptr(), o.data_ptr(),
-                   p_out.data_ptr(), o_out.data_ptr(), Np, L,
+    kernels.launch(counted_as, p.data_ptr(), o.data_ptr(),
+                   p_out.data_ptr(), o_out.data_ptr(), Np, L, mask,
                    kernels.current_stream(p.device))
     return p_out, o_out
 
@@ -331,7 +346,8 @@ def spread_full_plain(cp: torch.Tensor, M: int,
 
 
 def spread_full(cp: torch.Tensor, M: int, o: torch.Tensor | None = None,
-                err_mal: torch.Tensor | None = None) -> torch.Tensor:
+                err_mal: torch.Tensor | None = None,
+                counted_as: str = "spread_full") -> torch.Tensor:
     """compacted events int32 [N, L] -> dense int16 [M, L].
 
     Every valid row is unpacked (blk = (cp >> 18) & 0x1FFF, z = (cp >> 12)
@@ -343,7 +359,7 @@ def spread_full(cp: torch.Tensor, M: int, o: torch.Tensor | None = None,
     given, its lane is latched in place.  M may be above or below N.
     Contract of the JAX package's _spread_kernel.  CUDA tensors run kernel
     "spread_full" (one thread per element, a scatter); CPU tensors the
-    plain version."""
+    plain version.  counted_as: as in `compact_offsets`."""
     if not cp.is_cuda:
         return spread_full_plain(cp, M, o, err_mal)
     from ..runtime import kernels
@@ -362,7 +378,7 @@ def spread_full(cp: torch.Tensor, M: int, o: torch.Tensor | None = None,
             raise ValueError("spread_full: err_mal must be [L]")
     out = torch.empty((M, L), dtype=torch.int16, device=cp.device)
     kernels.launch(
-        "spread_full", cp.data_ptr(),
+        counted_as, cp.data_ptr(),
         None if o is None else o.data_ptr(), out.data_ptr(),
         None if err_mal is None else err_mal.data_ptr(),
         N, M, L, kernels.current_stream(cp.device),

@@ -1,20 +1,22 @@
 """Pixel pipeline: coefficients -> RGB, and the single-image decode.
 
-Counterpart of the 4:4:4 branch of tpujpeg/pipeline.py.  The batch axis
-that the JAX package adds with vmap is written out: every device
-function here takes a leading batch dimension B.
+Counterpart of tpujpeg/pipeline.py.  The batch axis that the JAX package
+adds with vmap is written out: every device function here takes a
+leading batch dimension B.
 
-  * `device_decode_fn(geom, coeffs, quant, dc)`: [B, n_blocks, 64] zigzag
-    coefficients -> (rgb uint8 [B, 3, H, W], riskbits uint8 [B, H, W/8]);
-  * `decode(img, device)`: host entropy (the native C++ decoder of
-    runtime/native) + the pixel stage + strict repair.
-
+  * `device_decode_fn(geom, coeffs, quant, fancy, dc, extents)`:
+    [B, n_blocks, 64] zigzag coefficients -> (rgb uint8 [B, 3, H, W],
+    riskbits uint8 [B, H, W/8]).  Three full-resolution components
+    (4:4:4) go through the fused pixel kernel (ops/pixels.py); every
+    other geometry (4:2:0, 4:2:2, 4:4:0, 4:1:1, grayscale) takes the
+    plane path: `_idct_planar`, `_plane_from_soa`, `upsample_planes` (box
+    or fancy, ops/upsample.py), `planes_to_rgb`.  The JAX package has no
+    Pallas kernel on the plane path, and it is plain PyTorch here;
+  * `decode(img, device, strict, fancy)`: host entropy (the native C++
+    decoder of runtime/native) + the pixel stage + strict repair;
   * `bucket_geometry(geom)`: the size-class bucket of a geometry, with
     `pad_coeffs_to_bucket` / `unpad_coeffs_from_bucket` for the host side
     of mixed-size chunks.
-
-Only three full-resolution components are ported.  Any other geometry
-raises NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from .constants import ZIGZAG_TO_NATURAL
 from .io.parser import JpegImage
 from .oracle import decoder as oracle
 
-from .ops.color import pack_mask, unpack_mask
+from .ops.color import color_channels, pack_mask, unpack_mask
+from .ops.idct import idct_planes
 from .ops.pixels import KMAJOR_OF_NATURAL, TILE, rgb_soa_fused, unpack_pixels
 
 # zigzag index of each k-major row: the prologue's single row permute
@@ -83,8 +86,9 @@ class Geometry(tuple):
 # share a chunk by snapping each MCU grid UP to a geometric ladder of
 # bucket sizes: coefficients sit in the bucket's MCU raster, zero padded;
 # the pixel stage runs at the bucket's size, and the host crops each image
-# back to its true height and width.  4:4:4 pixels are pointwise in the
-# block domain, so the true extents never reach the pixel stage.
+# back to its true height and width.  Everything but the fancy
+# upsampler's edge handling is pointwise per block or per pixel, so the
+# true MCU extents reach the pixel stage only there (`extents`).
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,16 +136,6 @@ def unpad_coeffs_from_bucket(geom: Geometry, bucket: Geometry,
     ).reshape(geom.n_blocks, 64)
 
 
-def check_supported(geom: Geometry) -> None:
-    """Raise NotImplementedError for geometries the port lacks."""
-    if len(geom.comps) != 3 or geom.max_h != 1 or geom.max_v != 1:
-        raise NotImplementedError(
-            "tpujpeg_torch decodes 3-component full-resolution (4:4:4) "
-            "streams only; subsampled and grayscale streams are ROADMAP "
-            "queue 1 item 12"
-        )
-
-
 def soa_planes(geom: Geometry, coeffs: torch.Tensor, quant: torch.Tensor,
                dc: torch.Tensor | None):
     """The pixel kernel's inputs (its prologue): one zigzag -> k-major row
@@ -168,25 +162,11 @@ def soa_planes(geom: Geometry, coeffs: torch.Tensor, quant: torch.Tensor,
     return zp, q, dcp
 
 
-def device_decode_fn(geom: Geometry, coeffs: torch.Tensor,
-                     quant: torch.Tensor, dc: torch.Tensor | None = None):
-    """Coefficients -> (rgb uint8 planar [B, 3, H, W], packed riskbits
-    uint8 [B, H, ceil(W/8)]).
-
-    4:4:4 pixels in the block domain (prologue, pixel kernel, unpack),
-    then one uint8 raster transpose.
-
-    coeffs: int16/int32 [B, n_blocks, 64], zigzag order, scan order.
-    quant:  int32 [B, n_comp, 64], zigzag order.
-    dc:     optional int32 [B, n_blocks] resolved DC that overrides
-            coeffs[..., 0] (the fused FSM chunk leaves DPCM differences
-            there).
-    """
-    check_supported(geom)
-    n = geom.n_mcus
-    rg, bk = rgb_soa_fused(*soa_planes(geom, coeffs, quant, dc))
-    chans, risky = unpack_pixels(rg[..., :n], bk[..., :n])
-    B = coeffs.shape[0]
+def _raster_from_blocks(geom: Geometry, chans, risky):
+    """Block-domain colour planes ([B, 64, n_mcus] each, full resolution)
+    -> (rgb uint8 [B, 3, H, W], packed riskbits): one uint8 raster
+    transpose and the crop."""
+    B = risky.shape[0]
     my, mx = geom.mcus_y, geom.mcus_x
     rgb = torch.stack(chans, dim=1)                       # [B, 3, 64, n]
     rgb = (
@@ -201,6 +181,139 @@ def device_decode_fn(geom: Geometry, coeffs: torch.Tensor,
     )
     rgb = rgb[:, :, : geom.height, : geom.width]
     return rgb, pack_mask(risky[:, : geom.height, : geom.width])
+
+
+def _idct_planar(geom: Geometry, coeffs: torch.Tensor, quant: torch.Tensor,
+                 dc: torch.Tensor | None = None) -> torch.Tensor:
+    """Dequant + inverse zigzag + IDCT in coefficient-major (SoA) layout.
+
+    Returns int32 [B, 64, n_blocks]: row p = raster position p of every
+    block, blocks ordered component-planar (all of component 0, then 1,
+    ...), MCU-major within a component.  The dequant runs in the zigzag
+    domain and the inverse zigzag is a static reorder of the 64-row axis.
+
+    dc (optional): int32 [B, n_blocks] of resolved DC coefficients that
+    override coeffs[..., 0] (the fused chunks leave DPCM differences in
+    the dense tensor).  Products are taken in int64 and reduced to int32
+    by `idct_planes`, which gives the bits of the JAX package's wrapping
+    int32 multiply."""
+    B = coeffs.shape[0]
+    n, bpm = geom.n_mcus, geom.blocks_per_mcu
+    per_mcu = coeffs.reshape(B, n, bpm, 64)
+    dc_mcu = None if dc is None else dc.reshape(B, n, bpm)
+    z2n = torch.as_tensor(np.asarray(ZIGZAG_TO_NATURAL), dtype=torch.long,
+                          device=coeffs.device)
+    q = quant.to(torch.int64)
+    soa = []
+    base = 0
+    for ci, (h, v, _) in enumerate(geom.comps):
+        nb = h * v
+        zp = per_mcu[:, :, base : base + nb, :].reshape(B, n * nb, 64)
+        deq = zp.transpose(1, 2).to(torch.int64) * q[:, ci, :, None]
+        if dc_mcu is not None:
+            dcc = dc_mcu[:, :, base : base + nb].reshape(B, 1, n * nb)
+            deq = torch.cat(
+                [dcc.to(torch.int64) * q[:, ci, 0:1, None], deq[:, 1:]],
+                dim=1)
+        soa.append(deq.index_select(1, z2n))
+        base += nb
+    return idct_planes(torch.cat(soa, dim=2))
+
+
+def _plane_from_soa(geom: Geometry, pix_c: torch.Tensor, h: int,
+                    v: int) -> torch.Tensor:
+    """[B, 64, n_mcus*h*v] SoA pixels of one component -> raster planes
+    [B, mcus_y*v*8, mcus_x*h*8]."""
+    B = pix_c.shape[0]
+    grid = pix_c.reshape(B, 8, 8, geom.mcus_y, geom.mcus_x, v, h)
+    return grid.permute(0, 3, 5, 1, 4, 6, 2).reshape(
+        B, geom.mcus_y * v * 8, geom.mcus_x * h * 8
+    )
+
+
+def decode_subsampled_planes(geom: Geometry, coeffs: torch.Tensor,
+                             quant: torch.Tensor,
+                             dc: torch.Tensor | None = None):
+    """Coefficients -> per-component centred planes [B, Hc, Wc] at each
+    component's native resolution (dequant, inverse zigzag, integer IDCT,
+    block -> raster; no upsampling yet)."""
+    pix = _idct_planar(geom, coeffs, quant, dc)
+    planes = []
+    base = 0
+    for h, v, _ in geom.comps:
+        n = geom.n_mcus * h * v
+        planes.append(_plane_from_soa(geom, pix[:, :, base : base + n], h, v))
+        base += n
+    return planes
+
+
+def upsample_planes(geom: Geometry, planes, fancy: bool, extents=None):
+    """Native-resolution planes -> full-resolution planes (box or fancy).
+
+    extents: optional int tensor [B, 2] of true (mcus_y, mcus_x) for a
+    bucket-padded chunk: moves the fancy filter's bottom and right
+    replication edges to each image's real sample extent (box
+    replication is pointwise and needs nothing)."""
+    from .ops.upsample import upsample_plane
+
+    return [
+        upsample_plane(
+            p, geom.max_h // h, geom.max_v // v, fancy,
+            true_hw=(
+                None if extents is None
+                else (extents[:, 0] * (v * 8), extents[:, 1] * (h * 8))
+            ),
+        )
+        for p, (h, v, _) in zip(planes, geom.comps)
+    ]
+
+
+def planes_to_rgb(geom: Geometry, planes):
+    """Full-resolution planes [B, Hp, Wp] -> (rgb uint8 planar [B, 3, H,
+    W], packed riskbits); one plane is grayscale (zero chroma)."""
+    planes = [p[:, : geom.height, : geom.width] for p in planes]
+    if len(planes) == 1:
+        zeros = torch.zeros_like(planes[0])
+        planes = [planes[0], zeros, zeros]
+    chans, risky = color_channels(*planes)
+    return torch.stack(chans, dim=1), pack_mask(risky)
+
+
+def device_decode_fn(geom: Geometry, coeffs: torch.Tensor,
+                     quant: torch.Tensor, fancy: bool = False,
+                     dc: torch.Tensor | None = None, extents=None):
+    """Coefficients -> (rgb uint8 planar [B, 3, H, W], packed riskbits
+    uint8 [B, H, ceil(W/8)]).
+
+    coeffs:  int16/int32 [B, n_blocks, 64], zigzag order, scan order.
+    quant:   int32 [B, n_comp, 64], zigzag order.
+    fancy:   libjpeg's triangle chroma upsampling (subsampled streams
+             only; box replication otherwise).
+    dc:      optional int32 [B, n_blocks] resolved DC that overrides
+             coeffs[..., 0] (the fused FSM chunk leaves DPCM differences
+             there).
+    extents: optional int tensor [B, 2], true (mcus_y, mcus_x) per image
+             when `geom` is a size-class bucket that the images only
+             partly fill: the fancy upsampler's edges are the only place
+             where the true size matters.
+
+    Routing as in the JAX package: three full-resolution components take
+    the block-domain pixel kernel (prologue, `rgb_soa_fused`, unpack, one
+    uint8 raster transpose); grayscale takes the same block-domain order
+    through `_idct_planar`; subsampled geometries take the plane path.
+    """
+    if geom.max_h == 1 and geom.max_v == 1:
+        n = geom.n_mcus
+        if len(geom.comps) == 3:
+            rg, bk = rgb_soa_fused(*soa_planes(geom, coeffs, quant, dc))
+            chans, risky = unpack_pixels(rg[..., :n], bk[..., :n])
+        else:
+            pix = _idct_planar(geom, coeffs, quant, dc)    # [B, 64, n]
+            zeros = torch.zeros_like(pix)
+            chans, risky = color_channels(pix, zeros, zeros)
+        return _raster_from_blocks(geom, chans, risky)
+    planes = decode_subsampled_planes(geom, coeffs, quant, dc)
+    return planes_to_rgb(geom, upsample_planes(geom, planes, fancy, extents))
 
 
 # ---------------------------------------------------------------------------
@@ -219,18 +332,20 @@ def build_plan(img: JpegImage) -> tuple[Geometry, np.ndarray, np.ndarray]:
     return Geometry.of(img), coeffs, quant
 
 
-def decode(img: JpegImage, device, strict: bool = True) -> np.ndarray:
+def decode(img: JpegImage, device, strict: bool = True,
+           fancy: bool = False) -> np.ndarray:
     """Decode one image on `device`.  Returns int32 [H, W, 3] RGB.
 
     strict=True repairs flagged colour-boundary pixels with the oracle's
-    exact math, so the output is bit-exact with the reference decoder.
+    exact math, so the output is bit-exact with the reference decoder
+    (and, for fancy=True, with the numpy fancy-upsampling oracle).
     """
     geom, coeffs, quant = build_plan(img)
-    check_supported(geom)
     rgb_dev, riskbits = device_decode_fn(
         geom,
         torch.as_tensor(coeffs).to(device)[None],
         torch.as_tensor(quant).to(device)[None],
+        fancy=fancy,
     )
     rgb = np.ascontiguousarray(
         np.moveaxis(rgb_dev[0].cpu().numpy(), 0, -1)
@@ -238,7 +353,7 @@ def decode(img: JpegImage, device, strict: bool = True) -> np.ndarray:
     if strict:
         mask = unpack_mask(riskbits[0].cpu().numpy(), img.width)
         if mask.any():
-            _repair(img, coeffs, rgb, mask)
+            _repair(img, coeffs, rgb, mask, fancy=fancy)
     return rgb
 
 
@@ -246,7 +361,8 @@ def _comp_samples(img, coeffs, quant_ci, comp_base_ci, c, cy, cx) -> np.ndarray:
     """Oracle IDCT sample values of one component at plane coords (cy, cx).
 
     Vectorized over pixel lists; cost is a few 8x8 IDCTs on the unique
-    touched blocks.
+    touched blocks.  Coordinates are in the component's own (subsampled)
+    padded plane.
     """
     by, bx = cy // 8, cx // 8
     mcu = (by // c.v) * img.mcus_x + (bx // c.h)
@@ -261,18 +377,53 @@ def _comp_samples(img, coeffs, quant_ci, comp_base_ci, c, cy, cx) -> np.ndarray:
 
 
 def _repair(img: JpegImage, coeffs: np.ndarray, rgb: np.ndarray,
-            mask: np.ndarray) -> None:
-    """Recompute flagged pixels of a full-resolution image with the exact
-    oracle math, in place (O(flagged pixels)).  The subsampled repair
-    (fancy upsampling) comes with ROADMAP queue 1 item 12."""
+            mask: np.ndarray, fancy: bool = False) -> None:
+    """Recompute flagged pixels with the exact oracle math, in place
+    (O(flagged pixels)).  With fancy=True the chroma samples that feed
+    the exact colour math are rebuilt through the same triangle filter as
+    the device (ops/upsample.py), from clamped samples, with replication
+    at the image's true padded edge; factors above 2 take the nearest
+    sample, as the device's box fallback does."""
     py, px = np.nonzero(mask)
     comps = img.components
+    max_h, max_v = img.max_h, img.max_v
     comp_base = np.cumsum([0] + [c.h * c.v for c in comps])
     samples = []
     for ci, c in enumerate(comps):
+        fy, fx = max_v // c.v, max_h // c.h
         quant = img.quant_tables[c.quant_id].astype(np.int64)
-        samples.append(
-            _comp_samples(img, coeffs, quant, comp_base[ci], c, py, px)
+        val = functools.partial(
+            _comp_samples, img, coeffs, quant, comp_base[ci], c
         )
-    y, cb, cr = samples
+        if (fy == 1 and fx == 1) or not fancy or fy > 2 or fx > 2:
+            # box path (or a full-resolution component): nearest sample
+            samples.append(val(py // fy, px // fx))
+            continue
+        # fancy: rebuild the triangle filter from clamped samples
+        hc = img.mcus_y * c.v * 8
+        wc = img.mcus_x * c.h * 8
+        r, col = py // fy, px // fx
+        rn = np.clip(r + np.where(py % 2 == 1, 1, -1), 0, hc - 1) \
+            if fy == 2 else r
+        cn = np.clip(col + np.where(px % 2 == 1, 1, -1), 0, wc - 1) \
+            if fx == 2 else col
+
+        def s(rr, cc):
+            return np.clip(val(rr, cc) + 128, 0, 255).astype(np.int64)
+
+        if fy == 2 and fx == 2:
+            v = (
+                9 * s(r, col) + 3 * s(r, cn) + 3 * s(rn, col) + s(rn, cn)
+                + np.where(px % 2 == 1, 7, 8)
+            ) >> 4
+        elif fx == 2:
+            v = (3 * s(r, col) + s(r, cn) + np.where(px % 2 == 1, 2, 1)) >> 2
+        else:  # fy == 2
+            v = (3 * s(r, col) + s(rn, col) + np.where(py % 2 == 1, 2, 1)) >> 2
+        samples.append(v - 128)
+    if len(comps) == 1:
+        y = samples[0]
+        cb = cr = np.zeros_like(y)
+    else:
+        y, cb, cr = samples
     rgb[py, px] = oracle.ycbcr_to_rgb_exact(y, cb, cr)

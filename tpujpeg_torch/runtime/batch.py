@@ -45,9 +45,15 @@ materialize_route names how the classic materialize places events
 (ops/fsm.materialize_events): "scatter" (default), "ranked" (the JAX
 package's TPUJPEG_RANK_KERNEL=0) or "full" (TPUJPEG_PALLAS=1).
 
-Not ported yet (ROADMAP): subsampled and grayscale streams (queue 1
-item 12), several devices (13), the prep-pool overlap of plan building
-with device work.
+Every sampling the parser takes decodes on every route: 4:4:4 through
+the fused pixel kernel, 4:2:0, 4:2:2, 4:4:0, 4:1:1 and grayscale through
+the plane path (pipeline.device_decode_fn).  Chunks key on Geometry, so
+a batch that mixes samplings splits by itself.  fancy=True selects
+libjpeg's triangle chroma upsampling on every route and in the strict
+repair (box replication otherwise).
+
+Not ported yet (ROADMAP): several devices (13), the prep-pool overlap of
+plan building with device work (8).
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ import torch
 from ..errors import JpegError
 from ..io.parser import JpegImage, parse
 from ..ops.color import unpack_mask
-from ..pipeline import (Geometry, _repair, bucket_geometry, check_supported,
+from ..pipeline import (Geometry, _repair, bucket_geometry,
                         device_decode_fn, pad_coeffs_to_bucket,
                         unpad_coeffs_from_bucket)
 
@@ -151,10 +157,12 @@ class BatchDecoder:
     def __init__(self, backend: str = "fsm", chunk_size: int = 32,
                  strict: bool = True, device="cuda",
                  size_buckets: bool = False,
-                 materialize_route: str = "scatter"):
-        """size_buckets=True decodes corpora of mixed sizes: images group
-        by size-class bucket (pipeline.bucket_geometry) instead of exact
-        geometry, every chunk has the bucket's shapes, and outputs are
+                 materialize_route: str = "scatter", fancy: bool = False):
+        """fancy=True upsamples subsampled chroma with libjpeg's triangle
+        filter on every route (box replication otherwise; no effect on
+        4:4:4 and grayscale).  size_buckets=True decodes corpora of mixed
+        sizes: images group by size-class bucket
+        (pipeline.bucket_geometry) instead of exact geometry, every chunk has the bucket's shapes, and outputs are
         cropped to each image's true size on the host.  materialize_route
         is the classic materialize's route (module docstring)."""
         from ..ops import materialize
@@ -167,6 +175,7 @@ class BatchDecoder:
         self.backend = backend
         self.size_buckets = size_buckets
         self.route = materialize_route
+        self.fancy = fancy
         self.chunk_size = chunk_size
         self.strict = strict
         self.device = torch.device(device)
@@ -229,11 +238,11 @@ class BatchDecoder:
         A bucketed chunk (the host-bucketed route) decodes each image into
         its real MCU layout and pads it into the bucket's MCU raster on
         the host (pipeline.pad_coeffs_to_bucket); the pixel stage runs at
-        the bucket's size and `_finish` crops."""
+        the bucket's size with each image's true MCU extents (the fancy
+        upsampler's edges) and `_finish` crops."""
         from . import host
 
         geom = chunk.geom
-        check_supported(geom)
         B = len(chunk.imgs)
 
         def one(img):
@@ -255,9 +264,14 @@ class BatchDecoder:
                                      coeffs[bi])
             else:
                 coeffs[bi] = res
+        extents = None
+        if chunk.bucketed:
+            extents = torch.as_tensor(np.asarray(
+                [(im.mcus_y, im.mcus_x) for im in chunk.imgs], np.int32
+            )).to(self.device)
         chunk.out = device_decode_fn(
             geom, torch.as_tensor(coeffs).to(self.device),
-            self._quant_block(chunk, B),
+            self._quant_block(chunk, B), fancy=self.fancy, extents=extents,
         )
         chunk.coeffs = coeffs
         chunk.coeffs_dev = chunk.dc_dev = None
@@ -308,7 +322,6 @@ class BatchDecoder:
         from ..ops import fsm
         from . import fused
 
-        check_supported(chunk.geom)
         if chunk.bucketed:
             return self._process_chunk_fsm_bucketed(chunk, steps)
         if chunk.plan is None:
@@ -327,6 +340,7 @@ class BatchDecoder:
                 chunk.plan, self._quant_block(chunk, B), chunk.geom, B,
                 steps=chunk.steps, want_coeffs=self.strict,
                 uploaded=chunk.uploaded, slots=False, route=self.route,
+                fancy=self.fancy,
             )
         )
         chunk.out = (rgb, risk)
@@ -372,6 +386,7 @@ class BatchDecoder:
                 plan, self._quant_block(chunk, B), chunk.geom, B,
                 steps=chunk.steps, want_coeffs=self.strict,
                 uploaded=chunk.uploaded, slots=False, route=self.route,
+                fancy=self.fancy,
             )
         )
         chunk.out = (rgb, risk)
@@ -421,6 +436,7 @@ class BatchDecoder:
                         pending, geom, quant, B, len(chunk.imgs),
                         want_coeffs=self.strict,
                         slots=self._slot_capacity(chunk), route=self.route,
+                        fancy=self.fancy,
                     )
                 )
                 chunk.out = (rgb, risk)
@@ -450,7 +466,8 @@ class BatchDecoder:
             return self._process_chunk_spec(chunk, steps=fsm.STEPS_SAFE)
         except JpegError:
             return False
-        chunk.out = device_decode_fn(geom, coeffs_dev, quant)
+        chunk.out = device_decode_fn(geom, coeffs_dev, quant,
+                                     fancy=self.fancy)
         chunk.coeffs_dev = coeffs_dev if self.strict else None
         chunk.dc_dev = None
         chunk.err_mal = err_mal
@@ -589,7 +606,7 @@ class BatchDecoder:
                             # the repair indexes blocks in the real layout
                             ci = unpad_coeffs_from_bucket(
                                 Geometry.of(img), chunk.geom, ci)
-                        _repair(img, ci, out, mask)
+                        _repair(img, ci, out, mask, fancy=self.fancy)
                         repaired += int(mask.sum())
                 results[i] = out.astype(np.uint8)
         self.stats.repaired_pixels = repaired

@@ -67,14 +67,16 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
                        pad_to: int, steps=fsm.STEPS_PRODUCTION,
                        want_coeffs: bool = True, uploaded=None,
                        slots: bool | int | None = False,
-                       route: str = "scatter"):
+                       route: str = "scatter", fancy: bool = False):
     """Decode one restart plan on the device of `quant`.
 
-    quant: int32 [pad_to, 3, 64] zigzag quant tables.  `uploaded` is the
-    plan's (xs, seg_n_blocks) already on that device.  slots: the
+    quant: int32 [pad_to, n_comp, 64] zigzag quant tables.  `uploaded` is
+    the plan's (xs, seg_n_blocks) already on that device.  slots: the
     materialize route (fsm.materialize_checked): False, the default, is
     the classic scatter; a caller that asks for slots reads err_slot.
     route: the classic materialize's route (fsm.materialize_events).
+    fancy: triangle chroma upsampling for subsampled geometries
+    (pipeline.device_decode_fn).
 
     Returns (rgb uint8 [pad_to, 3, H, W], riskbits uint8 [pad_to, H, W/8],
     coeffs int16 [pad_to, n_blocks, 64] with raw DC differences, dc int32
@@ -96,7 +98,7 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
     coeffs = _assemble_rows(per_lane, plan.layout, pad_to)   # [B, nb, 64]
     dc = _assemble_rows(dc_lane, plan.layout, pad_to)        # [B, nb]
-    rgb, risk = device_decode_fn(geom, coeffs, quant, dc=dc)
+    rgb, risk = device_decode_fn(geom, coeffs, quant, fancy=fancy, dc=dc)
     if not want_coeffs:
         coeffs = dc = None
     return rgb, risk, coeffs, dc, err_mal, err_env, err_slot
@@ -116,7 +118,7 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
                           steps=fsm.STEPS_PRODUCTION,
                           want_coeffs: bool = True, uploaded=None,
                           slots: bool | int | None = False,
-                          route: str = "scatter"):
+                          route: str = "scatter", fancy: bool = False):
     """Decode one size-class bucket chunk of mixed exact geometries on the
     device of `quant`: scan bytes -> bucket-raster rgb, risk and errors.
 
@@ -125,11 +127,14 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
     bucket-raster emission (fsm.fsm_scan pad_info), so the per-lane rows
     land in the bucket's padded layout and assembly is a static reshape.
     `_dc_cumsum` carries each lane's predictor through the padding slots,
-    so DC is zeroed outside each image's true extent afterwards.
+    so DC is zeroed outside each image's true extent afterwards.  The
+    same extents [pad_to, 2] of true (mcus_y, mcus_x) go to the pixel
+    stage, where the fancy upsampler replicates at each image's real
+    edge.
 
-    quant: int32 [pad_to, 3, 64]; `uploaded` is the plan's (xs, seg_n,
-    wrap_at, skip) already on that device; slots and route as in
-    `decode_chunk_fused`.
+    quant: int32 [pad_to, n_comp, 64]; `uploaded` is the plan's (xs,
+    seg_n, wrap_at, skip) already on that device; slots, route and fancy
+    as in `decode_chunk_fused`.
 
     Returns (rgb uint8 [pad_to, 3, Hb, Wb], riskbits uint8 [pad_to, Hb,
     Wb/8], coeffs int16 [pad_to, nb_b, 64] with raw DC differences, dc
@@ -177,7 +182,8 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
     col = (mcu % bucket.mcus_x)[None, :]
     real = (row < ext[:, 0:1]) & (col < ext[:, 1:2])
     dc = torch.where(real, dc, 0)
-    rgb, risk = device_decode_fn(bucket, coeffs, quant, dc=dc)
+    rgb, risk = device_decode_fn(bucket, coeffs, quant, fancy=fancy, dc=dc,
+                                 extents=ext)
     if not want_coeffs:
         coeffs = dc = None
     return rgb, risk, coeffs, dc, err_mal, err_env, err_slot
@@ -187,7 +193,7 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
                            quant: torch.Tensor, pad_to: int, n_imgs: int,
                            want_coeffs: bool = True,
                            slots: bool | int | None = False,
-                           route: str = "scatter"):
+                           route: str = "scatter", fancy: bool = False):
     """Finish a spec_sync_start chunk: the host resolve (one read), then
     merge -> materialize -> gather -> DC resolve -> pixels on the device.
 
@@ -203,7 +209,7 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
         torch.as_tensor(quotas).to(quant.device), plan.tables, pad_to,
         int(plan.img_blocks[0]), n_imgs, cap_w, slots=slots, route=route,
     )
-    rgb, risk = device_decode_fn(geom, coeffs, quant, dc=dc)
+    rgb, risk = device_decode_fn(geom, coeffs, quant, fancy=fancy, dc=dc)
     if not want_coeffs:
         coeffs = dc = None
     return rgb, risk, coeffs, dc, err, err_slot

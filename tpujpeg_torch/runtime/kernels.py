@@ -62,17 +62,25 @@ _SIGNATURES = {
     "tpj_slot_unpack": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # o2, p, dense, Np, M, L, cshift, gshift, stream
     "tpj_slot_expand": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # p, o, p_out, o_out, Np, L, stream
-    "tpj_compact_offsets": [_P, _P, _P, _P, _I, _I, _P],
+    # p, o, p_out, o_out, Np, L, mask, stream
+    "tpj_compact_offsets": [_P, _P, _P, _P, _I, _I, _I, _P],
     # ev, out, N, L, stream
     "tpj_compact_full": [_P, _P, _I, _I, _P],
     # cp, o, dense, err, N, M, L, stream
     "tpj_spread_full": [_P, _P, _P, _P, _I, _I, _I, _P],
     # zp, quant, dc, rg, bk, B, P, consts(host), stream
     "tpj_pixels": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # t, idx, out, R, T, K, stream
+    "tpj_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
+    # t, idx, out, T, N, stream
+    "tpj_gather_table": [_P, _P, _P, _I, _I, _P],
+    # t, seed, out, T, steps, source, stream
+    "tpj_chain": [_P, _P, _P, _I, _I, _I, _P],
 }
 
-# kernel name (as counted) -> C entry
+# kernel name (as counted) -> C entry.  The three materialize-stage probes
+# (ops/probes.py) run the kernels of csrc/routes.cu under names of their
+# own, so a run can tell their launches from the routes'.
 KERNELS = {
     "fsm_scan": "tpj_fsm_scan",
     "place_events": "tpj_place_events",
@@ -83,6 +91,12 @@ KERNELS = {
     "compact_full": "tpj_compact_full",
     "spread_full": "tpj_spread_full",
     "pixels": "tpj_pixels",
+    "gather_rows": "tpj_gather_rows",
+    "gather_table": "tpj_gather_table",
+    "chain": "tpj_chain",
+    "compact_fine": "tpj_compact_offsets",
+    "compact_staged": "tpj_compact_offsets",
+    "spread_ranked": "tpj_spread_full",
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
