@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   1. build the CUDA kernels from tpujpeg_torch/csrc (one nvcc per source,
      started together, sm_90a) and the port's native host library
      (tpujpeg_torch/runtime/native, g++; without OpenMP where that link
-     fails), both into tpujpeg_torch/_build;
+     fails), both into tpujpeg_torch/_build; the measurement builds of
+     tools/bench_torch_scan.py start here and compile in the background;
   2. restart path: BatchDecoder(backend="fsm", chunk_size=128) on one
      128-image chunk (the 16 committed 640x640 q90 4:4:4 restart-every-
      MCU-row streams of tests/fixtures/rst640, each 8 times): every
@@ -67,7 +68,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      STEPS_SAFE and 4:2:0 plain scans on the first 1,024 lanes), its
      bound (the bytes it must move over 3.35 TB/s, or its operations over
      67 Top/s, whichever is larger) and, where one PyTorch call computes
-     the same function, that call's time;
+     the same function, that call's time.  The two kernels redesigned
+     for this card are held in more uses: fsm_scan at STEPS_SAFE in the
+     count and write passes of the Jacobi path (1,024 lanes), at one step
+     per byte on lanes that latch the envelope and on malformed lanes,
+     besides the restart, pad_info, 6-blocks-per-MCU, cold and stitch
+     uses; place_events on the 4:2:0 events with an out-of-range target
+     that latches and the event that packs to 0.  Then
+     tools/bench_torch_scan.py runs in this process and prints, one line
+     per reading: the scan with its bytes staged through shared memory
+     against the build that reads them from global memory, on every use;
+     place_events' zero fill alone, the kernel at 4, 8 and 16 event rows
+     per thread, index_put_, its byte and sector bounds, and how far
+     apart in blocks the lanes of a 64-lane group are at one event row;
   8. throughput: end to end for the 4:4:4 chunks (restart, speculative,
      mixed on "scatter") and the three 4:2:0 chunks with both `fancy`
      values (two timed decodes each, after the phase's own decode), the
@@ -247,6 +260,10 @@ def main() -> int:
     print(f"phase 1: built {kernels.LIB_PATH.name} from "
           f"{len(kernels._sources())} sources in "
           f"{time.perf_counter() - t0:.1f} s")
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import bench_torch_scan
+
+    variant_builds = bench_torch_scan.start_builds()
     t0 = time.perf_counter()
     print(f"phase 1: host reference decoder {host.backend_name()} "
           f"(tpujpeg_torch/runtime/native, {time.perf_counter() - t0:.1f} s)")
@@ -626,7 +643,6 @@ def main() -> int:
                   f"repaired pixels {sd.stats.repaired_pixels}")
 
     # ---- phase 6d: the probe tools, in this process
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
     import bench_torch_gather
     import bench_torch_materialize
 
@@ -660,11 +676,11 @@ def main() -> int:
 
     def scan_bound(xs_t, n_planes: int, K: int) -> dict:
         """Bound of one scan over xs_t [L, n]: the byte matrix, quotas and
-        the 1 MB table read, n_planes int32 [n + 6, K, L] planes and two
-        latches written; ~60 32-bit operations per symbol step."""
+        the packed tables read, n_planes int32 [n + 6, K, L] planes and
+        two latches written; ~60 32-bit operations per symbol step."""
         Ls, n = xs_t.shape
         steps_total = (n + fsm.FLUSH_COLS) * K * Ls
-        return bound(Ls * n + 4 * Ls + 4 * fsm.N_TABLES * 65536
+        return bound(Ls * n + 4 * Ls + fsm.scan_table(plan.tables).nbytes
                      + 4 * n_planes * steps_total + 2 * Ls,
                      60 * steps_total)
     imgs = [parse(d) for d in datas]
@@ -690,6 +706,23 @@ def main() -> int:
         print(f"phase 7: fsm_scan restart steps {steps} on {n} lanes: equal; "
               f"lanes mal {int(got[1].sum())} env {int(got[2].sum())}")
     scan_ms = cuda_ms(lambda: fsm.fsm_scan(xs, sn, plan.tables))
+    # lanes that latch: a 0xFF tail on every seventh restart lane is an
+    # invalid code (malformed); at one step per byte the dense lanes of the
+    # chunk without restart markers overflow the bit buffer (envelope)
+    bad = xs[:1024, :1024].clone()
+    bad[::7, 300:] = 0xFF
+    caps1k = torch.full((1024,), splan.blk_cap, dtype=torch.int32, device=dev)
+    for what, x, q, tabs, k, flag in (
+            ("malformed", bad, sn[:1024], plan.tables, 2, 1),
+            ("envelope", sxs[:1024, :512], caps1k, splan.tables, 1, 2)):
+        got = fsm.fsm_scan(x, q, tabs, k)
+        want = fsm.fsm_scan_plain(x, q, tabs, k)
+        scan_err = max(scan_err, equal_all(got, want, f"fsm_scan {what}"))
+        check(bool(got[flag][::7].any()), f"no {what} lane latched")
+        print(f"phase 7: fsm_scan at {k} steps per byte on {list(x.shape)} "
+              f"({what} lanes): equal; lanes mal {int(got[1].sum())} env "
+              f"{int(got[2].sum())}")
+    del bad, got, want
 
     # the speculative modes on the spec chunk's inputs
     SL = splan.xs.shape[0]
@@ -730,6 +763,26 @@ def main() -> int:
     print(f"phase 7: fsm_scan spec chunk [{SL}, {splan.xs.shape[1]}]: "
           f"anchor mode and speculative entry (stitch window) equal")
     del got, want
+    # the Jacobi path's two uses, at the retry's step count: the count
+    # pass (no events) and the write pass, from the same entry states
+    jkw = dict(start_bits=P[:1024], start_bim=bim_t[:1024],
+               chunk_bits=cbits[:1024])
+    k_safe = fsm._scan_steps(fsm.STEPS_SAFE)
+    want = fsm.fsm_scan_spec_plain(sxs[:1024], caps[:1024], splan.tables,
+                                   k_safe, **jkw)
+    for emit in (False, True):
+        got = fsm.fsm_scan_spec(sxs[:1024], caps[:1024], splan.tables,
+                                fsm.STEPS_SAFE, emit=emit, **jkw)
+        scan_err = max(scan_err, equal_all(
+            got, want if emit else want._replace(events=None),
+            f"fsm_scan count/write emit={emit}"))
+    count_ms = cuda_ms(lambda: fsm.fsm_scan_spec(
+        sxs, caps, splan.tables, start_bits=P, start_bim=bim_t,
+        chunk_bits=cbits, emit=False))
+    print(f"phase 7: fsm_scan count pass (emit=False) and write pass at "
+          f"steps {fsm.STEPS_SAFE} on 1024 lanes equal; count pass on the "
+          f"chunk {count_ms:.4f} ms [{card}]")
+    del got, want
 
     # the bucket-raster emission on the mixed chunk's lanes
     bplan = fsm.build_plan_bucketed(mimgs, bucket)
@@ -738,8 +791,8 @@ def main() -> int:
     bxs, bsn, bwrap, bskip = bup
     BL, bstride = bplan.xs.shape
 
-    def pad_scan(plain=False, lanes=BL, pad=(bwrap, bskip)):
-        args = (bxs[:lanes], bsn[:lanes], bplan.tables)
+    def pad_scan(plain=False, lanes=BL, pad=(bwrap, bskip), cols=bstride):
+        args = (bxs[:lanes, :cols], bsn[:lanes], bplan.tables)
         pad = (pad[0][:lanes], pad[1][:lanes])
         if plain:
             return fsm.fsm_scan_plain(*args, k_prod, pad_info=pad)
@@ -755,16 +808,18 @@ def main() -> int:
     del got, want
     # this corpus has one MCU row per lane, so a lane ends where its row
     # wraps; cut the rows in four with 7 padding slots after each to make
-    # the counters wrap and skip inside the lanes (first 1024 lanes)
+    # the counters wrap and skip inside the lanes (the first 1024 lanes and
+    # their first 1024 byte columns, read in place: two or three wraps)
     synth = (torch.clamp(bwrap // 4, min=1), torch.full_like(bskip, 7))
-    got = pad_scan(lanes=1024, pad=synth)
-    want = pad_scan(plain=True, lanes=1024, pad=synth)
+    got = pad_scan(lanes=1024, pad=synth, cols=1024)
+    want = pad_scan(plain=True, lanes=1024, pad=synth, cols=1024)
     scan_err = max(scan_err, equal_all(got, want, "fsm_scan pad_info wraps"))
-    check(not torch.equal(got[0], pad_scan(lanes=1024)[0]),
+    check(not torch.equal(got[0], pad_scan(lanes=1024, cols=1024)[0]),
           "synthetic pad counters changed nothing")
     print(f"phase 7: fsm_scan pad_info on the mixed chunk [{BL}, {bstride}] "
           f"(max_blk {bplan.max_blk}, {bplan.lanes_per_img} lanes per "
-          f"image) equal; wrapping counters equal on 1024 lanes")
+          f"image) equal; wrapping counters equal on 1024 lanes x 1024 "
+          f"columns")
     del got, want
     # the restart scan at 6 blocks per MCU, at the 4:2:0 chunk's shape
     xs420, sn420 = up420
@@ -791,6 +846,7 @@ def main() -> int:
         **scan_bound(xs, 1, k_prod), library_ms=None,
         ms_anchor_mode=cold_ms, plain_ms_anchor_mode=cold_plain_ms,
         bound_ms_anchor_mode=scan_bound(sxs, 4, k_prod)["bound_ms"],
+        ms_count_mode=count_ms,
         ms_entry_mode=entry_ms, plain_ms_entry_mode=entry_plain_ms,
         bound_ms_entry_mode=scan_bound(xs2, 1, k_prod)["bound_ms"],
         ms_pad_mode=pad_ms, plain_ms_pad_mode=pad_plain_ms,
@@ -798,15 +854,28 @@ def main() -> int:
         ms_420_chunk=sub_ms, plain_ms_420_chunk_1024_lanes=sub_plain_ms,
         bound_ms_420_chunk=scan_bound(xs420, 1, k_prod)["bound_ms"],
     ))
-    sub_place_ms = cuda_ms(lambda: materialize.place_events(
-        ev420, plan420.max_blk * 64))
-    check(torch.equal(
-        materialize.place_events(ev420, plan420.max_blk * 64),
-        materialize.place_events_plain(ev420, plan420.max_blk * 64)),
-        "place_events 4:2:0 kernel != plain")
-    print(f"phase 7: place_events on the 4:2:0 chunk's events equal; "
-          f"{sub_place_ms:.4f} ms [{card}]")
-    del ev420
+    M420 = plan420.max_blk * 64
+    sub_place_ms = cuda_ms(lambda: materialize.place_events(ev420, M420))
+    check(torch.equal(materialize.place_events(ev420, M420),
+                      materialize.place_events_plain(ev420, M420)),
+          "place_events 4:2:0 kernel != plain")
+    # a target past the last row latches its lane and nothing else; the
+    # event that packs to 0 (blk 0, z 0, value -2048) is placed
+    ev420[:, 1:3] = -1
+    ev420[0, 1] = 0
+    ev420[-1, 2] = plan420.max_blk << 18 | 2048
+    errs420 = [torch.zeros(L420, dtype=torch.bool, device=dev)
+               for _ in range(2)]
+    got = materialize.place_events(ev420, M420, errs420[0])
+    equal_all((got, errs420[0]),
+              (materialize.place_events_plain(ev420, M420, errs420[1]),
+               errs420[1]), "place_events 4:2:0 with a latch")
+    check(int(errs420[0].sum()) == 1 and bool(errs420[0][2])
+          and int(got[0, 1]) == -2048, "place_events latch or zero event")
+    print(f"phase 7: place_events on the 4:2:0 chunk's events equal, with "
+          f"an out-of-range target (latched) and the event that packs to 0 "
+          f"too; {sub_place_ms:.4f} ms [{card}]")
+    del ev420, got, errs420
 
     # the classic scatter on the restart chunk
     events, err_mal, _ = fsm.fsm_scan(xs, sn, plan.tables)
@@ -1161,6 +1230,10 @@ def main() -> int:
           f"{scan['bound_ms_420_chunk']:.4f}, plain on 1024 lanes "
           f"{sub_plain_ms:.4f}) [{card}]")
     del events, ev, per_lane, got, want, zp, dcp, restart_dense
+    torch.cuda.empty_cache()
+    check(bench_torch_scan.main(["--iters", "3"], builds=variant_builds) == 0,
+          "tools/bench_torch_scan.py failed")
+    torch.cuda.empty_cache()
 
     # ---- phase 8: throughput
     # (each decoder is warm: its phase decoded the same chunk once)

@@ -108,7 +108,8 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("tool", ["profile_torch_chunk", "make_torch_corpus",
                                   "bench_torch_gather",
-                                  "bench_torch_materialize"])
+                                  "bench_torch_materialize",
+                                  "bench_torch_scan"])
 def test_tools_import_neither_jax_nor_the_jax_package(tool):
     import os
 

@@ -11,7 +11,11 @@ no-restart corpus (tests/fixtures/photo640) split into speculative
 lanes, the mixed-size corpus (tests/fixtures/mixed_rst) in bucket-raster
 lanes, a 0xFF-tailed malformed copy, the 4:2:0 and grayscale restart
 streams (tests/fixtures/rst640_420, tests/fixtures/sampling_small) for
-the scan at 6 and at 1 blocks per MCU, and seeded numpy data.
+the scan at 6 and at 1 blocks per MCU, and seeded numpy data.  The scan
+is also held on warps that finish early or hold one long lane, on column
+views read in place, and in anchor mode where a recovery marker falls in
+the slot that ends a lane; the scatter on ragged, misaligned and empty
+event matrices.
 """
 
 import os
@@ -69,9 +73,10 @@ def test_fsm_scan_kernel_equals_plain(cuda, imgs, steps, malformed):
         assert bool(got[1].any())
 
 
-def test_place_events_kernel_equals_plain(cuda):
-    rng = np.random.default_rng(5)
-    N, max_blk, L = 700, 47, 256
+def _random_events(rng, N, max_blk, L):
+    """Per lane, distinct targets at ascending rows, a quarter of the
+    slots filled; lane 1 holds only the event that packs to 0, lane 2
+    only an event whose target is past M."""
     M = max_blk * 64
     ev = np.full((N, L), -1, np.int32)
     for lane in range(L):
@@ -84,7 +89,29 @@ def test_place_events_kernel_equals_plain(cuda):
     ev[:, 1:3] = -1
     ev[0, 1] = 0                       # blk 0, z 0, val -2048 packs to 0
     ev[-1, 2] = (max_blk << 18) | 2048  # target past M: latches the lane
+    return ev
+
+
+@pytest.mark.parametrize("case", ["aligned", "ragged", "misaligned", "empty"])
+def test_place_events_kernel_equals_plain(cuda, case):
+    # aligned: four lanes per thread; ragged: a lane count that is no
+    # multiple of 4 and a row count that is no multiple of the row tile
+    # (one lane per thread); misaligned: a view 4 bytes off a 16-byte
+    # boundary; empty: no event at all
+    rng = np.random.default_rng(5)
+    N, max_blk, L = {"aligned": (704, 47, 256), "ragged": (701, 47, 130),
+                     "misaligned": (701, 47, 256),
+                     "empty": (701, 47, 256)}[case]
+    M = max_blk * 64
+    ev = _random_events(rng, N, max_blk, L)
+    if case == "empty":
+        ev[:] = -1
     ev_d = torch.as_tensor(ev).to(cuda)
+    if case == "misaligned":
+        flat = torch.empty(N * L + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = ev_d.reshape(-1)
+        ev_d = flat[1:].reshape(N, L)
+        assert ev_d.data_ptr() % 16 == 4 and ev_d.is_contiguous()
     err_k = torch.zeros(L, dtype=torch.bool, device=cuda)
     err_p = torch.zeros(L, dtype=torch.bool, device=cuda)
     got = materialize.place_events(ev_d, M, err_k)
@@ -92,7 +119,13 @@ def test_place_events_kernel_equals_plain(cuda):
     torch.cuda.synchronize()
     assert got.dtype == torch.int16 and torch.equal(got, want)
     assert torch.equal(err_k, err_p)
-    assert int(got[0, 1]) == -2048 and bool(err_k[2]) and not bool(err_k[1])
+    if case == "empty":
+        assert not bool(got.any()) and not bool(err_k.any())
+    else:
+        assert int(got[0, 1]) == -2048 and bool(err_k[2])
+        assert int(err_k.sum()) == 1
+    # without a latch tensor the same rows come out
+    assert torch.equal(materialize.place_events(ev_d, M), want)
 
 
 @pytest.mark.parametrize("extreme", [False, True])
@@ -378,3 +411,161 @@ def test_compact_offsets_mask_and_probe_stages_equal_plain(cuda, W):
     assert torch.equal(dense, probes.spread_ranked_plain(*staged, M))
     assert torch.equal(dense, materialize.place_events(ev, M))
     assert int(dense[0, 1]) == -2048     # the event that packs to 0
+
+
+def _scan_equal(got, want):
+    for name, g, w in zip(fsm.ScanOut._fields, got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("steps", [(1, 2), 3])
+def test_fsm_scan_warps_that_finish_early_or_hold_one_lane(cuda, imgs, steps):
+    plan = fsm.build_plan(imgs[:1])
+    L, stride = plan.xs.shape
+    assert L == 128 and 32 < int((plan.seg_n_blocks > 0).sum()) <= 96
+    # twice the stride: every lane is done long before the last column,
+    # and the last warp holds quota-0 lanes only
+    xs = torch.zeros((L, 2 * stride), dtype=torch.uint8, device=cuda)
+    xs[:, :stride] = torch.as_tensor(plan.xs).to(cuda)
+    sn = torch.as_tensor(plan.seg_n_blocks).to(cuda)
+    k = fsm._scan_steps(steps)
+    got = fsm.fsm_scan(xs, sn, plan.tables, steps)
+    want = fsm.fsm_scan_plain(xs, sn, plan.tables, k)
+    torch.cuda.synchronize()
+    _scan_equal(got, want)
+    assert not bool(got[1].any() | got[2].any())
+    # one long lane among empty ones: the warp walks on for it alone
+    one = torch.zeros_like(sn)
+    one[5] = sn[5]
+    one[70] = sn[38]
+    xs1 = xs.clone()
+    xs1[70] = xs[38]
+    got = fsm.fsm_scan(xs1, one, plan.tables, steps)
+    want = fsm.fsm_scan_plain(xs1, one, plan.tables, k)
+    torch.cuda.synchronize()
+    _scan_equal(got, want)
+    assert int((got[0] >= 0).any(dim=0).any(dim=0).sum()) == 2
+
+
+@pytest.mark.parametrize("view", ["prefix", "prefix_ragged", "offset4"])
+def test_fsm_scan_reads_column_views_in_place(cuda, imgs, view):
+    # pitch > n_data; a width that is no multiple of 4; a row start that
+    # is 4-byte but not 16-byte aligned (the staging's 4-byte copies)
+    plan = fsm.build_plan(imgs)
+    full = torch.as_tensor(plan.xs).to(cuda)
+    sn = torch.as_tensor(plan.seg_n_blocks).to(cuda)
+    xs = {"prefix": full[:, :1280], "prefix_ragged": full[:, :1107],
+          "offset4": full[:, 4:1284]}[view]
+    assert xs.stride(0) > xs.shape[1]
+    assert (xs.data_ptr() % 16 == 4) == (view == "offset4")
+    got = fsm.fsm_scan(xs, sn, plan.tables, (1, 2))
+    want = fsm.fsm_scan_plain(xs, sn, plan.tables, 2)
+    torch.cuda.synchronize()
+    _scan_equal(got, want)
+    # the cut rows are truncated streams: they latch, as in the plain scan
+    assert bool(got[1].any())
+    cb = torch.full_like(sn, 8 * 900)
+    spec = fsm.fsm_scan_spec(xs, sn, plan.tables, (1, 2), chunk_bits=cb,
+                             emit=False)
+    torch.cuda.synchronize()
+    _scan_equal(spec, fsm.fsm_scan_spec_plain(xs, sn, plan.tables, 2,
+                                              chunk_bits=cb, emit=False))
+    assert spec.events is None and bool((spec.end_bits >= 8 * 900).any())
+
+
+@pytest.mark.parametrize("quota", [4, 12])
+def test_fsm_scan_anchor_mode_recovery_marker_where_the_lane_finishes(
+        cuda, spec_plan, quota):
+    # one step per byte on a dense stream: the buffer overflows at the
+    # refill again and again, each recovery's marker waits for the next
+    # step slot, and some lanes end their quota in just that slot
+    plan = spec_plan
+    L = plan.xs.shape[0]
+    xs = torch.as_tensor(plan.xs).to(cuda)[:, :256]
+    sn = torch.full((L,), quota, dtype=torch.int32, device=cuda)
+    got = fsm.fsm_scan_spec(xs, sn, plan.tables, 1, log_anchors=True)
+    want = fsm.fsm_scan_spec_plain(xs, sn, plan.tables, 1, log_anchors=True)
+    torch.cuda.synchronize()
+    _scan_equal(got, want)
+    anc, rm = got.anchors.reshape(-1, L), got.recm.reshape(-1, L)
+    slot = torch.arange(anc.shape[0], device=cuda)[:, None]
+    last = torch.where(anc >= 0, slot, -1).amax(dim=0)
+    at_finish = ((rm >= 0) & (slot == last[None, :])).any(dim=0)
+    assert bool((at_finish & (got.blk == quota)).any())
+    # every slot after a lane's last anchor or marker keeps the fill
+    assert bool((got.ablk.reshape(-1, L)[anc < 0] == 0).all())
+
+
+def _long_code_tables():
+    """Two table sets whose 176 AC codes all have 11 bits (88 second-level
+    tables apiece), the DC codes 4 bits; the second set lists its AC
+    symbols in reverse."""
+    from tpujpeg_torch.io.huffman import HuffmanTable
+    from tpujpeg_torch.io.parser import Component, JpegImage
+
+    ac = [r << 4 | s for r in range(16) for s in range(11)]
+    counts = np.zeros(16, np.int64)
+    counts[10] = len(ac)
+    dc_counts = np.zeros(16, np.int64)
+    dc_counts[3] = 12
+    huffman, symbols = {}, []
+    for tid in (0, 1):
+        syms = ac[::-1] if tid else ac
+        huffman[tid] = HuffmanTable(dc_counts, np.arange(12, dtype=np.uint8))
+        huffman[0x10 | tid] = HuffmanTable(counts, np.asarray(syms, np.uint8))
+        symbols.append(syms)
+    img = JpegImage(
+        width=16, height=16, precision=8,
+        components=[Component(1, 1, 1, 0, 0, 0), Component(2, 1, 1, 1, 1, 1),
+                    Component(3, 1, 1, 1, 1, 1)],
+        quant_tables={}, huffman=huffman, restart_interval=0,
+        scan_data=np.zeros(0, np.uint8), segment_offsets=np.zeros(1, np.int64))
+    return fsm.build_tables(img), symbols
+
+
+def _encode_lane(rng, tables, symbols, n_blocks: int, n_bytes: int):
+    """A valid stream of n_blocks blocks under `_long_code_tables`: per
+    block a DC code, a few AC codes with short runs, and an EOB."""
+    fields = []   # (value, bits), most significant first
+    for b in range(n_blocks):
+        ac = symbols[tables.tsel[b % len(tables.tsel)]]
+        size = int(rng.integers(0, 12))
+        fields += [(size, 4), (int(rng.integers(0, 1 << size)), size)]
+        k = 1
+        for _ in range(int(rng.integers(0, 10))):
+            run, size = int(rng.integers(0, 3)), int(rng.integers(1, 11))
+            if k + run > 63:
+                break
+            fields += [(ac.index(run << 4 | size), 11),
+                       (int(rng.integers(0, 1 << size)), size)]
+            k += run + 1
+        fields.append((ac.index(0), 11))
+    bits = "".join(format(v, f"0{n}b") for v, n in fields if n)
+    assert len(bits) <= 8 * n_bytes
+    bits += "1" * (8 * n_bytes - len(bits))
+    return np.frombuffer(int(bits, 2).to_bytes(n_bytes, "big"), np.uint8)
+
+
+def test_fsm_scan_with_tables_past_48_kb_of_shared_memory(cuda):
+    # the packed tables outgrow the 48 KB a kernel gets without asking
+    tables, symbols = _long_code_tables()
+    assert fsm.scan_table(tables).nbytes > 48 * 1024
+    rng = np.random.default_rng(21)
+    L, n_blocks, n = 160, 9, 256
+    xs = torch.as_tensor(np.stack([
+        _encode_lane(rng, tables, symbols, n_blocks, n) for _ in range(L)
+    ])).to(cuda)
+    sn = torch.full((L,), n_blocks, dtype=torch.int32, device=cuda)
+    got = fsm.fsm_scan(xs, sn, tables, (1, 2))
+    want = fsm.fsm_scan_plain(xs, sn, tables, 2)
+    torch.cuda.synchronize()
+    _scan_equal(got, want)
+    assert not bool(got[1].any() | got[2].any())
+    assert int((got[0] >= 0).sum()) > 4000
+    cold = fsm.fsm_scan_spec(xs, sn, tables, (1, 2), log_anchors=True)
+    torch.cuda.synchronize()
+    _scan_equal(cold, fsm.fsm_scan_spec_plain(xs, sn, tables, 2,
+                                              log_anchors=True))

@@ -7,24 +7,45 @@
 // block-boundary anchors.  Contract: tpujpeg_torch/ops/fsm.py::
 // _scan_plain (fsm_scan_plain / fsm_scan_spec_plain).
 //
-// What bounds it on Hopper: the scan is a serial chain per lane — every
-// symbol step needs the previous step's bit position — so one lane's
-// latency (a dependent table load plus ~40 integer ops per step, K steps
-// per byte) sets the time, not bandwidth: a production chunk's ~10-16k
-// lanes are only a few hundred warps, a few per SM.
+// What bounds it on Hopper: latency, not bytes or operations.  A lane is
+// a serial chain (every symbol step needs the previous step's bit
+// position), so one thread per lane is the decomposition, and a
+// production chunk's 5-16k lanes are only 160-500 warps, each alone on
+// its scheduler: nothing hides a load's or an instruction's latency.
+// All warps run at once, so the kernel takes the time of its slowest
+// warp: (columns of the longest lane) x (what one column costs a warp).
+// Only the second factor can shrink.  What the design does about it:
 //
-// Design: one thread per lane, the whole decoder state (bit buffer,
-// bits available, bit position, in-block position k, block count, MCU
-// phase, done, the error latches, the recovery markers) in registers.
-// (length, symbol) comes from a flat int32 LUT [4 tables][65536 peeks]
-// in global memory: one load per step, exact by construction, 1 MB that
-// stays resident in the 50 MB L2 (chosen over a binary search of the
-// ~130-piece list in shared memory, which costs eight dependent shared
-// loads and divergent branches per step).  Each lane reads its own row
-// of the row-major [L, pitch] byte matrix four bytes at a time, so no
-// transpose is needed and a column prefix (the stitch window) is read in
-// place; outputs are written lane-minor to [n_cols, K, L], coalesced
-// across a warp.
+//  - A symbol step without a branch.  The 32 lanes of a warp are each in
+//    another state (DC or AC, mid-block or at a block end, stalled or
+//    done), so a warp walks every side of every branch anyway and pays
+//    for the divergence on top.  The step computes every outcome as
+//    predicates and selects; all its bit fields (the peek, the magnitude,
+//    the trailing EOB and size-0 DC codes) are shifts of one register
+//    that holds the buffered bits left-aligned, padded with ones.
+//  - The Huffman tables in shared memory, exact.  ops/fsm.py::scan_table
+//    packs the four tables into a first level indexed by the top 10 bits
+//    of the 16-bit peek and 64-entry second-level tables for the codes
+//    longer than 10 bits (about 19 KB for the usual tables; every entry
+//    is the flat per-peek map's entry, with length + size packed beside
+//    it).  A step costs one shared load, two for a long code.
+//  - Bytes through shared memory.  A warp stages tiles of its 32 rows x
+//    kTile bytes with 16-byte cp.async copies that are contiguous along
+//    each row, two stages deep, so the next tile arrives while this one
+//    is decoded.  Rows sit at a pitch of kTile + 16 bytes and a lane
+//    reads its row 16 bytes at a time, which is free of bank conflicts
+//    (an odd number of 16-byte units between neighbouring lanes).  A
+//    column prefix of a wider matrix (the stitch window) is staged in
+//    place; a row start or pitch that is only 4-byte aligned takes 4-byte
+//    copies.
+//
+// Every step slot is stored (a full 128-byte line per warp and slot, off
+// the chain) and every warp walks all columns.  Filling the planes first
+// and storing only real events, leaving the loop when a warp's lanes are
+// all done, and ending a column at a step that found too few bits were
+// all measured on this card and lost or changed nothing: the longest
+// lane's warp sets the time, and a divergent exit costs the other lanes
+// of the warp more than the skipped work saves (PERF.md).
 //
 // The modes are compile-time variants of one kernel: kSpec adds the bit
 // position, the per-lane start state (a partial first byte), the
@@ -34,12 +55,18 @@
 // field becomes the output position that skips `skip` slots after every
 // `wrap_at` completed blocks (one padded MCU row of the bucket grid),
 // while quotas and latches go on counting real blocks.  The restart
-// variant compiles none of that and keeps its registers for the
-// latency-bound chain.
+// variant compiles none of that.
 //
 // Bit-exactness with the JAX scan: the buffer is uint32_t and every read
-// of it is masked below `navail`, so logical shifts give the bits of the
-// JAX int32 arithmetic shifts; every shift amount stays in [0, 31].
+// of it lies below `navail`, so the bits are those of the JAX int32
+// arithmetic shifts; every shift amount stays in [0, 31].
+//
+// Measurement switch (compile time only; tools/bench_torch_scan.py builds
+// the kernel with it at 0 to read what the staging is worth; the library
+// is always built with the default):
+#ifndef TPJ_SCAN_STAGE
+#define TPJ_SCAN_STAGE 1    // 0: each lane reads its row from global memory
+#endif
 
 #include <climits>
 #include <cstdint>
@@ -49,6 +76,11 @@ namespace {
 
 constexpr int kFlushCols = 6;   // ops/fsm.py FLUSH_COLS
 constexpr int kMaxBpm = 16;
+constexpr int kWarp = 32;
+constexpr int kTile = 128;            // staged bytes per row and tile
+constexpr int kPitch = kTile + 16;    // shared row pitch: 9 x 16 bytes
+constexpr int kStageBytes = kWarp * kPitch;
+constexpr int kL1Words = 4 << 10;     // ops/fsm.py scan_table first level
 
 // Table constants, all in registers: a runtime index into an array would
 // spill the struct to local memory, so the per-block table set is a bit
@@ -71,52 +103,160 @@ struct SpecIo {
   int32_t* state;             // [4, L] blk, end_bits, end_bim, rec_last
 };
 
-template <bool kSpec, bool kAnchors, bool kPad>
-__global__ void fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch,
-                                int n_data,
-                                const int32_t* __restrict__ seg_n,
-                                const int32_t* __restrict__ lut,
-                                ScanMeta meta, SpecIo io,
-                                const int32_t* __restrict__ pad_wrap,
-                                const int32_t* __restrict__ pad_skip,
-                                int32_t* __restrict__ events,
-                                uint8_t* __restrict__ err_mal_out,
-                                uint8_t* __restrict__ err_env_out,
-                                int L, int K) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const uint32_t* row = reinterpret_cast<const uint32_t*>(
-      xs + static_cast<size_t>(lane) * pitch);
-  const int n_cols = n_data + kFlushCols;
-  const int quota = seg_n[lane];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Stage tile `tile` of the warp's 32 rows: bytes [tile * kTile, + kTile)
+// of each row that lie below n_read (n_data rounded up to whole words).
+// Eight consecutive threads copy one row's 128 bytes, so a warp's copy
+// instruction covers four rows of contiguous 128-byte runs.
+__device__ __forceinline__ void stage_tile(uint8_t* stage,
+                                           const uint8_t* xs, int pitch,
+                                           int n_read, int lane0, int L,
+                                           int tile, bool aligned16) {
+  constexpr int kChunks = kTile / 16;
+  for (int id = threadIdx.x; id < kWarp * kChunks; id += kWarp) {
+    const int r = id / kChunks;
+    const int col0 = tile * kTile + (id % kChunks) * 16;
+    if (col0 >= n_read) continue;
+    const uint8_t* src =
+        xs + static_cast<size_t>(min(lane0 + r, L - 1)) * pitch + col0;
+    uint8_t* dst = stage + r * kPitch + (id % kChunks) * 16;
+    if (aligned16 && col0 + 16 <= n_read) {
+      cp_async16(dst, src);
+    } else {
+      for (int b = 0; b < 16 && col0 + b < n_read; b += 4) {
+        cp_async4(dst + b, src + b);
+      }
+    }
+  }
+}
+
+template <bool kSpec, bool kAnchors, bool kPad>
+__global__ void __launch_bounds__(kWarp)
+fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
+                const int32_t* __restrict__ seg_n,
+                const uint32_t* __restrict__ table, int table_words,
+                ScanMeta meta, SpecIo io,
+                const int32_t* __restrict__ pad_wrap,
+                const int32_t* __restrict__ pad_skip,
+                int32_t* __restrict__ events,
+                uint8_t* __restrict__ err_mal_out,
+                uint8_t* __restrict__ err_env_out, int L, int K) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
+  uint8_t* stages = smem + static_cast<size_t>(table_words) * 4;
+
+  const int lane0 = blockIdx.x * kWarp;
+  const int lane = lane0 + threadIdx.x;
+  const bool in_range = lane < L;
+  const int row_id = min(lane, L - 1);
+  const int n_cols = n_data + kFlushCols;
+
+  // the tables: one 16-byte copy per thread and turn
+  for (int i = threadIdx.x * 4; i < table_words; i += kWarp * 4) {
+    *reinterpret_cast<uint4*>(tab + i) =
+        __ldg(reinterpret_cast<const uint4*>(table + i));
+  }
+
+  const int quota = seg_n[row_id];
   uint32_t buf = 0;
-  uint32_t word = 0;
   int navail = 0, k = 0, blk = 0, bim = 0;
   bool done = quota == 0, err_mal = false, err_env = false;
   // speculative state (dead in the restart variant)
   int sbits = 0, cbits = INT_MAX, bitpos = 0, end_bits = 0, end_bim = 0;
   int rec = -1, rec_pend = -1;
   if (kSpec) {
-    if (io.start_bits != nullptr) sbits = io.start_bits[lane];
-    if (io.start_bim != nullptr) bim = io.start_bim[lane];
-    if (io.chunk_bits != nullptr) cbits = io.chunk_bits[lane];
+    if (io.start_bits != nullptr) sbits = io.start_bits[row_id];
+    if (io.start_bim != nullptr) bim = io.start_bim[row_id];
+    if (io.chunk_bits != nullptr) cbits = io.chunk_bits[row_id];
     bitpos = sbits;
     end_bim = bim;
   }
   // bucket-raster output counters (dead outside the pad variant)
   int wrap_at = 1, skip_n = 0, ocol = 0, oblk = 0;
   if (kPad) {
-    wrap_at = pad_wrap[lane];
-    skip_n = pad_skip[lane];
+    wrap_at = pad_wrap[row_id];
+    skip_n = pad_skip[row_id];
   }
 
-  for (int col = 0; col < n_cols; ++col) {
-    // ---- refill one byte (none in the flush tail)
-    if (col < n_data) {
-      if ((col & 3) == 0) word = __ldg(row + (col >> 2));
-      const uint32_t byte = (word >> (8 * (col & 3))) & 0xFFu;
-      if (!done && !err_mal && !err_env) {
+  // running output offset of this lane's step slot 0 of the column (a
+  // thread past the last lane rewrites lane L - 1's slots with the same
+  // values)
+  const size_t col_step = static_cast<size_t>(K) * L;
+  size_t out_col = row_id;
+
+#if TPJ_SCAN_STAGE
+  const int n_read = (n_data + 3) & ~3;
+  const bool aligned16 =
+      (reinterpret_cast<uintptr_t>(xs) & 15) == 0 && (pitch & 15) == 0;
+  stage_tile(stages, xs, pitch, n_read, lane0, L, 0, aligned16);
+  cp_async_commit();
+#else
+  const uint32_t* row = reinterpret_cast<const uint32_t*>(
+      xs + static_cast<size_t>(row_id) * pitch);
+#endif
+  __syncwarp();
+
+  const int n_tiles = (n_cols + kTile - 1) / kTile;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+#if TPJ_SCAN_STAGE
+    // the next tile travels while this one is decoded
+    stage_tile(stages + ((tile + 1) & 1) * kStageBytes, xs, pitch, n_read,
+               lane0, L, tile + 1, aligned16);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const uint8_t* my_row =
+        stages + (tile & 1) * kStageBytes + threadIdx.x * kPitch;
+    uint4 q = make_uint4(0, 0, 0, 0);
+#endif
+    uint32_t word = 0;
+    const int c_end = min(kTile, n_cols - tile * kTile);
+    for (int c = 0; c < c_end; ++c, out_col += col_step) {
+      const int col = tile * kTile + c;
+      if ((c & 3) == 0) {
+#if TPJ_SCAN_STAGE
+        if ((c & 15) == 0) {
+          q = *reinterpret_cast<const uint4*>(my_row + c);
+        } else {
+          q.x = q.y;
+          q.y = q.z;
+          q.z = q.w;
+        }
+        word = q.x;
+#else
+        if (col < n_data) word = __ldg(row + (col >> 2));
+#endif
+      }
+      const uint32_t byte = word & 0xFFu;
+      word >>= 8;
+      // ---- refill one byte (none in the flush tail)
+      if (col < n_data && !done && !err_mal && !err_env) {
         int take = 8;
         if (kSpec) {
           // speculative entry: the bits before start_bits are skipped,
@@ -142,136 +282,119 @@ __global__ void fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch,
           navail += take;
         }
       }
-    }
-    const size_t out0 = static_cast<size_t>(col) * K * L + lane;
-    for (int s = 0; s < K; ++s) {
-      int32_t ev = -1, anc = -1, abk = 0;
-      bool rec_now = false;
-      if (!done && !err_mal && !err_env) {
-        // peek 16 bits, padding past the end of the buffer with ones
-        uint32_t peek;
-        if (navail >= 16) {
-          peek = (buf >> (navail - 16)) & 0xFFFFu;
-        } else {
-          const int sb = 16 - navail;
-          peek = ((buf << sb) | ((1u << sb) - 1u)) & 0xFFFFu;
-        }
+      size_t out = out_col;
+#pragma unroll 1
+      for (int s = 0; s < K; ++s, out += L) {
+        // One symbol step without a branch: every lane of the warp is in
+        // another state, so the warp would walk every side of a branch
+        // anyway.  `top` holds the buffered bits left-aligned, padded
+        // with ones past the end; every field of the step is a shift of
+        // it by the bits used so far.
+        const bool act = !done && !err_mal && !err_env;
+        const uint32_t top =
+            __funnelshift_lc(0xFFFFFFFFu, buf, 32 - navail);
+        const uint32_t peek = top >> 16;
         const bool is_dc = k == 0;
-        const int tsel = (meta.tsel_mask >> bim) & 1u;
-        const int tbl = is_dc ? tsel : tsel + 2;
-        const int lv = __ldg(lut + (tbl << 16) + static_cast<int>(peek));
-        const int length = lv >> 8;
-        const int sym = lv & 0xFF;
+        const uint32_t tsel = (meta.tsel_mask >> bim) & 1u;
+        const uint32_t tbl = is_dc ? tsel : tsel + 2u;
+        uint32_t e = tab[(tbl << 10) | (peek >> 6)];
+        if (e >> 31) e = tab[(e & 0xFFFFu) + (peek & 63u)];
+        const int sym = e & 0xFF;
+        const int length = (e >> 8) & 31;
+        const int need = (e >> 13) & 31;    // length + size
         const int size = sym & 15;
         const int run = sym >> 4;
-        const int need = length + size;
-        if (length > 16) {
-          // invalid code; it only counts once 16 real bits are buffered
-          if (navail >= 16) {
-            if (kAnchors) rec_now = true;
-            else err_mal = true;
+        const bool valid = length <= 16;
+        const bool complete = act & valid & (navail >= need);
+        // an invalid code only counts once 16 real bits are buffered
+        const bool bad_code = act & !valid & (navail >= 16);
+        // magnitude bits + EXTEND (size 0: mag 0, unused)
+        const int mag =
+            static_cast<int>(((top << (length & 31)) >> 1) >> (31 - size));
+        const int val = mag + (mag < ((1 << size) >> 1) ? 1 - (1 << size) : 0);
+        const int z = is_dc ? 0 : k + run;
+        const bool bad_z = complete & (z > 63);   // index overrun (AC only)
+        const bool emit = complete & (size > 0) & !bad_z;
+        const int32_t ev =
+            emit ? ((kPad ? oblk : blk) << 18) | (z << 12) | (val + 2048)
+                 : -1;
+        const int k2 = is_dc ? 1 : (sym == 0 ? 64 : z + 1);
+        int used = complete ? need : 0;
+        // trailing EOB of this table set
+        const int el = tsel ? meta.eob_len1 : meta.eob_len0;
+        const uint32_t ec = tsel ? meta.eob_code1 : meta.eob_code0;
+        const bool eob_fire =
+            complete & (k2 < 64) & (el > 0) & (navail - need >= el) &
+            (((top << (need & 31)) >> ((32 - el) & 31)) == ec);
+        used += eob_fire ? el : 0;
+        const bool block_end = (complete & (k2 >= 64)) | eob_fire;
+        blk += block_end;
+        if (kPad) {
+          // after wrap_at blocks of a row, jump the bucket's padding
+          ocol += block_end;
+          const bool wrapped = ocol >= wrap_at;
+          oblk += block_end ? (wrapped ? skip_n + 1 : 1) : 0;
+          ocol = wrapped ? 0 : ocol;
+        }
+        const int bim1 = bim + 1 == meta.bpm ? 0 : bim + 1;
+        bim = block_end ? bim1 : bim;
+        bool stop = block_end & (blk >= quota);
+        if (kSpec) stop |= block_end & (bitpos + used >= cbits);
+        // trailing size-0 DC of the next block
+        const uint32_t ts2 = (meta.tsel_mask >> bim) & 1u;
+        const int dl = ts2 ? meta.dc0_len1 : meta.dc0_len0;
+        const uint32_t dcode = ts2 ? meta.dc0_code1 : meta.dc0_code0;
+        const bool dc0_fire =
+            block_end & !stop & (dl > 0) & (navail - used >= dl) &
+            (((top << min(used, 31)) >> ((32 - dl) & 31)) == dcode);
+        if (kSpec) {
+          bitpos += used;
+          if (stop) {
+            end_bits = bitpos;
+            end_bim = bim;
           }
-        } else if (navail >= need) {
-          // magnitude bits + EXTEND
-          const uint32_t mag = (buf >> (navail - need)) & ((1u << size) - 1u);
-          const int half = 1 << (size > 0 ? size - 1 : 0);
-          const int val = static_cast<int>(mag) >= half
-                              ? static_cast<int>(mag)
-                              : static_cast<int>(mag) - 2 * half + 1;
-          const bool eob = !is_dc && sym == 0;
-          const int z = is_dc ? 0 : k + run;
-          const bool bad_z = !is_dc && z > 63;  // coefficient index overrun
-          if (size > 0) {
-            if (bad_z) {
-              if (!kAnchors) err_mal = true;
-            } else {
-              ev = ((kPad ? oblk : blk) << 18) | (z << 12) | (val + 2048);
-            }
-          }
-          if (kAnchors && bad_z) rec_now = true;
-          const int k2 = is_dc ? 1 : (eob ? 64 : z + 1);
-          navail -= need;
-          if (kSpec) bitpos += need;
-          // trailing EOB of this table set
-          bool eob_fire = false;
-          const int el = tsel ? meta.eob_len1 : meta.eob_len0;
-          if (k2 < 64 && el > 0 && navail >= el) {
-            const uint32_t b = (buf >> (navail - el)) & ((1u << el) - 1u);
-            eob_fire = b == static_cast<uint32_t>(tsel ? meta.eob_code1
-                                                       : meta.eob_code0);
-            if (eob_fire) {
-              navail -= el;
-              if (kSpec) bitpos += el;
-            }
-          }
-          if (k2 >= 64 || eob_fire) {
-            // block end
-            blk += 1;
-            if (kPad) {
-              // after wrap_at blocks of a row, jump the bucket's padding
-              ocol += 1;
-              if (ocol >= wrap_at) {
-                ocol = 0;
-                oblk += skip_n + 1;
-              } else {
-                oblk += 1;
-              }
-            }
-            bim = bim + 1 == meta.bpm ? 0 : bim + 1;
+          bitpos += dc0_fire ? dl : 0;
+        }
+        int32_t anc = -1, abk = 0;
+        if (kAnchors && block_end) {
+          anc = ((bitpos - (dc0_fire ? dl : 0)) << 3) | bim;
+          abk = blk;
+        }
+        used += dc0_fire ? dl : 0;
+        navail -= used;
+        k = dc0_fire ? 1 : (block_end ? 0 : (complete ? k2 : k));
+        done |= stop;
+        if (!kAnchors) err_mal |= bad_code | (bad_z & (size > 0));
+        if (events != nullptr) events[out] = ev;
+        if (kAnchors) {
+          // one recovery marker per step slot: a step recovery takes it, a
+          // refill recovery waits for the next step without one
+          const bool rec_now = bad_code | bad_z;
+          int32_t mark;
+          if (rec_now) {
+            bitpos += navail;
+            navail = 0;
             k = 0;
-            if (kAnchors) {
-              anc = (bitpos << 3) | bim;
-              abk = blk;
-            }
-            bool stop = blk >= quota;
-            if (kSpec && bitpos >= cbits) stop = true;
-            if (stop) {
-              done = true;
-              if (kSpec) {
-                end_bits = bitpos;
-                end_bim = bim;
-              }
-            } else {
-              // trailing size-0 DC of the next block
-              const int ts2 = (meta.tsel_mask >> bim) & 1u;
-              const int dl = ts2 ? meta.dc0_len1 : meta.dc0_len0;
-              if (dl > 0 && navail >= dl) {
-                const uint32_t b = (buf >> (navail - dl)) & ((1u << dl) - 1u);
-                if (b == static_cast<uint32_t>(ts2 ? meta.dc0_code1
-                                                   : meta.dc0_code0)) {
-                  navail -= dl;
-                  if (kSpec) bitpos += dl;
-                  k = 1;
-                }
-              }
-            }
+            rec = max(rec, bitpos);
+            mark = bitpos;
           } else {
-            k = k2;
+            mark = rec_pend;
+            rec_pend = -1;
           }
+          io.anchors[out] = anc;
+          io.ablk[out] = abk;
+          io.recm[out] = mark;
         }
-      }
-      if (events != nullptr) events[out0 + static_cast<size_t>(s) * L] = ev;
-      if (kAnchors) {
-        // one recovery marker per step slot: a step recovery takes it, a
-        // refill recovery waits for the next step without one
-        int32_t mark;
-        if (rec_now) {
-          bitpos += navail;
-          navail = 0;
-          k = 0;
-          rec = max(rec, bitpos);
-          mark = bitpos;
-        } else {
-          mark = rec_pend;
-          rec_pend = -1;
-        }
-        const size_t o = out0 + static_cast<size_t>(s) * L;
-        io.anchors[o] = anc;
-        io.ablk[o] = abk;
-        io.recm[o] = mark;
       }
     }
+#if TPJ_SCAN_STAGE
+    __syncwarp();   // all lanes are off this stage before it is refilled
+#endif
   }
+#if TPJ_SCAN_STAGE
+  cp_async_wait<0>();
+#endif
+  if (!in_range) return;
   // a lane undone at the end is truncated, or starved of symbol steps
   // with whole bytes still buffered (an envelope condition); anchor mode
   // latches nothing
@@ -292,18 +415,42 @@ __global__ void fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch,
   }
 }
 
+template <bool kSpec, bool kAnchors, bool kPad>
+cudaError_t launch_scan(int blocks, size_t smem_bytes, cudaStream_t stream,
+                        const uint8_t* xs, int pitch, int n_data,
+                        const int32_t* seg_n, const uint32_t* table,
+                        int table_words, const ScanMeta& meta,
+                        const SpecIo& io, const int32_t* wrap_at,
+                        const int32_t* skip, int32_t* events,
+                        uint8_t* err_mal, uint8_t* err_env, int L, int K) {
+  auto kernel = fsm_scan_kernel<kSpec, kAnchors, kPad>;
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes));
+    if (rc != cudaSuccess) return rc;
+  }
+  kernel<<<blocks, kWarp, smem_bytes, stream>>>(
+      xs, pitch, n_data, seg_n, table, table_words, meta, io, wrap_at, skip,
+      events, err_mal, err_env, L, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // meta_host: int32 [25] = bpm, tsel[16], eob_len[2], eob_code[2],
 // dc0_len[2], dc0_code[2] (ops/fsm.py::scan_meta), read on the host.
-// xs is [L, pitch] row-major; the scan reads the first n_data bytes of
-// each row.  mode: 0 restart, 1 speculative, 2 speculative with anchors,
-// 3 restart with bucket-raster emission (start_bits, start_bim,
-// chunk_bits, state may be null in modes 1-2; anchors, ablk, recm are used
-// in mode 2 only; wrap_at and skip, int32 [L], in mode 3 only; events may
-// be null).
+// table: the packed Huffman tables of ops/fsm.py::scan_table, table_words
+// 32-bit words (a multiple of 4, 16-byte aligned), copied to shared
+// memory by every block.  xs is [L, pitch] row-major; the scan reads the
+// first n_data bytes of each row.  mode: 0 restart, 1 speculative,
+// 2 speculative with anchors, 3 restart with bucket-raster emission
+// (start_bits, start_bim, chunk_bits, state may be null in modes 1-2;
+// anchors, ablk, recm are used in mode 2 only; wrap_at and skip, int32
+// [L], in mode 3 only; events may be null).
 extern "C" int tpj_fsm_scan(const uint8_t* xs, const int32_t* seg_n,
-                            const int32_t* lut, const int32_t* meta_host,
+                            const uint32_t* table, int table_words,
+                            const int32_t* meta_host,
                             int32_t* events, uint8_t* err_mal,
                             uint8_t* err_env, int L, int pitch, int n_data,
                             int steps, int mode, const int32_t* start_bits,
@@ -312,6 +459,10 @@ extern "C" int tpj_fsm_scan(const uint8_t* xs, const int32_t* seg_n,
                             int32_t* ablk, int32_t* recm, int32_t* state,
                             const int32_t* wrap_at, const int32_t* skip,
                             cudaStream_t stream) {
+  if (L < 1 || steps < 1 || table_words < kL1Words || (table_words & 3) ||
+      (reinterpret_cast<uintptr_t>(table) & 15)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ScanMeta meta;
   meta.bpm = meta_host[0];
   meta.tsel_mask = 0;
@@ -328,29 +479,38 @@ extern "C" int tpj_fsm_scan(const uint8_t* xs, const int32_t* seg_n,
   meta.dc0_code1 = meta_host[24];
   SpecIo io{start_bits, start_bim, chunk_bits, anchors, ablk, recm, state};
   // one warp per block spreads the few hundred lane warps over all SMs
-  constexpr int kThreads = 32;
-  const int blocks = (L + kThreads - 1) / kThreads;
+  const int blocks = (L + kWarp - 1) / kWarp;
+  const size_t smem_bytes =
+      static_cast<size_t>(table_words) * 4 + 2 * kStageBytes;
+  cudaError_t rc;
   if (mode == 0) {
-    fsm_scan_kernel<false, false, false><<<blocks, kThreads, 0, stream>>>(
-        xs, pitch, n_data, seg_n, lut, meta, io, nullptr, nullptr, events,
-        err_mal, err_env, L, steps);
+    rc = launch_scan<false, false, false>(
+        blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+        table_words, meta, io, nullptr, nullptr, events, err_mal, err_env, L,
+        steps);
   } else if (mode == 1) {
-    fsm_scan_kernel<true, false, false><<<blocks, kThreads, 0, stream>>>(
-        xs, pitch, n_data, seg_n, lut, meta, io, nullptr, nullptr, events,
-        err_mal, err_env, L, steps);
+    rc = launch_scan<true, false, false>(
+        blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+        table_words, meta, io, nullptr, nullptr, events, err_mal, err_env, L,
+        steps);
   } else if (mode == 2) {
-    fsm_scan_kernel<true, true, false><<<blocks, kThreads, 0, stream>>>(
-        xs, pitch, n_data, seg_n, lut, meta, io, nullptr, nullptr, events,
-        err_mal, err_env, L, steps);
+    if (anchors == nullptr || ablk == nullptr || recm == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    rc = launch_scan<true, true, false>(
+        blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+        table_words, meta, io, nullptr, nullptr, events, err_mal, err_env, L,
+        steps);
   } else if (mode == 3) {
     if (wrap_at == nullptr || skip == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    fsm_scan_kernel<false, false, true><<<blocks, kThreads, 0, stream>>>(
-        xs, pitch, n_data, seg_n, lut, meta, io, wrap_at, skip, events,
-        err_mal, err_env, L, steps);
+    rc = launch_scan<false, false, true>(
+        blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+        table_words, meta, io, wrap_at, skip, events, err_mal, err_env, L,
+        steps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rc);
 }

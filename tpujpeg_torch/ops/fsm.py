@@ -18,9 +18,19 @@ overflow: more than K symbols per byte sustained).  Callers retry an
 envelope chunk at STEPS_SAFE and send the rest to the host decoder.
 
 The host half (FsmTables, build_tables, FsmPlan, build_plan) is a numpy
-copy of the JAX package's, without the TPU's two-level symbol map: the
-scan looks (length, symbol) up in a flat per-table LUT of all 65,536
-16-bit peeks (`symbol_lut`), exact by construction.
+copy of the JAX package's, without the TPU's two-level symbol map.  The
+contract of the symbol lookup is a flat per-table map of all 65,536
+16-bit peeks to (length, symbol) (`symbol_lut`), exact by construction;
+it stays on the host, where the plain scan reads it.  The kernel reads
+`scan_table`, the same map folded into two levels (a first level on the
+top 10 bits of the peek, 64-entry second levels for the longer codes,
+about 19 KB) so that every warp keeps it in shared memory.
+
+On the card the scan is bound by latency: one thread per lane, a few
+hundred warps, and the kernel takes as long as its slowest warp needs
+for the longest lane.  csrc/fsm_scan.cu shortens what a byte column
+costs a warp (a symbol step without branches, tables and scan bytes in
+shared memory) and says what was measured and left out.
 
 Mixed-size chunks pack into bucket-raster lanes (`build_plan_bucketed`):
 every image of a size-class bucket gives the same number of lanes, and
@@ -260,6 +270,60 @@ def symbol_lut(tables: FsmTables) -> np.ndarray:
     return (
         (length << 8 | sym).astype(np.int32).reshape(N_TABLES, 1 << 16)
     )
+
+
+SCAN_L1_BITS = 10       # the scan table's first level: top bits of the peek
+SCAN_SUB_MAX = 576      # second-level tables it may hold (4 x 128 needed)
+SCAN_LONG = -1 << 31    # first-level mark: the entry points to a second level
+
+
+@lru_cache(maxsize=16)
+def scan_table(tables: FsmTables) -> np.ndarray:
+    """The scan kernel's tables: `symbol_lut` in two levels, int32
+    [4096 + 64 * n_sub], small enough for shared memory.
+
+    Entry: symbol | length << 8 | (length + size) << 13, with size =
+    symbol & 15 and the last field 0 under an invalid length.  Word
+    `tbl << 10 | peek >> 6` is the first level: the entry itself when all
+    64 peeks under those 10 bits share one (every code of <= 10 bits, and
+    whole invalid stretches), else SCAN_LONG | w, where words [w, w + 64)
+    hold the entries of the 64 peeks, indexed by `peek & 63`.  Built from
+    the flat map and so exact by construction (`scan_table_lookup`).
+    Canonical tables need at most 128 second levels each (256 codes of
+    >= 11 bits, 32 peeks or fewer apiece).  The flat map fills the plane
+    of a table set that no block selects (a grayscale image has one set)
+    with its neighbour's last piece; where that filler does not fold, the
+    plane is marked invalid instead.
+    """
+    lut = symbol_lut(tables).astype(np.int64)
+    length, sym = lut >> 8, lut & 0xFF
+    need = np.where(length <= 16, length + (sym & 15), 0)
+    entry = (sym | length << 8 | need << 13).reshape(
+        N_TABLES, 1 << SCAN_L1_BITS, -1)
+    mixed = (entry != entry[:, :, :1]).any(axis=2)
+    if int(mixed.sum()) > SCAN_SUB_MAX:
+        unused = [t for t in range(N_TABLES) if t % 2 not in tables.tsel]
+        entry[unused] = INVALID_LEN << 8
+        mixed[unused] = False
+    l1 = entry[:, :, 0].copy()
+    n_sub = int(mixed.sum())
+    if n_sub > SCAN_SUB_MAX:
+        raise JpegError("fsm: Huffman tables too irregular for the scan table")
+    base = N_TABLES << SCAN_L1_BITS
+    l1[mixed] = SCAN_LONG | (base + 64 * np.arange(n_sub))
+    out = np.concatenate([l1.reshape(-1), entry[mixed].reshape(-1)])
+    return out.astype(np.int32)
+
+
+def scan_table_lookup(table: np.ndarray, tbl, peek) -> np.ndarray:
+    """Plain lookup in a `scan_table`, as the kernel does it: the entry
+    (symbol | length << 8 | (length + size) << 13) of table `tbl` at the
+    16-bit `peek`, elementwise over arrays."""
+    tbl, peek = np.asarray(tbl, np.int64), np.asarray(peek, np.int64)
+    e = table[tbl << SCAN_L1_BITS | peek >> 6].astype(np.int64)
+    long = e < 0
+    sub = table[np.where(long, (e & 0xFFFF) + (peek & 63), 0)]
+    return np.where(long, sub, e)
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +656,7 @@ def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
             kernels.check_cuda_tensor(name, t, torch.int32, 1)
             if t.shape[0] != L:
                 raise ValueError(f"fsm_scan: {name} must be [L={L}]")
-    lut = _device_lut(tables, dev)
+    table = _device_table(tables, dev)
     meta = scan_meta(tables)
     n_cols = n_data + FLUSH_COLS
 
@@ -614,8 +678,8 @@ def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
 
     kernels.launch(
         "fsm_scan",
-        xs.data_ptr(), seg_n_blocks.data_ptr(), lut.data_ptr(),
-        meta.ctypes.data, ptr(events), err_mal.data_ptr(),
+        xs.data_ptr(), seg_n_blocks.data_ptr(), table.data_ptr(),
+        table.numel(), meta.ctypes.data, ptr(events), err_mal.data_ptr(),
         err_env.data_ptr(), L, pitch, n_data, k, mode,
         ptr(start_bits), ptr(start_bim), ptr(chunk_bits),
         ptr(anchors), ptr(ablk), ptr(recm), ptr(state),
@@ -626,18 +690,19 @@ def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
                    blk, end_bits, end_bim, rec_last)
 
 
-_lut_cache: dict = {}
+_table_cache: dict = {}
 
 
-def _device_lut(tables: FsmTables, device) -> torch.Tensor:
+def _device_table(tables: FsmTables, device) -> torch.Tensor:
+    """`scan_table(tables)` on the card (cached)."""
     key = (tables, str(device))
-    lut = _lut_cache.get(key)
-    if lut is None:
-        lut = torch.as_tensor(symbol_lut(tables)).to(device)
-        if len(_lut_cache) >= 16:
-            _lut_cache.clear()
-        _lut_cache[key] = lut
-    return lut
+    table = _table_cache.get(key)
+    if table is None:
+        table = torch.as_tensor(scan_table(tables)).to(device)
+        if len(_table_cache) >= 16:
+            _table_cache.clear()
+        _table_cache[key] = table
+    return table
 
 
 def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,

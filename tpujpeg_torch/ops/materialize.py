@@ -11,9 +11,13 @@ this takes a stable compaction and a monotone spread through butterfly
 networks (the Pallas kernels _fine_compact_rank_kernel and
 _fine_spread_kernel plus their XLA coarse stages), because XLA:TPU
 scatters serially.  Hopper scatters natively, so the joint contract is
-one kernel: per lane, walk the event rows in order and store each event
-at its target.  Per-lane targets are strictly increasing, so stores never
-collide.
+one kernel.  Every event carries its own target and per-lane targets are
+distinct, so stores never collide and any thread may place any event:
+the kernel is parallel over event rows as well as lanes (a thread takes
+four lanes x four rows, loads first, then stores), which keeps enough
+loads in flight to stream the event matrix at the memory rate.  What is
+left is the scatter's own cost: the output is lane-minor, so each 2-byte
+store moves its own 32-byte sector.
 
 Slot route (`place_events_slots`, kernels "compact", "slot_unpack" and
 "slot_expand", csrc/slots.cu): the JAX package's place_events_slots.
