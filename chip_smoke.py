@@ -8,8 +8,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   1. build the CUDA kernels from tpujpeg_torch/csrc (one nvcc per source,
      started together, sm_90a) and the port's native host library
      (tpujpeg_torch/runtime/native, g++; without OpenMP where that link
-     fails), both into tpujpeg_torch/_build; the measurement builds of
-     tools/bench_torch_scan.py start here and compile in the background;
+     fails), both into tpujpeg_torch/_build;
   2. restart path: BatchDecoder(backend="fsm", chunk_size=128) on one
      128-image chunk (the 16 committed 640x640 q90 4:4:4 restart-every-
      MCU-row streams of tests/fixtures/rst640, each 8 times): every
@@ -74,13 +73,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      per byte on lanes that latch the envelope and on malformed lanes,
      besides the restart, pad_info, 6-blocks-per-MCU, cold and stitch
      uses; place_events on the 4:2:0 events with an out-of-range target
-     that latches and the event that packs to 0.  Then
-     tools/bench_torch_scan.py runs in this process and prints, one line
-     per reading: the scan with its bytes staged through shared memory
-     against the build that reads them from global memory, on every use;
-     place_events' zero fill alone, the kernel at 4, 8 and 16 event rows
-     per thread, index_put_, its byte and sector bounds, and how far
-     apart in blocks the lanes of a 64-lane group are at one event row;
+     that latches and the event that packs to 0.  For place_events on
+     both restart chunks' events a line of its own gives the zero fill
+     alone, the kernel with its fill, index_put_, and the byte and sector
+     bounds (sectors: valid events x 32 bytes read and written, plus the
+     fill and the events);
   8. throughput: end to end for the 4:4:4 chunks (restart, speculative,
      mixed on "scatter") and the three 4:2:0 chunks with both `fancy`
      values (two timed decodes each, after the phase's own decode), the
@@ -261,9 +258,6 @@ def main() -> int:
           f"{len(kernels._sources())} sources in "
           f"{time.perf_counter() - t0:.1f} s")
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    import bench_torch_scan
-
-    variant_builds = bench_torch_scan.start_builds()
     t0 = time.perf_counter()
     print(f"phase 1: host reference decoder {host.backend_name()} "
           f"(tpujpeg_torch/runtime/native, {time.perf_counter() - t0:.1f} s)")
@@ -674,13 +668,14 @@ def main() -> int:
                 for label, path in chunk_paths.items()
                 if by_path[path][kernel]}
 
-    def scan_bound(xs_t, n_planes: int, K: int) -> dict:
-        """Bound of one scan over xs_t [L, n]: the byte matrix, quotas and
-        the packed tables read, n_planes int32 [n + 6, K, L] planes and
-        two latches written; ~60 32-bit operations per symbol step."""
+    def scan_bound(xs_t, tables, n_planes: int, K: int) -> dict:
+        """Bound of one scan over xs_t [L, n] with `tables`: the byte
+        matrix, quotas and the packed tables read, n_planes int32
+        [n + 6, K, L] planes and two latches written; ~60 32-bit
+        operations per symbol step."""
         Ls, n = xs_t.shape
         steps_total = (n + fsm.FLUSH_COLS) * K * Ls
-        return bound(Ls * n + 4 * Ls + fsm.scan_table(plan.tables).nbytes
+        return bound(Ls * n + 4 * Ls + fsm.scan_table(tables).nbytes
                      + 4 * n_planes * steps_total + 2 * Ls,
                      60 * steps_total)
     imgs = [parse(d) for d in datas]
@@ -843,51 +838,17 @@ def main() -> int:
         replaces="tpujpeg/ops/fsm.py:702", launches=totals["fsm_scan"],
         launches_per_chunk=per_chunk("fsm_scan"),
         max_abs_err=scan_err, ms=scan_ms, plain_ms=scan_plain_ms,
-        **scan_bound(xs, 1, k_prod), library_ms=None,
+        **scan_bound(xs, plan.tables, 1, k_prod), library_ms=None,
         ms_anchor_mode=cold_ms, plain_ms_anchor_mode=cold_plain_ms,
-        bound_ms_anchor_mode=scan_bound(sxs, 4, k_prod)["bound_ms"],
+        bound_ms_anchor_mode=scan_bound(sxs, splan.tables, 4, k_prod)["bound_ms"],
         ms_count_mode=count_ms,
         ms_entry_mode=entry_ms, plain_ms_entry_mode=entry_plain_ms,
-        bound_ms_entry_mode=scan_bound(xs2, 1, k_prod)["bound_ms"],
+        bound_ms_entry_mode=scan_bound(xs2, splan.tables, 1, k_prod)["bound_ms"],
         ms_pad_mode=pad_ms, plain_ms_pad_mode=pad_plain_ms,
-        bound_ms_pad_mode=scan_bound(bxs, 1, k_prod)["bound_ms"],
+        bound_ms_pad_mode=scan_bound(bxs, bplan.tables, 1, k_prod)["bound_ms"],
         ms_420_chunk=sub_ms, plain_ms_420_chunk_1024_lanes=sub_plain_ms,
-        bound_ms_420_chunk=scan_bound(xs420, 1, k_prod)["bound_ms"],
+        bound_ms_420_chunk=scan_bound(xs420, plan420.tables, 1, k_prod)["bound_ms"],
     ))
-    M420 = plan420.max_blk * 64
-    sub_place_ms = cuda_ms(lambda: materialize.place_events(ev420, M420))
-    check(torch.equal(materialize.place_events(ev420, M420),
-                      materialize.place_events_plain(ev420, M420)),
-          "place_events 4:2:0 kernel != plain")
-    # a target past the last row latches its lane and nothing else; the
-    # event that packs to 0 (blk 0, z 0, value -2048) is placed
-    ev420[:, 1:3] = -1
-    ev420[0, 1] = 0
-    ev420[-1, 2] = plan420.max_blk << 18 | 2048
-    errs420 = [torch.zeros(L420, dtype=torch.bool, device=dev)
-               for _ in range(2)]
-    got = materialize.place_events(ev420, M420, errs420[0])
-    equal_all((got, errs420[0]),
-              (materialize.place_events_plain(ev420, M420, errs420[1]),
-               errs420[1]), "place_events 4:2:0 with a latch")
-    check(int(errs420[0].sum()) == 1 and bool(errs420[0][2])
-          and int(got[0, 1]) == -2048, "place_events latch or zero event")
-    print(f"phase 7: place_events on the 4:2:0 chunk's events equal, with "
-          f"an out-of-range target (latched) and the event that packs to 0 "
-          f"too; {sub_place_ms:.4f} ms [{card}]")
-    del ev420, got, errs420
-
-    # the classic scatter on the restart chunk
-    events, err_mal, _ = fsm.fsm_scan(xs, sn, plan.tables)
-    ev = events.reshape(-1, L)
-    M = plan.max_blk * 64
-    err_k = torch.zeros(L, dtype=torch.bool, device=dev)
-    err_p = torch.zeros(L, dtype=torch.bool, device=dev)
-    got = materialize.place_events(ev, M, err_k)
-    want = materialize.place_events_plain(ev, M, err_p)
-    pe_err = equal_all([got, err_k], [want, err_p], "place_events")
-    print(f"phase 7: place_events [{ev.shape[0]}, {L}] -> [{M}, {L}] equal")
-
     def scatter_call(events_t, rows_out, valid):
         """One PyTorch call for events -> dense: a zero fill and one
         index_put_ with the targets, lanes and values prepared outside."""
@@ -907,21 +868,85 @@ def main() -> int:
 
         return call
 
-    lib_call = scatter_call(ev, M, ev >= 0)
-    check(torch.equal(lib_call(), got), "index_put_ != place_events")
+    def place_readings(what: str, events_t, rows_out) -> dict:
+        """place_events on events_t beside its zero fill alone (a launch
+        on no event rows), one index_put_ call (held equal to the kernel)
+        and its two bounds; prints them on one line."""
+        valid = events_t >= 0
+        call = scatter_call(events_t, rows_out, valid)
+        got = materialize.place_events(events_t, rows_out)
+        check(torch.equal(call(), got), f"index_put_ != place_events {what}")
+        n_valid = int(valid.sum())
+        by_bytes = bound(nbytes(events_t, got), 8 * events_t.numel())
+        r = dict(
+            ms=cuda_ms(lambda: materialize.place_events(events_t, rows_out)),
+            fill_ms=cuda_ms(
+                lambda: materialize.place_events(events_t[:0], rows_out)),
+            library_ms=cuda_ms(call), bound_ms=by_bytes["bound_ms"],
+            sector_bound_ms=(nbytes(events_t, got) + 64 * n_valid)
+            / HBM_BYTES_PER_S * 1e3)
+        print(f"phase 7: place_events {what} {list(events_t.shape)} -> "
+              f"{list(got.shape)}, {n_valid} valid events: zero fill alone "
+              f"{r['fill_ms']:.4f} ms; the kernel with its fill "
+              f"{r['ms']:.4f} ms; index_put_ {r['library_ms']:.4f} ms; byte "
+              f"bound {r['bound_ms']:.4f}, sector bound "
+              f"{r['sector_bound_ms']:.4f} ms [{card}]")
+        return r
+
+    M420 = plan420.max_blk * 64
+    place420 = place_readings("4:2:0 restart chunk", ev420, M420)
+    check(torch.equal(materialize.place_events(ev420, M420),
+                      materialize.place_events_plain(ev420, M420)),
+          "place_events 4:2:0 kernel != plain")
+    # a target past the last row latches its lane and nothing else; the
+    # event that packs to 0 (blk 0, z 0, value -2048) is placed
+    ev420[:, 1:3] = -1
+    ev420[0, 1] = 0
+    ev420[-1, 2] = plan420.max_blk << 18 | 2048
+    errs420 = [torch.zeros(L420, dtype=torch.bool, device=dev)
+               for _ in range(2)]
+    got = materialize.place_events(ev420, M420, errs420[0])
+    equal_all((got, errs420[0]),
+              (materialize.place_events_plain(ev420, M420, errs420[1]),
+               errs420[1]), "place_events 4:2:0 with a latch")
+    check(int(errs420[0].sum()) == 1 and bool(errs420[0][2])
+          and int(got[0, 1]) == -2048, "place_events latch or zero event")
+    print(f"phase 7: place_events on the 4:2:0 chunk's events equal, with "
+          f"an out-of-range target (latched) and the event that packs to 0 "
+          f"too")
+    del ev420, got, errs420
+
+    # the classic scatter on the restart chunk
+    events, err_mal, _ = fsm.fsm_scan(xs, sn, plan.tables)
+    ev = events.reshape(-1, L)
+    M = plan.max_blk * 64
+    err_k = torch.zeros(L, dtype=torch.bool, device=dev)
+    err_p = torch.zeros(L, dtype=torch.bool, device=dev)
+    got = materialize.place_events(ev, M, err_k)
+    want = materialize.place_events_plain(ev, M, err_p)
+    pe_err = equal_all([got, err_k], [want, err_p], "place_events")
+    print(f"phase 7: place_events [{ev.shape[0]}, {L}] -> [{M}, {L}] equal")
+
+    place444 = place_readings("restart chunk", ev, M)
     rows.append(dict(
         name="place_events", route="cuda",
         source="tpujpeg_torch/csrc/materialize.cu",
         replaces="tpujpeg/ops/materialize.py:205,314",
         launches=totals["place_events"],
         launches_per_chunk=per_chunk("place_events"), max_abs_err=pe_err,
-        ms=cuda_ms(lambda: materialize.place_events(ev, M)),
+        ms=place444["ms"],
         plain_ms=cuda_ms(lambda: materialize.place_events_plain(ev, M)),
         **bound(nbytes(ev, got), 8 * ev.numel()),
-        library_ms=cuda_ms(lib_call),
+        library_ms=place444["library_ms"],
+        fill_ms=place444["fill_ms"],
+        sector_bound_ms=place444["sector_bound_ms"],
+        ms_420_chunk=place420["ms"], fill_ms_420_chunk=place420["fill_ms"],
+        library_ms_420_chunk=place420["library_ms"],
+        bound_ms_420_chunk=place420["bound_ms"],
+        sector_bound_ms_420_chunk=place420["sector_bound_ms"],
     ))
     restart_dense = got
-    del want, lib_call
+    del want
 
     # the slot kernels on the spec chunk's merged events
     sev, _ = fsm._spec_sync_merge(
@@ -1230,9 +1255,6 @@ def main() -> int:
           f"{scan['bound_ms_420_chunk']:.4f}, plain on 1024 lanes "
           f"{sub_plain_ms:.4f}) [{card}]")
     del events, ev, per_lane, got, want, zp, dcp, restart_dense
-    torch.cuda.empty_cache()
-    check(bench_torch_scan.main(["--iters", "3"], builds=variant_builds) == 0,
-          "tools/bench_torch_scan.py failed")
     torch.cuda.empty_cache()
 
     # ---- phase 8: throughput

@@ -1,22 +1,11 @@
-"""What each element of the `fsm_scan` and `place_events` designs is
-worth on a CUDA card (tpujpeg_torch).
+"""Times of `fsm_scan` in each of its uses and of `place_events` beside
+its zero fill, one PyTorch call and its bounds, on a CUDA card
+(tpujpeg_torch).
 
     python tools/bench_torch_scan.py [--iters 5] [--repeat 8] [OUT.json]
-    python tools/bench_torch_scan.py --library-only --root DIR
 
-The second form times the same cases with the package of another
-checkout (DIR holds its tpujpeg_torch/, for example `git archive` of the
-parent commit unpacked there) and builds no variant: two commits are
-compared by running both forms one after the other on one card.
-
-Both kernels carry one compile-time measurement switch
-(tpujpeg_torch/csrc/fsm_scan.cu: TPJ_SCAN_STAGE, 0 = every lane reads
-its row from global memory; csrc/materialize.cu: TPJ_PLACE_ROWS, event
-rows per thread).  This tool builds the library once more per setting
-(`kernels.variant_library`, the builds side by side), runs every variant
-on the real inputs of 128-image chunks of the committed corpora, holds
-its outputs `torch.equal` to the library's, and times both in turns
-(CUDA events, median of `--iters` warm runs):
+Runs both kernels on the real inputs of 128-image chunks of the committed
+corpora (CUDA events, median of `--iters` warm runs):
 
   fsm_scan      restart chunk (rst640), 4:2:0 restart chunk (rst640_420),
                 pad_info on the mixed-size chunk (mixed_rst), and on the
@@ -25,14 +14,13 @@ its outputs `torch.equal` to the library's, and times both in turns
                 the count pass (emit=False); also the scan on lanes of
                 quota 0 (what a warp of idle lanes costs);
   place_events  on the events of the two restart chunks: the zero fill
-                alone (a launch on no event rows), the library's kernel
-                (4 event rows per thread) and the builds at 8 and 16, one
-                PyTorch index_put_ call, and
-                the two bounds (bytes; sectors: valid events x 32 bytes
-                read and written, plus the fill) over 3.35 TB/s; and how
-                many blocks apart the 64 lanes of a group are at one event
-                row (what a band staged in shared memory would have to
-                span).
+                alone (a launch on no event rows), the kernel with its
+                fill, one PyTorch index_put_ call (held equal to the
+                kernel), and the two bounds (bytes; sectors: valid events
+                x 32 bytes read and written, plus the fill) over 3.35
+                TB/s; and how many blocks apart the 64 lanes of a group
+                are at one event row (what a band staged in shared memory
+                would have to span).
 
 Prints one line per reading, each with the card's name and power limit.
 Needs a CUDA card and nvcc.  Run from the repo root.
@@ -46,24 +34,10 @@ import os
 import statistics
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-
-# what differs from the library -> the defines of its build
-VARIANTS = {
-    "bytes from global memory (no staging)":
-        {"TPJ_SCAN_STAGE": 0, "TPJ_PLACE_ROWS": 8},
-    "16 event rows per thread": {"TPJ_PLACE_ROWS": 16},
-}
-# event rows per thread -> the build that has them (the library has 4)
-PLACE_ROWS = {8: "bytes from global memory (no staging)",
-              16: "16 event rows per thread"}
-SCAN_VARIANTS = [name for name, d in VARIANTS.items()
-                 if any(k.startswith("TPJ_SCAN") for k in d)]
-
 
 def cuda_ms(fn, reps: int) -> float:
     """Median milliseconds of fn() over `reps` warm runs (CUDA events)."""
@@ -81,18 +55,6 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
-
-
-def start_builds():
-    """Start every variant's build in the background; name -> future of
-    its loaded library."""
-    from tpujpeg_torch.runtime import kernels
-
-    pool = ThreadPoolExecutor(max_workers=len(VARIANTS))
-    futures = {name: pool.submit(kernels.variant_library, defines)
-               for name, defines in VARIANTS.items()}
-    pool.shutdown(wait=False)
-    return futures
 
 
 def _corpus(name: str, repeat: int):
@@ -161,13 +123,6 @@ def scan_cases(repeat: int, dev) -> dict:
     return cases
 
 
-def _same(a, b) -> bool:
-    import torch
-
-    return all((x is None) == (y is None)
-               and (x is None or torch.equal(x, y)) for x, y in zip(a, b))
-
-
 def index_put_call(ev, M: int):
     """One PyTorch call for events -> dense: a zero fill and one
     index_put_, its indices and values prepared outside."""
@@ -213,17 +168,13 @@ def block_spread(ev, group: int = 64):
     return int(q[0]), int(q[1]), int(spread.max())
 
 
-def main(argv=None, builds=None) -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out", nargs="?", default=None)
     ap.add_argument("--repeat", type=int, default=8)
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--root", default=ROOT,
-                    help="checkout whose tpujpeg_torch is timed")
-    ap.add_argument("--library-only", action="store_true",
-                    help="build and time no variant")
     args = ap.parse_args(argv)
-    sys.path.insert(0, os.path.abspath(args.root))
+    sys.path.insert(0, ROOT)
 
     import torch
 
@@ -240,34 +191,15 @@ def main(argv=None, builds=None) -> int:
     print(f"card: {smi}")
     dev = torch.device("cuda")
     kernels.library()
-    if args.library_only:
-        builds = {}
-    elif builds is None:
-        builds = start_builds()
-    variants = {name: f.result() for name, f in builds.items()}
     report = {"card": smi, "scan": {}, "place_events": {}}
 
-    # ---- the scan: the library's kernel, then each variant beside it
+    # ---- the scan in each use
     cases = scan_cases(args.repeat, dev)
     for case, (fn, plan) in cases.items():
-        want = fn()
-        kept = cuda_ms(fn, args.iters)
         shape = list(plan.xs.shape)
-        row = {"shape": shape, "kept_ms": kept}
-        print(f"scan {case} {shape}: {kept:.4f} ms as built [{smi}]")
-        for name in SCAN_VARIANTS if variants else ():
-            with kernels.using(variants[name]):
-                if not _same(fn(), want):
-                    print(f"scan {case}: variant '{name}' differs",
-                          file=sys.stderr)
-                    return 1
-                ms = cuda_ms(fn, args.iters)
-            again = cuda_ms(fn, args.iters)
-            row[name] = {"ms": ms, "kept_ms_again": again}
-            print(f"scan {case}: with {name} {ms:.4f} ms (as built, again: "
-                  f"{again:.4f}) [{smi}]")
-        report["scan"][case] = row
-        del want
+        ms = cuda_ms(fn, args.iters)
+        print(f"scan {case} {shape}: {ms:.4f} ms [{smi}]")
+        report["scan"][case] = {"shape": shape, "ms": ms}
 
     # ---- place_events on the two restart chunks' events
     for case in ("restart", "4:2:0 restart"):
@@ -290,30 +222,16 @@ def main(argv=None, builds=None) -> int:
             "events": list(ev.shape), "dense": [M, L], "valid": n_valid,
             "fill_ms": cuda_ms(lambda: materialize.place_events(ev[:0], M),
                                args.iters),
-            "library_ms": cuda_ms(place, args.iters),
+            "kernel_ms": cuda_ms(place, args.iters),
             "index_put_ms": cuda_ms(lib, args.iters),
             "byte_bound_ms": (4 * ev.numel() + fill_bytes)
             / HBM_BYTES_PER_S * 1e3,
             "sector_bound_ms": (4 * ev.numel() + fill_bytes
                                 + 64 * n_valid) / HBM_BYTES_PER_S * 1e3,
         }
-        for rows, name in PLACE_ROWS.items():
-            if name not in variants:
-                continue
-            with kernels.using(variants[name]):
-                if not torch.equal(place(), want):
-                    print(f"place_events at {rows} rows differs",
-                          file=sys.stderr)
-                    return 1
-                row[f"rows_{rows}_ms"] = cuda_ms(place, args.iters)
-        row["library_ms_again"] = cuda_ms(place, args.iters)
-        others = "".join(f", at {rows} rows per thread "
-                         f"{row[f'rows_{rows}_ms']:.4f}"
-                         for rows in PLACE_ROWS if f"rows_{rows}_ms" in row)
         print(f"place_events {case} {row['events']} -> {row['dense']}, "
               f"{n_valid} valid events: fill alone {row['fill_ms']:.4f} ms; "
-              f"the library's kernel with its fill {row['library_ms']:.4f} "
-              f"(again {row['library_ms_again']:.4f}){others} ms; "
+              f"the kernel with its fill {row['kernel_ms']:.4f} ms; "
               f"index_put_ {row['index_put_ms']:.4f} ms; byte bound "
               f"{row['byte_bound_ms']:.4f}, sector bound "
               f"{row['sector_bound_ms']:.4f} ms [{smi}]")

@@ -60,13 +60,6 @@
 // Bit-exactness with the JAX scan: the buffer is uint32_t and every read
 // of it lies below `navail`, so the bits are those of the JAX int32
 // arithmetic shifts; every shift amount stays in [0, 31].
-//
-// Measurement switch (compile time only; tools/bench_torch_scan.py builds
-// the kernel with it at 0 to read what the staging is worth; the library
-// is always built with the default):
-#ifndef TPJ_SCAN_STAGE
-#define TPJ_SCAN_STAGE 1    // 0: each lane reads its row from global memory
-#endif
 
 #include <climits>
 #include <cstdint>
@@ -210,21 +203,15 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
   const size_t col_step = static_cast<size_t>(K) * L;
   size_t out_col = row_id;
 
-#if TPJ_SCAN_STAGE
   const int n_read = (n_data + 3) & ~3;
   const bool aligned16 =
       (reinterpret_cast<uintptr_t>(xs) & 15) == 0 && (pitch & 15) == 0;
   stage_tile(stages, xs, pitch, n_read, lane0, L, 0, aligned16);
   cp_async_commit();
-#else
-  const uint32_t* row = reinterpret_cast<const uint32_t*>(
-      xs + static_cast<size_t>(row_id) * pitch);
-#endif
   __syncwarp();
 
   const int n_tiles = (n_cols + kTile - 1) / kTile;
   for (int tile = 0; tile < n_tiles; ++tile) {
-#if TPJ_SCAN_STAGE
     // the next tile travels while this one is decoded
     stage_tile(stages + ((tile + 1) & 1) * kStageBytes, xs, pitch, n_read,
                lane0, L, tile + 1, aligned16);
@@ -234,13 +221,11 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
     const uint8_t* my_row =
         stages + (tile & 1) * kStageBytes + threadIdx.x * kPitch;
     uint4 q = make_uint4(0, 0, 0, 0);
-#endif
     uint32_t word = 0;
     const int c_end = min(kTile, n_cols - tile * kTile);
     for (int c = 0; c < c_end; ++c, out_col += col_step) {
       const int col = tile * kTile + c;
       if ((c & 3) == 0) {
-#if TPJ_SCAN_STAGE
         if ((c & 15) == 0) {
           q = *reinterpret_cast<const uint4*>(my_row + c);
         } else {
@@ -249,9 +234,6 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
           q.z = q.w;
         }
         word = q.x;
-#else
-        if (col < n_data) word = __ldg(row + (col >> 2));
-#endif
       }
       const uint32_t byte = word & 0xFFu;
       word >>= 8;
@@ -387,13 +369,9 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
         }
       }
     }
-#if TPJ_SCAN_STAGE
     __syncwarp();   // all lanes are off this stage before it is refilled
-#endif
   }
-#if TPJ_SCAN_STAGE
   cp_async_wait<0>();
-#endif
   if (!in_range) return;
   // a lane undone at the end is truncated, or starved of symbol steps
   // with whole bytes still buffered (an envelope condition); anchor mode

@@ -33,16 +33,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// Event rows per thread (compile time; tools/bench_torch_scan.py builds
-// the kernel at 8 and 16 as well: 4 is the fastest of the three on both
-// chunk shapes, by 2-6%).
-#ifndef TPJ_PLACE_ROWS
-#define TPJ_PLACE_ROWS 4
-#endif
-
 namespace {
 
-constexpr int kRows = TPJ_PLACE_ROWS;
+// Event rows per thread: 4 was the fastest of 1, 2, 4, 8 and 16 on both
+// chunk shapes of PERF.md, by 2-6% over 8 and 16.
+constexpr int kRows = 4;
 constexpr int kThreads = 256;
 
 template <int kVec>

@@ -17,15 +17,10 @@ silently.
 
 `LAUNCHES` keeps one integer per kernel, bumped by `launch` and nowhere
 else, so a run can show that its main path went through each kernel.
-
-`variant_library` builds the same sources once more with compile-time
-switches set (a measurement build) and `using` launches through it; only
-the measurement tools do that.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -158,7 +153,7 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not fresh():
-                _compile_and_link(NVCC_FLAGS, LIB_PATH)
+                _compile_and_link()
                 STAMP_PATH.write_text(want)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -183,18 +178,17 @@ def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
     return [(p.returncode, out) for p, out in zip(procs, outs)]
 
 
-def _compile_and_link(flags: list[str], lib_path: Path) -> None:
-    """One nvcc per source, all started together, then one link, into
-    lib_path's directory."""
+def _compile_and_link() -> None:
+    """One nvcc per source, all started together, then one link."""
     cu = [p for p in _sources() if p.suffix == ".cu"]
     if not cu:
         raise FileNotFoundError(f"no CUDA sources in {SRC_DIR}")
-    objs = [lib_path.parent / (p.stem + ".o") for p in cu]
+    objs = [BUILD_DIR / (p.stem + ".o") for p in cu]
     compile_cmds = [
-        [_nvcc(), *flags, "-c", "-o", str(o), str(p)]
+        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
         for p, o in zip(cu, objs)
     ]
-    tmp = lib_path.with_suffix(".so.tmp")
+    tmp = LIB_PATH.with_suffix(".so.tmp")
     link_cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
     for cmds in (compile_cmds, [link_cmd]):
         for cmd, (rc, out) in zip(cmds, _run_all(cmds)):
@@ -202,16 +196,7 @@ def _compile_and_link(flags: list[str], lib_path: Path) -> None:
                 raise RuntimeError(
                     "nvcc failed (%d): %s\n%s" % (rc, " ".join(cmd), out)
                 )
-    os.replace(tmp, lib_path)
-
-
-def _load(path: Path) -> ctypes.CDLL:
-    dll = ctypes.CDLL(str(path))
-    for fn, argtypes in _SIGNATURES.items():
-        f = getattr(dll, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    return dll
+    os.replace(tmp, LIB_PATH)
 
 
 def library() -> ctypes.CDLL:
@@ -219,34 +204,13 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            _lib = _load(build())
+            dll = ctypes.CDLL(str(build()))
+            for fn, argtypes in _SIGNATURES.items():
+                f = getattr(dll, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _lib = dll
     return _lib
-
-
-def variant_library(defines: dict[str, int]) -> ctypes.CDLL:
-    """A measurement build: the same sources with the compile-time
-    switches `defines` (-DNAME=VALUE), built into a directory of its own
-    under BUILD_DIR and loaded beside the library.  The port never calls
-    it; the measurement tools run a kernel through it with `using`."""
-    tag = "_".join(f"{k}={v}" for k, v in sorted(defines.items()))
-    path = BUILD_DIR / "variants" / tag / LIB_PATH.name
-    path.parent.mkdir(parents=True, exist_ok=True)
-    flags = NVCC_FLAGS + [f"-D{k}={v}" for k, v in sorted(defines.items())]
-    _compile_and_link(flags, path)
-    return _load(path)
-
-
-@contextlib.contextmanager
-def using(dll: ctypes.CDLL):
-    """Launch through `dll` (a `variant_library`) inside the block."""
-    global _lib
-    with _lib_lock:
-        saved, _lib = _lib, dll
-    try:
-        yield
-    finally:
-        with _lib_lock:
-            _lib = saved
 
 
 def current_stream(device) -> int:
