@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      output equals the host reference decoder's
      (tpujpeg_torch.runtime.host: native C++, or the numpy oracle where
      the native library does not build), two equal the numpy oracle's, no
-     host fallback; the engine materializes packed lanes through the
-     classic scatter;
+     host fallback, no pixel repaired (strict colour is exact on the
+     card); the engine materializes packed lanes through the classic
+     scatter, and the pixel kernel reads its dense lane matrix in place;
   3. speculative path: the same engine on the 128-image chunk of the
      no-restart streams of tests/fixtures/photo640 (640x640 q90 4:4:4,
      ~123 lanes per image), materialized through the slot route: backend
@@ -77,16 +78,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      both restart chunks' events a line of its own gives the zero fill
      alone, the kernel with its fill, index_put_, and the byte and sector
      bounds (sectors: valid events x 32 bytes read and written, plus the
-     fill and the events);
+     fill and the events).  The pixel kernel is held in both colour modes
+     on the restart chunk's dense lane matrix (the engine's input), on
+     the same coefficients as [B, n_blocks, 64] (the speculative, Jacobi
+     and host routes' layout) and on the mixed chunk's bucket-raster lane
+     matrix (padded rows, DC masked outside each image's extent: the
+     bucketed chain's input, the whole 808x808 raster compared), with
+     kernel, plain, bytes, bound and share;
+  7b. exact colour over all 134,217,728 triples of [-256, 255]^3 on the
+     card, Y slab by Y slab, against the oracle's ycbcr_to_rgb_exact in
+     numpy: the pixel kernel's exact mode (DC-only blocks whose samples
+     are the triple) and color.color_exact in float64 (the plane path's);
   8. throughput: end to end for the 4:4:4 chunks (restart, speculative,
      mixed on "scatter") and the three 4:2:0 chunks with both `fancy`
      values (two timed decodes each, after the phase's own decode), the
-     device chain of each, and the plane path's stage times (IDCT, block
-     -> raster, upsample, colour, pack).
+     device chain of each as the strict engine runs it (median, min and
+     max of 5 runs, 7 for the 4:2:0 chains), and the plane path's stage
+     times (IDCT, block -> raster, upsample, f32 and exact colour, pack).
 
 Each path of phases 2-6d runs with the launch counts set to 0 just before
 it and read just after, and fails if a kernel it must run was not
-launched.  The second-to-last line is a JSON object with one entry per
+launched; every engine of phases 2-6c reports 0 repaired pixels.  The second-to-last line is a JSON object with one entry per
 kernel (launches summed over those paths, and per 128-image chunk of
 each path); the last line is {"ok": true, "device": {...}}.  The script
 imports nothing of JAX and nothing of the JAX package.
@@ -131,8 +143,9 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError("chip_smoke check failed: " + msg)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of fn() over `reps` warm runs (CUDA events)."""
+def cuda_times(fn, reps: int = 5) -> tuple[float, float, float]:
+    """(median, min, max) milliseconds of fn() over `reps` warm runs
+    (CUDA events)."""
     import torch
 
     fn()
@@ -146,7 +159,12 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), min(times), max(times)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of fn() over `reps` warm runs (CUDA events)."""
+    return cuda_times(fn, reps)[0]
 
 
 def timed_once(fn):
@@ -232,9 +250,9 @@ def main() -> int:
     from tpujpeg_torch.io.parser import parse
     from tpujpeg_torch import pipeline
     from tpujpeg_torch.ops import fsm, materialize, pixels, probes
-    from tpujpeg_torch.ops.color import color_channels, pack_mask
+    from tpujpeg_torch.ops.color import color_channels, color_exact, pack_mask
     from tpujpeg_torch.oracle import decoder as oracle
-    from tpujpeg_torch.pipeline import Geometry, bucket_geometry, soa_planes
+    from tpujpeg_torch.pipeline import Geometry, bucket_geometry
     from tpujpeg_torch.runtime import fused, host, kernels
     from tpujpeg_torch.runtime.batch import BatchDecoder
 
@@ -314,6 +332,7 @@ def main() -> int:
     check(stats.chunks == 1, f"chunks {stats.chunks}")
     check(stats.fsm_malformed_fallbacks == 0, "malformed fallback")
     check(stats.fsm_envelope_fallbacks == 0, "envelope fallback")
+    check(stats.repaired_pixels == 0, "repaired pixels")
     print(f"phase 2: {CHUNK} outputs bit-exact vs {host.backend_name()}, "
           f"2 vs oracle; k_retries {stats.fsm_k_retries}, slot_retries "
           f"{stats.fsm_slot_retries}, repaired pixels "
@@ -349,6 +368,7 @@ def main() -> int:
     check(sstats.spec_sync_misses == 0, "spec-sync miss")
     check(sstats.fsm_malformed_fallbacks == 0, "malformed fallback")
     check(sstats.fsm_envelope_fallbacks == 0, "envelope fallback")
+    check(sstats.repaired_pixels == 0, "repaired pixels")
     splan = fsm.build_spec_plan_batch(pimgs, 1024)
     sxs = torch.as_tensor(splan.xs).to(dev)
     pending = fsm.spec_sync_start(pimgs, plan=splan, xs_dev=sxs)
@@ -370,7 +390,8 @@ def main() -> int:
                     + SLOT_KERNELS)
     check(odec.stats.fsm_slot_retries >= 1,
           f"slot_retries {odec.stats.fsm_slot_retries}")
-    check(odec.stats.backend == "fsm-spec-sync",
+    check(odec.stats.backend == "fsm-spec-sync"
+          and odec.stats.repaired_pixels == 0,
           f"backend {odec.stats.backend}")
     for i, got in enumerate(oout):
         check(np.array_equal(got, prefs[i % 16]),
@@ -408,7 +429,8 @@ def main() -> int:
         for n, data, w in zip(GOLDEN, gdatas, gwant):
             got = gdec.decode([data])[0]
             st = gdec.stats
-            check(np.array_equal(got, w), f"golden {n} differs (fsm)")
+            check(np.array_equal(got, w) and st.repaired_pixels == 0,
+                  f"golden {n} differs (fsm)")
             if n == DENSE_GOLDEN:
                 # it leaves the device through the ladder: K retry, then
                 # the host route
@@ -430,7 +452,8 @@ def main() -> int:
         big = f.read()
     bout = run_path("phase 6 spec", lambda: gdec.decode([big]),
                     need=("fsm_scan", "pixels"), any_of=materialize_route)
-    check(gdec.stats.backend == "fsm-spec-sync",
+    check(gdec.stats.backend == "fsm-spec-sync"
+          and gdec.stats.repaired_pixels == 0,
           f"4_800x600 backend {gdec.stats.backend}")
     check(np.array_equal(bout[0], oracle.decode(parse(big)).astype(np.uint8)),
           "4_800x600 differs from oracle")
@@ -440,7 +463,8 @@ def main() -> int:
     hdec.close()
     for n, g, w in zip(GOLDEN, hout, gwant):
         check(np.array_equal(g, w), f"golden {n} differs (host)")
-    check(hdec.stats.backend == "host", f"host backend {hdec.stats.backend}")
+    check(hdec.stats.backend == "host" and hdec.stats.repaired_pixels == 0,
+          f"host backend {hdec.stats.backend}")
     print(f"phase 6: {len(GOLDEN)} goldens bit-exact through backend fsm "
           f"(one lane each, routes above) and host; 4_800x600 bit-exact "
           f"through fsm-spec-sync")
@@ -486,6 +510,7 @@ def main() -> int:
         check(mstats.chunks == 1, f"chunks {mstats.chunks}")
         check(mstats.fsm_malformed_fallbacks == 0, "malformed fallback")
         check(mstats.fsm_envelope_fallbacks == 0, "envelope fallback")
+        check(mstats.repaired_pixels == 0, "repaired pixels")
         print(f"phase 6b {route}: {CHUNK} outputs of 16 sizes bit-exact vs "
               f"{host.backend_name()}, 2 vs oracle; k_retries "
               f"{mstats.fsm_k_retries}, repaired pixels "
@@ -556,6 +581,7 @@ def main() -> int:
             check(s420.fsm_malformed_fallbacks == 0
                   and s420.fsm_envelope_fallbacks == 0,
                   f"{tag}: host fallback")
+            check(s420.repaired_pixels == 0, f"{tag}: repaired pixels")
             why = ""
             if name == "spec" and s420.spec_sync_misses:
                 why = ("; the single-pass resolve missed (some lanes do not "
@@ -630,7 +656,8 @@ def main() -> int:
                   and sd.stats.chunks == len({Geometry.of(im)
                                               for im in simgs})
                   and sd.stats.fsm_malformed_fallbacks == 0
-                  and sd.stats.fsm_envelope_fallbacks == 0,
+                  and sd.stats.fsm_envelope_fallbacks == 0
+                  and sd.stats.repaired_pixels == 0,
                   f"{tag}: route {sd.stats.as_dict()}")
             print(f"{tag}: {', '.join(kinds)} bit-exact vs the oracle and "
                   f"{host.backend_name()}; backend {sd.stats.backend}, "
@@ -1206,36 +1233,79 @@ def main() -> int:
           f"per byte column of {k_prod} symbol steps at {L} lanes and "
           f"{sub_ms / (stride420 + 6) * 1e3:.1f} us at {L420} lanes [{card}]")
     del g_t, g_i, g_il, got
-    del p0, o0, cpo, cpf, d_full
+    del p0, o0, cpo, cpf
 
-    # the pixel kernel on the restart chunk
+    # the pixel kernel on the restart chunk: its dense lane matrix read in
+    # place (the engine's input), and the same coefficients as [B,
+    # n_blocks, 64] (the speculative, Jacobi and host routes' layout);
+    # and on the mixed chunk's bucket-raster lane matrix with its padded
+    # rows and the DC masked outside each image's extent in the kernel
+    # (the bucketed chain's input); each in both colour modes
     geom = Geometry.of(imgs[0])
-    quant = torch.as_tensor(np.stack([
-        np.stack([im.quant_tables[c.quant_id] for c in im.components])
-        for im in imgs
-    ]).astype(np.int32)).to(dev)
+    quant = quant_of(imgs)
+    mquant = quant_of(mimgs)
     per_lane = restart_dense.T.reshape(L, plan.max_blk, 64)
     dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
-    coeffs = fused._assemble_rows(per_lane, plan.layout, CHUNK)
-    dc = fused._assemble_rows(dc_lane, plan.layout, CHUNK)
-    zp, q, dcp = soa_planes(geom, coeffs, quant, dc)
-    got = pixels.rgb_soa_fused(zp, q, dcp)
-    want = pixels.rgb_soa_fused_plain(zp, q, dcp)
-    px_err = equal_all(got, want, "rgb_soa_fused")
-    print(f"phase 7: rgb_soa_fused {list(zp.shape)} -> rg/bk "
-          f"{list(got[0].shape)} equal in every bit")
+    bdc_lane = fsm._dc_cumsum(d_full.T.reshape(BL, bplan.max_blk, 64)[:, :, 0],
+                              bplan.tables, bplan.max_blk)
+    bext = torch.as_tensor(bplan.extents.astype(np.int32)).to(dev)
+    px_inputs = {
+        "lane matrix": (geom, restart_dense, fused.restart_lanes(
+            plan.layout, L, CHUNK, geom.mcus_y, geom.mcus_x, dev),
+            quant, dc_lane, None),
+        "blocks": (geom, fused._assemble_rows(per_lane, plan.layout, CHUNK),
+                   pixels.block_lanes(CHUNK, geom.mcus_y, geom.mcus_x, dev),
+                   quant, fused._assemble_rows(dc_lane, plan.layout, CHUNK),
+                   None),
+        "bucket lane matrix": (bucket, d_full, fused.bucket_lanes(
+            BL, CHUNK, bplan.lanes_per_img, bplan.k, bucket.mcus_y,
+            bucket.mcus_x, dev), mquant, bdc_lane, bext),
+    }
+    px_err = 0
+    px = {}
+    for layout, (g, c_in, lanes_in, q_in, dc_in, ext_in) \
+            in px_inputs.items():
+        for exact in (True, False):
+            args = (g, c_in, lanes_in, q_in, dc_in, ext_in, exact)
+            got = pixels.rgb_444(*args)
+            px_err = max(px_err, equal_all(
+                got, pixels.rgb_444_plain(*args),
+                f"pixels {layout} exact={exact}"))
+            # ~1,200 32-bit operations per 8x8 block (dequant, two IDCT
+            # passes, f32 colour and flags); exact colour adds ~12 f64
+            # operations per pixel at half the 32-bit rate
+            n_px = CHUNK * 64 * g.n_mcus
+            ops = 1200 * 3 * CHUNK * g.n_mcus + (24 * n_px if exact else 0)
+            px[layout, exact] = dict(
+                ms=cuda_ms(lambda: pixels.rgb_444(*args)),
+                plain_ms=cuda_ms(lambda: pixels.rgb_444_plain(*args), reps=3),
+                **bound(nbytes(c_in, q_in, dc_in, lanes_in.table, ext_in,
+                               *got), ops))
+            r = px[layout, exact]
+            print(f"phase 7: pixels from the {layout} {list(c_in.shape)} "
+                  f"to {g.width}x{g.height}, exact={exact}: equal to the "
+                  f"plain version in every bit; "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"{r['bound_bytes']} bytes, bound {r['bound_ms']:.4f} ms "
+                  f"by {r['bound_by']}, share "
+                  f"{r['bound_ms'] / r['ms']:.3f} [{card}]")
+            del got
+    main_px = px["lane matrix", True]
+    short = {"lane matrix": "lanes", "blocks": "blocks",
+             "bucket lane matrix": "bucket"}
     rows.append(dict(
         name="pixels", route="cuda", source="tpujpeg_torch/csrc/pixels.cu",
         replaces="tpujpeg/ops/pixels_pallas.py:84",
         launches=totals["pixels"], launches_per_chunk=per_chunk("pixels"),
-        max_abs_err=px_err,
-        ms=cuda_ms(lambda: pixels.rgb_soa_fused(zp, q, dcp)),
-        plain_ms=cuda_ms(lambda: pixels.rgb_soa_fused_plain(zp, q, dcp)),
-        # ~1,200 32-bit operations per 8x8 block (dequant, two IDCT
-        # passes, colour and risk flags)
-        **bound(nbytes(zp, q, dcp, *got), 1200 * zp.numel() // 64),
+        max_abs_err=px_err, ms=main_px["ms"], plain_ms=main_px["plain_ms"],
+        **{k: main_px[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                   "bound_ops")},
         library_ms=None,
+        **{f"{k}_{short[lay]}_{'exact' if ex else 'f32'}": v
+           for (lay, ex), r in px.items() for k, v in r.items()
+           if k in ("ms", "plain_ms", "bound_ms")},
     ))
+    del px_inputs, d_full, bdc_lane
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"phase 7: {r['name']}: kernel {r['ms']:.4f} ms, bound "
@@ -1254,8 +1324,20 @@ def main() -> int:
           f"4:2:0 restart chunk {sub_ms:.4f} ms (bound "
           f"{scan['bound_ms_420_chunk']:.4f}, plain on 1024 lanes "
           f"{sub_plain_ms:.4f}) [{card}]")
-    del events, ev, per_lane, got, want, zp, dcp, restart_dense
+    del events, ev, per_lane, dc_lane, restart_dense
     torch.cuda.empty_cache()
+
+    # ---- phase 7b: exact colour over every triple of [-256, 255]^3
+    t0 = time.perf_counter()
+    bad_kernel, bad_torch = pixels.exact_colour_mismatches(dev)
+    check(bad_kernel == 0 and bad_torch == 0,
+          f"exact colour: {bad_kernel} kernel and {bad_torch} color_exact "
+          f"triples differ from the oracle")
+    print(f"phase 7b: exact colour of all {512 ** 3} triples of "
+          f"[-256, 255]^3 on the card equals the oracle's "
+          f"ycbcr_to_rgb_exact: the pixel kernel's exact mode and "
+          f"color_exact (float64) 0 mismatches "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 8: throughput
     # (each decoder is warm: its phase decoded the same chunk once)
@@ -1273,7 +1355,7 @@ def main() -> int:
         t = min(times)
         mb = d.stats.compressed_bytes / 1e6
         print(f"phase 8: {name} chunk end to end (parse, plan, upload, "
-              f"device, fetch, repair) {CHUNK} images in "
+              f"device, fetch) {CHUNK} images in "
               f"{times[0] * 1e3:.1f} and {times[1] * 1e3:.1f} ms (two warm "
               f"runs); the faster: {CHUNK / t:.1f} images/s, {mb / t:.2f} "
               f"compressed MB/s, backend {d.stats.backend} [{card}]")
@@ -1291,18 +1373,22 @@ def main() -> int:
         plan, quant, geom, CHUNK, uploaded=(xs, sn), slots=256)[-1]
     c_rst = 256 if not bool(rst_ovf.any()) else 512
 
+    # the chains as the strict engine runs them: exact colour, no
+    # coefficients kept
     def spec_chain(slots):
         p = fsm.spec_sync_start(pimgs, plan=splan, xs_dev=sxs)
         return fused.decode_spec_sync_fused(p, sgeom, squant, CHUNK, CHUNK,
-                                            slots=slots)
+                                            slots=slots, want_coeffs=False,
+                                            exact=True)
 
     def restart_chain(slots):
         return fused.decode_chunk_fused(plan, quant, geom, CHUNK,
-                                        uploaded=(xs, sn), slots=slots)
+                                        uploaded=(xs, sn), slots=slots,
+                                        want_coeffs=False, exact=True)
 
     spec_stages = "cold + stitch scan, resolve read, merge, materialize, " \
         "gather + DC, pixels"
-    rst_stages = "scan, materialize, DC, assemble, pixels"
+    rst_stages = "scan, materialize, DC, pixels from the lane matrix"
     chains = [
         ("spec", spec_chain, c_spec, pdatas, spec_stages),
         ("spec", spec_chain, False, pdatas, spec_stages),
@@ -1311,32 +1397,31 @@ def main() -> int:
     ]
     for name, fn, slots, data, stages in chains:
         check(not bool(fn(slots)[-1].any()), f"{name}: slot overflow")
-        ms = cuda_ms(lambda: fn(slots))
+        ms, lo, hi = cuda_times(lambda: fn(slots))
         mb = sum(len(x) for x in data) / 1e6
         print(f"phase 8: device chain {name} slots={slots} (plan and bytes "
-              f"resident; {stages}) {ms:.2f} ms: "
+              f"resident; {stages}) {ms:.2f} ms (min {lo:.2f}, max "
+              f"{hi:.2f}): "
               f"{CHUNK / ms * 1e3:.1f} images/s, "
               f"{mb / ms * 1e3:.2f} compressed MB/s [{card}]")
 
-    mquant = torch.as_tensor(np.stack([
-        np.stack([im.quant_tables[c.quant_id] for c in im.components])
-        for im in mimgs
-    ]).astype(np.int32)).to(dev)
     mb = sum(len(x) for x in mdatas) / 1e6
     for route in ROUTE_KERNELS:
         def bucket_chain():
             return fused.decode_chunk_bucketed(
-                bplan, mquant, bucket, CHUNK, uploaded=bup, route=route)
+                bplan, mquant, bucket, CHUNK, uploaded=bup, route=route,
+                want_coeffs=False, exact=True)
 
         out = bucket_chain()
         check(not bool(out[4].any() | out[5].any()),
               f"bucketed {route}: latched lanes")
         del out
-        ms = cuda_ms(bucket_chain)
+        ms, lo, hi = cuda_times(bucket_chain)
         print(f"phase 8: device chain bucketed route={route} (plan and "
-              f"bytes resident; pad scan, materialize, DC, static "
-              f"assemble + DC mask, pixels at {bucket.width}x"
-              f"{bucket.height}) {ms:.2f} ms: {CHUNK / ms * 1e3:.1f} "
+              f"bytes resident; pad scan, materialize, DC, pixels from the "
+              f"lane matrix at {bucket.width}x{bucket.height}, DC masked "
+              f"there) {ms:.2f} ms (min {lo:.2f}, max {hi:.2f}): "
+              f"{CHUNK / ms * 1e3:.1f} "
               f"images/s, {mb / ms * 1e3:.2f} compressed MB/s [{card}]")
 
     # the 4:2:0 chunks' device chains (plans and bytes resident)
@@ -1361,9 +1446,10 @@ def main() -> int:
                       f"matrix {list(bp.xs.shape)}, max_blk {bp.max_blk}"
                       for b, bp, _, _, n in mixed_parts))
 
-    def restart420(fancy):
+    def restart420(fancy, want_coeffs=False):
         return fused.decode_chunk_fused(plan420, quant420, geom420, CHUNK,
-                                        uploaded=up420, fancy=fancy)
+                                        uploaded=up420, fancy=fancy,
+                                        want_coeffs=want_coeffs, exact=True)
 
     def spec420(fancy):
         # what the engine does: the single-pass attempt, and after its
@@ -1372,17 +1458,19 @@ def main() -> int:
             pend = fsm.spec_sync_start(simgs420, plan=splan420,
                                        xs_dev=sxs420)
             return fused.decode_spec_sync_fused(
-                pend, geom420, squant420, CHUNK, CHUNK, fancy=fancy)[:2]
+                pend, geom420, squant420, CHUNK, CHUNK, fancy=fancy,
+                want_coeffs=False, exact=True)[:2]
         except fsm.SpecSyncMiss:
             coeffs, _ = fsm.decode_speculative_batch(
                 simgs420, device_out=True, pad_to=CHUNK, plan=jplan420,
                 xs_dev=jxs420)
             return pipeline.device_decode_fn(geom420, coeffs, squant420,
-                                             fancy=fancy)
+                                             fancy=fancy, exact=True)
 
     def mixed420(fancy):
         return [fused.decode_chunk_bucketed(bp, q, b, n, uploaded=up,
-                                            fancy=fancy)[:2]
+                                            fancy=fancy, want_coeffs=False,
+                                            exact=True)[:2]
                 for b, bp, up, q, n in mixed_parts]
 
     chains420 = [
@@ -1397,15 +1485,16 @@ def main() -> int:
     for name, fn, stages in chains420:
         mb = sum(len(x) for x in sub[name][1]) / 1e6
         for fancy in (False, True):
-            ms = cuda_ms(lambda: fn(fancy), reps=3)
+            ms, lo, hi = cuda_times(lambda: fn(fancy), reps=7)
             print(f"phase 8: device chain 4:2:0 {name} fancy={fancy} (plans "
-                  f"and bytes resident; {stages}) {ms:.2f} ms: "
+                  f"and bytes resident; {stages}) {ms:.2f} ms (min {lo:.2f}, "
+                  f"max {hi:.2f}): "
                   f"{CHUNK / ms * 1e3:.1f} images/s, "
                   f"{mb / ms * 1e3:.2f} compressed MB/s [{card}]")
     del mixed_parts, sxs420, jxs420
 
     # the plane path's stages on the 4:2:0 restart chunk's coefficients
-    coeffs420, dc420 = restart420(False)[2:4]
+    coeffs420, dc420 = restart420(False, want_coeffs=True)[2:4]
     pix420 = pipeline._idct_planar(geom420, coeffs420, quant420, dc420)
 
     def rasters():
@@ -1434,9 +1523,14 @@ def main() -> int:
         ("colour (color_channels + stack)",
          lambda: torch.stack(color_channels(*crop420)[0], dim=1)),
         ("pack (pack_mask)", lambda: pack_mask(risky420)),
+        ("colour, exact (color_exact + stack, float64)",
+         lambda: torch.stack(color_exact(*crop420), dim=1)),
         ("whole pixel stage, box (device_decode_fn)",
          lambda: pipeline.device_decode_fn(geom420, coeffs420, quant420,
                                            dc=dc420)),
+        ("whole pixel stage, box, exact (device_decode_fn)",
+         lambda: pipeline.device_decode_fn(geom420, coeffs420, quant420,
+                                           dc=dc420, exact=True)),
         ("whole pixel stage, fancy (device_decode_fn)",
          lambda: pipeline.device_decode_fn(geom420, coeffs420, quant420,
                                            fancy=True, dc=dc420)),
@@ -1452,12 +1546,12 @@ def main() -> int:
     # resident): count passes to the fixed point, the write pass, gather
     jplan = fsm.build_spec_plan_batch(pimgs, 2048)
     jxs = torch.as_tensor(jplan.xs).to(dev)
-    jac_ms = cuda_ms(lambda: fsm.decode_speculative_batch(
+    jac_ms, lo, hi = cuda_times(lambda: fsm.decode_speculative_batch(
         pimgs, device_out=True, pad_to=CHUNK, plan=jplan, xs_dev=jxs))
     print(f"phase 8: Jacobi entropy decode of the spec chunk (plan and bytes "
           f"resident, {jplan.n_lanes} lanes of {jplan.xs.shape[1]} bytes; "
           f"count passes, flag reads, write pass, gather; no pixels) "
-          f"{jac_ms:.2f} ms [{card}]")
+          f"{jac_ms:.2f} ms (min {lo:.2f}, max {hi:.2f}) [{card}]")
 
     print(f"total wall time {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": rows}))

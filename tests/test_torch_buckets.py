@@ -127,8 +127,9 @@ def test_pad_and_unpad_coeffs_equal():
                                jout)
     np.testing.assert_array_equal(out, jout)
     assert out.any() and (out != 0).sum() == (coeffs != 0).sum()
-    back = tpipe.unpad_coeffs_from_bucket(geom, bucket, out)
-    np.testing.assert_array_equal(back, coeffs)
+    view = out.reshape(bucket.mcus_y, bucket.mcus_x, geom.blocks_per_mcu, 64)
+    np.testing.assert_array_equal(
+        view[: geom.mcus_y, : geom.mcus_x].reshape(geom.n_blocks, 64), coeffs)
 
 
 def test_shape_ladder_equal():
@@ -393,15 +394,10 @@ COUNTERS = ("n_images", "compressed_bytes", "pixels", "backend", "chunks",
 def _stats_equal(t, j):
     for name in COUNTERS:
         assert getattr(t, name) == getattr(j, name), name
-    # repaired_pixels counts the pixels whose float32 colour lands within
-    # EPS of a rounding boundary.  The flag is itself float32 arithmetic,
-    # which XLA:CPU and PyTorch evaluate with different contractions, so a
-    # borderline pixel may be flagged by one and not the other (one pixel
-    # of image 0 of MIXED, at exact geometry too); the repaired output is
-    # the oracle's either way.  Stated tolerance: 2 pixels or 1%.
-    assert abs(t.repaired_pixels - j.repaired_pixels) <= max(
-        2, j.repaired_pixels // 100), "repaired_pixels"
-    assert (t.repaired_pixels > 0) == (j.repaired_pixels > 0)
+    # the port's strict decodes compute colour exactly on the device, so
+    # it repairs nothing; the JAX engine repairs its risk-flagged pixels
+    # on the host (a TPU has no f64) and counts them
+    assert t.repaired_pixels == 0, "repaired_pixels"
 
 
 @pytest.fixture(scope="module")

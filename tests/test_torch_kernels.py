@@ -26,7 +26,7 @@ import torch
 
 from tpujpeg_torch.io.parser import parse_file
 from tpujpeg_torch.ops import fsm, materialize, pixels, probes
-from tpujpeg_torch.pipeline import Geometry, bucket_geometry, soa_planes
+from tpujpeg_torch.pipeline import Geometry, bucket_geometry
 
 pytestmark = pytest.mark.gpu
 
@@ -128,19 +128,39 @@ def test_place_events_kernel_equals_plain(cuda, case):
     assert torch.equal(materialize.place_events(ev_d, M), want)
 
 
+def _pixels_equal(geom, coeffs, lanes, quant, dc=None, extents=None):
+    """The pixel kernel == its plain version in both colour modes."""
+    for exact in (False, True):
+        args = (geom, coeffs, lanes, quant, dc, extents, exact)
+        got = pixels.rgb_444(*args)
+        want = pixels.rgb_444_plain(*args)
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.uint8 and torch.equal(got[0], want[0])
+        assert (got[1] is None) == exact == (want[1] is None)
+        if not exact:
+            assert torch.equal(got[1], want[1])
+
+
+def _quant(images, pad_to=None):
+    q = np.stack([np.stack([im.quant_tables[c.quant_id]
+                            for c in im.components]) for im in images])
+    if pad_to:
+        q = np.concatenate([q, np.repeat(q[:1], pad_to - len(q), 0)])
+    return q.astype(np.int32)
+
+
 @pytest.mark.parametrize("extreme", [False, True])
 def test_pixels_kernel_equals_plain(cuda, imgs, extreme):
+    # [B, n_blocks, 64]: the host decoder's coefficients with DC in row
+    # 0, or random ones at the int limits (the int32 wraparound) with a DC
+    # plane; both colour modes
     from tpujpeg_torch.runtime.host import entropy_decode
 
     geom = Geometry.of(imgs[0])
-    coeffs = np.stack([entropy_decode(im) for im in imgs])
-    quant = np.stack([
-        np.stack([im.quant_tables[c.quant_id] for c in im.components])
-        for im in imgs
-    ]).astype(np.int32)
+    coeffs = np.stack([entropy_decode(im) for im in imgs]).astype(np.int16)
+    quant = _quant(imgs)
     dc = None
     if extreme:
-        # int ranges at their limits: the int32 wraparound must match
         rng = np.random.default_rng(2)
         coeffs = rng.integers(-1023, 1024, coeffs.shape).astype(np.int16)
         coeffs[..., 0] = rng.integers(-2047, 2048, coeffs.shape[:2])
@@ -148,15 +168,85 @@ def test_pixels_kernel_equals_plain(cuda, imgs, extreme):
         dc = torch.as_tensor(
             rng.integers(-2047, 2048, coeffs.shape[:2]).astype(np.int32)
         ).to(cuda)
-    zp, q, dcp = soa_planes(
-        geom, torch.as_tensor(coeffs).to(cuda), torch.as_tensor(quant).to(cuda),
-        dc,
-    )
-    got = pixels.rgb_soa_fused(zp, q, dcp)
-    want = pixels.rgb_soa_fused_plain(zp, q, dcp)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.dtype == torch.int16 and torch.equal(g, w)
+    lanes = pixels.block_lanes(len(imgs), geom.mcus_y, geom.mcus_x, cuda)
+    _pixels_equal(geom, torch.as_tensor(coeffs).to(cuda), lanes,
+                  torch.as_tensor(quant).to(cuda), dc)
+
+
+@pytest.mark.parametrize("width", [61, 64, 200])
+def test_pixels_kernel_equals_plain_on_ragged_rasters(cuda, width):
+    # a width that is no multiple of 8 takes byte stores; a height that
+    # crops the last MCU row; three images of random coefficients
+    rng = np.random.default_rng(width)
+    height = 45
+    mx, my = -(-width // 8), -(-height // 8)
+    geom = Geometry((width, height, mx, my, ((1, 1, 0), (1, 1, 1),
+                                             (1, 1, 2))))
+    coeffs = rng.integers(-300, 300, (3, mx * my * 3, 64)).astype(np.int16)
+    quant = rng.integers(1, 40, (3, 3, 64)).astype(np.int32)
+    lanes = pixels.block_lanes(3, my, mx, cuda)
+    _pixels_equal(geom, torch.as_tensor(coeffs).to(cuda), lanes,
+                  torch.as_tensor(quant).to(cuda))
+
+
+def _lane_chunk(cuda, plan_imgs, bucket=None):
+    """Scan, place and DC-resolve a chunk: (plan, dense lane matrix
+    [max_blk*64, L], dc_lane [L, max_blk])."""
+    plan = (fsm.build_plan(plan_imgs) if bucket is None
+            else fsm.build_plan_bucketed(plan_imgs, bucket))
+    xs = torch.as_tensor(plan.xs).to(cuda)
+    if bucket is None:
+        sn = torch.as_tensor(plan.seg_n_blocks).to(cuda)
+        ev, _, _ = fsm.fsm_scan(xs, sn, plan.tables)
+    else:
+        sn, wrap, skip = (torch.as_tensor(a).to(cuda)
+                          for a in (plan.seg_n, plan.wrap_at, plan.skip))
+        ev, _, _ = fsm.fsm_scan(xs, sn, plan.tables, pad_info=(wrap, skip))
+    L = xs.shape[0]
+    dense = materialize.place_events(ev.reshape(-1, L), plan.max_blk * 64)
+    per_lane = dense.T.reshape(L, plan.max_blk, 64)
+    return plan, dense, fsm._dc_cumsum(per_lane[:, :, 0], plan.tables,
+                                       plan.max_blk)
+
+
+def test_pixels_kernel_equals_plain_on_the_lane_matrix(cuda, imgs):
+    # the restart chunk's dense lane matrix read in place, two images and
+    # one padding image; and the dense rows with DC in row 0 (raw DPCM
+    # differences: the kernel and its plain version must agree anyway)
+    from tpujpeg_torch.runtime import fused
+
+    plan, dense, dc_lane = _lane_chunk(cuda, imgs)
+    geom = Geometry.of(imgs[0])
+    lanes = fused.restart_lanes(plan.layout, dense.shape[1], 3, geom.mcus_y,
+                                geom.mcus_x, cuda)
+    quant = torch.as_tensor(_quant(imgs, 3)).to(cuda)
+    _pixels_equal(geom, dense, lanes, quant, dc_lane)
+    _pixels_equal(geom, dense, lanes, quant)
+
+
+def test_pixels_kernel_equals_plain_on_a_bucket_chunk(cuda):
+    # bucket-raster lanes of mixed sizes, DC masked outside each image's
+    # true extent, one padding image past the lanes
+    from tpujpeg_torch.runtime import fused
+
+    names = sorted(os.listdir(MIXED))
+    mimgs = [parse_file(os.path.join(MIXED, names[i])) for i in (0, 5)]
+    bucket = bucket_geometry(Geometry.of(mimgs[0]))
+    assert bucket == bucket_geometry(Geometry.of(mimgs[1]))
+    plan, dense, dc_lane = _lane_chunk(cuda, mimgs, bucket)
+    ext = np.zeros((3, 2), np.int32)
+    ext[:2] = plan.extents
+    lanes = fused.bucket_lanes(dense.shape[1], 3, plan.lanes_per_img, plan.k,
+                               bucket.mcus_y, bucket.mcus_x, cuda)
+    _pixels_equal(bucket, dense, lanes,
+                  torch.as_tensor(_quant(mimgs, 3)).to(cuda), dc_lane,
+                  torch.as_tensor(ext).to(cuda))
+
+
+def test_pixels_kernel_exact_colour_is_exhaustively_the_oracles(cuda):
+    # chip_smoke.py's phase 7b: the kernel's exact mode and color_exact
+    # (float64) on every triple of [-256, 255]^3 against the oracle
+    assert pixels.exact_colour_mismatches(cuda) == (0, 0)
 
 
 @pytest.fixture(scope="module")

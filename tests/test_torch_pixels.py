@@ -79,6 +79,32 @@ def test_pixels_match_jax_extreme_coefficients(monkeypatch):
     _agree(geom, *_both(monkeypatch, geom, coeffs, quant))
 
 
+@pytest.mark.parametrize("extreme", [False, True])
+def test_rgb_soa_fused_plain_matches_the_jax_kernel(extreme):
+    # the plain mirror of _pixel_kernel on the same k-major SoA planes as
+    # the Pallas kernel in interpret mode: risk bits equal, r, g, b equal
+    # where neither flags
+    from tpujpeg.ops import pixels_pallas as jpix
+    from tpujpeg_torch.ops import pixels as tpix
+
+    rng = np.random.default_rng(8 + extreme)
+    hi = 1024 if extreme else 60
+    zp = rng.integers(-hi, hi, (3, 64, 512)).astype(np.int16)
+    q = rng.integers(1, 256 if extreme else 30, (3, 64, 1)).astype(np.int32)
+    dcp = rng.integers(-2047, 2048, (3, 1, 512)).astype(np.int32)
+    want = jpix.rgb_soa_fused(*map(jnp.asarray, (zp, q, dcp)),
+                              interpret=True)
+    got = tpix.rgb_soa_fused_plain(*(torch.as_tensor(a)[None]
+                                     for a in (zp, q, dcp)))
+    (wrg, wbk), (grg, gbk) = [[np.asarray(x).astype(np.int32) & 0xFFFF
+                               for x in pair] for pair in (want, got)]
+    grg, gbk = grg[0], gbk[0]
+    np.testing.assert_array_equal(gbk >> 8, wbk >> 8)
+    safe = (wbk >> 8) == 0
+    np.testing.assert_array_equal(grg[safe], wrg[safe])
+    np.testing.assert_array_equal(gbk[safe], wbk[safe])
+
+
 def test_idct_planes_matches_jax():
     rng = np.random.default_rng(4)
     planes = rng.integers(-(1 << 20), 1 << 20, (64, 256)).astype(np.int32)

@@ -325,6 +325,8 @@ def test_engine_routes_like_jax(big_smooth):
     assert _counters(dec.stats) == _counters(jdec.stats)
     assert dec.stats.backend == "fsm+fsm-spec-sync"
     assert dec.stats.chunks == 3
+    # strict colour is exact on the device: nothing to repair
+    assert dec.stats.repaired_pixels == 0
     for g, j, o in zip(got, jgot, _oracle(datas)):
         _eq(g, o)
         _eq(g, j)

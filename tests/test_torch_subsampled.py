@@ -9,16 +9,15 @@ stream goes to both packages.  Every comparison is `==` (integers,
 tolerance 0); the one stated exception is the risk flag of a borderline
 pixel, by the rule of tests/test_torch_buckets.py::_stats_equal: the flag
 is float32 arithmetic that XLA:CPU and PyTorch contract differently, so
-the two risk masks (and with them BatchStats.repaired_pixels) may differ
-in at most 2 pixels or 1%; pixels are equal wherever neither side flags
-one, and every strict (repaired) output is equal everywhere.
+the two risk masks may differ in at most 2 pixels or 1%; pixels are
+equal wherever neither side flags one, and every strict output (exact
+colour in the port, repaired in the JAX package) is equal everywhere.
 
   * device_decode_fn against tpujpeg.pipeline._compiled(geom, fancy),
     with the resolved-DC override;
   * decode against both oracles;
   * decode_chunk_fused, decode_chunk_bucketed (extents, fancy) and
-    decode_spec_sync_fused against the JAX fused programs, all outputs;
-  * _repair(fancy=) on a forced all-pixels mask against the oracle.
+    decode_spec_sync_fused against the JAX fused programs, all outputs.
 
 The engine's cases are in tests/test_torch_subsampled_engine.py.
 """
@@ -163,11 +162,11 @@ def test_device_decode_fn_matches_jax(sampling, fancy):
 
 
 def test_plane_path_never_reaches_the_pixel_kernel(monkeypatch):
-    # only three full-resolution components go through rgb_soa_fused
+    # only three full-resolution components go through the pixel kernel
     def boom(*a, **k):
         raise AssertionError("pixel kernel reached")
 
-    monkeypatch.setattr(tpipe, "rgb_soa_fused", boom)
+    monkeypatch.setattr(tpipe, "rgb_444", boom)
     for sampling in ("420", "gray"):
         data = _encode((32, 48), sampling, seed=1)
         got = tpujpeg_torch.decode(data, device="cpu")
@@ -191,27 +190,6 @@ def test_decode_matches_both_oracles(sampling, rst, fancy):
     # the JAX package's own decode agrees
     np.testing.assert_array_equal(
         got, jpipe.decode(parse(data), fancy=fancy))
-
-
-@pytest.mark.parametrize("sampling", SAMPLINGS[:4])
-def test_repair_fancy_on_a_forced_mask(sampling):
-    # every pixel flagged: the repair alone must rebuild the oracle's
-    # image, triangle filter and box fallback (4:1:1) included
-    data = _encode((40, 72), sampling, seed=9, quality=95, smooth=False)
-    img = parse(data)
-    timg = convert.image_from_jax(img)
-    coeffs = toracle.entropy_decode(timg)
-    mask = np.ones((img.height, img.width), bool)
-    for fancy in (False, True):
-        want = joracle.decode(img, fancy=fancy)
-        rgb = np.zeros((img.height, img.width, 3), np.int32)
-        tpipe._repair(timg, coeffs, rgb, mask, fancy=fancy)
-        np.testing.assert_array_equal(rgb, want)
-        jrgb = np.zeros_like(rgb)
-        jpipe._repair(img, coeffs, jrgb, mask, fancy=fancy)
-        np.testing.assert_array_equal(rgb, jrgb)
-    assert not np.array_equal(joracle.decode(img, fancy=True),
-                              joracle.decode(img)) or sampling == "411"
 
 
 # ---------------------------------------------------------------------------

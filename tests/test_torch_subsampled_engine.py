@@ -8,8 +8,9 @@ speculative path at 6 blocks per MCU (resolved, and missed into the
 Jacobi path), the int16 gate of the "ranked" and "full" routes read from
 the plan's row capacity, and the slot capacity on a 240-block row.
 Streams and the comparison rule are those of
-tests/test_torch_subsampled.py: outputs `==`, counters `==`,
-repaired_pixels by tests/test_torch_buckets.py::_stats_equal.
+tests/test_torch_subsampled.py: outputs `==`, counters `==` by
+tests/test_torch_buckets.py::_stats_equal (the port's repaired_pixels
+is 0).
 """
 
 import numpy as np

@@ -5,21 +5,24 @@ scan bytes already on the card:
 
   * restart: tests/fixtures/rst640 (a restart marker every MCU row)
     through the fused chain (runtime/fused.decode_chunk_fused): scan,
-    materialize, lane transpose + DC cumsum, assemble, pixel prologue,
-    pixel kernel, the whole pixel stage;
+    materialize, lane transpose + DC cumsum, the pixel kernel on the lane
+    matrix (exact colour, the engine's strict default, and f32 + flags);
   * spec: tests/fixtures/photo640 (no restart markers) through the
     single-pass speculative chain: cold + stitch scan, the resolve read,
     merge, compact, unpack, expand (the slot route; the classic scatter
-    beside it), lane transpose + gather + DC cumsum, pixels;
+    beside it), lane transpose + gather + DC cumsum, pixels (the kernel
+    on [B, n_blocks, 64]);
   * bucketed: tests/fixtures/mixed_rst (16 sizes of 624-800 px, a
     restart marker every MCU row) through the size-bucketed chain
     (runtime/fused.decode_chunk_bucketed): pad_info scan, materialize by
     route (scatter; ranked = cumsum init, compact_offsets, spread_full;
     full = compact_full, spread_full), lane transpose + DC cumsum, the
-    static assemble + DC mask, pixels at the bucket's size.
+    pixel kernel on the lane matrix at the bucket's size (DC masked
+    inside it).
 
 Per stage, the median of 5 warm runs timed with CUDA events, each stage
-synchronised on its own; then each whole chain, unsynchronised, the
+synchronised on its own; then each whole chain as the strict engine
+runs it (exact colour, no coefficients assembled), unsynchronised, the
 same way; then torch.profiler's CUDA-time table over 3 runs of each
 chain (also written to OUT_FILE when one is given).
 
@@ -80,7 +83,7 @@ def restart_stages(dev):
     import torch
 
     from tpujpeg_torch.ops import fsm, pixels
-    from tpujpeg_torch.pipeline import Geometry, device_decode_fn, soa_planes
+    from tpujpeg_torch.pipeline import Geometry
     from tpujpeg_torch.runtime import fused
 
     imgs = _corpus("rst640")
@@ -98,9 +101,8 @@ def restart_stages(dev):
     st["mat"] = fsm.materialize_checked(ev, M, st["scan"][1])[0]
     per_lane = st["mat"].T.reshape(L, plan.max_blk, 64)
     dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
-    coeffs = fused._assemble_rows(per_lane, plan.layout, CHUNK)
-    dc = fused._assemble_rows(dc_lane, plan.layout, CHUNK)
-    planes = soa_planes(geom, coeffs, quant, dc)
+    lanes = fused.restart_lanes(plan.layout, L, CHUNK, geom.mcus_y,
+                                geom.mcus_x, dev)
 
     def transpose_dc():
         pl = st["mat"].T.reshape(L, plan.max_blk, 64)
@@ -113,19 +115,17 @@ def restart_stages(dev):
         ("materialize, slot route C=256",
          lambda: fsm.materialize_checked(ev, M, st["scan"][1], slots=256)),
         ("lane transpose + DC cumsum", transpose_dc),
-        ("assemble (coeffs + dc)", lambda: (
-            fused._assemble_rows(per_lane, plan.layout, CHUNK),
-            fused._assemble_rows(dc_lane, plan.layout, CHUNK))),
-        ("pixel prologue (soa_planes)",
-         lambda: soa_planes(geom, coeffs, quant, dc)),
-        ("pixel kernel (pixels)", lambda: pixels.rgb_soa_fused(*planes)),
-        ("pixels end to end (device_decode_fn)",
-         lambda: device_decode_fn(geom, coeffs, quant, dc=dc)),
+        ("pixel kernel on the lane matrix, exact (pixels)",
+         lambda: pixels.rgb_444(geom, st["mat"], lanes, quant, dc=dc_lane,
+                                exact=True)),
+        ("pixel kernel on the lane matrix, f32 + flags (pixels)",
+         lambda: pixels.rgb_444(geom, st["mat"], lanes, quant, dc=dc_lane)),
     ]
 
     def chain():
         return fused.decode_chunk_fused(plan, quant, geom, CHUNK,
-                                        uploaded=(xs, sn))
+                                        uploaded=(xs, sn), want_coeffs=False,
+                                        exact=True)
 
     shapes = (f"lane matrix {list(xs.shape)}, events {list(ev.shape)}, "
               f"dense [{M}, {L}]")
@@ -176,14 +176,15 @@ def spec_stages(dev):
         ("lane transpose + gather + DC cumsum (_spec_gather16)",
          lambda: fsm._spec_gather16(dense.T.reshape(L, cap_w, 64), qd,
                                     plan.tables, CHUNK, nb, CHUNK)),
-        ("pixels end to end (device_decode_fn)",
-         lambda: device_decode_fn(geom, coeffs, quant, dc=dc)),
+        ("pixels, exact (device_decode_fn: the kernel on [B, n_blocks, 64])",
+         lambda: device_decode_fn(geom, coeffs, quant, dc=dc, exact=True)),
     ]
 
     def chain():
         pend = fsm.spec_sync_start(imgs, plan=plan, xs_dev=xs)
         return fused.decode_spec_sync_fused(pend, geom, quant, CHUNK, CHUNK,
-                                            slots=C)
+                                            slots=C, want_coeffs=False,
+                                            exact=True)
 
     shapes = (f"lane matrix {list(xs.shape)} ({plan.n_lanes} lanes), merged "
               f"events {list(ev.shape)}, cap_w {cap_w}, dense [{M}, {L}]")
@@ -195,9 +196,8 @@ def bucketed_stages(dev):
     scatter route's, the other routes' chains are stages."""
     import torch
 
-    from tpujpeg_torch.ops import fsm, materialize
-    from tpujpeg_torch.pipeline import (Geometry, bucket_geometry,
-                                        device_decode_fn)
+    from tpujpeg_torch.ops import fsm, materialize, pixels
+    from tpujpeg_torch.pipeline import Geometry, bucket_geometry
     from tpujpeg_torch.runtime import fused
 
     imgs = _corpus("mixed_rst")
@@ -219,9 +219,11 @@ def bucketed_stages(dev):
     p, o = materialize.compact_offsets(p0, o0)
     cp = materialize.compact_full(ev)
     dense = materialize.place_events(ev, M)
-    rgb, risk, coeffs, dc = fused.decode_chunk_bucketed(
-        plan, quant, bucket, CHUNK, uploaded=up)[:4]
-    del rgb, risk
+    dc_lane = fsm._dc_cumsum(dense.T.reshape(L, plan.max_blk, 64)[:, :, 0],
+                             plan.tables, plan.max_blk)
+    lanes = fused.bucket_lanes(L, CHUNK, plan.lanes_per_img, plan.k,
+                               bucket.mcus_y, bucket.mcus_x, dev)
+    ext = torch.as_tensor(plan.extents).to(dev)
 
     def transpose_dc():
         pl = dense.T.reshape(L, plan.max_blk, 64)
@@ -229,7 +231,8 @@ def bucketed_stages(dev):
 
     def chain(route="scatter"):
         return fused.decode_chunk_bucketed(plan, quant, bucket, CHUNK,
-                                           uploaded=up, route=route)
+                                           uploaded=up, route=route,
+                                           want_coeffs=False, exact=True)
 
     stages = [
         ("scan (fsm_scan, pad_info)", scan),
@@ -247,8 +250,9 @@ def bucketed_stages(dev):
         ("materialize full: spread_full",
          lambda: materialize.spread_full(cp, M)),
         ("lane transpose + DC cumsum", transpose_dc),
-        ("pixels end to end at bucket size (device_decode_fn)",
-         lambda: device_decode_fn(bucket, coeffs, quant, dc=dc)),
+        ("pixel kernel on the lane matrix at bucket size, exact (pixels)",
+         lambda: pixels.rgb_444(bucket, dense, lanes, quant, dc=dc_lane,
+                                extents=ext, exact=True)),
         ("chain, route ranked", lambda: chain("ranked")),
         ("chain, route full", lambda: chain("full")),
     ]

@@ -7,7 +7,9 @@ CUDA kernels (csrc/): the Huffman symbol FSM scan (restart lanes,
 bucket-raster emission, the speculative modes), the events -> dense
 coefficient scatter and its two other routes (offset compaction,
 full-height compaction and spread), the slot route's compact, unpack and
-expand, and the fused dequant + IDCT + colour pixel stage of 4:4:4.
+expand, and the fused dequant + IDCT + colour pixel stage of 4:4:4,
+which reads the coefficients where the chain leaves them and writes
+the cropped RGB raster.
 Subsampled and grayscale pixels take the plane path (IDCT, block ->
 raster, box or fancy chroma upsampling, colour), plain PyTorch on the
 card as it is plain XLA in the JAX package.  csrc/probes.cu holds the
@@ -30,7 +32,8 @@ def decode(data, backend: str = "cuda", device="cuda", fancy: bool = False):
     """Decode a JPEG (path or bytes) to an int32 [H, W, 3] RGB array.
 
     backend='cuda' runs host entropy decode, then the port's pixel stage on
-    `device` with strict repair (bit-exact with the reference decoder);
+    `device` with the reference's exact colour computed there (bit-exact
+    with the reference decoder, nothing repaired on the host);
     backend='oracle' runs the NumPy reference decoder.  fancy=True
     upsamples subsampled chroma with libjpeg's triangle filter (box
     replication otherwise).
@@ -54,7 +57,11 @@ def decode_batch(datas, **kwargs):
 
     Thin wrapper over runtime.batch.BatchDecoder (keyword arguments go to
     its constructor: backend, chunk_size, strict, device, size_buckets,
-    materialize_route, fancy)."""
+    materialize_route, fancy).  strict=True, the default, computes colour
+    exactly on the device (bit-exact with the reference decoder);
+    strict=False is the f32 colour of the JAX engine's strict=False.
+    The images of one chunk may share one buffer
+    (BatchDecoder.decode_parsed)."""
     from .runtime.batch import BatchDecoder
 
     dec = BatchDecoder(**kwargs)

@@ -1,31 +1,56 @@
-// Fused pixel stage for 4:4:4 MCU planes (kernel 3 of tpujpeg_torch):
-// dequant, DC substitution, two-pass integer IDCT, f32 YCbCr -> RGB, the
-// exactness-risk flag, and the packing rg = r | g<<8, bk = b | risky<<8.
+// Fused 4:4:4 pixel stage (kernel 3 of tpujpeg_torch): zigzag int16
+// coefficients where the chain leaves them -> raster RGB.  Dequant, DC
+// substitution, the two-pass integer IDCT, YCbCr -> RGB, and the crop to
+// the image; in the f32 mode also the exactness-risk flags, packed.
 //
 // Replaces: tpujpeg/ops/pixels_pallas.py::_pixel_kernel
-// (pixels_pallas.py:84).  Contract:
-// tpujpeg_torch/ops/pixels.py::rgb_soa_fused_plain.
+// (pixels_pallas.py:84) together with the torch prologue and epilogue
+// that surrounded its first port (assembly gather, SoA permute and
+// padding, unpack, block -> raster transpose, mask packing).  Contract:
+// tpujpeg_torch/ops/pixels.py::rgb_444_plain.
 //
-// What bounds it on Hopper: memory.  Per MCU it reads 3 x 64 int16
-// coefficients (384 B) and writes 2 x 64 int16 (256 B), against ~3,000
-// integer and ~300 f32 operations — far below the card's
-// operations-per-byte balance point.
+// Inputs.  A lane table int32 [T, 4] of (image b, first MCU m0, MCU
+// count n, src): table entry t holds MCUs m0 .. m0+n-1 (raster order) of
+// image b, consecutive in one run of coefficients; b < 0 marks an unused
+// entry, src < 0 a run of zero coefficients (padding images).  Two
+// coefficient layouts, one compile-time variant each:
+//   * kLane, the chains' dense lane matrix int16 [max_blk*64, L]: the
+//     run is lane `src`, block j of it at rows j*64 .. j*64+63, the lane
+//     axis fastest; resolved DC dc int32 [L, dc_lane] at src*dc_lane + j;
+//   * kBlk, int16 [B, n_blocks, 64]: the run starts at block `src` of
+//     the flattened block axis; DC at dc[src + j] ([B, n_blocks]).
+// dc may be null: DC is then the coefficient row itself.  ext (int32
+// [B, 2], true (mcus_y, mcus_x)), when given, zeroes DC outside each
+// image's extent (the bucket-raster chain's padding).
 //
-// Design: a block holds 32 MCUs of one image and 256 threads, one per
-// (MCU, block row rr).  Each thread reads its row of each component's
-// k-major planes (coalesced: the 32 threads of a warp are 32 neighbouring
-// MCUs), dequantizes, substitutes DC, runs the row pass, and leaves the
-// result in shared memory (24 KB).  After one barrier the same thread
-// takes column cc = rr of each component, runs the column pass, and
-// converts its 8 pixels to RGB.  No intermediate touches device memory.
+// Outputs: rgb uint8 [B, 3, H, W] and, in the f32 mode, risk uint8
+// [B, H, ceil(W/8)] (bit x%8 of byte x/8, LSB first; bits past W clear).
+// Every MCU of [H, W] must be covered by the table.
+//
+// What bounds it on Hopper: memory.  Per MCU it reads 192 int16
+// coefficients and 3 DC words (396 B) and writes 192 bytes, against ~3,000
+// integer operations and ~30 f32 or ~30 f64 operations per pixel row.
+//
+// Design: a block holds 32 table entries ("lanes") x kSlots MCUs and 256
+// threads.  Per MCU slot the block stages its 32 MCUs' coefficients in
+// shared memory with whole-sector reads: in kLane a warp reads one
+// coefficient row of 32 neighbouring lanes (64 contiguous bytes), in kBlk
+// each lane's 192 coefficients are 384 contiguous bytes read as 16-byte
+// vectors.  Thread (lane, rr) then dequantizes row rr of each component,
+// substitutes DC and runs the row pass into shared memory; after one
+// barrier the same thread takes column cc = rr, runs the column pass and
+// the colour of its 8 pixels, and leaves bytes in a raster tile.  At the
+// end the tile goes out as whole pixel rows: kSlots*8 bytes of each lane,
+// channel and pixel row (8-byte stores when W % 8 == 0, else bytes).
 //
 // Bit-exactness: integer adds, multiplies and left shifts run in uint32_t
-// (the int32 wraparound of the reference; signed overflow is undefined in
-// C++) and are cast to int32_t for each arithmetic right shift.  The
-// colour math uses __fmul_rn/__fadd_rn/__fsub_rn so no FMA contraction
-// changes g = (y - k1*b - k2*r) * inv, and truncf/rintf (half-even)/fabsf
-// for trunc/round/abs.  The f32 constants come from the caller
-// (ops/color.py KERNEL_CONSTS), the same values the plain version uses.
+// (the int32 wraparound of the reference) and are cast to int32_t for each
+// arithmetic right shift.  f32 mode: __fmul_rn/__fadd_rn/__fsub_rn keep
+// g = (y - k1*b - k2*r) * inv uncontracted, with the f32 constants of
+// ops/color.py KERNEL_CONSTS, like color.color_core.  Exact mode: the
+// reference's mixed precision (oracle.decoder.ycbcr_to_rgb_exact) with
+// __dmul_rn/__dadd_rn/__dsub_rn/__ddiv_rn/__double2float_rn/__fadd_rn,
+// like color.color_exact; no flags.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,10 +59,46 @@ namespace {
 
 constexpr uint32_t C1 = 2841, C2 = 2676, C3 = 2408, C5 = 1609, C6 = 1108,
                    C7 = 565;
-constexpr int kMcus = 32;  // MCUs per block
+constexpr int kLanes = 32;             // table entries per block
+constexpr int kSlots = 4;              // MCUs per lane per block
+constexpr int kThreads = 8 * kLanes;   // (lane, block row)
+constexpr int kCoefRow = kLanes + 2;   // staged int16 row (bank spread)
+constexpr int kTileRow = kSlots * 8 + 4;  // raster tile bytes per lane row
+
+// natural position p -> zigzag index (constants.ZIGZAG_TO_NATURAL)
+__constant__ uint8_t kZigzag[64] = {
+    0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
+    3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
+    10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
+    21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
 
 struct ColorConsts {
   float red, blue, gy_b, gy_r, gy_inv, eps;
+};
+
+struct ExactConsts {
+  double red, blue, gy_b, gy_r, gy_div;
+};
+
+struct Args {
+  const int16_t* coef;
+  const int32_t* quant;   // [B, 3, 64] zigzag
+  const int32_t* dc;      // null: DC from the coefficient row
+  const int4* lanes;      // [T] (b, m0, n, src)
+  const int32_t* ext;     // null, or [B, 2] true (mcus_y, mcus_x)
+  uint8_t* rgb;           // [B, 3, H, W]
+  uint8_t* risk;          // [B, H, RW] (f32 mode)
+  int T, L, dc_lane, H, W, RW, mcus_x;
+  ColorConsts f;
+  ExactConsts d;
+};
+
+// shared memory of one block (dynamic: above the 48 KB static limit)
+struct Smem {
+  int16_t coef[192][kCoefRow];            // one slot's coefficients
+  int32_t rows[3][8][8][kLanes];          // row-pass results
+  uint8_t tile[4][8][kLanes][kTileRow];   // R, G, B, risk by pixel row
+  int4 lane[kLanes];
 };
 
 __device__ __forceinline__ int32_t sra(uint32_t v, int s) {
@@ -121,97 +182,279 @@ __device__ __forceinline__ void colpass(const uint32_t in[8], int32_t out[8]) {
   out[7] = clip256(sra(x7 - x1, 14));
 }
 
-// One channel: (clipped truncation in [0, 255], within EPS of an integer)
-__device__ __forceinline__ int channel(float v, float eps, bool* risky) {
-  const float shifted = __fadd_rn(v, 128.0f);
-  const float t = truncf(shifted);
-  const float dist = fabsf(__fsub_rn(shifted, rintf(shifted)));
-  if (dist < eps) *risky = true;
-  const int i = static_cast<int>(t);
+// +128 in f32, truncation, clamp to [0, 255]
+__device__ __forceinline__ int to_byte(float v) {
+  const int i = static_cast<int>(truncf(__fadd_rn(v, 128.0f)));
   return i < 0 ? 0 : (i > 255 ? 255 : i);
 }
 
-__global__ void __launch_bounds__(256)
-pixels_kernel(const int16_t* __restrict__ zp, const int32_t* __restrict__ quant,
-              const int32_t* __restrict__ dc, int16_t* __restrict__ rg,
-              int16_t* __restrict__ bk, int P, ColorConsts cc_) {
-  // [component][row rr][column cc][MCU in block]
-  __shared__ int32_t rows[3][8][8][kMcus];
-  const int ml = threadIdx.x & (kMcus - 1);
-  const int rr = threadIdx.x / kMcus;     // block row (row pass), then
-                                          // column (column pass)
-  const int b = blockIdx.y;
-  const int m = blockIdx.x * kMcus + ml;
-  const int16_t* zb = zp + static_cast<size_t>(b) * 3 * 64 * P;
-  const int32_t* qb = quant + static_cast<size_t>(b) * 3 * 64;
-  const int32_t* db = dc + static_cast<size_t>(b) * 3 * P;
+// f32 mode, one channel: flags a value within EPS of an integer
+__device__ __forceinline__ int channel(float v, float eps, bool* risky) {
+  const float shifted = __fadd_rn(v, 128.0f);
+  const float dist = fabsf(__fsub_rn(shifted, rintf(shifted)));
+  if (dist < eps) *risky = true;
+  const int i = static_cast<int>(truncf(shifted));
+  return i < 0 ? 0 : (i > 255 ? 255 : i);
+}
 
-  for (int c = 0; c < 3; ++c) {
-    uint32_t x[8];
+template <bool kExact>
+__device__ __forceinline__ void color(int32_t y, int32_t cb, int32_t cr,
+                                      const Args& a, int rgb[3],
+                                      bool* risky) {
+  if (kExact) {
+    const ExactConsts& d = a.d;
+    const double yd = static_cast<double>(y);
+    const float r32 = __double2float_rn(
+        __dadd_rn(__dmul_rn(d.red, static_cast<double>(cr)), yd));
+    const float b32 = __double2float_rn(
+        __dadd_rn(__dmul_rn(d.blue, static_cast<double>(cb)), yd));
+    const float g32 = __double2float_rn(__ddiv_rn(
+        __dsub_rn(__dsub_rn(yd, __dmul_rn(d.gy_b, static_cast<double>(b32))),
+                  __dmul_rn(d.gy_r, static_cast<double>(r32))),
+        d.gy_div));
+    rgb[0] = to_byte(r32);
+    rgb[1] = to_byte(g32);
+    rgb[2] = to_byte(b32);
+  } else {
+    const ColorConsts& f = a.f;
+    const float yf = static_cast<float>(y);
+    const float rf = __fadd_rn(__fmul_rn(f.red, static_cast<float>(cr)), yf);
+    const float bf = __fadd_rn(__fmul_rn(f.blue, static_cast<float>(cb)), yf);
+    const float gf = __fmul_rn(
+        __fsub_rn(__fsub_rn(yf, __fmul_rn(f.gy_b, bf)), __fmul_rn(f.gy_r, rf)),
+        f.gy_inv);
+    rgb[0] = channel(rf, f.eps, risky);
+    rgb[1] = channel(gf, f.eps, risky);
+    rgb[2] = channel(bf, f.eps, risky);
+  }
+}
+
+template <bool kLane, bool kExact>
+__global__ void __launch_bounds__(kThreads)
+pixels_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int t = threadIdx.x;
+  const int li = t & (kLanes - 1);   // lane of the compute passes
+  const int rr = t / kLanes;         // block row, then column
+  const int lane0 = blockIdx.x * kLanes;
+  const int slot0 = blockIdx.y * kSlots;
+
+  if (t < kLanes) {
+    int4 e = make_int4(-1, 0, 0, -1);
+    if (lane0 + t < a.T) e = a.lanes[lane0 + t];
+    if (e.x >= 0 && e.z <= slot0) e.x = -1;   // nothing in this block
+    sm.lane[t] = e;
+  }
+  if (!__syncthreads_or(t < kLanes && sm.lane[t].x >= 0)) return;
+
+  const int4 me = sm.lane[li];
+  // quant of this thread's row: q[c][k] for natural (rr, k)
+  uint32_t q[3][8];
+  {
+    const int32_t* qb = a.quant + static_cast<size_t>(me.x < 0 ? 0 : me.x) * 192;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      // k-major: plane row 8k+rr holds natural coefficient (rr, k)
-      const int row = 8 * k + rr;
-      const int32_t coef = zb[static_cast<size_t>(c * 64 + row) * P + m];
-      x[k] = static_cast<uint32_t>(coef) *
-             static_cast<uint32_t>(__ldg(qb + c * 64 + row));
-    }
-    if (rr == 0) {
-      // resolved DC replaces the dense tensor's DC row
-      x[0] = static_cast<uint32_t>(db[static_cast<size_t>(c) * P + m]) *
-             static_cast<uint32_t>(__ldg(qb + c * 64));
-    }
-    int32_t r[8];
-    rowpass(x, r);
+    for (int c = 0; c < 3; ++c)
 #pragma unroll
-    for (int cc = 0; cc < 8; ++cc) rows[c][rr][cc][ml] = r[cc];
+      for (int k = 0; k < 8; ++k)
+        q[c][k] = static_cast<uint32_t>(__ldg(qb + c * 64 + kZigzag[8 * rr + k]));
+  }
+
+  for (int s = 0; s < kSlots; ++s) {
+    const int slot = slot0 + s;
+    // ---- stage this slot's coefficients: sm.coef[c*64 + z][lane]
+    if (kLane) {
+      const int4 e = sm.lane[li];
+      const bool live = e.x >= 0 && slot < e.z && e.w >= 0;
+      const int16_t* src = a.coef + static_cast<size_t>(live ? e.w : 0) +
+                           static_cast<size_t>(slot) * 192 * a.L;
+#pragma unroll 8
+      for (int r = rr; r < 192; r += 8)
+        sm.coef[r][li] = live ? src[static_cast<size_t>(r) * a.L] : int16_t(0);
+    } else {
+      const int l = t >> 3;     // lane whose coefficients this thread reads
+      const int part = t & 7;   // 24 of its 192 coefficients
+      const int4 e = sm.lane[l];
+      const bool live = e.x >= 0 && slot < e.z && e.w >= 0;
+      int4 v[3] = {make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0),
+                   make_int4(0, 0, 0, 0)};
+      if (live) {
+        const int4* src = reinterpret_cast<const int4*>(
+            a.coef + (static_cast<size_t>(e.w) + static_cast<size_t>(slot) * 3) * 64 +
+            part * 24);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) v[i] = __ldg(src + i);
+      }
+      const int16_t* h = reinterpret_cast<const int16_t*>(v);
+#pragma unroll
+      for (int i = 0; i < 24; ++i) sm.coef[part * 24 + i][l] = h[i];
+    }
+    __syncthreads();
+
+    // ---- row pass: thread (li, rr), every component
+    const int4 e = sm.lane[li];
+    const bool live = e.x >= 0 && slot < e.z;
+    if (live) {
+      for (int c = 0; c < 3; ++c) {
+        uint32_t x[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          x[k] = static_cast<uint32_t>(
+                     static_cast<int32_t>(sm.coef[c * 64 + kZigzag[8 * rr + k]][li])) *
+                 q[c][k];
+        if (rr == 0) {
+          int32_t d = 0;
+          if (e.w >= 0) {
+            const int blk = slot * 3 + c;
+            if (a.dc == nullptr) {
+              d = sm.coef[c * 64][li];
+            } else if (kLane) {
+              d = __ldg(a.dc + static_cast<size_t>(e.w) * a.dc_lane + blk);
+            } else {
+              d = __ldg(a.dc + static_cast<size_t>(e.w) + blk);
+            }
+            if (a.ext != nullptr) {
+              const int m = e.y + slot;
+              const int my = m / a.mcus_x, mx = m - my * a.mcus_x;
+              if (my >= __ldg(a.ext + 2 * e.x) || mx >= __ldg(a.ext + 2 * e.x + 1))
+                d = 0;
+            }
+          }
+          x[0] = static_cast<uint32_t>(d) * q[c][0];
+        }
+        int32_t r[8];
+        rowpass(x, r);
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) sm.rows[c][rr][cc][li] = r[cc];
+      }
+    }
+    __syncthreads();
+
+    // ---- column pass and colour: thread (li, column rr)
+    if (live) {
+      const int col = rr;
+      int32_t pix[3][8];
+      for (int c = 0; c < 3; ++c) {
+        uint32_t z[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) z[j] = static_cast<uint32_t>(sm.rows[c][j][col][li]);
+        colpass(z, pix[c]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        int rgb[3];
+        bool risky = false;
+        color<kExact>(pix[0][j], pix[1][j], pix[2][j], a, rgb, &risky);
+        uint8_t* px = &sm.tile[0][j][li][s * 8 + col];
+        px[0] = static_cast<uint8_t>(rgb[0]);
+        px[8 * kLanes * kTileRow] = static_cast<uint8_t>(rgb[1]);
+        px[16 * kLanes * kTileRow] = static_cast<uint8_t>(rgb[2]);
+        if (!kExact) px[24 * kLanes * kTileRow] = risky ? 1 : 0;
+      }
+    }
+    // the next slot's staging writes sm.coef only; its row pass writes
+    // sm.rows after the staging barrier, when every column pass is done
   }
   __syncthreads();
 
-  const int col = rr;
-  int32_t pix[3][8];
-  for (int c = 0; c < 3; ++c) {
-    uint32_t z[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) z[j] = static_cast<uint32_t>(rows[c][j][col][ml]);
-    colpass(z, pix[c]);
+  // ---- write the tile as raster rows: segment (ch, j, lane, slot)
+  const bool vec = (a.W & 7) == 0;
+  for (int idx = t; idx < 3 * 8 * kLanes * kSlots; idx += kThreads) {
+    const int s = idx % kSlots;
+    const int l = (idx / kSlots) % kLanes;
+    const int j = (idx / (kSlots * kLanes)) % 8;
+    const int ch = idx / (kSlots * kLanes * 8);
+    const int4 e = sm.lane[l];
+    const int slot = slot0 + s;
+    if (e.x < 0 || slot >= e.z) continue;
+    const int m = e.y + slot;
+    const int my = m / a.mcus_x, mx = m - my * a.mcus_x;
+    const int y = my * 8 + j, x0 = mx * 8;
+    if (y >= a.H || x0 >= a.W) continue;
+    const uint8_t* src = &sm.tile[ch][j][l][s * 8];
+    uint8_t* dst = a.rgb + ((static_cast<size_t>(e.x) * 3 + ch) * a.H + y) *
+                               static_cast<size_t>(a.W) + x0;
+    if (vec) {
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(src);
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    } else {
+      const int n = min(8, a.W - x0);
+      for (int i = 0; i < n; ++i) dst[i] = src[i];
+    }
   }
-  int16_t* rgb_ = rg + static_cast<size_t>(b) * 64 * P;
-  int16_t* bkb = bk + static_cast<size_t>(b) * 64 * P;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float yf = static_cast<float>(pix[0][j]);
-    const float cbf = static_cast<float>(pix[1][j]);
-    const float crf = static_cast<float>(pix[2][j]);
-    const float rf = __fadd_rn(__fmul_rn(cc_.red, crf), yf);
-    const float bf = __fadd_rn(__fmul_rn(cc_.blue, cbf), yf);
-    const float gf = __fmul_rn(
-        __fsub_rn(__fsub_rn(yf, __fmul_rn(cc_.gy_b, bf)),
-                  __fmul_rn(cc_.gy_r, rf)),
-        cc_.gy_inv);
-    bool risky = false;
-    const int R = channel(rf, cc_.eps, &risky);
-    const int G = channel(gf, cc_.eps, &risky);
-    const int B = channel(bf, cc_.eps, &risky);
-    const size_t o = static_cast<size_t>(8 * j + col) * P + m;
-    rgb_[o] = static_cast<int16_t>(static_cast<uint16_t>(R | (G << 8)));
-    bkb[o] = static_cast<int16_t>(
-        static_cast<uint16_t>(B | (risky ? 1 << 8 : 0)));
+  if (!kExact) {
+    for (int idx = t; idx < 8 * kLanes * kSlots; idx += kThreads) {
+      const int s = idx % kSlots;
+      const int l = (idx / kSlots) % kLanes;
+      const int j = idx / (kSlots * kLanes);
+      const int4 e = sm.lane[l];
+      const int slot = slot0 + s;
+      if (e.x < 0 || slot >= e.z) continue;
+      const int m = e.y + slot;
+      const int my = m / a.mcus_x, mx = m - my * a.mcus_x;
+      const int y = my * 8 + j, x0 = mx * 8;
+      if (y >= a.H || x0 >= a.W) continue;
+      const uint8_t* src = &sm.tile[3][j][l][s * 8];
+      const int n = min(8, a.W - x0);
+      uint32_t bits = 0;
+      for (int i = 0; i < n; ++i) bits |= static_cast<uint32_t>(src[i]) << i;
+      a.risk[(static_cast<size_t>(e.x) * a.H + y) * a.RW + mx] =
+          static_cast<uint8_t>(bits);
+    }
   }
+}
+
+template <bool kLane, bool kExact>
+int launch(const Args& a, int max_n, cudaStream_t stream) {
+  const size_t bytes = sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      pixels_kernel<kLane, kExact>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((a.T + kLanes - 1) / kLanes, (max_n + kSlots - 1) / kSlots);
+  pixels_kernel<kLane, kExact><<<grid, kThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// zp int16 [B, 3, 64, P] k-major, quant int32 [B, 3, 64], dc int32
-// [B, 3, P]; rg/bk int16 [B, 64, P].  P must be a multiple of 32.
-// consts_host: f32 [6] = red, blue, gy_b, gy_r, gy_inv, eps.
-extern "C" int tpj_pixels(const int16_t* zp, const int32_t* quant,
-                          const int32_t* dc, int16_t* rg, int16_t* bk, int B,
-                          int P, const float* consts_host,
+// coef: int16 lane matrix [*, L] (lane_layout 1) or [B, n_blocks, 64]
+// (0); quant int32 [B, 3, 64]; dc int32 or null; lanes int32 [T, 4];
+// ext int32 [B, 2] or null; rgb uint8 [B, 3, H, W]; risk uint8
+// [B, H, ceil(W/8)] (unused when exact).  max_n: the largest MCU count
+// of a table entry.  fconsts: f32 [6] = red, blue, gy_b, gy_r, gy_inv,
+// eps; dconsts: f64 [5] = red, blue, gy_b, gy_r, gy_div.
+extern "C" int tpj_pixels(const int16_t* coef, const int32_t* quant,
+                          const int32_t* dc, const int32_t* lanes,
+                          const int32_t* ext, uint8_t* rgb, uint8_t* risk,
+                          int T, int max_n, int L, int dc_lane, int H, int W,
+                          int mcus_x, int lane_layout, int exact,
+                          const float* fconsts, const double* dconsts,
                           cudaStream_t stream) {
-  ColorConsts c{consts_host[0], consts_host[1], consts_host[2],
-                consts_host[3], consts_host[4], consts_host[5]};
-  dim3 grid(P / kMcus, B);
-  pixels_kernel<<<grid, 8 * kMcus, 0, stream>>>(zp, quant, dc, rg, bk, P, c);
-  return static_cast<int>(cudaGetLastError());
+  Args a;
+  a.coef = coef;
+  a.quant = quant;
+  a.dc = dc;
+  a.lanes = reinterpret_cast<const int4*>(lanes);
+  a.ext = ext;
+  a.rgb = rgb;
+  a.risk = risk;
+  a.T = T;
+  a.L = L;
+  a.dc_lane = dc_lane;
+  a.H = H;
+  a.W = W;
+  a.RW = (W + 7) / 8;
+  a.mcus_x = mcus_x;
+  a.f = ColorConsts{fconsts[0], fconsts[1], fconsts[2],
+                    fconsts[3], fconsts[4], fconsts[5]};
+  a.d = ExactConsts{dconsts[0], dconsts[1], dconsts[2], dconsts[3],
+                    dconsts[4]};
+  if (T <= 0 || max_n <= 0) return 0;
+  if (lane_layout) {
+    return exact ? launch<true, true>(a, max_n, stream)
+                 : launch<true, false>(a, max_n, stream);
+  }
+  return exact ? launch<false, true>(a, max_n, stream)
+               : launch<false, false>(a, max_n, stream);
 }

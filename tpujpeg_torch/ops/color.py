@@ -1,12 +1,18 @@
-"""YCbCr -> RGB in f32 with exactness-risk flags (plain PyTorch).
+"""YCbCr -> RGB (plain PyTorch): the f32 colour with exactness-risk
+flags, and the reference's exact colour.
 
-Counterpart of tpujpeg/ops/color.py: the same f32 constants (rounded
-from the reference's double constants exactly as there), the same
-operation order, and the same EPS band.  A pixel whose pre-truncation
-value lies within EPS of an integer is flagged `risky`; strict decodes
-recompute flagged pixels with the reference's exact mixed-precision math
-on the host (pipeline._repair).  torch.round is round-half-even, like
-jnp.round.
+`color_core` / `color_channels` are the counterpart of
+tpujpeg/ops/color.py: the same f32 constants (rounded from the
+reference's double constants exactly as there), the same operation
+order, and the same EPS band.  A pixel whose pre-truncation value lies
+within EPS of an integer is flagged `risky`.  torch.round is
+round-half-even, like jnp.round.  The JAX package computes colour this
+way because a TPU has no f64, and repairs flagged pixels on the host.
+
+`color_exact` is the reference's own mixed-precision colour
+(oracle.decoder.ycbcr_to_rgb_exact) in float64, so it needs no flag and
+no repair: strict decodes use it (on the card for the plane path and
+grayscale; the 4:4:4 pixel kernel has it as its exact mode).
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ _F_128 = np.float32(128.0)
 KERNEL_CONSTS = np.array(
     [_F_RED, _F_BLUE, _F_GY_B, _F_GY_R, _F_GY_INV, EPS], np.float32
 )
+# (red, blue, gy_b, gy_r, gy_div): the pixel kernel's exact-mode doubles
+EXACT_CONSTS = np.array([C_RED, C_BLUE, C_GY_B, C_GY_R, C_GY_DIV], np.float64)
 
 
 def color_core(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
@@ -50,6 +58,25 @@ def color_core(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
     return rgb, risky
 
 
+def color_exact(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
+    """int planes -> [r, g, b] uint8, the reference's exact colour.
+
+    The oracle's operation order: r and b in double, each rounded once
+    to float32; g from the float32 r and b widened back to double; +128
+    in float32, truncation, clamp to [0, 255].  Each product, sum and
+    quotient is one float64 PyTorch op, so nothing is contracted."""
+    yf = y.to(torch.float64)
+    r32 = (C_RED * cr.to(torch.float64) + yf).to(torch.float32)
+    b32 = (C_BLUE * cb.to(torch.float64) + yf).to(torch.float32)
+    g32 = ((yf - C_GY_B * b32.to(torch.float64)
+            - C_GY_R * r32.to(torch.float64)) / C_GY_DIV).to(torch.float32)
+    return [
+        torch.clamp(torch.trunc(ch + float(_F_128)).to(torch.int32), 0, 255)
+        .to(torch.uint8)
+        for ch in (r32, g32, b32)
+    ]
+
+
 def color_channels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
     """int planes -> ([r, g, b] uint8, risky bool)."""
     rgb, risky = color_core(y, cb, cr)
@@ -67,9 +94,3 @@ def pack_mask(mask: torch.Tensor) -> torch.Tensor:
         [1 << i for i in range(8)], dtype=torch.int32, device=mask.device
     )
     return (m * weights).sum(dim=-1).to(torch.uint8)
-
-
-def unpack_mask(packed: np.ndarray, width: int) -> np.ndarray:
-    """Host-side inverse of :func:`pack_mask` -> bool [..., width]."""
-    bits = np.unpackbits(packed, axis=-1, bitorder="little")
-    return bits[..., :width].astype(bool)

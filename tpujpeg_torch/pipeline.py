@@ -4,19 +4,22 @@ Counterpart of tpujpeg/pipeline.py.  The batch axis that the JAX package
 adds with vmap is written out: every device function here takes a
 leading batch dimension B.
 
-  * `device_decode_fn(geom, coeffs, quant, fancy, dc, extents)`:
+  * `device_decode_fn(geom, coeffs, quant, fancy, dc, extents, exact)`:
     [B, n_blocks, 64] zigzag coefficients -> (rgb uint8 [B, 3, H, W],
-    riskbits uint8 [B, H, W/8]).  Three full-resolution components
-    (4:4:4) go through the fused pixel kernel (ops/pixels.py); every
+    riskbits uint8 [B, H, W/8], None when exact).  Three full-resolution
+    components (4:4:4) go through the fused pixel kernel
+    (ops/pixels.rgb_444), which writes the cropped raster itself; every
     other geometry (4:2:0, 4:2:2, 4:4:0, 4:1:1, grayscale) takes the
     plane path: `_idct_planar`, `_plane_from_soa`, `upsample_planes` (box
     or fancy, ops/upsample.py), `planes_to_rgb`.  The JAX package has no
-    Pallas kernel on the plane path, and it is plain PyTorch here;
+    Pallas kernel on the plane path, and it is plain PyTorch here.
+    exact=True computes colour with the reference's exact mixed
+    precision (ops/color.color_exact; the kernel's exact mode), so the
+    output is the reference decoder's and needs no repair;
   * `decode(img, device, strict, fancy)`: host entropy (the native C++
-    decoder of runtime/native) + the pixel stage + strict repair;
+    decoder of runtime/native) + the pixel stage, exact when strict;
   * `bucket_geometry(geom)`: the size-class bucket of a geometry, with
-    `pad_coeffs_to_bucket` / `unpad_coeffs_from_bucket` for the host side
-    of mixed-size chunks.
+    `pad_coeffs_to_bucket` for the host side of mixed-size chunks.
 """
 
 from __future__ import annotations
@@ -28,14 +31,10 @@ import torch
 
 from .constants import ZIGZAG_TO_NATURAL
 from .io.parser import JpegImage
-from .oracle import decoder as oracle
 
-from .ops.color import color_channels, pack_mask, unpack_mask
+from .ops.color import color_channels, color_exact, pack_mask
 from .ops.idct import idct_planes
-from .ops.pixels import KMAJOR_OF_NATURAL, TILE, rgb_soa_fused, unpack_pixels
-
-# zigzag index of each k-major row: the prologue's single row permute
-_KMAJOR_ZZ = np.asarray(ZIGZAG_TO_NATURAL)[KMAJOR_OF_NATURAL]
+from .ops.pixels import block_lanes, raster_from_blocks, rgb_444
 
 
 class Geometry(tuple):
@@ -76,6 +75,11 @@ class Geometry(tuple):
     @property
     def n_blocks(self) -> int:
         return self.n_mcus * self.blocks_per_mcu
+
+    @property
+    def is_444(self) -> bool:
+        """Three full-resolution components: the pixel kernel's case."""
+        return len(self.comps) == 3 and self.max_h == 1 and self.max_v == 1
 
 
 # ---------------------------------------------------------------------------
@@ -124,63 +128,6 @@ def pad_coeffs_to_bucket(geom: Geometry, bucket: Geometry,
     view[: geom.mcus_y, : geom.mcus_x] = coeffs.reshape(
         geom.mcus_y, geom.mcus_x, bpm, 64
     )
-
-
-def unpad_coeffs_from_bucket(geom: Geometry, bucket: Geometry,
-                             out: np.ndarray) -> np.ndarray:
-    """Real-layout [n_blocks, 64] copy of a bucket-layout row (host)."""
-    bpm = geom.blocks_per_mcu
-    view = out.reshape(bucket.mcus_y, bucket.mcus_x, bpm, 64)
-    return np.ascontiguousarray(
-        view[: geom.mcus_y, : geom.mcus_x]
-    ).reshape(geom.n_blocks, 64)
-
-
-def soa_planes(geom: Geometry, coeffs: torch.Tensor, quant: torch.Tensor,
-               dc: torch.Tensor | None):
-    """The pixel kernel's inputs (its prologue): one zigzag -> k-major row
-    permute and SoA transpose, the DC plane, TILE padding.
-
-    coeffs [B, n_blocks, 64] (zigzag), quant [B, 3, 64] (zigzag), dc
-    [B, n_blocks] resolved DC or None.  Returns (zp int16 [B, 3, 64, P],
-    quant_km int32 [B, 3, 64, 1], dc_planes int32 [B, 3, 1, P])."""
-    B = coeffs.shape[0]
-    n = geom.n_mcus
-    dev = coeffs.device
-    zz = coeffs.reshape(B, n, 3, 64).permute(0, 2, 3, 1)  # [B, 3, 64, n]
-    perm = torch.as_tensor(_KMAJOR_ZZ, dtype=torch.long, device=dev)
-    zp = zz.index_select(2, perm).to(torch.int16)
-    if dc is None:
-        dcp = zz[:, :, 0:1, :].to(torch.int32)
-    else:
-        dcp = dc.reshape(B, n, 3).permute(0, 2, 1)[:, :, None, :]
-        dcp = dcp.to(torch.int32)
-    q = quant.to(torch.int32).index_select(2, perm)[..., None].contiguous()
-    pad = (-n) % TILE
-    zp = torch.nn.functional.pad(zp, (0, pad)).contiguous()
-    dcp = torch.nn.functional.pad(dcp, (0, pad)).contiguous()
-    return zp, q, dcp
-
-
-def _raster_from_blocks(geom: Geometry, chans, risky):
-    """Block-domain colour planes ([B, 64, n_mcus] each, full resolution)
-    -> (rgb uint8 [B, 3, H, W], packed riskbits): one uint8 raster
-    transpose and the crop."""
-    B = risky.shape[0]
-    my, mx = geom.mcus_y, geom.mcus_x
-    rgb = torch.stack(chans, dim=1)                       # [B, 3, 64, n]
-    rgb = (
-        rgb.reshape(B, 3, 8, 8, my, mx)
-        .permute(0, 1, 4, 2, 5, 3)
-        .reshape(B, 3, my * 8, mx * 8)
-    )
-    risky = (
-        risky.reshape(B, 8, 8, my, mx)
-        .permute(0, 3, 1, 4, 2)
-        .reshape(B, my * 8, mx * 8)
-    )
-    rgb = rgb[:, :, : geom.height, : geom.width]
-    return rgb, pack_mask(risky[:, : geom.height, : geom.width])
 
 
 def _idct_planar(geom: Geometry, coeffs: torch.Tensor, quant: torch.Tensor,
@@ -268,22 +215,26 @@ def upsample_planes(geom: Geometry, planes, fancy: bool, extents=None):
     ]
 
 
-def planes_to_rgb(geom: Geometry, planes):
+def planes_to_rgb(geom: Geometry, planes, exact: bool = False):
     """Full-resolution planes [B, Hp, Wp] -> (rgb uint8 planar [B, 3, H,
-    W], packed riskbits); one plane is grayscale (zero chroma)."""
+    W], packed riskbits, None when exact); one plane is grayscale (zero
+    chroma)."""
     planes = [p[:, : geom.height, : geom.width] for p in planes]
     if len(planes) == 1:
         zeros = torch.zeros_like(planes[0])
         planes = [planes[0], zeros, zeros]
+    if exact:
+        return torch.stack(color_exact(*planes), dim=1), None
     chans, risky = color_channels(*planes)
     return torch.stack(chans, dim=1), pack_mask(risky)
 
 
 def device_decode_fn(geom: Geometry, coeffs: torch.Tensor,
                      quant: torch.Tensor, fancy: bool = False,
-                     dc: torch.Tensor | None = None, extents=None):
+                     dc: torch.Tensor | None = None, extents=None,
+                     exact: bool = False):
     """Coefficients -> (rgb uint8 planar [B, 3, H, W], packed riskbits
-    uint8 [B, H, ceil(W/8)]).
+    uint8 [B, H, ceil(W/8)], or None when exact).
 
     coeffs:  int16/int32 [B, n_blocks, 64], zigzag order, scan order.
     quant:   int32 [B, n_comp, 64], zigzag order.
@@ -296,24 +247,32 @@ def device_decode_fn(geom: Geometry, coeffs: torch.Tensor,
              when `geom` is a size-class bucket that the images only
              partly fill: the fancy upsampler's edges are the only place
              where the true size matters.
+    exact:   the reference's exact colour, no risk bits (strict decodes);
+             False is the f32 colour with risk flags of the JAX package.
 
     Routing as in the JAX package: three full-resolution components take
-    the block-domain pixel kernel (prologue, `rgb_soa_fused`, unpack, one
-    uint8 raster transpose); grayscale takes the same block-domain order
-    through `_idct_planar`; subsampled geometries take the plane path.
+    the pixel kernel (`rgb_444`, one MCU-row run per image row); grayscale
+    takes the block-domain order through `_idct_planar`; subsampled
+    geometries take the plane path.
     """
+    if geom.is_444:
+        B = coeffs.shape[0]
+        return rgb_444(geom, coeffs.to(torch.int16).contiguous(),
+                       block_lanes(B, geom.mcus_y, geom.mcus_x,
+                                   coeffs.device),
+                       quant.to(torch.int32).contiguous(),
+                       dc=None if dc is None else dc.to(torch.int32),
+                       exact=exact)
     if geom.max_h == 1 and geom.max_v == 1:
-        n = geom.n_mcus
-        if len(geom.comps) == 3:
-            rg, bk = rgb_soa_fused(*soa_planes(geom, coeffs, quant, dc))
-            chans, risky = unpack_pixels(rg[..., :n], bk[..., :n])
-        else:
-            pix = _idct_planar(geom, coeffs, quant, dc)    # [B, 64, n]
-            zeros = torch.zeros_like(pix)
-            chans, risky = color_channels(pix, zeros, zeros)
-        return _raster_from_blocks(geom, chans, risky)
+        pix = _idct_planar(geom, coeffs, quant, dc)    # [B, 64, n]
+        zeros = torch.zeros_like(pix)
+        if exact:
+            return raster_from_blocks(geom, color_exact(pix, zeros, zeros),
+                                      None)
+        return raster_from_blocks(geom, *color_channels(pix, zeros, zeros))
     planes = decode_subsampled_planes(geom, coeffs, quant, dc)
-    return planes_to_rgb(geom, upsample_planes(geom, planes, fancy, extents))
+    return planes_to_rgb(geom, upsample_planes(geom, planes, fancy, extents),
+                         exact)
 
 
 # ---------------------------------------------------------------------------
@@ -336,94 +295,18 @@ def decode(img: JpegImage, device, strict: bool = True,
            fancy: bool = False) -> np.ndarray:
     """Decode one image on `device`.  Returns int32 [H, W, 3] RGB.
 
-    strict=True repairs flagged colour-boundary pixels with the oracle's
-    exact math, so the output is bit-exact with the reference decoder
-    (and, for fancy=True, with the numpy fancy-upsampling oracle).
+    strict=True computes colour with the reference's exact math on the
+    device, so the output is bit-exact with the reference decoder (and,
+    for fancy=True, with the numpy fancy-upsampling oracle); strict=False
+    is the f32 colour of the JAX package's strict=False.
     """
     geom, coeffs, quant = build_plan(img)
-    rgb_dev, riskbits = device_decode_fn(
+    rgb_dev, _ = device_decode_fn(
         geom,
         torch.as_tensor(coeffs).to(device)[None],
         torch.as_tensor(quant).to(device)[None],
-        fancy=fancy,
+        fancy=fancy, exact=strict,
     )
-    rgb = np.ascontiguousarray(
+    return np.ascontiguousarray(
         np.moveaxis(rgb_dev[0].cpu().numpy(), 0, -1)
     ).astype(np.int32)
-    if strict:
-        mask = unpack_mask(riskbits[0].cpu().numpy(), img.width)
-        if mask.any():
-            _repair(img, coeffs, rgb, mask, fancy=fancy)
-    return rgb
-
-
-def _comp_samples(img, coeffs, quant_ci, comp_base_ci, c, cy, cx) -> np.ndarray:
-    """Oracle IDCT sample values of one component at plane coords (cy, cx).
-
-    Vectorized over pixel lists; cost is a few 8x8 IDCTs on the unique
-    touched blocks.  Coordinates are in the component's own (subsampled)
-    padded plane.
-    """
-    by, bx = cy // 8, cx // 8
-    mcu = (by // c.v) * img.mcus_x + (bx // c.h)
-    block_idx = (
-        mcu * img.blocks_per_mcu + comp_base_ci + (by % c.v) * c.h + (bx % c.h)
-    )
-    uniq, inv = np.unique(block_idx, return_inverse=True)
-    zz = coeffs[uniq].astype(np.int64) * quant_ci[None, :]
-    natural = zz[:, ZIGZAG_TO_NATURAL].reshape(-1, 8, 8).astype(np.int32)
-    pix = oracle.idct_blocks(natural)
-    return pix[inv, cy % 8, cx % 8]
-
-
-def _repair(img: JpegImage, coeffs: np.ndarray, rgb: np.ndarray,
-            mask: np.ndarray, fancy: bool = False) -> None:
-    """Recompute flagged pixels with the exact oracle math, in place
-    (O(flagged pixels)).  With fancy=True the chroma samples that feed
-    the exact colour math are rebuilt through the same triangle filter as
-    the device (ops/upsample.py), from clamped samples, with replication
-    at the image's true padded edge; factors above 2 take the nearest
-    sample, as the device's box fallback does."""
-    py, px = np.nonzero(mask)
-    comps = img.components
-    max_h, max_v = img.max_h, img.max_v
-    comp_base = np.cumsum([0] + [c.h * c.v for c in comps])
-    samples = []
-    for ci, c in enumerate(comps):
-        fy, fx = max_v // c.v, max_h // c.h
-        quant = img.quant_tables[c.quant_id].astype(np.int64)
-        val = functools.partial(
-            _comp_samples, img, coeffs, quant, comp_base[ci], c
-        )
-        if (fy == 1 and fx == 1) or not fancy or fy > 2 or fx > 2:
-            # box path (or a full-resolution component): nearest sample
-            samples.append(val(py // fy, px // fx))
-            continue
-        # fancy: rebuild the triangle filter from clamped samples
-        hc = img.mcus_y * c.v * 8
-        wc = img.mcus_x * c.h * 8
-        r, col = py // fy, px // fx
-        rn = np.clip(r + np.where(py % 2 == 1, 1, -1), 0, hc - 1) \
-            if fy == 2 else r
-        cn = np.clip(col + np.where(px % 2 == 1, 1, -1), 0, wc - 1) \
-            if fx == 2 else col
-
-        def s(rr, cc):
-            return np.clip(val(rr, cc) + 128, 0, 255).astype(np.int64)
-
-        if fy == 2 and fx == 2:
-            v = (
-                9 * s(r, col) + 3 * s(r, cn) + 3 * s(rn, col) + s(rn, cn)
-                + np.where(px % 2 == 1, 7, 8)
-            ) >> 4
-        elif fx == 2:
-            v = (3 * s(r, col) + s(r, cn) + np.where(px % 2 == 1, 2, 1)) >> 2
-        else:  # fy == 2
-            v = (3 * s(r, col) + s(rn, col) + np.where(py % 2 == 1, 2, 1)) >> 2
-        samples.append(v - 128)
-    if len(comps) == 1:
-        y = samples[0]
-        cb = cr = np.zeros_like(y)
-    else:
-        y, cb, cr = samples
-    rgb[py, px] = oracle.ycbcr_to_rgb_exact(y, cb, cr)

@@ -20,8 +20,8 @@ Counterpart of tpujpeg/runtime/batch.py:
      device envelope raises JpegError, or under on_error='skip' goes to
      the host route.  Backend 'host': the native C++ entropy decoder on
      the host, then the pixel stage;
-  4. `_finish`: the retry ladder and the strict repair, behind one
-     4-flag device read per chunk.  A spec chunk whose slot materialize
+  4. `_finish`: the retry ladder, behind one 4-flag device read per
+     chunk.  A spec chunk whose slot materialize
      overflowed is decoded again with the classic materialize (counted
      in fsm_slot_retries; later chunks move to the next capacity); a
      chunk whose envelope latch is set is decoded again on the device at
@@ -30,8 +30,10 @@ Counterpart of tpujpeg/runtime/batch.py:
      retry, or a retry that produced nothing sends the chunk to the host
      route (fsm_malformed_fallbacks / fsm_envelope_fallbacks), which
      raises or, with on_error='skip', records a precise error per image.
-     Strict mode recomputes risk-flagged pixels with the oracle's exact
-     math.
+     Strict mode (the default) computes colour with the reference's exact
+     math on the device (every route passes exact=True to the pixel
+     stage), so nothing is repaired and BatchStats.repaired_pixels is 0;
+     strict=False is the f32 colour of the JAX engine's strict=False.
 
 A bucketed chunk (size_buckets=True) whose images carry row-aligned
 restart intervals runs runtime.fused.decode_chunk_bucketed (backend
@@ -49,8 +51,8 @@ Every sampling the parser takes decodes on every route: 4:4:4 through
 the fused pixel kernel, 4:2:0, 4:2:2, 4:4:0, 4:1:1 and grayscale through
 the plane path (pipeline.device_decode_fn).  Chunks key on Geometry, so
 a batch that mixes samplings splits by itself.  fancy=True selects
-libjpeg's triangle chroma upsampling on every route and in the strict
-repair (box replication otherwise).
+libjpeg's triangle chroma upsampling on every route (box replication
+otherwise).
 
 Not ported yet (ROADMAP): several devices (13), the prep-pool overlap of
 plan building with device work (8).
@@ -67,10 +69,8 @@ import torch
 
 from ..errors import JpegError
 from ..io.parser import JpegImage, parse
-from ..ops.color import unpack_mask
-from ..pipeline import (Geometry, _repair, bucket_geometry,
-                        device_decode_fn, pad_coeffs_to_bucket,
-                        unpad_coeffs_from_bucket)
+from ..pipeline import (Geometry, bucket_geometry, device_decode_fn,
+                        pad_coeffs_to_bucket)
 
 
 @dataclass
@@ -86,7 +86,7 @@ class BatchStats:
     total_s: float = 0.0
     backend: str = ""
     chunks: int = 0
-    repaired_pixels: int = 0
+    repaired_pixels: int = 0          # 0: strict colour is exact on device
     failures: dict = field(default_factory=dict)  # index -> error message
     fsm_envelope_fallbacks: int = 0   # chunks redone on host: outside envelope
     fsm_k_retries: int = 0            # chunks re-decoded at STEPS_SAFE
@@ -103,10 +103,6 @@ class _Chunk:
     geom: Geometry
     indices: list[int]
     imgs: list[JpegImage]
-    coeffs: np.ndarray | None = None   # host coefficients (host route)
-    coeffs_dev: object = None          # device coeffs (fsm routes)
-    dc_dev: object = None              # resolved DC [B, n_blocks] (None:
-    #                                    coeffs_dev holds it, Jacobi route)
     plan: object = None                # FsmPlan / FsmBucketPlan (retries)
     uploaded: object = None            # plan's arrays on the device
     spec_plan: object = None           # fsm.SpecBatchPlan of the sync path
@@ -118,7 +114,7 @@ class _Chunk:
     err_mal: object = None
     err_env: object = None
     err_slot: object = None
-    out: object = None                 # device (rgb, riskbits)
+    out: object = None                 # device (rgb, riskbits or None)
     backend: str = ""
     failed: dict | None = None         # local index -> message (skip mode)
     bucketed: bool = False             # geom is a size-class bucket: crop
@@ -272,9 +268,8 @@ class BatchDecoder:
         chunk.out = device_decode_fn(
             geom, torch.as_tensor(coeffs).to(self.device),
             self._quant_block(chunk, B), fancy=self.fancy, extents=extents,
+            exact=self.strict,
         )
-        chunk.coeffs = coeffs
-        chunk.coeffs_dev = chunk.dc_dev = None
         chunk.err_mal = chunk.err_env = chunk.err_slot = None
         chunk.backend = "host-bucketed" if chunk.bucketed else "host"
 
@@ -335,17 +330,15 @@ class BatchDecoder:
             )
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
         B = len(chunk.imgs)
-        rgb, risk, coeffs, dc, err_mal, err_env, err_slot = (
+        rgb, risk, _, _, err_mal, err_env, err_slot = (
             fused.decode_chunk_fused(
                 chunk.plan, self._quant_block(chunk, B), chunk.geom, B,
-                steps=chunk.steps, want_coeffs=self.strict,
+                steps=chunk.steps, want_coeffs=False,
                 uploaded=chunk.uploaded, slots=False, route=self.route,
-                fancy=self.fancy,
+                fancy=self.fancy, exact=self.strict,
             )
         )
         chunk.out = (rgb, risk)
-        chunk.coeffs_dev = coeffs
-        chunk.dc_dev = dc
         chunk.err_mal = err_mal
         chunk.err_env = err_env
         chunk.err_slot = err_slot
@@ -381,17 +374,15 @@ class BatchDecoder:
                 for a in (plan.xs, plan.seg_n, plan.wrap_at, plan.skip))
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
         B = len(chunk.imgs)
-        rgb, risk, coeffs, dc, err_mal, err_env, err_slot = (
+        rgb, risk, _, _, err_mal, err_env, err_slot = (
             fused.decode_chunk_bucketed(
                 plan, self._quant_block(chunk, B), chunk.geom, B,
-                steps=chunk.steps, want_coeffs=self.strict,
+                steps=chunk.steps, want_coeffs=False,
                 uploaded=chunk.uploaded, slots=False, route=self.route,
-                fancy=self.fancy,
+                fancy=self.fancy, exact=self.strict,
             )
         )
         chunk.out = (rgb, risk)
-        chunk.coeffs_dev = coeffs
-        chunk.dc_dev = dc
         chunk.err_mal = err_mal
         chunk.err_env = err_env
         chunk.err_slot = err_slot
@@ -431,17 +422,15 @@ class BatchDecoder:
                     chunk.imgs, plan=chunk.spec_plan, xs_dev=chunk.spec_xs,
                     steps=chunk.steps,
                 )
-                rgb, risk, coeffs16, dc, err, err_slot = (
+                rgb, risk, _, _, err, err_slot = (
                     fused.decode_spec_sync_fused(
                         pending, geom, quant, B, len(chunk.imgs),
-                        want_coeffs=self.strict,
+                        want_coeffs=False,
                         slots=self._slot_capacity(chunk), route=self.route,
-                        fancy=self.fancy,
+                        fancy=self.fancy, exact=self.strict,
                     )
                 )
                 chunk.out = (rgb, risk)
-                chunk.coeffs_dev = coeffs16
-                chunk.dc_dev = dc
                 chunk.err_mal = err
                 chunk.err_env = torch.zeros_like(err)
                 chunk.err_slot = err_slot
@@ -467,9 +456,7 @@ class BatchDecoder:
         except JpegError:
             return False
         chunk.out = device_decode_fn(geom, coeffs_dev, quant,
-                                     fancy=self.fancy)
-        chunk.coeffs_dev = coeffs_dev if self.strict else None
-        chunk.dc_dev = None
+                                     fancy=self.fancy, exact=self.strict)
         chunk.err_mal = err_mal
         chunk.err_env = err_env
         chunk.err_slot = None
@@ -505,7 +492,13 @@ class BatchDecoder:
 
     def decode_parsed(self, imgs: list[JpegImage], on_error: str = "raise"):
         """Decode parsed images -> list of uint8 [H, W, 3] (None for images
-        that failed under on_error='skip', recorded in stats.failures)."""
+        that failed under on_error='skip', recorded in stats.failures).
+
+        An image that fills its chunk's raster is a view of the chunk's
+        one fetched buffer, so each result keeps that buffer (e.g. 157 MB
+        for 128 images of 640x640) alive; copy an image to keep it alone.
+        A copy per image doubled the end-to-end time of such chunks on an
+        H100 host (PERF.md)."""
         if on_error not in ("raise", "skip"):
             raise ValueError(f"on_error={on_error!r}")
         t_start = time.perf_counter()
@@ -580,48 +573,22 @@ class BatchDecoder:
                     self.stats.failures[chunk.indices[bi]] = msg
 
         results: list[np.ndarray | None] = [None] * n_images
-        repaired = 0
         for chunk in chunks:
-            rgb, risk = chunk.out
             n = len(chunk.imgs)
-            # device rgb is planar [B, 3, H, W]; interleave on the host
-            rgb_h = np.moveaxis(rgb[:n].cpu().numpy(), 1, -1).astype(np.int32)
-            risk_h = risk[:n].cpu().numpy() if self.strict else None
-            coeffs_h = chunk.coeffs
+            # device rgb is planar [B, 3, H, W]: interleave on the device,
+            # then one uint8 fetch per chunk
+            rgb_h = chunk.out[0][:n].permute(0, 2, 3, 1).contiguous() \
+                .cpu().numpy()
             for bi, i in enumerate(chunk.indices):
                 if chunk.failed and bi in chunk.failed:
                     continue
                 img = chunk.imgs[bi]
-                out = rgb_h[bi]
-                if chunk.bucketed:
-                    # bucket rasters carry padding: crop to the true image
-                    out = out[: img.height, : img.width]
-                if self.strict:
-                    mask = unpack_mask(risk_h[bi], img.width)[: img.height]
-                    if mask.any():
-                        if coeffs_h is None:
-                            coeffs_h = self._device_coeffs(chunk, n)
-                        ci = coeffs_h[bi]
-                        if chunk.bucketed:
-                            # the repair indexes blocks in the real layout
-                            ci = unpad_coeffs_from_bucket(
-                                Geometry.of(img), chunk.geom, ci)
-                        _repair(img, ci, out, mask, fancy=self.fancy)
-                        repaired += int(mask.sum())
-                results[i] = out.astype(np.uint8)
-        self.stats.repaired_pixels = repaired
+                # bucket rasters carry padding: crop to the true image (a
+                # view where the image fills the raster: decode_parsed)
+                results[i] = np.ascontiguousarray(
+                    rgb_h[bi, : img.height, : img.width])
         self.stats.total_s = time.perf_counter() - t_start
         return results
-
-    @staticmethod
-    def _device_coeffs(chunk: _Chunk, n: int) -> np.ndarray:
-        """A device chunk's coefficients on the host with DC resolved (the
-        fused routes keep raw DPCM differences in the dense DC rows and
-        the resolved plane apart)."""
-        coeffs = chunk.coeffs_dev[:n].cpu().numpy().astype(np.int32)
-        if chunk.dc_dev is not None:
-            coeffs[:, :, 0] = chunk.dc_dev[:n].cpu().numpy()
-        return coeffs
 
     @staticmethod
     def _flags(chunk: _Chunk) -> tuple[bool, bool, bool]:

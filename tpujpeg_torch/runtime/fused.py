@@ -1,5 +1,5 @@
-"""Per-chunk decode: FSM scan -> materialize -> DC resolve -> assemble ->
-pixels, on one device.
+"""Per-chunk decode: FSM scan -> materialize -> DC resolve -> pixels, on
+one device.
 
 Counterparts of tpujpeg/runtime/fused.py: compiled_fused_decoder for a
 single-group restart plan (`decode_chunk_fused`), compiled_fused_bucketed
@@ -10,20 +10,66 @@ plain function; the kernels launch on the current stream back to back
 and nothing returns to the host until the caller reads a result (the
 spec tail's one resolve read aside).
 
-  * the dense coefficient tensor stays int16 from materialize through
-    assembly;
+  * the dense coefficient tensor stays int16 from materialize to the
+    pixels; for 4:4:4 the pixel kernel (ops/pixels.rgb_444) reads the
+    lane matrix in place through a lane table (`restart_lanes`,
+    `bucket_lanes`) and writes the cropped raster, so nothing is
+    assembled;
   * DC stays as DPCM differences in the dense tensor; the resolved
     predictors ride a separate [L, max_blk] cumsum and replace the DC row
-    inside the pixel stage.
+    inside the pixel stage;
+  * per-image coefficients are assembled only for callers that ask for
+    them (want_coeffs=True) and for the plane path of the other
+    samplings.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..ops import fsm
+from ..ops.pixels import LaneTable, lane_table, rgb_444
 from ..pipeline import Geometry, device_decode_fn
+
+
+@functools.lru_cache(maxsize=64)
+def restart_lanes(layout, L: int, pad_to: int, mcus_y: int, mcus_x: int,
+                  device) -> LaneTable:
+    """The pixel kernel's runs of a 4:4:4 restart plan: lane l of the
+    matrix is entry l (a restart segment of whole MCUs of three blocks,
+    or unused), then one zero-coefficient entry per MCU row of each
+    padding image."""
+    rows = np.zeros((L, 4), np.int32)
+    rows[:, 0] = rows[:, 3] = -1
+    for b, (first, n_lanes, rib, last) in enumerate(layout):
+        lanes = first + np.arange(n_lanes)
+        rows[lanes, 0] = b
+        rows[lanes, 1] = np.arange(n_lanes) * (rib // 3)
+        rows[lanes, 2] = rib // 3
+        rows[lanes[-1], 2] = last // 3
+        rows[lanes, 3] = lanes
+    b, my = np.divmod(np.arange((pad_to - len(layout)) * mcus_y), mcus_y)
+    pad = np.stack([b + len(layout), my * mcus_x, np.full_like(b, mcus_x),
+                    np.full_like(b, -1)], axis=1)
+    return lane_table(np.concatenate([rows, pad]), device)
+
+
+@functools.lru_cache(maxsize=64)
+def bucket_lanes(L: int, pad_to: int, lanes_per_img: int, k: int,
+                 mcus_y: int, mcus_x: int, device) -> LaneTable:
+    """The pixel kernel's runs of a bucket-raster plan: lane l holds k
+    padded MCU rows of image l // lanes_per_img; lanes past the matrix
+    (pad_to images ask for more) are zero runs."""
+    lane = np.arange(pad_to * lanes_per_img)
+    row0 = (lane % lanes_per_img) * k
+    n_rows = np.clip(mcus_y - row0, 0, k)
+    rows = np.stack([np.where(n_rows > 0, lane // lanes_per_img, -1),
+                     row0 * mcus_x, n_rows * mcus_x,
+                     np.where(lane < L, lane, -1)], axis=1)
+    return lane_table(rows, device)
 
 
 def assembly_index(layout, max_blk: int, device) -> torch.Tensor:
@@ -63,11 +109,36 @@ def _assemble_rows(per_lane: torch.Tensor, layout, pad_to: int) -> torch.Tensor:
     return rows
 
 
+def _pixel_tail(geom: Geometry, coeffs_t: torch.Tensor, dc_lane: torch.Tensor,
+                lanes, assemble, quant: torch.Tensor, want_coeffs: bool,
+                fancy: bool, exact: bool, extents=None):
+    """The chains' pixel stage: 4:4:4 reads the lane matrix in place
+    through the runs of `lanes()`; other geometries take
+    `device_decode_fn` on the assembled [B, n_blocks, 64] coefficients.
+    `assemble()` -> (coeffs, dc) runs only where it is needed.
+
+    Returns (rgb, risk, coeffs, dc); coeffs and dc are None when
+    want_coeffs is False."""
+    coeffs = dc = None
+    if want_coeffs or not geom.is_444:
+        coeffs, dc = assemble()
+    if geom.is_444:
+        rgb, risk = rgb_444(geom, coeffs_t, lanes(), quant, dc=dc_lane,
+                            extents=extents, exact=exact)
+    else:
+        rgb, risk = device_decode_fn(geom, coeffs, quant, fancy=fancy, dc=dc,
+                                     extents=extents, exact=exact)
+    if not want_coeffs:
+        coeffs = dc = None
+    return rgb, risk, coeffs, dc
+
+
 def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
                        pad_to: int, steps=fsm.STEPS_PRODUCTION,
                        want_coeffs: bool = True, uploaded=None,
                        slots: bool | int | None = False,
-                       route: str = "scatter", fancy: bool = False):
+                       route: str = "scatter", fancy: bool = False,
+                       exact: bool = False):
     """Decode one restart plan on the device of `quant`.
 
     quant: int32 [pad_to, n_comp, 64] zigzag quant tables.  `uploaded` is
@@ -75,13 +146,14 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     materialize route (fsm.materialize_checked): False, the default, is
     the classic scatter; a caller that asks for slots reads err_slot.
     route: the classic materialize's route (fsm.materialize_events).
-    fancy: triangle chroma upsampling for subsampled geometries
-    (pipeline.device_decode_fn).
+    fancy: triangle chroma upsampling for subsampled geometries, exact:
+    the reference's exact colour (pipeline.device_decode_fn).
 
-    Returns (rgb uint8 [pad_to, 3, H, W], riskbits uint8 [pad_to, H, W/8],
-    coeffs int16 [pad_to, n_blocks, 64] with raw DC differences, dc int32
-    [pad_to, n_blocks] resolved, err_mal [L], err_env [L], err_slot [L]);
-    coeffs and dc are None when want_coeffs is False.
+    Returns (rgb uint8 [pad_to, 3, H, W], riskbits uint8 [pad_to, H, W/8]
+    or None when exact, coeffs int16 [pad_to, n_blocks, 64] with raw DC
+    differences, dc int32 [pad_to, n_blocks] resolved, err_mal [L],
+    err_env [L], err_slot [L]); coeffs and dc are None when want_coeffs
+    is False.
     """
     dev = quant.device
     if uploaded is None:
@@ -96,11 +168,13 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
         ev, M, err_mal, slots=slots, route=route)
     per_lane = coeffs_t.T.reshape(L, plan.max_blk, 64)
     dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
-    coeffs = _assemble_rows(per_lane, plan.layout, pad_to)   # [B, nb, 64]
-    dc = _assemble_rows(dc_lane, plan.layout, pad_to)        # [B, nb]
-    rgb, risk = device_decode_fn(geom, coeffs, quant, fancy=fancy, dc=dc)
-    if not want_coeffs:
-        coeffs = dc = None
+    rgb, risk, coeffs, dc = _pixel_tail(
+        geom, coeffs_t, dc_lane,
+        lambda: restart_lanes(plan.layout, L, pad_to, geom.mcus_y,
+                              geom.mcus_x, dev),
+        lambda: (_assemble_rows(per_lane, plan.layout, pad_to),  # [B, nb, 64]
+                 _assemble_rows(dc_lane, plan.layout, pad_to)),  # [B, nb]
+        quant, want_coeffs, fancy, exact)
     return rgb, risk, coeffs, dc, err_mal, err_env, err_slot
 
 
@@ -118,7 +192,8 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
                           steps=fsm.STEPS_PRODUCTION,
                           want_coeffs: bool = True, uploaded=None,
                           slots: bool | int | None = False,
-                          route: str = "scatter", fancy: bool = False):
+                          route: str = "scatter", fancy: bool = False,
+                          exact: bool = False):
     """Decode one size-class bucket chunk of mixed exact geometries on the
     device of `quant`: scan bytes -> bucket-raster rgb, risk and errors.
 
@@ -127,20 +202,21 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
     bucket-raster emission (fsm.fsm_scan pad_info), so the per-lane rows
     land in the bucket's padded layout and assembly is a static reshape.
     `_dc_cumsum` carries each lane's predictor through the padding slots,
-    so DC is zeroed outside each image's true extent afterwards.  The
-    same extents [pad_to, 2] of true (mcus_y, mcus_x) go to the pixel
-    stage, where the fancy upsampler replicates at each image's real
-    edge.
+    so DC is zeroed outside each image's true extent: inside the pixel
+    kernel for 4:4:4 (which reads the lane matrix in place), on the
+    assembled DC otherwise.  The same extents [pad_to, 2] of true
+    (mcus_y, mcus_x) go to the plane path, where the fancy upsampler
+    replicates at each image's real edge.
 
     quant: int32 [pad_to, n_comp, 64]; `uploaded` is the plan's (xs,
-    seg_n, wrap_at, skip) already on that device; slots, route and fancy
-    as in `decode_chunk_fused`.
+    seg_n, wrap_at, skip) already on that device; slots, route, fancy and
+    exact as in `decode_chunk_fused`.
 
     Returns (rgb uint8 [pad_to, 3, Hb, Wb], riskbits uint8 [pad_to, Hb,
-    Wb/8], coeffs int16 [pad_to, nb_b, 64] with raw DC differences, dc
-    int32 [pad_to, nb_b] resolved and masked, err_mal [L], err_env [L],
-    err_slot [L]) at the bucket's size; callers crop each image.  coeffs
-    and dc are None when want_coeffs is False.
+    Wb/8] or None when exact, coeffs int16 [pad_to, nb_b, 64] with raw DC
+    differences, dc int32 [pad_to, nb_b] resolved and masked, err_mal
+    [L], err_env [L], err_slot [L]) at the bucket's size; callers crop
+    each image.  coeffs and dc are None when want_coeffs is False.
     """
     dev = quant.device
     if uploaded is None:
@@ -164,28 +240,32 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
         ev, max_blk * 64, err_mal, slots=slots, route=route)
     per_lane = coeffs_t.T.reshape(L, max_blk, 64)
     dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, max_blk)
-    # static bucket-raster assembly: lane rows are padded MCU rows
-    rows = lanes_per_img * k
-    coeffs = _pad_lanes(per_lane, need)[:need] \
-        .reshape(pad_to, rows, wb_bpm, 64)[:, : bucket.mcus_y] \
-        .reshape(pad_to, nb_b, 64)
-    dc = _pad_lanes(dc_lane, need)[:need] \
-        .reshape(pad_to, rows, wb_bpm)[:, : bucket.mcus_y] \
-        .reshape(pad_to, nb_b)
-    # zero DC outside each image's true extent, so the pixel stage and any
-    # fetched coefficients see clean padding
     ext = np.zeros((pad_to, 2), np.int32)
     ext[: plan.n_imgs] = plan.extents
     ext = torch.as_tensor(ext).to(dev)
-    mcu = torch.arange(nb_b, dtype=torch.int32, device=dev) // bpm
-    row = (mcu // bucket.mcus_x)[None, :]
-    col = (mcu % bucket.mcus_x)[None, :]
-    real = (row < ext[:, 0:1]) & (col < ext[:, 1:2])
-    dc = torch.where(real, dc, 0)
-    rgb, risk = device_decode_fn(bucket, coeffs, quant, fancy=fancy, dc=dc,
-                                 extents=ext)
-    if not want_coeffs:
-        coeffs = dc = None
+
+    def assemble():
+        # static bucket-raster assembly: lane rows are padded MCU rows
+        rows = lanes_per_img * k
+        coeffs = _pad_lanes(per_lane, need)[:need] \
+            .reshape(pad_to, rows, wb_bpm, 64)[:, : bucket.mcus_y] \
+            .reshape(pad_to, nb_b, 64)
+        dc = _pad_lanes(dc_lane, need)[:need] \
+            .reshape(pad_to, rows, wb_bpm)[:, : bucket.mcus_y] \
+            .reshape(pad_to, nb_b)
+        # zero DC outside each image's true extent, so the pixel stage and
+        # any fetched coefficients see clean padding
+        mcu = torch.arange(nb_b, dtype=torch.int32, device=dev) // bpm
+        row = (mcu // bucket.mcus_x)[None, :]
+        col = (mcu % bucket.mcus_x)[None, :]
+        real = (row < ext[:, 0:1]) & (col < ext[:, 1:2])
+        return coeffs, torch.where(real, dc, 0)
+
+    rgb, risk, coeffs, dc = _pixel_tail(
+        bucket, coeffs_t, dc_lane,
+        lambda: bucket_lanes(L, pad_to, lanes_per_img, k, bucket.mcus_y,
+                             bucket.mcus_x, dev),
+        assemble, quant, want_coeffs, fancy, exact, extents=ext)
     return rgb, risk, coeffs, dc, err_mal, err_env, err_slot
 
 
@@ -193,14 +273,15 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
                            quant: torch.Tensor, pad_to: int, n_imgs: int,
                            want_coeffs: bool = True,
                            slots: bool | int | None = False,
-                           route: str = "scatter", fancy: bool = False):
+                           route: str = "scatter", fancy: bool = False,
+                           exact: bool = False):
     """Finish a spec_sync_start chunk: the host resolve (one read), then
     merge -> materialize -> gather -> DC resolve -> pixels on the device.
 
-    Raises SpecEnvelopeError / SpecSyncMiss from the resolve.  Returns
-    (rgb, risk, coeffs int16 [pad_to, nb, 64] raw DC, dc int32 [pad_to,
-    nb], err [L], err_slot [L]); coeffs and dc are None when want_coeffs
-    is False."""
+    Raises SpecEnvelopeError / SpecSyncMiss from the resolve; fancy and
+    exact as in `decode_chunk_fused`.  Returns (rgb, risk, coeffs int16
+    [pad_to, nb, 64] raw DC, dc int32 [pad_to, nb], err [L], err_slot
+    [L]); coeffs and dc are None when want_coeffs is False."""
     plan = pending.plan
     quotas, cap_w = fsm.spec_sync_resolve_host(pending)
     coeffs, dc, err, err_slot = fsm._spec_sync_assemble(
@@ -209,7 +290,8 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
         torch.as_tensor(quotas).to(quant.device), plan.tables, pad_to,
         int(plan.img_blocks[0]), n_imgs, cap_w, slots=slots, route=route,
     )
-    rgb, risk = device_decode_fn(geom, coeffs, quant, fancy=fancy, dc=dc)
+    rgb, risk = device_decode_fn(geom, coeffs, quant, fancy=fancy, dc=dc,
+                                 exact=exact)
     if not want_coeffs:
         coeffs = dc = None
     return rgb, risk, coeffs, dc, err, err_slot

@@ -39,8 +39,8 @@ STAMP_PATH = BUILD_DIR / "libtpjcuda.hash"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-    # no FMA contraction anywhere: the pixel kernel's f32 colour math must
-    # round like the separate multiplies and adds of the reference
+    # no FMA contraction anywhere: the pixel kernel's colour math must
+    # round like the separate multiplies and adds of its plain version
     "-fmad=false",
 ]
 
@@ -68,8 +68,10 @@ _SIGNATURES = {
     "tpj_compact_full": [_P, _P, _I, _I, _P],
     # cp, o, dense, err, N, M, L, stream
     "tpj_spread_full": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # zp, quant, dc, rg, bk, B, P, consts(host), stream
-    "tpj_pixels": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # coef, quant, dc, lanes, ext, rgb, risk, T, max_n, L, dc_lane, H, W,
+    # mcus_x, lane_layout, exact, fconsts(host), dconsts(host), stream
+    "tpj_pixels": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _P, _P, _P],
     # t, idx, out, R, T, K, stream
     "tpj_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
     # t, idx, out, T, N, stream
