@@ -78,7 +78,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      both restart chunks' events a line of its own gives the zero fill
      alone, the kernel with its fill, index_put_, and the byte and sector
      bounds (sectors: valid events x 32 bytes read and written, plus the
-     fill and the events).  The pixel kernel is held in both colour modes
+     fill and the events).  The slot kernels (compact, slot_unpack,
+     slot_expand) are held on the speculative chunk's merged events at
+     C = 256 and 64 and on the restart chunk's events at the capacity
+     phase 8 runs it and at 64 (both overflow at 64); slot_expand gets
+     the same line as place_events on both, with zero fill + index_put_
+     on the same targets (its bytes: o2, the payload of live rows and
+     dense), and a line on how many slot groups a 32-lane tile's live
+     lanes lie apart at one compacted row.  The pixel kernel is held in both colour modes
      on the restart chunk's dense lane matrix (the engine's input), on
      the same coefficients as [B, n_blocks, 64] (the speculative, Jacobi
      and host routes' layout) and on the mixed chunk's bucket-raster lane
@@ -975,13 +982,80 @@ def main() -> int:
     restart_dense = got
     del want
 
-    # the slot kernels on the spec chunk's merged events
+    # the slot kernels on the spec chunk's merged events and on the
+    # restart chunk's events (phase 8 runs both chains through slots)
     sev, _ = fsm._spec_sync_merge(
         pending.ev1, pending.anchors, pending.ablk, pending.recm,
         pending.ev2, pending.end2, pending.b1, pending.blk2,
         torch.as_tensor(quotas).to(dev))
     SM = cap_w * 64
     G = materialize.SLOT_G
+
+    def expand_readings(what: str, o2, p, rows_out: int, C: int) -> dict:
+        """slot_expand on (o2, p) beside its zero fill alone (a launch on
+        no rows), one zero fill + index_put_ call on the same targets
+        (held equal to the kernel) and its byte and sector bounds; prints
+        them on one line, and on another how far apart in slot groups the
+        live lanes of a 32-lane tile lie at one compacted row (what a
+        write-once expand from a shared-memory tile would have to hold)."""
+        Np_, L_ = o2.shape
+        valid = o2 >= 0
+        row = torch.arange(Np_, device=dev)[:, None]
+        e = p.to(torch.int64)
+        grp = (row + o2) >> (C.bit_length() - 1)
+        tgt = grp * (64 * G) + ((e >> 18) & (G - 1)) * 64 + ((e >> 12) & 63)
+        keep = valid & (tgt < rows_out)
+        idx = (tgt[keep],
+               torch.arange(L_, device=dev).expand(Np_, L_)[keep])
+        vals = ((e & 0xFFF) - 2048).to(torch.int16)[keep]
+        del row, e, tgt, keep
+        T = L_ // 32 * 32
+        g = grp[:, :T].reshape(Np_, -1, 32)
+        lv = valid[:, :T].reshape(Np_, -1, 32)
+        span = (torch.where(lv, g, -1).amax(dim=2)
+                - torch.where(lv, g, torch.iinfo(torch.int64).max).amin(dim=2)
+                )[lv.sum(dim=2) >= 2].double()
+        q = torch.quantile(span[:: max(1, span.numel() // 1_000_000)],
+                           torch.tensor([0.5, 0.9, 0.99], device=dev,
+                                        dtype=torch.float64)).tolist()
+        print(f"phase 7: slot_expand {what} C={C}: largest minus smallest "
+              f"slot group of a 32-lane tile's live lanes at one compacted "
+              f"row: median {q[0]:.0f}, p90 {q[1]:.0f}, p99 {q[2]:.0f}, max "
+              f"{int(span.max())}")
+        del grp, g, lv, span
+        out = torch.empty((rows_out, L_), dtype=torch.int16, device=dev)
+
+        def call():
+            out.zero_()
+            return out.index_put_(idx, vals)
+
+        got = materialize.slot_expand(o2, p, rows_out, C, G)
+        check(torch.equal(call(), got), f"index_put_ != slot_expand {what}")
+        # o2 read in full, p only on live rows, dense written once; the
+        # sector bound adds 32 bytes read and written per live row
+        n_live = int(valid.sum())
+        moved = nbytes(o2, got) + 4 * n_live
+        r = dict(
+            ms=cuda_ms(lambda: materialize.slot_expand(o2, p, rows_out, C, G)),
+            fill_ms=cuda_ms(lambda: materialize.slot_expand(
+                o2[:0], p[:0], rows_out, C, G)),
+            library_ms=cuda_ms(call),
+            **bound(moved, 8 * o2.numel()),
+            sector_bound_ms=(moved + 64 * n_live) / HBM_BYTES_PER_S * 1e3)
+        print(f"phase 7: slot_expand {what} C={C} {list(o2.shape)} -> "
+              f"{list(got.shape)}, {n_live} live rows: zero fill alone "
+              f"{r['fill_ms']:.4f} ms; the kernel with its fill "
+              f"{r['ms']:.4f} ms; zero fill + index_put_ "
+              f"{r['library_ms']:.4f} ms; byte bound {r['bound_ms']:.4f}, "
+              f"sector bound {r['sector_bound_ms']:.4f} ms [{card}]")
+        return r
+
+    def unpack_bound(o, o2) -> dict:
+        # unpack reads each lane's event prefix (and the row after it)
+        n_ev = int((o >= 0).sum())
+        L_ = o.shape[1]
+        return bound((n_ev + L_) * 6 + nbytes(o2) + L_, 10 * n_ev)
+
     slot_err = {k: 0 for k in SLOT_KERNELS}
     overflowed = {}
     slot_bound = {}
@@ -1002,14 +1076,12 @@ def main() -> int:
               f"[{sev.shape[0]}, {SL}] -> [{SM}, {SL}]: compact, unpack, "
               f"expand equal; overflow lanes {overflowed[C]}")
         if C == 256:
-            # unpack reads each lane's event prefix (and the row after it)
-            n_ev = int((o >= 0).sum())
             slot_bound = {
                 "compact": bound(nbytes(sev, p, o), 4 * sev.numel()),
-                "slot_unpack": bound((n_ev + SL) * 6 + nbytes(o2) + SL,
-                                     10 * n_ev),
-                "slot_expand": bound(nbytes(o2, p, dense), 8 * o2.numel()),
+                "slot_unpack": unpack_bound(o, o2),
             }
+            del dense
+            spec_expand = expand_readings("spec chunk", o2, p, SM, C)
             slot_ms = {
                 "compact": (cuda_ms(lambda: materialize.compact_to_rank(sev)),
                             cuda_ms(lambda: materialize.compact_to_rank_plain(
@@ -1018,27 +1090,80 @@ def main() -> int:
                     cuda_ms(lambda: materialize.slot_unpack(p, o, C, G)),
                     cuda_ms(lambda: materialize.slot_unpack_plain(p, o, C, G))),
                 "slot_expand": (
-                    cuda_ms(lambda: materialize.slot_expand(o2, p, SM, C, G)),
+                    spec_expand["ms"],
                     cuda_ms(lambda: materialize.slot_expand_plain(
                         o2, p, SM, C, G))),
             }
-        del p, o, o2, ovf, dense
+        del p, o, o2, ovf
     check(overflowed[64] > 0, "capacity 64 did not overflow the spec chunk")
     spec_classic_ms = cuda_ms(lambda: materialize.place_events(sev, SM))
     print(f"phase 7: classic scatter on the same merged events "
           f"{spec_classic_ms:.4f} ms [{card}]")
+    del sev
+
+    # the restart chunk's events at the capacity phase 8 runs it (256, or
+    # 512 where 256 overflows) and at 64, which overflows
+    rp, ro = materialize.compact_to_rank(ev)
+    slot_err["compact"] = max(slot_err["compact"], equal_all(
+        (rp, ro), materialize.compact_to_rank_plain(ev), "compact restart"))
+    rst_c = None
+    for C in (256, 512, 64):
+        ro2, rovf = materialize.slot_unpack(rp, ro, C, G)
+        slot_err["slot_unpack"] = max(slot_err["slot_unpack"], equal_all(
+            (ro2, rovf), materialize.slot_unpack_plain(rp, ro, C, G),
+            f"slot_unpack restart C={C}"))
+        slot_err["slot_expand"] = max(slot_err["slot_expand"], equal_all(
+            (materialize.slot_expand(ro2, rp, M, C, G),),
+            (materialize.slot_expand_plain(ro2, rp, M, C, G),),
+            f"slot_expand restart C={C}"))
+        n_ovf = int(rovf.sum())
+        print(f"phase 7: slot route C={C} on the restart chunk's events "
+              f"[{ev.shape[0]}, {L}] -> [{M}, {L}]: compact, unpack, expand "
+              f"equal; overflow lanes {n_ovf}")
+        if C == 64:
+            check(n_ovf > 0, "capacity 64 did not overflow the restart chunk")
+        elif rst_c is None and (n_ovf == 0 or C == 512):
+            rst_c = C
+            rst_unpack = dict(
+                ms=cuda_ms(lambda: materialize.slot_unpack(rp, ro, C, G)),
+                **unpack_bound(ro, ro2))
+            rst_expand = expand_readings("restart chunk", ro2, rp, M, C)
+        del ro2, rovf
+    del rp, ro
     replaces = {"compact": "tpujpeg/ops/materialize.py:205",
                 "slot_unpack": "tpujpeg/ops/materialize.py:728",
                 "slot_expand": "tpujpeg/ops/materialize.py:773"}
+    extra = {
+        "compact": {},
+        "slot_unpack": dict(ms_restart_chunk=rst_unpack["ms"],
+                            bound_ms_restart_chunk=rst_unpack["bound_ms"],
+                            c_restart_chunk=rst_c),
+        "slot_expand": dict(
+            fill_ms=spec_expand["fill_ms"],
+            sector_bound_ms=spec_expand["sector_bound_ms"],
+            ms_restart_chunk=rst_expand["ms"],
+            fill_ms_restart_chunk=rst_expand["fill_ms"],
+            library_ms_restart_chunk=rst_expand["library_ms"],
+            bound_ms_restart_chunk=rst_expand["bound_ms"],
+            sector_bound_ms_restart_chunk=rst_expand["sector_bound_ms"],
+            c_restart_chunk=rst_c),
+    }
     for k in SLOT_KERNELS:
+        if k == "slot_expand":
+            kb = {b: spec_expand[b] for b in ("bound_ms", "bound_by",
+                                              "bound_bytes", "bound_ops")}
+        else:
+            kb = slot_bound[k]
         rows.append(dict(
             name=k, route="cuda", source="tpujpeg_torch/csrc/slots.cu",
             replaces=replaces[k], launches=totals[k],
             launches_per_chunk=per_chunk(k),
             max_abs_err=slot_err[k], ms=slot_ms[k][0],
-            plain_ms=slot_ms[k][1], **slot_bound[k], library_ms=None,
+            plain_ms=slot_ms[k][1], **kb,
+            library_ms=spec_expand["library_ms"] if k == "slot_expand"
+            else None,
+            **extra[k],
         ))
-    del sev
 
     # the two other routes' kernels on the mixed chunk's events
     BM = bplan.max_blk * 64

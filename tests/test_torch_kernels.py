@@ -15,7 +15,10 @@ the scan at 6 and at 1 blocks per MCU, and seeded numpy data.  The scan
 is also held on warps that finish early or hold one long lane, on column
 views read in place, and in anchor mode where a recovery marker falls in
 the slot that ends a lane; the scatter on ragged, misaligned and empty
-event matrices.
+event matrices; the slot kernels on the edges of their tiles (groups
+across a warp slice and a row chunk, groups of C and C + 1, lanes full to
+the last row, rows after a hole, no rows, 1 to 33 lanes, misaligned
+views, targets past M).
 """
 
 import os
@@ -303,28 +306,180 @@ def _slot_events(rng, N, max_blk, L, mean_ev, heavy=()):
     return ev
 
 
-@pytest.mark.parametrize("C", [64, 256])
-def test_slot_kernels_equal_plain(cuda, C):
-    rng = np.random.default_rng(C)
-    N, max_blk, L = 1500, 60, 160
-    M = max_blk * 64
-    ev = torch.as_tensor(_slot_events(rng, N, max_blk, L, 6,
-                                      heavy=(5,))).to(cuda)
-    p, o = materialize.compact_to_rank(ev)
-    pw, ow = materialize.compact_to_rank_plain(ev)
+def _group_events(rng, g, n):
+    """n packed events of slot group g (blocks 8g .. 8g+7, G = 8) at
+    distinct ascending (blk, z), so every lane's targets are distinct."""
+    idx = np.sort(rng.choice(512, n, replace=False))
+    blk, z = 8 * g + idx // 64, idx % 64
+    return (blk << 18) | (z << 12) | rng.integers(0, 4096, n)
+
+
+def _slot_rows(rng, counts, Np):
+    """Compacted rows (p int32, o int16) [Np, L] from counts[lane] = the
+    event counts of the lane's consecutive groups 0, 1, ..."""
+    L = len(counts)
+    p = np.zeros((Np, L), np.int32)
+    o = np.full((Np, L), -1, np.int16)
+    for lane, cs in enumerate(counts):
+        ev = np.concatenate([_group_events(rng, g, n)
+                             for g, n in enumerate(cs)] + [np.zeros(0, int)])
+        ev = ev[:Np]
+        p[:len(ev), lane] = ev
+        o[:len(ev), lane] = 0
+    return p, o
+
+
+def _prefix_counts(start, per_group=30):
+    """Groups of per_group events that end at row `start`."""
+    return [per_group] * (start // per_group) + \
+        ([start % per_group] if start % per_group else [])
+
+
+def _slot_case(case):
+    """Edge inputs of slot_unpack / slot_expand: (p, o, C, M) on the CPU.
+    The row-parallel unpack walks 32-lane tiles in chunks of 128 rows, a
+    warp taking a slice of 16; the expand takes one row of 8 lanes a
+    thread, in 16-row tiles of a 128-lane strip, and one lane a thread
+    when L % 8 or a pointer is not 16-byte aligned."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "long_groups":
+        # group 1 starts anywhere in rows 0-139 and holds 17 to 257
+        # events: longer than a slice, than a chunk, C and C + 1
+        counts = [_prefix_counts((lane * 5) % 140)
+                  + [[17, 100, 129, 200, 255, 256, 257][lane % 7], 9]
+                  for lane in range(70)]
+        p, o = _slot_rows(rng, counts, 700)
+        return p, o, 256, 8 * 512
+    if case == "exact_C":
+        # a group of exactly C (even lanes) or C + 1 (odd) events that
+        # starts at rows 100-139, across the first chunk's end
+        counts = [_prefix_counts(100 + lane) + [64 + (lane & 1), 5]
+                  for lane in range(40)]
+        p, o = _slot_rows(rng, counts, 400)
+        return p, o, 64, 10 * 512
+    if case == "fill_every_row":
+        # every row holds an event: no hole ends the lanes
+        counts = [[lane % 97 + 1] + [100] * 3 for lane in range(33)]
+        Np = min(sum(c) for c in counts)
+        p, o = _slot_rows(rng, counts, Np)
+        return p, o, 128, 4 * 512
+    if case == "hole":
+        # o >= 0 rows after a hole stay -1, overflow after it is not set
+        counts = [[40, 60, 300 if lane % 5 == 0 else 80, 70]
+                  for lane in range(40)]
+        p, o = _slot_rows(rng, counts, 600)
+        holes = [0, 1, 15, 16, 17, 127, 128, 200] * 5
+        holes[35] = 400                # after its group 2 overflowed
+        for lane, h in enumerate(holes):
+            o[h, lane] = -1
+        return p, o, 256, 4 * 512
+    if case == "empty_rows":
+        return np.zeros((0, 33), np.int32), np.zeros((0, 33), np.int16), \
+            64, 512
+    if case == "empty_lanes":
+        return np.zeros((50, 31), np.int32), np.full((50, 31), -1, np.int16), \
+            64, 512
+    if case.startswith("lanes"):
+        L = int(case[5:])
+        counts = [list(rng.integers(0, 70, 6)) for _ in range(L)]
+        p, o = _slot_rows(rng, counts, 420)
+        return p, o, 64, 6 * 512
+    if case == "misaligned":
+        counts = [list(rng.integers(0, 60, 5)) for _ in range(64)]
+        p, o = _slot_rows(rng, counts, 300)
+        return p, o, 64, 5 * 512
+    if case == "targets_past_M":
+        # M cuts the second group's rows: those targets are dropped
+        counts = [[int(rng.integers(1, 100)), 150, 40] for _ in range(48)]
+        p, o = _slot_rows(rng, counts, 300)
+        return p, o, 256, 512 + 130
+    if case == "overflow_in_prefix":
+        # overflowed rows (-1) inside the live prefix, live rows after
+        counts = [[30, 90 if lane % 3 else 20, 40] for lane in range(48)]
+        p, o = _slot_rows(rng, counts, 200)
+        return p, o, 64, 3 * 512
+    if case == "zero_event":
+        counts = [[5, 7] for _ in range(16)]
+        p, o = _slot_rows(rng, counts, 20)
+        p[0, 1] = 0                    # blk 0, z 0, val -2048 packs to 0
+        return p, o, 64, 2 * 512
+    raise ValueError(case)
+
+
+SLOT_CASES = [64, 256, "long_groups", "exact_C", "fill_every_row", "hole",
+              "empty_rows", "empty_lanes", "lanes1", "lanes7", "lanes8",
+              "lanes9", "lanes31", "lanes33", "misaligned", "targets_past_M",
+              "overflow_in_prefix", "zero_event"]
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose data starts one element past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    view = flat[1:].reshape(t.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("case", SLOT_CASES)
+def test_slot_kernels_equal_plain(cuda, case):
+    if isinstance(case, int):
+        C = case
+        rng = np.random.default_rng(C)
+        N, max_blk, L = 1500, 60, 160
+        M = max_blk * 64
+        ev = torch.as_tensor(_slot_events(rng, N, max_blk, L, 6,
+                                          heavy=(5,))).to(cuda)
+        p, o = materialize.compact_to_rank(ev)
+        pw, ow = materialize.compact_to_rank_plain(ev)
+        assert torch.equal(p, pw) and torch.equal(o, ow)
+    else:
+        p_h, o_h, C, M = _slot_case(case)
+        p, o = torch.as_tensor(p_h).to(cuda), torch.as_tensor(o_h).to(cuda)
     o2, ovf = materialize.slot_unpack(p, o, C, 8)
     o2w, ovfw = materialize.slot_unpack_plain(p, o, C, 8)
-    dense = materialize.slot_expand(o2, p, M, C, 8)
+    o2x, px = (_unaligned(o2), _unaligned(p)) if case == "misaligned" \
+        else (o2, p)
+    dense = materialize.slot_expand(o2x, px, M, C, 8)
     densew = materialize.slot_expand_plain(o2, p, M, C, 8)
     torch.cuda.synchronize()
-    assert torch.equal(p, pw) and torch.equal(o, ow)
     assert torch.equal(o2, o2w) and torch.equal(ovf, ovfw)
-    assert torch.equal(dense, densew)
-    assert bool(ovf[5])
-    classic = materialize.place_events(ev, M)
-    ok = ~ovf
-    assert torch.equal(dense[:, ok], classic[:, ok])
-    assert int(dense[0, 1]) == -2048
+    assert dense.dtype == torch.int16 and torch.equal(dense, densew)
+    lanes = torch.arange(o2.shape[1], device=cuda)
+    if isinstance(case, int):
+        assert bool(ovf[5])
+        classic = materialize.place_events(ev, M)
+        ok = ~ovf
+        assert torch.equal(dense[:, ok], classic[:, ok])
+        assert int(dense[0, 1]) == -2048
+    elif case == "long_groups":
+        assert torch.equal(ovf, lanes % 7 == 6)
+    elif case == "exact_C":
+        assert torch.equal(ovf, lanes % 2 == 1)
+    elif case == "fill_every_row":
+        assert bool((o >= 0).all()) and bool((o2[-1] >= 0).any())
+    elif case == "hole":
+        # lane 0's hole is row 0 (nothing is live), lane 5's row 127:
+        # their 300-event groups do not overflow; lane 35's does, before
+        # its hole
+        assert torch.equal(ovf, lanes == 35)
+        assert bool((o2[:, 0] == -1).all())
+        assert bool((o[2:250, 1] >= 0).all()) and \
+            bool((o2[1:, 1] == -1).all())
+    elif case in ("empty_rows", "empty_lanes"):
+        assert not bool(dense.any()) and not bool(ovf.any())
+    elif case == "targets_past_M":
+        row = torch.arange(o2.shape[0], device=cuda)[:, None]
+        slot = row + o2.to(torch.int64)
+        assert bool(((o2 >= 0) & (slot >= 2 * C)).any())   # group 2 rows
+    elif case == "overflow_in_prefix":
+        # lane 1: group 1 holds rows 30-119, so rows 94-119 overflow
+        assert torch.equal(ovf, lanes % 3 != 0)
+        assert bool((o2[94:120, 1] == -1).all())
+        assert bool((o2[120:160, 1] >= 0).all())
+    elif case == "zero_event":
+        assert int(dense[0, 1]) == -2048
 
 
 @pytest.mark.parametrize("malformed", [False, True])

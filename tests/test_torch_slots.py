@@ -141,6 +141,94 @@ def test_zero_packed_event_is_placed(C):
     np.testing.assert_array_equal(_np(dense).astype(np.int32), truth)
 
 
+# ---------------------------------------------------------------------------
+# Edge inputs of the row-parallel unpack (32-lane tiles walked in chunks
+# of 128 rows, 16-row warp slices): a hole, groups longer than a slice
+# ---------------------------------------------------------------------------
+
+
+def _truth(ev: np.ndarray, M: int) -> np.ndarray:
+    """Dense int32 [M, L] of events [N, L] (-1 = empty)."""
+    want = np.zeros((M, ev.shape[1]), np.int32)
+    rows, lanes = np.nonzero(ev >= 0)
+    e = ev[rows, lanes]
+    want[(e >> 18) * 64 + ((e >> 12) & 63), lanes] = (e & 0xFFF) - 2048
+    return want
+
+
+@pytest.mark.parametrize("C", [64, 256])
+def test_unpack_after_a_hole_equals_jax_before_it(events, jax_compact, C):
+    # a row with o >= 0 after the lane's first o < 0 is dead: the plain
+    # versions on compacted rows with a hole == the JAX package on the
+    # lane's events before it.  Heavy lane 3 holes at rank 0 (nothing
+    # live, no overflow), heavy lane 77 after its overflow.
+    ev, _, M = events
+    N = ev.shape[0]
+    jp, jo = jax_compact
+    holes = {3: 0, 5: 1, 77: C + 10}
+    holes.update({lane: h for lane, h in zip(range(10, 40, 3),
+                                             [15, 16, 17, 127, 128, 129,
+                                              130, 143, 144, 200])})
+    cut = ev.copy()
+    p = torch.as_tensor(jp[:N].copy())
+    o = torch.as_tensor(jo[:N].copy())
+    for lane, h in holes.items():
+        cut[np.nonzero(ev[:, lane] >= 0)[0][h:], lane] = -1
+        o[h, lane] = -1
+        assert int(o[h + 1, lane]) == 0       # live rows after the hole
+    o2, ovf = tmat.slot_unpack_plain(p, o, C, G)
+    jo2, _, jovf = (np.asarray(a) for a in jmat.place_events_slots(
+        jnp.asarray(cut), M=M, C=C, interpret=True, stop_after="unpack"))
+    np.testing.assert_array_equal(_np(o2), jo2[:N])
+    np.testing.assert_array_equal(_np(ovf), jovf)
+    assert not bool(ovf[3]) and bool(ovf[77])
+    dense = tmat.slot_expand_plain(o2, p, M, C, G)
+    jdense, _ = (np.asarray(a) for a in jmat.place_events_slots(
+        jnp.asarray(cut), M=M, C=C, interpret=True))
+    ok = ~jovf
+    np.testing.assert_array_equal(_np(dense)[:, ok], jdense[:, ok])
+    np.testing.assert_array_equal(_np(dense)[:, ok].astype(np.int32),
+                                  _truth(cut, M)[:, ok])
+
+
+@pytest.mark.parametrize("C", [128, 256, 512])
+def test_groups_longer_than_a_slice_match_jax(C):
+    # each lane's long group starts at a row in 0-139 (across the first
+    # 128-row chunk) and holds 17 to 257 events: longer than a 16-row
+    # slice, than a chunk, and C, C + 1 where C = 256; at C = 512 (the
+    # restart chunk's capacity) no lane overflows
+    rng = np.random.default_rng(C)
+    N, L, M = 1000, 128, 64 * 64
+    ev = np.full((N, L), -1, np.int32)
+    for lane in range(L):
+        start = (lane * 5) % 140
+        counts = [30] * (start // 30) + [start % 30] \
+            + [[17, 100, 129, 200, 255, 256, 257][lane % 7], 9]
+        rows = []
+        for g, n in enumerate(counts):
+            idx = np.sort(rng.choice(512, n, replace=False))
+            val = rng.integers(1, 4095, n)     # no value is 0
+            rows += list(((8 * g + idx // 64) << 18) | ((idx % 64) << 12)
+                         | (val + (val >= 2048)))
+        ev[np.sort(rng.choice(N, len(rows), replace=False)), lane] = rows
+    p, o = tmat.place_events_slots(torch.as_tensor(ev), M, stop_after="compact")
+    o2, ovf = tmat.slot_unpack_plain(p, o, C, G)
+    jo2, _, jovf = (np.asarray(a) for a in jmat.place_events_slots(
+        jnp.asarray(ev), M=M, C=C, interpret=True, stop_after="unpack"))
+    np.testing.assert_array_equal(_np(o2), jo2[:N])
+    np.testing.assert_array_equal(_np(ovf), jovf)
+    want = _truth(ev, M)
+    np.testing.assert_array_equal(_np(ovf), _ovf_truth(want, C))
+    dense = tmat.slot_expand_plain(o2, p, M, C, G)
+    jdense, _ = (np.asarray(a) for a in jmat.place_events_slots(
+        jnp.asarray(ev), M=M, C=C, interpret=True))
+    ok = ~jovf
+    assert ok.sum() >= 30
+    np.testing.assert_array_equal(_np(dense)[:, ok], jdense[:, ok])
+    np.testing.assert_array_equal(_np(dense)[:, ok].astype(np.int32),
+                                  want[:, ok])
+
+
 def test_slot_gate():
     assert tmat.slot_gate(5132, 240 * 64, 256)
     assert tmat.slot_gate(4120, 512 * 64, 512)         # C = 64 G
