@@ -85,7 +85,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the same line as place_events on both, with zero fill + index_put_
      on the same targets (its bytes: o2, the payload of live rows and
      dense), and a line on how many slot groups a 32-lane tile's live
-     lanes lie apart at one compacted row.  The pixel kernel is held in both colour modes
+     lanes lie apart at one compacted row.  The two entries of
+     csrc/compact.cuh are held on the speculative chunk's merged events
+     (compact and compact_full), the restart chunk's (compact) and the
+     mixed chunk's (compact_full), and one line gives each time beside
+     its byte bound (no memset).  The pixel kernel is held in both colour modes
      on the restart chunk's dense lane matrix (the engine's input), on
      the same coefficients as [B, n_blocks, 64] (the speculative, Jacobi
      and host routes' layout) and on the mixed chunk's bucket-raster lane
@@ -1099,13 +1103,21 @@ def main() -> int:
     spec_classic_ms = cuda_ms(lambda: materialize.place_events(sev, SM))
     print(f"phase 7: classic scatter on the same merged events "
           f"{spec_classic_ms:.4f} ms [{card}]")
-    del sev
+    # compact_full on the same events: the two entries of one body
+    scp = materialize.compact_full(sev)
+    cf_spec_err = equal_all((scp,), (materialize.compact_full_plain(sev),),
+                            "compact_full spec")
+    cf_spec = dict(ms=cuda_ms(lambda: materialize.compact_full(sev)),
+                   **bound(nbytes(sev, scp), 4 * sev.numel()))
+    del scp, sev
 
     # the restart chunk's events at the capacity phase 8 runs it (256, or
     # 512 where 256 overflows) and at 64, which overflows
     rp, ro = materialize.compact_to_rank(ev)
     slot_err["compact"] = max(slot_err["compact"], equal_all(
         (rp, ro), materialize.compact_to_rank_plain(ev), "compact restart"))
+    rst_compact = dict(ms=cuda_ms(lambda: materialize.compact_to_rank(ev)),
+                       **bound(nbytes(ev, rp, ro), 4 * ev.numel()))
     rst_c = None
     for C in (256, 512, 64):
         ro2, rovf = materialize.slot_unpack(rp, ro, C, G)
@@ -1134,7 +1146,8 @@ def main() -> int:
                 "slot_unpack": "tpujpeg/ops/materialize.py:728",
                 "slot_expand": "tpujpeg/ops/materialize.py:773"}
     extra = {
-        "compact": {},
+        "compact": dict(ms_restart_chunk=rst_compact["ms"],
+                        bound_ms_restart_chunk=rst_compact["bound_ms"]),
         "slot_unpack": dict(ms_restart_chunk=rst_unpack["ms"],
                             bound_ms_restart_chunk=rst_unpack["bound_ms"],
                             c_restart_chunk=rst_c),
@@ -1207,24 +1220,42 @@ def main() -> int:
         ("compact_offsets", "tpujpeg/ops/materialize.py:271", co_err,
          lambda: materialize.compact_offsets(p0, o0),
          lambda: materialize.compact_offsets_plain(p0, o0),
-         bound(nbytes(p0, o0, *cpo), 4 * p0.numel()), None),
-        ("compact_full", "tpujpeg/ops/materialize.py:102", cf_err,
+         bound(nbytes(p0, o0, *cpo), 4 * p0.numel()), None, {}),
+        ("compact_full", "tpujpeg/ops/materialize.py:102",
+         max(cf_err, cf_spec_err),
          lambda: materialize.compact_full(mev),
          lambda: materialize.compact_full_plain(mev),
-         bound(nbytes(mev, cpf), 4 * mev.numel()), None),
+         bound(nbytes(mev, cpf), 4 * mev.numel()), None,
+         dict(ms_spec_chunk=cf_spec["ms"],
+              bound_ms_spec_chunk=cf_spec["bound_ms"])),
         ("spread_full", "tpujpeg/ops/materialize.py:130", sf_err,
          lambda: materialize.spread_full(cpf, BM),
          lambda: materialize.spread_full_plain(cpf, BM),
-         bound(nbytes(cpf, d_full), 8 * cpf.numel()), spread_lib_ms),
+         bound(nbytes(cpf, d_full), 8 * cpf.numel()), spread_lib_ms, {}),
     ]
-    for name, replaces_at, err, fn, plain_fn, bnd, lib_ms in route_rows:
+    for name, replaces_at, err, fn, plain_fn, bnd, lib_ms, more in route_rows:
         rows.append(dict(
             name=name, route="cuda", source="tpujpeg_torch/csrc/routes.cu",
             replaces=replaces_at, launches=totals[name],
             launches_per_chunk=per_chunk(name), max_abs_err=err,
             ms=cuda_ms(fn), plain_ms=cuda_ms(plain_fn), **bnd,
-            library_ms=lib_ms,
+            library_ms=lib_ms, **more,
         ))
+    # the two entries of csrc/compact.cuh on each input they were timed
+    # on, beside their byte bounds (no memset: each element written once)
+    pair = {r["name"]: r for r in rows
+            if r["name"] in ("compact", "compact_full")}
+    readings = [
+        ("compact", "spec", pair["compact"]["ms"],
+         pair["compact"]["bound_ms"]),
+        ("compact", "restart", rst_compact["ms"], rst_compact["bound_ms"]),
+        ("compact_full", "spec", cf_spec["ms"], cf_spec["bound_ms"]),
+        ("compact_full", "mixed", pair["compact_full"]["ms"],
+         pair["compact_full"]["bound_ms"]),
+    ]
+    print("phase 7: compact.cuh (ms, byte bound ms, share): " + "; ".join(
+        f"{k} on the {c} chunk's events {ms:.4f}, {b:.4f}, {b / ms:.3f}"
+        for k, c, ms, b in readings) + f" [{card}]")
     spread_o_ms = cuda_ms(
         lambda: materialize.spread_full(cpo[0], BM, o=cpo[1]))
     route_ms = {r: cuda_ms(lambda: fsm.materialize_events(mev, BM, r))
@@ -1233,9 +1264,8 @@ def main() -> int:
     print(f"phase 7: materialize on the mixed chunk by route: "
           + ", ".join(f"{r} {t:.4f} ms" for r, t in route_ms.items())
           + f"; ranked = cumsum init {init_ms:.4f} + compact_offsets + "
-          f"spread_full with offsets {spread_o_ms:.4f}; compact (one "
-          f"thread per lane) on the same events {compact_mixed_ms:.4f} ms "
-          f"[{card}]")
+          f"spread_full with offsets {spread_o_ms:.4f}; compact on the "
+          f"same events {compact_mixed_ms:.4f} ms [{card}]")
     # the probe kernels: the three stage probes on the mixed chunk's
     # offsets, the lookups at the tools' shapes
     W = probes.FINE_W

@@ -18,7 +18,11 @@ the slot that ends a lane; the scatter on ragged, misaligned and empty
 event matrices; the slot kernels on the edges of their tiles (groups
 across a warp slice and a row chunk, groups of C and C + 1, lanes full to
 the last row, rows after a hole, no rows, 1 to 33 lanes, misaligned
-views, targets past M).
+views, targets past M); the two rank-in-kernel compactions (`compact`,
+`compact_full`: one body) on full and empty lanes, an event only at the
+last row, every negative value, the event that packs to 0, row counts
+around the 16-row slice and the 128-row chunk, lane counts around the
+32-lane tile, no rows or no lanes (no launch), and an unaligned input.
 """
 
 import os
@@ -557,6 +561,83 @@ def test_route_kernels_equal_plain(cuda, shape):
     assert int(d_c[0, 1]) == -2048     # the event that packs to 0
     for route in ("ranked", "full"):
         assert torch.equal(fsm.materialize_events(ev, M, route), classic)
+
+
+def _compact_case(case):
+    """Edge inputs of the two rank-in-kernel compactions (one body: a
+    32-lane tile walked by 8 warps in 128-row chunks of 16-row slices,
+    the rows after each lane's events written by the kernel): ev int32
+    [N, L] on the CPU."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    N, L = 700, 96
+    if case.startswith("rows"):
+        N, L = int(case[4:]), 64
+    elif case.startswith("lanes"):
+        N, L = 300, int(case[5:])
+    elif case == "no_rows":
+        N, L = 0, 33
+    elif case == "no_lanes":
+        N, L = 50, 0
+    ev = rng.integers(0, 2 ** 31 - 1, (N, L), dtype=np.int32)
+    ev[rng.random((N, L)) < 0.6] = -1
+    if case == "full_lane":
+        ev[:, 5] = rng.integers(0, 2 ** 31 - 1, N)     # no row after
+        ev[:, 40:72] = rng.integers(0, 2 ** 31 - 1, (N, 32))
+    elif case == "empty_lane":
+        ev[:, 5] = -1                                  # all rows after
+        ev[:, 64:96] = -1
+    elif case == "last_row":
+        ev[:] = -1
+        ev[N - 1, ::3] = rng.integers(0, 2 ** 31 - 1, len(ev[0, ::3]))
+    elif case == "negatives":
+        neg = ev < 0
+        ev[neg] = rng.integers(-2 ** 31, 0, int(neg.sum()), dtype=np.int32)
+        ev[0, :4] = [-2, -2048, -(2 ** 31), -1]
+    elif case == "zero_event":
+        ev[0, 1] = 0                   # blk 0, z 0, val -2048 packs to 0
+        ev[N - 1, 2] = 0
+        ev[:, 3] = 0
+    return ev
+
+
+COMPACT_CASES = ["full_lane", "empty_lane", "last_row", "negatives",
+                 "zero_event", "rows1", "rows15", "rows127", "rows128",
+                 "rows129", "rows1500", "lanes1", "lanes31", "lanes33",
+                 "lanes160", "no_rows", "no_lanes", "unaligned"]
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_compact_kernels_equal_plain(cuda, case):
+    from tpujpeg_torch.runtime import kernels
+
+    ev = torch.as_tensor(_compact_case(case)).to(cuda)
+    if case == "unaligned":
+        ev = _unaligned(ev)            # 4 bytes past a 16-byte boundary
+        assert ev.data_ptr() % 16 == 4
+    before = {k: kernels.LAUNCHES[k] for k in ("compact", "compact_full")}
+    p, o = materialize.compact_to_rank(ev)
+    cp = materialize.compact_full(ev)
+    torch.cuda.synchronize()
+    pw, ow = materialize.compact_to_rank_plain(ev)
+    cpw = materialize.compact_full_plain(ev)
+    assert p.dtype == torch.int32 and o.dtype == torch.int16
+    assert p.shape == o.shape == cp.shape == ev.shape
+    assert torch.equal(p, pw) and torch.equal(o, ow)
+    assert torch.equal(cp, cpw)
+    launched = 0 if ev.numel() == 0 else 1
+    for k in before:
+        assert kernels.LAUNCHES[k] - before[k] == launched
+    n = (ev >= 0).sum(0)
+    assert torch.equal((o >= 0).sum(0), n) and torch.equal((cp >= 0).sum(0), n)
+    if case == "full_lane":
+        assert bool((o[:, 5] == 0).all()) and bool((cp[:, 5] >= 0).all())
+    elif case == "empty_lane":
+        assert bool((o[:, 5] == -1).all()) and bool((cp[:, 5] == -1).all())
+    elif case == "last_row":
+        assert torch.equal(cp[0, ::3], ev[-1, ::3])
+    elif case == "zero_event":
+        assert int(cp[0, 1]) == 0 and int(o[0, 1]) == 0
+        assert bool((o[:, 3] == 0).all())
 
 
 @pytest.mark.parametrize("steps", [(1, 2), 3])

@@ -33,6 +33,7 @@ from tpujpeg_torch.runtime.batch import BatchDecoder
 
 from conftest import make_jpeg_rst
 from test_materialize import _block_events, _random_events
+from test_torch_slots import COMPACT_EDGES, _compact_edge
 
 ROUTES = ("scatter", "ranked", "full")
 
@@ -159,6 +160,21 @@ def test_full_route_kernels_match_jax_kernels(case):
     dense = tmat.spread_full(cp, M)
     np.testing.assert_array_equal(_np(dense), jdense)
     np.testing.assert_array_equal(_np(dense).astype(np.int32), want)
+
+
+@pytest.mark.parametrize("case", COMPACT_EDGES)
+def test_compact_full_plain_matches_jax_kernel_on_edge_lanes(case):
+    # full, empty and last-row lanes, and 33 lanes (padded to the JAX
+    # kernel's 128-lane tile with empty lanes)
+    ev = _compact_edge(case)
+    N, L = ev.shape
+    pad = np.full((N, -L % 128), -1, np.int32)
+    jcp = _pallas(jmat._compact_kernel, np.concatenate([ev, pad], 1), N,
+                  jnp.int32)[:, :L]
+    cp = _np(tmat.compact_full_plain(torch.as_tensor(ev)))
+    # empty rows: 0 in the JAX kernel, -1 here (validity stays a sign)
+    np.testing.assert_array_equal(np.where(cp < 0, 0, cp), jcp)
+    np.testing.assert_array_equal((cp >= 0).sum(0), (ev >= 0).sum(0))
 
 
 @pytest.mark.parametrize("route", ROUTES)

@@ -229,6 +229,51 @@ def test_groups_longer_than_a_slice_match_jax(C):
                                   want[:, ok])
 
 
+# ---------------------------------------------------------------------------
+# Edge inputs of the rank-in-kernel compaction (one body for compact and
+# compact_full: 32-lane tiles walked in 128-row chunks, the rows after a
+# lane's events written by the kernel)
+# ---------------------------------------------------------------------------
+
+COMPACT_EDGES = ["full_lane", "empty_lane", "last_row", "lanes33"]
+
+
+def _compact_edge(case):
+    """events int32 [300, L] (-1 = empty, no event packs to 0) with whole
+    lanes full (no row after the events), empty (every row after), an
+    event only at row N - 1, or 33 lanes (a tile and one lane)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    N, L = 300, 33 if case == "lanes33" else 128
+    ev = rng.integers(1, 2 ** 31 - 1, (N, L), dtype=np.int32)
+    ev[rng.random((N, L)) < 0.6] = -1
+    if case == "full_lane":
+        ev[:, :32] = rng.integers(1, 2 ** 31 - 1, (N, 32))
+    elif case == "empty_lane":
+        ev[:, 32:64] = -1
+    elif case == "last_row":
+        ev[:] = -1
+        ev[N - 1, ::2] = rng.integers(1, 2 ** 31 - 1, L // 2)
+    else:
+        ev[:, 0] = rng.integers(1, 2 ** 31 - 1, N)
+        ev[:, 1] = -1
+        ev[:, 2] = -1
+        ev[N - 1, 2] = 7
+    return ev
+
+
+@pytest.mark.parametrize("case", COMPACT_EDGES)
+def test_compact_plain_matches_jax_on_edge_lanes(case):
+    ev = _compact_edge(case)
+    N = ev.shape[0]
+    p, o = tmat.compact_to_rank_plain(torch.as_tensor(ev))
+    jp, jo = (np.asarray(a) for a in jmat.place_events_slots(
+        jnp.asarray(ev), M=64 * 64, interpret=True, stop_after="compact"))
+    np.testing.assert_array_equal(_np(p), jp[:N])
+    np.testing.assert_array_equal(_np(o), jo[:N])
+    assert (jo[N:] == -1).all() and (jp[N:] == 0).all()
+    np.testing.assert_array_equal((_np(o) == 0).sum(0), (ev >= 0).sum(0))
+
+
 def test_slot_gate():
     assert tmat.slot_gate(5132, 240 * 64, 256)
     assert tmat.slot_gate(4120, 512 * 64, 512)         # C = 64 G

@@ -1,0 +1,196 @@
+// The stable per-lane compaction with its ranks found in the kernel: the
+// one body of kernels "compact" (csrc/slots.cu) and "compact_full"
+// (csrc/routes.cu), which differ only in what they write.
+//
+// ev int32 [N, L] (valid when >= 0; every negative value is invalid, and
+// the event that packs to 0 is valid) -> each lane's valid events in row
+// order at rows 0..n-1 of that lane, and an empty mark on rows n..N-1.
+// `compact` writes (p int32, o int16) = (event, 0) / (0, -1), `compact_full`
+// cp int32 = event / -1.
+//
+// Replaces, in tpujpeg/ops/materialize.py: compact — the rank-in-kernel
+// fine compaction _fine_compact_rank_kernel (materialize.py:205) with
+// the XLA coarse stages of _compact_to_rank; compact_full —
+// _compact_kernel (materialize.py:102).  On the TPU both are butterfly
+// networks of log2(N) shift-and-select stages in VMEM, because XLA:TPU
+// cannot scatter; none of that is a contract here.
+//
+// What bounds it on Hopper: memory.  ev is read once and each output
+// element written once: 10 bytes an element for compact, 8 for
+// compact_full.  A rank is a running count down a lane, so the walk is
+// a scan; the count is associative, so the walk is parallel over rows
+// as well as lanes.  A block of kWarps warps owns a tile of 32 lanes (a
+// warp reads one 128-byte line of a row) and walks the tile's rows in
+// chunks of kWarps * kSlice rows, each warp a contiguous slice of
+// kSlice rows.  A thread issues all its slice's loads before it uses
+// any, counts the slice's valid rows, and the warps add those counts in
+// shared memory to the rank carried from the chunks above.  There is
+// no early exit: a valid event may sit at any row.
+//
+// The stores are the hard part.  The output is lane-minor, and the 32
+// lanes of a tile sit at different ranks, so an event stored at its
+// rank touches a sector no neighbouring lane fills until much later:
+// each 4-byte store costs a sector read and written back (stored so,
+// the kernel took 1.08 ms on the spec chunk's events against 0.27-0.29
+// for the same walk storing every row in place; PERF.md, section 6).  So
+// the block stages its events in a window of kRing output rows in
+// shared memory (-1: no event yet) and writes whole rows of the tile
+// from it: after each chunk, the rows that no lane will store into
+// again — below the smallest carry, and below the window, which
+// follows the lane that leads by kRing - kChunk rows — leave the ring
+// as one coalesced store per row, each lane's staged event or, where
+// it has none, the empty mark.  A lane further behind than the window
+// stores its events directly, over the empty mark (after a barrier):
+// on the chunks' events 4-8% of them with a window of 256 rows, at most
+// 0.02% with 512; 384 rows (48 KB) leave room for the four blocks an SM
+// holds at 64 registers, 512 for three.  After the last chunk
+// the block writes the rows left the same way, so every element is
+// written once (direct stores twice) and no memset runs.
+
+#pragma once
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+namespace compact {
+
+constexpr int kWarps = 8;         // warps per 32-lane tile
+constexpr int kSlice = 16;        // rows of a warp's slice of a chunk
+constexpr int kChunk = kWarps * kSlice;
+constexpr int kRing = 384;        // rows of the staged output window
+constexpr int kRingBytes = kRing * 32 * sizeof(int32_t);
+static_assert(kRing % kWarps == 0, "a ring slot's rows fall to one warp");
+
+// compact: (p, o) = (event, 0) on event rows, (0, -1) after them
+struct RankRows {
+  int32_t* p;
+  int16_t* o;
+  __device__ __forceinline__ void event(size_t at, int32_t e) const {
+    p[at] = e;
+    o[at] = 0;
+  }
+  __device__ __forceinline__ void empty(size_t at) const {
+    p[at] = 0;
+    o[at] = -1;
+  }
+};
+
+// compact_full: cp = event on event rows, -1 after them
+struct PayloadRows {
+  int32_t* cp;
+  __device__ __forceinline__ void event(size_t at, int32_t e) const {
+    cp[at] = e;
+  }
+  __device__ __forceinline__ void empty(size_t at) const { cp[at] = -1; }
+};
+
+// Writes rows [from, to) of a lane, this warp's share of them (every
+// kWarps-th row from its own), whole rows of the tile at a time: the
+// staged event, or else the empty mark.  Every event ranked >= from was
+// staged; a lane below the window that later reaches a row marked empty
+// stores its event there directly, after a barrier.
+template <class Out>
+__device__ __forceinline__ void write_rows(int32_t* ring, const Out& out,
+                                           int from, int to, int L,
+                                           int lane, bool in) {
+  if (!in) return;
+  const int t = threadIdx.x & 31;
+  for (int r = from + (threadIdx.x >> 5); r < to; r += kWarps) {
+    int32_t* slot = &ring[r % kRing * 32 + t];
+    const int32_t v = *slot;
+    const size_t at = static_cast<size_t>(r) * L + lane;
+    if (v >= 0) {
+      out.event(at, v);
+      *slot = -1;
+    } else {
+      out.empty(at);
+    }
+  }
+}
+
+// blockIdx.x: the tile of lanes [32 x, 32 x + 32); threadIdx.x: lane
+// (low 5 bits) and warp.
+template <class Out>
+__global__ void __launch_bounds__(kWarps * 32, 4)
+compact_kernel(const int32_t* __restrict__ ev, Out out, int N, int L) {
+  __shared__ int s_count[kWarps][32];
+  extern __shared__ int32_t s_ring[];     // [kRing][32]; -1: no event
+  const int t = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int lane = blockIdx.x * 32 + t;
+  const bool in = lane < L;
+  for (int i = threadIdx.x; i < kRing * 32; i += kWarps * 32) {
+    s_ring[i] = -1;
+  }
+  int carry = 0;   // the lane's valid rows above the chunk
+  int lo = 0;      // events ranked >= lo go to the ring, the rest direct
+  int done = 0;    // rows below `done` have left the ring
+  for (int c0 = 0; c0 < N; c0 += kChunk) {
+    const int s0 = c0 + w * kSlice;
+    const size_t base = static_cast<size_t>(s0) * L + lane;
+    int32_t e[kSlice];
+#pragma unroll
+    for (int i = 0; i < kSlice; ++i) {
+      e[i] = in && s0 + i < N ? __ldg(ev + base + static_cast<size_t>(i) * L)
+                              : -1;
+    }
+    unsigned valid = 0;           // bit i: row s0 + i holds an event
+#pragma unroll
+    for (int i = 0; i < kSlice; ++i) {
+      valid |= static_cast<unsigned>(e[i] >= 0) << i;
+    }
+    s_count[w][t] = __popc(valid);
+    __syncthreads();
+    int at = carry;               // the rank of the slice's first event
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const int n = s_count[k][t];
+      at += k < w ? n : 0;
+      carry += n;
+    }
+#pragma unroll
+    for (int i = 0; i < kSlice; ++i) {
+      if ((valid >> i) & 1u) {
+        if (at >= lo) {
+          s_ring[at % kRing * 32 + t] = e[i];
+        } else {                  // a lane far behind the tile's lead
+          out.event(static_cast<size_t>(at) * L + lane, e[i]);
+        }
+        ++at;
+      }
+    }
+    // every warp holds the same carries.  The next chunk's stores, at
+    // most kChunk a lane, must fit below lo + kRing; rows below both that
+    // lo and every lane's carry take no more stores from the ring.
+    const int lead = __reduce_max_sync(0xffffffffu, in ? carry : 0);
+    const int trail = __reduce_min_sync(0xffffffffu, in ? carry : INT_MAX);
+    lo = max(lo, lead + kChunk - kRing);
+    const int upto = max(lo, trail);
+    __syncthreads();
+    write_rows(s_ring, out, done, upto, L, lane, in);
+    done = upto;
+  }
+  __syncthreads();   // the ring slots of rows below `done` are clear
+  write_rows(s_ring, out, done, N, L, lane, in);
+}
+
+// Launches the kernel on ev [N, L]; nothing when N or L is 0.
+template <class Out>
+cudaError_t launch(const int32_t* ev, Out out, int N, int L,
+                   cudaStream_t stream) {
+  if (N < 1 || L < 1) return cudaSuccess;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      compact_kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kRingBytes);
+  if (rc != cudaSuccess) return rc;
+  compact_kernel<Out><<<(L + 31) / 32, kWarps * 32, kRingBytes, stream>>>(
+      ev, out, N, L);
+  return cudaGetLastError();
+}
+
+}  // namespace compact
+
+}  // namespace

@@ -32,23 +32,23 @@
 //     a lane: an element knows its own destination (row - o, or
 //     64 * blk + z).  Outputs are pre-filled with memsets; destinations are
 //     distinct per lane, so stores need no atomics.
-//   * compact_full needs a prefix count down each lane.  A block takes 32
-//     lanes and cuts their N rows into 32 segments, one warp each: a warp
-//     counts its segment (one coalesced 128-byte read per row), the counts
-//     meet in shared memory, and each warp walks its segment again storing
-//     from its base rank.  That is 32 times the warps of a one-thread-per-
-//     lane walk, at the price of reading the events twice.
-// Validity is a sign (cp >= 0, o >= 0), never cp > 0: an event that packs
+//   * compact_full is the body it shares with slots.cu's compact,
+//     csrc/compact.cuh, writing cp alone (8 bytes an element): a 32-lane
+//     tile walked by 8 warps in 128-row chunks, each event read once, the
+//     rank carried down the lane, the events staged in a shared-memory
+//     window of output rows and written a whole row of the tile at a
+//     time, the -1 rows with them, so no memset runs.
+// Validity is a sign (ev >= 0, o >= 0), never cp > 0: an event that packs
 // to 0 (blk 0, z 0, val -2048) is placed like any other.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "compact.cuh"
+
 namespace {
 
 constexpr int kRowThreads = 256;  // lanes per block of the scatters
-constexpr int kTileLanes = 32;    // compact_full: lanes per block
-constexpr int kSegs = 32;         // compact_full: row segments (warps)
 
 __global__ void compact_offsets_kernel(const int32_t* __restrict__ p,
                                        const int16_t* __restrict__ o,
@@ -66,38 +66,6 @@ __global__ void compact_offsets_kernel(const int32_t* __restrict__ p,
   const size_t dst = static_cast<size_t>(r - move) * L + lane;
   p_out[dst] = __ldg(p + i);
   o_out[dst] = static_cast<int16_t>(off - move);
-}
-
-__global__ void __launch_bounds__(kTileLanes * kSegs)
-    compact_full_kernel(const int32_t* __restrict__ ev,
-                        int32_t* __restrict__ out, int N, int L) {
-  __shared__ int counts[kSegs][kTileLanes];
-  const int lane = blockIdx.x * kTileLanes + threadIdx.x;
-  const int seg = threadIdx.y;
-  const int rows_per = (N + kSegs - 1) / kSegs;
-  const int r0 = min(seg * rows_per, N);
-  const int r1 = min(r0 + rows_per, N);
-  int n = 0;
-  if (lane < L) {
-#pragma unroll 4
-    for (int r = r0; r < r1; ++r) {
-      n += __ldg(ev + static_cast<size_t>(r) * L + lane) >= 0 ? 1 : 0;
-    }
-  }
-  counts[seg][threadIdx.x] = n;
-  __syncthreads();
-  if (lane >= L || n == 0) return;
-  int base = 0;
-  for (int s = 0; s < seg; ++s) base += counts[s][threadIdx.x];
-  size_t dst = static_cast<size_t>(base) * L + lane;
-#pragma unroll 4
-  for (int r = r0; r < r1; ++r) {
-    const int32_t e = __ldg(ev + static_cast<size_t>(r) * L + lane);
-    if (e >= 0) {
-      out[dst] = e;
-      dst += L;
-    }
-  }
 }
 
 __global__ void spread_full_kernel(const int32_t* __restrict__ cp,
@@ -147,17 +115,13 @@ extern "C" int tpj_compact_offsets(const int32_t* p, const int16_t* o,
 }
 
 // ev int32 [N, L] (valid when >= 0) -> out int32 [N, L]: the valid events
-// of each lane in row order at rows 0..n-1, -1 on the rows after.
+// of each lane in row order at rows 0..n-1, -1 on the rows after.  Every
+// element of out is written by the kernel; nothing is launched when N or
+// L is 0.
 extern "C" int tpj_compact_full(const int32_t* ev, int32_t* out, int N,
                                 int L, cudaStream_t stream) {
-  cudaError_t rc = cudaMemsetAsync(
-      out, 0xFF, static_cast<size_t>(N) * L * sizeof(int32_t), stream);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  if (N == 0 || L == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 block(kTileLanes, kSegs);
-  compact_full_kernel<<<(L + kTileLanes - 1) / kTileLanes, block, 0,
-                        stream>>>(ev, out, N, L);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      compact::launch(ev, compact::PayloadRows{out}, N, L, stream));
 }
 
 // cp int32 [N, L] (+ optional o int16 [N, L]) -> dense int16 [M, L] at row

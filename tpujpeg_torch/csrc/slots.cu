@@ -11,12 +11,17 @@
 // slot_unpack_plain, slot_expand_plain.  On the TPU these are butterfly
 // networks and windowed running maxima because XLA:TPU cannot scatter
 // and a kernel sees one VMEM window at a time; none of that is a
-// contract here.  Validity is o >= 0 / o2 >= 0 throughout, never
-// p != 0: an event that packs to 0 (blk 0, z 0, val -2048) is placed
-// like any other.
+// contract here.  Validity is ev >= 0 / o >= 0 / o2 >= 0 throughout,
+// never p != 0: an event that packs to 0 (blk 0, z 0, val -2048) is
+// placed like any other.
 //
-// compact: memory-bound, one thread per lane walking its rows (a rank is
-// a running value down a lane); reads of a row coalesce across a warp.
+// compact: the body it shares with routes.cu's compact_full,
+// csrc/compact.cuh, writing (p, o); bounded by memory (ev read once, p
+// and o written once: 10 bytes an element); a 32-lane tile walked by 8
+// warps in 128-row chunks with the rank carried down the lane, the
+// events staged in a shared-memory window of output rows and written a
+// whole row of the tile at a time, the empty rows with them, so no
+// memset runs (the note in compact.cuh).
 //
 // slot_unpack: bounded by memory (the live prefix of p and o read once,
 // o2 written once), and by latency when one thread walks one lane: a
@@ -61,9 +66,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "compact.cuh"
 
-constexpr int kLaneThreads = 32;   // compact: one warp per block
+namespace {
 
 constexpr int kWarps = 8;          // slot_unpack: warps per 32-lane tile
 constexpr int kSlice = 16;         // rows of a warp's slice of a chunk
@@ -71,23 +76,6 @@ constexpr int kChunk = kWarps * kSlice;
 
 constexpr int kStripLanes = 128;   // slot_expand: lanes of a block
 constexpr int kExpandThreads = 256;
-
-__global__ void compact_kernel(const int32_t* __restrict__ ev,
-                               int32_t* __restrict__ p,
-                               int16_t* __restrict__ o, int N, int L) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  size_t dst = lane;
-#pragma unroll 8
-  for (int r = 0; r < N; ++r) {
-    const int32_t e = __ldg(ev + static_cast<size_t>(r) * L + lane);
-    if (e >= 0) {
-      p[dst] = e;
-      o[dst] = 0;
-      dst += L;
-    }
-  }
-}
 
 // blockIdx.x: the tile of lanes [32 x, 32 x + 32); threadIdx.x: lane
 // (low 5 bits) and warp.
@@ -296,22 +284,15 @@ cudaError_t launch_expand(const int16_t* o2, const int32_t* p, int16_t* dense,
   return cudaGetLastError();
 }
 
-int lane_blocks(int L) { return (L + kLaneThreads - 1) / kLaneThreads; }
-
 }  // namespace
 
 // ev int32 [N, L] -> p int32 [N, L] (0 past the events), o int16 [N, L]
-// (0 on event rows, -1 past them).
+// (0 on event rows, -1 past them).  Every element of p and o is written
+// by the kernel; nothing is launched when N or L is 0.
 extern "C" int tpj_compact(const int32_t* ev, int32_t* p, int16_t* o, int N,
                            int L, cudaStream_t stream) {
-  const size_t n = static_cast<size_t>(N) * L;
-  cudaError_t rc = cudaMemsetAsync(p, 0, n * sizeof(int32_t), stream);
-  if (rc == cudaSuccess) {
-    rc = cudaMemsetAsync(o, 0xFF, n * sizeof(int16_t), stream);
-  }
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  compact_kernel<<<lane_blocks(L), kLaneThreads, 0, stream>>>(ev, p, o, N, L);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      compact::launch(ev, compact::RankRows{p, o}, N, L, stream));
 }
 
 // (p, o) [Np, L] -> o2 int16 [Np, L] (-1 where empty or overflowed),

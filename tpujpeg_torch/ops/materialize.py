@@ -236,8 +236,9 @@ def compact_to_rank(ev: torch.Tensor, rank_kernel: bool = True,
     N, L = ev.shape
     p = torch.empty((N, L), dtype=torch.int32, device=ev.device)
     o = torch.empty((N, L), dtype=torch.int16, device=ev.device)
-    kernels.launch("compact", ev.data_ptr(), p.data_ptr(), o.data_ptr(),
-                   N, L, kernels.current_stream(ev.device))
+    if p.numel():
+        kernels.launch("compact", ev.data_ptr(), p.data_ptr(),
+                       o.data_ptr(), N, L, kernels.current_stream(ev.device))
     return p, o
 
 
@@ -326,8 +327,9 @@ def compact_full(ev: torch.Tensor) -> torch.Tensor:
     kernels.check_cuda_tensor("ev", ev, torch.int32, 2)
     N, L = ev.shape
     cp = torch.empty_like(ev)
-    kernels.launch("compact_full", ev.data_ptr(), cp.data_ptr(), N, L,
-                   kernels.current_stream(ev.device))
+    if cp.numel():
+        kernels.launch("compact_full", ev.data_ptr(), cp.data_ptr(), N, L,
+                       kernels.current_stream(ev.device))
     return cp
 
 
