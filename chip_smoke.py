@@ -85,11 +85,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the same line as place_events on both, with zero fill + index_put_
      on the same targets (its bytes: o2, the payload of live rows and
      dense), and a line on how many slot groups a 32-lane tile's live
-     lanes lie apart at one compacted row.  The two entries of
+     lanes lie apart at one compacted row.  The three entries of
      csrc/compact.cuh are held on the speculative chunk's merged events
      (compact and compact_full), the restart chunk's (compact) and the
-     mixed chunk's (compact_full), and one line gives each time beside
-     its byte bound (no memset).  The pixel kernel is held in both colour modes
+     mixed chunk's (compact_full, and compact_offsets on its column-cumsum
+     offsets and on compact_fine's residual ones), and one line gives
+     each time beside its byte bound (no memset).  spread_full, the
+     second entry of csrc/place.cuh (the body of place_events), gets a
+     line of its own on the mixed chunk, with and without offsets,
+     beside its byte and sector bounds and index_put_; spread_ranked has
+     the same bounds in its row.  A function of an offsets pair (p, o)
+     must read p only where o >= 0, so its bounds count p there alone.
+     The pixel kernel is held in both colour modes
      on the restart chunk's dense lane matrix (the engine's input), on
      the same coefficients as [B, n_blocks, 64] (the speculative, Jacobi
      and host routes' layout) and on the mixed chunk's bucket-raster lane
@@ -1213,6 +1220,25 @@ def main() -> int:
     lib_call = scatter_call(cpf, BM, cpf >= 0)
     check(torch.equal(lib_call(), d_full), "index_put_ != spread_full")
     spread_lib_ms = cuda_ms(lib_call)
+
+    def offsets_bytes(o, *outs) -> int:
+        """The bytes a function of an offsets pair (p, o) must move: o
+        read whole, p only where o >= 0 (a row with o < 0 is neither
+        stored nor latched, so its p is not needed), each output written
+        once."""
+        return nbytes(o, *outs) + 4 * int((o >= 0).sum())
+
+    def sectors_ms(moved: int, n_stored: int) -> float:
+        """The sector bound of a scatter, as place_events': its bytes
+        plus 32 bytes read and written per stored event."""
+        return (moved + 64 * n_stored) / HBM_BYTES_PER_S * 1e3
+
+    n_mixed = int((mev >= 0).sum())
+    spread_sectors = sectors_ms(nbytes(cpf, d_full), n_mixed)
+    spread_o_ms = cuda_ms(
+        lambda: materialize.spread_full(cpo[0], BM, o=cpo[1]))
+    spread_o_bytes = offsets_bytes(cpo[1], d_rank)
+    spread_o_sectors = sectors_ms(spread_o_bytes, n_mixed)
     del lib_call, d_rank, d_scatter, errs
     init_ms = cuda_ms(lambda: materialize.compact_to_rank(
         mev, rank_kernel=False, stop_after="init"))
@@ -1220,7 +1246,7 @@ def main() -> int:
         ("compact_offsets", "tpujpeg/ops/materialize.py:271", co_err,
          lambda: materialize.compact_offsets(p0, o0),
          lambda: materialize.compact_offsets_plain(p0, o0),
-         bound(nbytes(p0, o0, *cpo), 4 * p0.numel()), None, {}),
+         bound(offsets_bytes(o0, *cpo), 4 * p0.numel()), None, {}),
         ("compact_full", "tpujpeg/ops/materialize.py:102",
          max(cf_err, cf_spec_err),
          lambda: materialize.compact_full(mev),
@@ -1231,7 +1257,10 @@ def main() -> int:
         ("spread_full", "tpujpeg/ops/materialize.py:130", sf_err,
          lambda: materialize.spread_full(cpf, BM),
          lambda: materialize.spread_full_plain(cpf, BM),
-         bound(nbytes(cpf, d_full), 8 * cpf.numel()), spread_lib_ms, {}),
+         bound(nbytes(cpf, d_full), 8 * cpf.numel()), spread_lib_ms,
+         dict(sector_bound_ms=spread_sectors, ms_with_offsets=spread_o_ms,
+              bound_ms_with_offsets=spread_o_bytes / HBM_BYTES_PER_S * 1e3,
+              sector_bound_ms_with_offsets=spread_o_sectors)),
     ]
     for name, replaces_at, err, fn, plain_fn, bnd, lib_ms, more in route_rows:
         rows.append(dict(
@@ -1241,23 +1270,29 @@ def main() -> int:
             ms=cuda_ms(fn), plain_ms=cuda_ms(plain_fn), **bnd,
             library_ms=lib_ms, **more,
         ))
-    # the two entries of csrc/compact.cuh on each input they were timed
+    # the three entries of csrc/compact.cuh on each input they were timed
     # on, beside their byte bounds (no memset: each element written once)
-    pair = {r["name"]: r for r in rows
-            if r["name"] in ("compact", "compact_full")}
+    by_name = {r["name"]: r for r in rows}
     readings = [
-        ("compact", "spec", pair["compact"]["ms"],
-         pair["compact"]["bound_ms"]),
+        ("compact", "spec", by_name["compact"]["ms"],
+         by_name["compact"]["bound_ms"]),
         ("compact", "restart", rst_compact["ms"], rst_compact["bound_ms"]),
         ("compact_full", "spec", cf_spec["ms"], cf_spec["bound_ms"]),
-        ("compact_full", "mixed", pair["compact_full"]["ms"],
-         pair["compact_full"]["bound_ms"]),
+        ("compact_full", "mixed", by_name["compact_full"]["ms"],
+         by_name["compact_full"]["bound_ms"]),
+        ("compact_offsets", "mixed", by_name["compact_offsets"]["ms"],
+         by_name["compact_offsets"]["bound_ms"]),
     ]
     print("phase 7: compact.cuh (ms, byte bound ms, share): " + "; ".join(
         f"{k} on the {c} chunk's events {ms:.4f}, {b:.4f}, {b / ms:.3f}"
         for k, c, ms, b in readings) + f" [{card}]")
-    spread_o_ms = cuda_ms(
-        lambda: materialize.spread_full(cpo[0], BM, o=cpo[1]))
+    sf = by_name["spread_full"]
+    print(f"phase 7: place.cuh on the mixed chunk (ms, byte bound ms, "
+          f"sector bound ms): spread_full {sf['ms']:.4f}, "
+          f"{sf['bound_ms']:.4f}, {spread_sectors:.4f}; "
+          f"with offsets {spread_o_ms:.4f}, "
+          f"{sf['bound_ms_with_offsets']:.4f}, {spread_o_sectors:.4f}; "
+          f"index_put_ {spread_lib_ms:.4f} [{card}]")
     route_ms = {r: cuda_ms(lambda: fsm.materialize_events(mev, BM, r))
                 for r in ROUTE_KERNELS}
     compact_mixed_ms = cuda_ms(lambda: materialize.compact_to_rank(mev))
@@ -1275,6 +1310,14 @@ def main() -> int:
     check(not torch.equal(fine[1], cpo[1]) and bool(
         ((fine[1].to(torch.int32) & (W - 1))[fine[1] >= 0] == 0).all()),
         "compact_fine left low offset bits or did the whole compact")
+    # the walk on offsets that are not the column cumsum's: the residual
+    # multiples of W that compact_fine leaves
+    rest = materialize.compact_offsets(*fine)
+    equal_all(rest, materialize.compact_offsets_plain(*fine),
+              "compact_offsets on compact_fine's offsets")
+    check(all(torch.equal(a, b) for a, b in zip(rest, cpo)),
+          "compact_offsets after compact_fine != one full compact_offsets")
+    del rest
     staged = probes.compact_staged(p0, o0, W)
     staged_err = equal_all(staged, probes.compact_staged_plain(p0, o0, W),
                            "compact_staged")
@@ -1292,7 +1335,7 @@ def main() -> int:
     print(f"phase 7: compact_fine (window {W}), compact_staged, "
           f"spread_ranked on the mixed chunk's offsets [{BN}, {BL}] equal "
           f"to their plain versions; staged == one full compact")
-    offs_bound = bound(nbytes(p0, o0, *cpo), 4 * p0.numel())
+    offs_bound = bound(offsets_bytes(o0, *cpo), 4 * p0.numel())
     probe_rows = [
         ("compact_fine", "tools/bench_materialize2.py:141", fine_err,
          lambda: probes.compact_fine(p0, o0, W),
@@ -1303,8 +1346,10 @@ def main() -> int:
         ("spread_ranked", "tools/bench_materialize2.py:172", spread_err,
          lambda: probes.spread_ranked(*staged, BM),
          lambda: probes.spread_ranked_plain(*staged, BM),
-         bound(nbytes(*staged, d_probe), 8 * p0.numel()), ranked_lib_ms),
+         bound(offsets_bytes(staged[1], d_probe), 8 * p0.numel()),
+         ranked_lib_ms),
     ]
+    ranked_sectors = sectors_ms(offsets_bytes(staged[1], d_probe), n_mixed)
     for name, replaces_at, err, fn, plain_fn, bnd, lib_ms in probe_rows:
         rows.append(dict(
             name=name, route="cuda", source="tpujpeg_torch/csrc/routes.cu",
@@ -1312,6 +1357,8 @@ def main() -> int:
             launches_per_chunk=per_chunk(name), max_abs_err=err,
             ms=cuda_ms(fn), plain_ms=cuda_ms(plain_fn), **bnd,
             library_ms=lib_ms,
+            **(dict(sector_bound_ms=ranked_sectors)
+               if name == "spread_ranked" else {}),
         ))
     del fine, staged, d_probe
 

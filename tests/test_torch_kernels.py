@@ -22,7 +22,11 @@ views, targets past M); the two rank-in-kernel compactions (`compact`,
 `compact_full`: one body) on full and empty lanes, an event only at the
 last row, every negative value, the event that packs to 0, row counts
 around the 16-row slice and the 128-row chunk, lane counts around the
-32-lane tile, no rows or no lanes (no launch), and an unaligned input.
+32-lane tile, no rows or no lanes (no launch), and an unaligned input;
+`compact_offsets` (the same walk, reading (p, o)) and `spread_full` (the
+body of `place_events`, validity from the event or from o) on the same
+cases, the walk also on `compact_fine`'s residual offsets, `spread_full` past 65,535 event rows and on rows whose offset is
+negative.
 """
 
 import os
@@ -640,6 +644,122 @@ def test_compact_kernels_equal_plain(cuda, case):
         assert bool((o[:, 3] == 0).all())
 
 
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_compact_offsets_walk_equals_plain_and_compact(cuda, case):
+    # mask -1 runs the walk of compact.cuh on (p, o) from the column cumsum
+    from tpujpeg_torch.runtime import kernels
+
+    ev = torch.as_tensor(_compact_case(case)).to(cuda)
+    p0, o0 = materialize.compact_to_rank(ev, rank_kernel=False,
+                                         stop_after="init")
+    if case == "unaligned":
+        p0, o0 = _unaligned(p0), _unaligned(o0)
+        assert o0.data_ptr() % 8 != 0
+    before = kernels.LAUNCHES["compact_offsets"]
+    p, o = materialize.compact_offsets(p0, o0)
+    torch.cuda.synchronize()
+    launched = 0 if ev.numel() == 0 else 1
+    assert kernels.LAUNCHES["compact_offsets"] - before == launched
+    pw, ow = materialize.compact_offsets_plain(p0, o0)
+    assert p.dtype == torch.int32 and o.dtype == torch.int16
+    assert torch.equal(p, pw) and torch.equal(o, ow)
+    pk, ok = materialize.compact_to_rank(ev)
+    assert torch.equal(p, pk) and torch.equal(o, ok)
+    # and through the ranked route's own call
+    pr, orr = materialize.compact_to_rank(ev, rank_kernel=False)
+    assert torch.equal(pr, pw) and torch.equal(orr, ow)
+
+
+def _spread_case(case):
+    """_compact_case's events with distinct targets per lane (target =
+    row: blk = row >> 6, z = row & 63, the value kept), so a scatter's
+    result does not depend on its store order; M = 512 rows, so the
+    taller cases latch lanes."""
+    ev = _compact_case(case)
+    rows = np.arange(ev.shape[0], dtype=np.int32)[:, None]
+    return np.where(ev >= 0, (rows << 12) | (ev & 0xFFF), ev), 512
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_spread_full_kernel_equals_plain(cuda, case):
+    # with and without offsets, on compacted and uncompacted events; the
+    # lane counts that are no multiple of 4 and the unaligned views take
+    # one lane per thread
+    ev_h, M = _spread_case(case)
+    ev = torch.as_tensor(ev_h).to(cuda)
+    N, L = ev.shape
+    cp = materialize.compact_full(ev)
+    p, o = materialize.compact_to_rank(ev, rank_kernel=False)
+    if case == "unaligned":
+        cp, p, o = _unaligned(cp), _unaligned(p), _unaligned(o)
+        assert cp.data_ptr() % 16 != 0 and o.data_ptr() % 8 != 0
+    want = materialize.place_events_plain(ev, M)
+    err_want = torch.zeros(L, dtype=torch.bool, device=cuda)
+    materialize.place_events_plain(ev, M, err_want)
+    for x, off in ((cp, None), (p, o), (ev, None)):
+        errs = [torch.zeros(L, dtype=torch.bool, device=cuda)
+                for _ in range(2)]
+        got = materialize.spread_full(x, M, o=off, err_mal=errs[0])
+        plain = materialize.spread_full_plain(x, M, o=off, err_mal=errs[1])
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int16 and tuple(got.shape) == (M, L)
+        assert torch.equal(got, plain) and torch.equal(errs[0], errs[1])
+        assert torch.equal(got, want) and torch.equal(errs[0], err_want)
+        assert torch.equal(materialize.spread_full(x, M, o=off), want)
+    if N > M and L:
+        assert bool(err_want.any())
+
+
+def test_spread_full_takes_more_event_rows_than_a_grid_column(cuda):
+    # rows sit on gridDim.x: 70,000 event rows, one lane a thread (33
+    # lanes) and four (36 lanes), with and without offsets
+    rng = np.random.default_rng(70000)
+    N, M = 70000, 64 * 1100
+    for L in (33, 36):
+        ev_h = np.full((N, L), -1, np.int32)
+        keep = rng.random((N, L)) < 0.3
+        rows = np.broadcast_to(np.arange(N, dtype=np.int32)[:, None], (N, L))
+        vals = rng.integers(0, 4096, (N, L), dtype=np.int32)
+        ev_h[keep] = ((rows << 12) | vals)[keep]
+        ev_h[N - 1, :] = (1099 << 18) | (63 << 12) | 5   # the last row
+        ev = torch.as_tensor(ev_h).to(cuda)
+        o = torch.where(ev >= 0, 0, -1).to(torch.int16)
+        want = materialize.place_events_plain(ev, M)
+        for off in (None, o):
+            got = materialize.spread_full(ev, M, o=off)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert torch.equal(got,
+                               materialize.spread_full_plain(ev, M, o=off))
+        assert bool((want[1099 * 64 + 63] == 5 - 2048).all())
+
+
+def test_spread_full_with_offsets_skips_rows_whose_offset_is_negative(cuda):
+    # on the ranked route p is 0 on empty rows and o decides: a row with
+    # o < 0 neither stores (p = 0 would decode to target 0) nor latches
+    # (a p whose target is past M); four lanes a thread, then one
+    L, N, M = 8, 12, 4 * 64
+    p = torch.zeros((N, L), dtype=torch.int32)
+    o = torch.full((N, L), -1, dtype=torch.int16)
+    p[0, 3] = (2 << 18) | (5 << 12) | (2048 + 7)   # valid: row 133 gets 7
+    o[0, 3] = 0
+    p[1, 3] = 4 << 18                              # o < 0, target past M
+    p[2, 5] = 4 << 18                              # valid, target past M
+    o[2, 5] = 0
+    for lanes in (L, L - 1):
+        pc = p[:, :lanes].contiguous().to(cuda)
+        oc = o[:, :lanes].contiguous().to(cuda)
+        errs = [torch.zeros(lanes, dtype=torch.bool, device=cuda)
+                for _ in range(2)]
+        got = materialize.spread_full(pc, M, o=oc, err_mal=errs[0])
+        plain = materialize.spread_full_plain(pc, M, o=oc, err_mal=errs[1])
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain) and torch.equal(errs[0], errs[1])
+        assert int(got[2 * 64 + 5, 3]) == 7 and int(got.abs().sum()) == 7
+        assert int(got[0].abs().sum()) == 0
+        assert errs[0].nonzero().flatten().tolist() == [5]
+
+
 @pytest.mark.parametrize("steps", [(1, 2), 3])
 @pytest.mark.parametrize("corpus", ["420", "gray", "411"])
 def test_fsm_scan_kernel_equals_plain_by_blocks_per_mcu(cuda, corpus, steps):
@@ -726,11 +846,15 @@ def test_compact_offsets_mask_and_probe_stages_equal_plain(cuda, W):
     staged = probes.compact_staged(p0, o0, W)
     whole = materialize.compact_offsets(p0, o0)
     coarse = materialize.compact_offsets(*fine, mask=~(W - 1))
+    # the walk (mask -1) on compact_fine's residual offsets: o = row - rank
+    # still holds on the rows the fine stage moved to
+    rest = materialize.compact_offsets(*fine)
     dense = probes.spread_ranked(*staged, M)
     torch.cuda.synchronize()
     for got, want in ((fine, probes.compact_fine_plain(p0, o0, W)),
                       (staged, probes.compact_staged_plain(p0, o0, W)),
-                      (staged, whole), (coarse, whole),
+                      (staged, whole), (coarse, whole), (rest, whole),
+                      (rest, materialize.compact_offsets_plain(*fine)),
                       (whole, materialize.compact_offsets_plain(p0, o0))):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not torch.equal(fine[0], whole[0])

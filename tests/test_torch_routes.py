@@ -6,6 +6,9 @@ package's, and each other.
              the JAX package's _compact_to_rank with its rank kernel off
              (materialize._RANK_KERNEL False, the TPUJPEG_RANK_KERNEL=0
              switch) at the cuts 'init' and 'compact', interpret mode;
+             also the identity compact_offsets' kernel (the walk of
+             csrc/compact.cuh) relies on: under o = row - rank, moving
+             each valid row up by o is ranking the rows with o >= 0;
   "full"     compact_full + spread_full (place_events_full), held against
              place_events_pallas(interpret=True) and its two kernels.
 
@@ -104,6 +107,70 @@ def test_compact_offsets_three_windows_match_jax(monkeypatch):
     p, o = tmat.compact_offsets(p0, o0)
     np.testing.assert_array_equal(_np(p), jp[:2100])
     np.testing.assert_array_equal(_np(o), jo[:2100])
+
+
+OFFSET_CASES = ["events", "full_lane", "empty_lane", "last_row",
+                "zero_event", "rows1", "rows127", "rows128", "rows129",
+                "fine128", "fine1024"]
+
+
+@pytest.fixture(scope="module")
+def tall():
+    # taller than a 1024-row window, so compact_fine leaves offsets
+    return _block_events(np.random.default_rng(9), 2100, 60, 128, 8)[0]
+
+
+def _offsets_case(case, events, tall):
+    """(ev, p, o): events int32 [N, 128] and the (p, o) handed to
+    compact_offsets: the 'init' cut of ev, or compact_fine's output on it
+    (window W, low offset bits moved)."""
+    if case == "events":
+        ev = events[0]
+    elif case.startswith("fine"):
+        ev = tall
+    else:
+        rng = np.random.default_rng(sum(map(ord, case)))
+        N = int(case[4:]) if case.startswith("rows") else 300
+        ev = rng.integers(0, 2 ** 31 - 1, (N, 128), dtype=np.int32)
+        ev[rng.random((N, 128)) < 0.6] = -1
+        if case == "full_lane":
+            ev[:, :32] = rng.integers(0, 2 ** 31 - 1, (N, 32))
+        elif case == "empty_lane":
+            ev[:, 32:64] = -1
+        elif case == "last_row":
+            ev[:] = -1
+            ev[N - 1, ::3] = rng.integers(0, 2 ** 31 - 1, len(ev[0, ::3]))
+        elif case == "zero_event":
+            ev[0, 1] = 0               # blk 0, z 0, val -2048 packs to 0
+            ev[N - 1, 2] = 0
+            ev[:, 3] = 0
+    p, o = tmat.compact_to_rank(torch.as_tensor(ev), rank_kernel=False,
+                                stop_after="init")
+    if case.startswith("fine"):
+        W = int(case[4:])
+        p, o = tmat.compact_offsets_plain(p, o, mask=W - 1)
+        assert int(o.max()) >= W       # the coarse stages have work left
+    return ev, p, o
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_compact_offsets_is_the_rank_compaction_of_its_valid_rows(
+        events, tall, case, monkeypatch):
+    # the identity the kernel's walk relies on (csrc/compact.cuh): where
+    # o = row - rank on the valid rows, moving each row up by o is
+    # compacting the rows with o >= 0 to their ranks; held on the 'init'
+    # cut and on compact_fine's output, with the JAX package's
+    # _compact_to_rank (rank kernel off, interpret mode) as the third
+    ev, p, o = _offsets_case(case, events, tall)
+    N = ev.shape[0]
+    got = tmat.compact_offsets_plain(p, o)
+    walk = tmat.compact_to_rank_plain(torch.where(o >= 0, p, -1))
+    assert torch.equal(got[0], walk[0]) and torch.equal(got[1], walk[1])
+    monkeypatch.setattr(jmat, "_RANK_KERNEL", False)
+    jp, jo = (np.asarray(a) for a in jmat._compact_to_rank(
+        jnp.asarray(ev), interpret=True))
+    np.testing.assert_array_equal(_np(got[0]), jp[:N])
+    np.testing.assert_array_equal(_np(got[1]), jo[:N])
 
 
 def test_compact_to_rank_rejects_what_it_cannot_do():

@@ -1,31 +1,46 @@
 // The stable per-lane compaction with its ranks found in the kernel: the
-// one body of kernels "compact" (csrc/slots.cu) and "compact_full"
-// (csrc/routes.cu), which differ only in what they write.
+// one body of kernels "compact" (csrc/slots.cu), "compact_full" and
+// "compact_offsets" without a mask (csrc/routes.cu), which differ only in
+// what they read and what they write.
 //
-// ev int32 [N, L] (valid when >= 0; every negative value is invalid, and
-// the event that packs to 0 is valid) -> each lane's valid events in row
-// order at rows 0..n-1 of that lane, and an empty mark on rows n..N-1.
-// `compact` writes (p int32, o int16) = (event, 0) / (0, -1), `compact_full`
-// cp int32 = event / -1.
+// Each lane's valid events in row order go to rows 0..n-1 of that lane,
+// and an empty mark to rows n..N-1.  Sources: `compact` and
+// `compact_full` read ev int32 [N, L] (valid when >= 0; every negative
+// value is invalid, and the event that packs to 0 is valid);
+// `compact_offsets` reads (p int32, o int16) [N, L] and takes a row's
+// event as o >= 0 ? p : -1 (a valid event is never negative).  Outputs:
+// `compact` and `compact_offsets` write (p int32, o int16) = (event, 0) /
+// (0, -1), `compact_full` cp int32 = event / -1.
+//
+// compact_offsets' precondition: on every valid row o = row - rank, the
+// distance to the row's rank (compact_to_rank's 'init' cut, or the output
+// of a masked compact_offsets, which keeps it on the rows it moved to).
+// The rank the walk counts is then row - o, so writing each event at its
+// counted rank is the scatter by offset of compact_offsets' contract.
+// The walk counts rather than reads the destination because that keeps
+// one body: the window's bookkeeping (the carry, the lead, the trail)
+// stays a count, and the offsets source costs only its second load.
 //
 // Replaces, in tpujpeg/ops/materialize.py: compact — the rank-in-kernel
 // fine compaction _fine_compact_rank_kernel (materialize.py:205) with
 // the XLA coarse stages of _compact_to_rank; compact_full —
-// _compact_kernel (materialize.py:102).  On the TPU both are butterfly
-// networks of log2(N) shift-and-select stages in VMEM, because XLA:TPU
-// cannot scatter; none of that is a contract here.
+// _compact_kernel (materialize.py:102); compact_offsets —
+// _fine_compact_kernel (materialize.py:271) with the XLA coarse stages
+// of _compact_to_rank (the rank kernel off).  On the TPU all are
+// butterfly networks of log2(N) shift-and-select stages in VMEM, because
+// XLA:TPU cannot scatter; none of that is a contract here.
 //
-// What bounds it on Hopper: memory.  ev is read once and each output
-// element written once: 10 bytes an element for compact, 8 for
-// compact_full.  A rank is a running count down a lane, so the walk is
-// a scan; the count is associative, so the walk is parallel over rows
-// as well as lanes.  A block of kWarps warps owns a tile of 32 lanes (a
-// warp reads one 128-byte line of a row) and walks the tile's rows in
-// chunks of kWarps * kSlice rows, each warp a contiguous slice of
-// kSlice rows.  A thread issues all its slice's loads before it uses
-// any, counts the slice's valid rows, and the warps add those counts in
-// shared memory to the rank carried from the chunks above.  There is
-// no early exit: a valid event may sit at any row.
+// What bounds it on Hopper: memory.  The input is read once and each
+// output element written once: 10 bytes an element for compact, 8 for
+// compact_full, 12 for compact_offsets.  A rank is a running count
+// down a lane, so the walk is a scan; the count is associative, so the
+// walk is parallel over rows as well as lanes.  A block of kWarps warps
+// owns a tile of 32 lanes (a warp reads one 128-byte line of a row) and
+// walks the tile's rows in chunks of kWarps * kSlice rows, each warp a
+// contiguous slice of kSlice rows.  A thread starts all its slice's
+// loads before it uses any, counts the slice's valid rows, and the warps
+// add those counts in shared memory to the rank carried from the chunks
+// above.  There is no early exit: a valid event may sit at any row.
 //
 // The stores are the hard part.  The output is lane-minor, and the 32
 // lanes of a tile sit at different ranks, so an event stored at its
@@ -64,7 +79,29 @@ constexpr int kRing = 384;        // rows of the staged output window
 constexpr int kRingBytes = kRing * 32 * sizeof(int32_t);
 static_assert(kRing % kWarps == 0, "a ring slot's rows fall to one warp");
 
-// compact: (p, o) = (event, 0) on event rows, (0, -1) after them
+// compact, compact_full: the events themselves, valid when >= 0
+struct Events {
+  const int32_t* ev;
+  __device__ __forceinline__ int32_t load(size_t at) const {
+    return __ldg(ev + at);
+  }
+};
+
+// compact_offsets: the row's p where its offset o >= 0, else -1.  Both
+// loads are made whatever the offset, so a slice's loads stay in flight
+// together (loading p only where o >= 0 took 0.70-0.73 ms on the mixed
+// chunk against 0.51-0.53; PERF.md, section 6).
+struct Offsets {
+  const int32_t* p;
+  const int16_t* o;
+  __device__ __forceinline__ int32_t load(size_t at) const {
+    const int32_t e = __ldg(p + at);
+    return __ldg(o + at) >= 0 ? e : -1;
+  }
+};
+
+// compact, compact_offsets: (p, o) = (event, 0) on event rows, (0, -1)
+// after them
 struct RankRows {
   int32_t* p;
   int16_t* o;
@@ -113,9 +150,9 @@ __device__ __forceinline__ void write_rows(int32_t* ring, const Out& out,
 
 // blockIdx.x: the tile of lanes [32 x, 32 x + 32); threadIdx.x: lane
 // (low 5 bits) and warp.
-template <class Out>
+template <class Src, class Out>
 __global__ void __launch_bounds__(kWarps * 32, 4)
-compact_kernel(const int32_t* __restrict__ ev, Out out, int N, int L) {
+compact_kernel(Src src, Out out, int N, int L) {
   __shared__ int s_count[kWarps][32];
   extern __shared__ int32_t s_ring[];     // [kRing][32]; -1: no event
   const int t = threadIdx.x & 31;
@@ -134,7 +171,7 @@ compact_kernel(const int32_t* __restrict__ ev, Out out, int N, int L) {
     int32_t e[kSlice];
 #pragma unroll
     for (int i = 0; i < kSlice; ++i) {
-      e[i] = in && s0 + i < N ? __ldg(ev + base + static_cast<size_t>(i) * L)
+      e[i] = in && s0 + i < N ? src.load(base + static_cast<size_t>(i) * L)
                               : -1;
     }
     unsigned valid = 0;           // bit i: row s0 + i holds an event
@@ -177,17 +214,17 @@ compact_kernel(const int32_t* __restrict__ ev, Out out, int N, int L) {
   write_rows(s_ring, out, done, N, L, lane, in);
 }
 
-// Launches the kernel on ev [N, L]; nothing when N or L is 0.
-template <class Out>
-cudaError_t launch(const int32_t* ev, Out out, int N, int L,
-                   cudaStream_t stream) {
+// Launches the kernel on a source of [N, L] rows; nothing when N or L
+// is 0.
+template <class Src, class Out>
+cudaError_t launch(Src src, Out out, int N, int L, cudaStream_t stream) {
   if (N < 1 || L < 1) return cudaSuccess;
   const cudaError_t rc = cudaFuncSetAttribute(
-      compact_kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      compact_kernel<Src, Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kRingBytes);
   if (rc != cudaSuccess) return rc;
-  compact_kernel<Out><<<(L + 31) / 32, kWarps * 32, kRingBytes, stream>>>(
-      ev, out, N, L);
+  compact_kernel<Src, Out>
+      <<<(L + 31) / 32, kWarps * 32, kRingBytes, stream>>>(src, out, N, L);
   return cudaGetLastError();
 }
 

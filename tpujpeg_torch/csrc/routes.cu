@@ -5,7 +5,7 @@
 //   * compact_offsets — _fine_compact_kernel (materialize.py:271) with the
 //                       XLA coarse compact stages of _compact_to_rank
 //                       (materialize.py:575-613): the compaction whose
-//                       offsets pos - rank were computed outside, by a
+//                       offsets row - rank were computed outside, by a
 //                       column cumsum.  With a mask it is one group of the
 //                       network's stages alone (each event moves up by
 //                       o & mask and keeps the rest of its offset): the
@@ -22,22 +22,33 @@
 //
 // What bounds them on Hopper: memory.  Each reads its int32/int16 [N, L]
 // inputs once and writes its output once; the work per element is a few
-// integer ops.  On the TPU all three are butterfly networks of log2(N)
+// integer ops.  The scatters add their own traffic: an output that is
+// lane-minor takes each lone store as a 32-byte sector read and written
+// back.  On the TPU all three are butterfly networks of log2(N)
 // shift-and-select stages held in VMEM, because XLA:TPU cannot scatter;
 // none of that is a contract here.
 //
-// Design:
-//   * compact_offsets and spread_full are scatters with one thread per
-//     (row, lane) element, coalesced over lanes, with no serial walk down
-//     a lane: an element knows its own destination (row - o, or
-//     64 * blk + z).  Outputs are pre-filled with memsets; destinations are
-//     distinct per lane, so stores need no atomics.
-//   * compact_full is the body it shares with slots.cu's compact,
-//     csrc/compact.cuh, writing cp alone (8 bytes an element): a 32-lane
-//     tile walked by 8 warps in 128-row chunks, each event read once, the
+// Design: two shared bodies, each measured on its first kernel.
+//   * compact_offsets without a mask (the "ranked" route) and compact_full
+//     are csrc/compact.cuh, the walk of slots.cu's compact: a 32-lane tile
+//     walked by 8 warps in 128-row chunks, each element read once, the
 //     rank carried down the lane, the events staged in a shared-memory
-//     window of output rows and written a whole row of the tile at a
-//     time, the -1 rows with them, so no memset runs.
+//     window of output rows and written a whole row of the tile at a time,
+//     the empty rows with them, so no memset runs.  compact_offsets reads
+//     (p, o) and takes a row's event as o >= 0 ? p : -1; under its
+//     precondition (o = row - rank on valid rows) the counted rank is
+//     row - o, so the walk computes the scatter's function (12 bytes an
+//     element); compact_full writes cp alone (8 bytes an element).
+//   * spread_full is csrc/place.cuh, the body of materialize.cu's
+//     place_events, with validity from o >= 0 when the caller has offsets
+//     (o is then read first, and cp only on rows with a valid lane) and
+//     from the event's sign otherwise: the dense output zeroed, four
+//     lanes x four rows a thread with all loads before the first store,
+//     rows on gridDim.x.
+//   * compact_offsets with a mask (only the probes compact_fine and
+//     compact_staged) moves each event by o & mask: those destinations
+//     are not ranks, so it stays a scatter with one thread per (row, lane)
+//     element after two memsets.
 // Validity is a sign (ev >= 0, o >= 0), never cp > 0: an event that packs
 // to 0 (blk 0, z 0, val -2048) is placed like any other.
 
@@ -45,16 +56,17 @@
 #include <cuda_runtime.h>
 
 #include "compact.cuh"
+#include "place.cuh"
 
 namespace {
 
-constexpr int kRowThreads = 256;  // lanes per block of the scatters
+constexpr int kRowThreads = 256;  // lanes per block of the masked scatter
 
-__global__ void compact_offsets_kernel(const int32_t* __restrict__ p,
-                                       const int16_t* __restrict__ o,
-                                       int32_t* __restrict__ p_out,
-                                       int16_t* __restrict__ o_out, int L,
-                                       int mask) {
+__global__ void masked_offsets_kernel(const int32_t* __restrict__ p,
+                                      const int16_t* __restrict__ o,
+                                      int32_t* __restrict__ p_out,
+                                      int16_t* __restrict__ o_out, int L,
+                                      int mask) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y;
   if (lane >= L) return;
@@ -68,40 +80,23 @@ __global__ void compact_offsets_kernel(const int32_t* __restrict__ p,
   o_out[dst] = static_cast<int16_t>(off - move);
 }
 
-__global__ void spread_full_kernel(const int32_t* __restrict__ cp,
-                                   const int16_t* __restrict__ o,
-                                   int16_t* __restrict__ dense,
-                                   uint8_t* __restrict__ err, int M, int L) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (lane >= L) return;
-  const size_t i = static_cast<size_t>(r) * L + lane;
-  const int32_t e = __ldg(cp + i);
-  // validity: the offset's sign when the caller has one, else the event's
-  const bool valid = o != nullptr ? __ldg(o + i) >= 0 : e >= 0;
-  if (!valid) return;
-  const int target = ((e >> 18) & 0x1FFF) * 64 + ((e >> 12) & 63);
-  if (target < M) {
-    dense[static_cast<size_t>(target) * L + lane] =
-        static_cast<int16_t>((e & 0xFFF) - 2048);
-  } else if (err != nullptr) {
-    err[lane] = 1;  // every writer stores the same value
-  }
-}
-
-dim3 row_grid(int rows, int L) {
-  return dim3((L + kRowThreads - 1) / kRowThreads, rows);
-}
-
 }  // namespace
 
 // (p int32, o int16) [Np, L], o = row - rank >= 0 on valid rows ->
 // (p_out, o_out) [Np, L]: each valid event at row - (o & mask) with
 // o_out = o - (o & mask) there (0 when mask is -1), p_out == 0 and
-// o_out == -1 elsewhere.  Np must be <= 65535.
+// o_out == -1 elsewhere.  mask -1: the walk of compact.cuh, every element
+// written once, nothing launched when Np or L is 0.  Any other mask: the
+// scatter after two memsets, one block row per p row (Np <= 65535; the
+// wrapper holds it below 32768).
 extern "C" int tpj_compact_offsets(const int32_t* p, const int16_t* o,
                                    int32_t* p_out, int16_t* o_out, int Np,
                                    int L, int mask, cudaStream_t stream) {
+  if (mask == -1) {
+    return static_cast<int>(compact::launch(compact::Offsets{p, o},
+                                            compact::RankRows{p_out, o_out},
+                                            Np, L, stream));
+  }
   const size_t n = static_cast<size_t>(Np) * L;
   cudaError_t rc = cudaMemsetAsync(p_out, 0, n * sizeof(int32_t), stream);
   if (rc == cudaSuccess) {
@@ -109,8 +104,9 @@ extern "C" int tpj_compact_offsets(const int32_t* p, const int16_t* o,
   }
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if (Np == 0 || L == 0) return static_cast<int>(cudaGetLastError());
-  compact_offsets_kernel<<<row_grid(Np, L), kRowThreads, 0, stream>>>(
-      p, o, p_out, o_out, L, mask);
+  const dim3 grid((L + kRowThreads - 1) / kRowThreads, Np);
+  masked_offsets_kernel<<<grid, kRowThreads, 0, stream>>>(p, o, p_out, o_out,
+                                                          L, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -120,21 +116,22 @@ extern "C" int tpj_compact_offsets(const int32_t* p, const int16_t* o,
 // L is 0.
 extern "C" int tpj_compact_full(const int32_t* ev, int32_t* out, int N,
                                 int L, cudaStream_t stream) {
-  return static_cast<int>(
-      compact::launch(ev, compact::PayloadRows{out}, N, L, stream));
+  return static_cast<int>(compact::launch(
+      compact::Events{ev}, compact::PayloadRows{out}, N, L, stream));
 }
 
 // cp int32 [N, L] (+ optional o int16 [N, L]) -> dense int16 [M, L] at row
 // 64 * blk + z; a valid event with a target >= M is not stored and sets
-// err[lane] (err may be null).  N must be <= 65535.
+// err[lane] (err may be null).  Valid: o >= 0 when o is given, else
+// cp >= 0.
 extern "C" int tpj_spread_full(const int32_t* cp, const int16_t* o,
                                int16_t* dense, uint8_t* err, int N, int M,
                                int L, cudaStream_t stream) {
-  cudaError_t rc = cudaMemsetAsync(
-      dense, 0, static_cast<size_t>(M) * L * sizeof(int16_t), stream);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  if (N == 0 || L == 0) return static_cast<int>(cudaGetLastError());
-  spread_full_kernel<<<row_grid(N, L), kRowThreads, 0, stream>>>(
-      cp, o, dense, err, M, L);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t rc =
+      o != nullptr
+          ? place::launch<place::Valid::kOffset>(cp, o, dense, err, N, M, L,
+                                                 stream)
+          : place::launch<place::Valid::kSign>(cp, nullptr, dense, err, N, M,
+                                               L, stream);
+  return static_cast<int>(rc);
 }

@@ -292,7 +292,8 @@ cudaError_t launch_expand(const int16_t* o2, const int32_t* p, int16_t* dense,
 extern "C" int tpj_compact(const int32_t* ev, int32_t* p, int16_t* o, int N,
                            int L, cudaStream_t stream) {
   return static_cast<int>(
-      compact::launch(ev, compact::RankRows{p, o}, N, L, stream));
+      compact::launch(compact::Events{ev}, compact::RankRows{p, o}, N, L,
+                      stream));
 }
 
 // (p, o) [Np, L] -> o2 int16 [Np, L] (-1 where empty or overflowed),

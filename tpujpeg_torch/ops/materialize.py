@@ -6,7 +6,8 @@ fsm._materialize_events: packed events int32 [N, L]
 (`blk << 18 | z << 12 | (val + 2048)`, valid when >= 0) go to row
 64*blk + z of their lane in an int16 [M, L] tensor; every other row is 0.
 
-Classic route (kernel "place_events", csrc/materialize.cu).  On the TPU
+Classic route (kernel "place_events", csrc/materialize.cu; its body,
+csrc/place.cuh, is also spread_full's).  On the TPU
 this takes a stable compaction and a monotone spread through butterfly
 networks (the Pallas kernels _fine_compact_rank_kernel and
 _fine_spread_kernel plus their XLA coarse stages), because XLA:TPU
@@ -53,6 +54,10 @@ Two more routes of the classic contract (kernels "compact_offsets",
   "full"     the JAX package's place_events_pallas (TPUJPEG_PALLAS=1):
              `compact_full` (ranks inside the kernel, payload only) then
              `spread_full` (`place_events_full`).
+
+`compact_offsets` (without a mask) and `compact_full` run the walk of
+slots.cu's `compact` (csrc/compact.cuh), `spread_full` the scatter of
+`place_events` (csrc/place.cuh).
 
 `compact_full` marks its empty rows with -1, not with the 0 of the JAX
 kernel, whose spread then takes `cp > 0` for validity and drops the event
@@ -269,6 +274,11 @@ def compact_offsets(p: torch.Tensor, o: torch.Tensor, mask: int = -1,
     stages after it (materialize._compact_to_rank with the rank kernel
     off).
 
+    Precondition: o = row - rank on every valid row (o >= 0), and p >= 0
+    there.  `compact_to_rank(rank_kernel=False, stop_after="init")` gives
+    such (p, o), and a masked call keeps it on the rows it moves to, so
+    every producer in the package meets it.
+
     mask (default -1: all of the offset) selects one group of the
     compaction network's stages: every valid event moves up by
     `o & mask` and keeps the residual `o - (o & mask)`.  mask = W - 1 is
@@ -277,10 +287,14 @@ def compact_offsets(p: torch.Tensor, o: torch.Tensor, mask: int = -1,
     after it.  The network runs its stages low bits first, so the masks
     compose in that order only: fine, then coarse, equals one full call.
 
-    CUDA tensors run kernel "compact_offsets" (one thread per element, a
-    scatter by offset); CPU tensors the plain version.  counted_as: the
-    name the launch is counted under (the probes of ops/probes.py count
-    their own)."""
+    CUDA tensors run kernel "compact_offsets"; CPU tensors the plain
+    version.  mask -1 runs the walk of csrc/compact.cuh (the body of
+    `compact` and `compact_full`), which counts each lane's rows with
+    o >= 0 and writes each at its counted rank, row - o under the
+    precondition: every element read once and written once, no memset.
+    Any other mask runs a scatter by o & mask, one thread per element,
+    after a fill of the outputs.  counted_as: the name the launch is
+    counted under (the probes of ops/probes.py count their own)."""
     if not p.is_cuda:
         return compact_offsets_plain(p, o, mask)
     from ..runtime import kernels
@@ -295,9 +309,10 @@ def compact_offsets(p: torch.Tensor, o: torch.Tensor, mask: int = -1,
             f"compact_offsets: {Np} rows exceed the int16 offsets")
     p_out = torch.empty_like(p)
     o_out = torch.empty_like(o)
-    kernels.launch(counted_as, p.data_ptr(), o.data_ptr(),
-                   p_out.data_ptr(), o_out.data_ptr(), Np, L, mask,
-                   kernels.current_stream(p.device))
+    if p_out.numel():
+        kernels.launch(counted_as, p.data_ptr(), o.data_ptr(),
+                       p_out.data_ptr(), o_out.data_ptr(), Np, L, mask,
+                       kernels.current_stream(p.device))
     return p_out, o_out
 
 
@@ -364,16 +379,18 @@ def spread_full(cp: torch.Tensor, M: int, o: torch.Tensor | None = None,
     whose target is >= M is not stored; when `err_mal` (bool [L]) is
     given, its lane is latched in place.  M may be above or below N.
     Contract of the JAX package's _spread_kernel.  CUDA tensors run kernel
-    "spread_full" (one thread per element, a scatter); CPU tensors the
-    plain version.  counted_as: as in `compact_offsets`."""
+    "spread_full": the body of `place_events` (csrc/place.cuh: the dense
+    output zeroed, then four lanes x four rows a thread, all loads before
+    the first store), with validity from o when it is given (o read
+    first, cp only on rows with a valid lane); any row count.  CPU
+    tensors run the plain version.  counted_as: as in
+    `compact_offsets`."""
     if not cp.is_cuda:
         return spread_full_plain(cp, M, o, err_mal)
     from ..runtime import kernels
 
     kernels.check_cuda_tensor("cp", cp, torch.int32, 2)
     N, L = cp.shape
-    if N > 65535:
-        raise ValueError(f"spread_full: {N} rows exceed the launch grid")
     if o is not None:
         kernels.check_cuda_tensor("o", o, torch.int16, 2)
         if o.shape != cp.shape:
