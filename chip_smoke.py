@@ -58,10 +58,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      scatter, no overflow), and the five small streams of
      tests/fixtures/sampling_small (4:2:2, 4:4:0, 4:1:1, grayscale with
      and without restart markers) through backend "fsm" and "host";
-  6d. the probe tools: tools/bench_torch_gather.py and
-     tools/bench_torch_materialize.py run in this process, which drives
-     the six probe kernels (gather_rows, gather_table, chain,
-     compact_fine, compact_staged, spread_ranked);
+  6d. the probe tools, in this process: tools/bench_torch_gather.py's
+     launch-path split of the two gathers' calls and its chain walks
+     (print_split, print_chains; its CUDA-graph readings come in phase
+     7, outside the counted run, and its torch.profiler cross-check not
+     at all: it would leave the later launches of this process slower),
+     and tools/bench_torch_materialize.py; together they drive the six
+     probe kernels (gather_rows, gather_table, chain, compact_fine,
+     compact_staged, spread_ranked);
   7. each kernel against its plain PyTorch version on the chunks' real
      inputs (torch.equal), with both times (CUDA events; kernels warm,
      median of 5; a plain version that takes seconds is timed once, the
@@ -102,7 +106,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      and host routes' layout) and on the mixed chunk's bucket-raster lane
      matrix (padded rows, DC masked outside each image's extent: the
      bucketed chain's input, the whole 808x808 raster compared), with
-     kernel, plain, bytes, bound and share;
+     kernel, plain, bytes, bound and share.  The two gathers are read
+     apart from their launch path (tools/bench_torch_gather.py's
+     gather_readings): device ms from one CUDA graph of 20 calls, call ms
+     (one call between events) and the host's us per call, for the
+     kernel and for its PyTorch call (torch.gather, index_select), at the
+     tool's shape and at a shape of the same layout past L2, held equal
+     to the plain version at both and on index views 4, 8 and 12 bytes
+     into their storage; their row's ms, plain_ms, library_ms and bound
+     are the shape past L2's;
   7b. exact colour over all 134,217,728 triples of [-256, 255]^3 on the
      card, Y slab by Y slab, against the oracle's ycbcr_to_rgb_exact in
      numpy: the pixel kernel's exact mode (DC-only blocks whose samples
@@ -685,9 +697,12 @@ def main() -> int:
     import bench_torch_gather
     import bench_torch_materialize
 
-    check(run_path("phase 6d gather tool", bench_torch_gather.main,
-                   need=("gather_rows", "gather_table", "chain")) == 0,
-          "tools/bench_torch_gather.py failed")
+    def gather_tool():
+        bench_torch_gather.print_split(dev, smi)
+        bench_torch_gather.print_chains(dev)
+
+    run_path("phase 6d gather tool", gather_tool,
+             need=("gather_rows", "gather_table", "chain"))
     check(run_path("phase 6d materialize tool",
                    lambda: bench_torch_materialize.main(
                        ["--corpus", "rst640_420"]),
@@ -1362,42 +1377,44 @@ def main() -> int:
         ))
     del fine, staged, d_probe
 
+    # the two gathers at the tool's shape and past L2 (device ms from a
+    # CUDA graph, call ms, host us; tools/bench_torch_gather.py): ms,
+    # plain_ms, library_ms and the bound are the shape past L2's
+    gathers = bench_torch_gather.gather_readings(dev)
+    for name, replaces_at in (("gather_rows", "tools/bench_gather.py:115"),
+                              ("gather_table", "tools/bench_gather.py:137")):
+        big, small = gathers[name, "bytes"], gathers[name, "tool"]
+        rows.append(dict(
+            name=name, route="cuda", source="tpujpeg_torch/csrc/probes.cu",
+            replaces=replaces_at, launches=totals[name],
+            launches_per_chunk=per_chunk(name),
+            max_abs_err=max(big["max_abs_err"], small["max_abs_err"]),
+            ms=big["kernel"]["device_ms"], plain_ms=big["plain_device_ms"],
+            **bound(big["bytes"], big["lookups"]),
+            library_ms=big["library"]["device_ms"],
+            **{f"{k}_{part}": r[part][k] for k in ("call_ms", "host_us")
+               for part, r in (("kernel", big), ("library", big))},
+            shape=big["shape"], tool_shape=small["shape"],
+            **{f"tool_shape_{k}_{part}": small[part][k]
+               for k in ("device_ms", "call_ms", "host_us")
+               for part in ("kernel", "library")},
+            tool_shape_plain_ms=small["plain_device_ms"],
+        ))
+        for shape_name, r in (("tool", small), ("past L2", big)):
+            k, lib = r["kernel"], r["library"]
+            print(f"phase 7: {name} {r['shape']} ({shape_name}): equal to "
+                  f"the plain version"
+                  + (f" and on index views {r['offset_views_equal']} bytes "
+                     f"into their storage" if r["offset_views_equal"] else "")
+                  + f"; kernel device {k['device_ms']:.4f} ms, call "
+                  f"{k['call_ms']:.4f} ms, host {k['host_us']:.2f} us; "
+                  f"PyTorch call device {lib['device_ms']:.4f} ms, call "
+                  f"{lib['call_ms']:.4f} ms, host {lib['host_us']:.2f} us; "
+                  f"plain device {r['plain_device_ms']:.4f} ms; "
+                  f"{r['bytes']} bytes, bound {r['bound_ms']:.4f} ms"
+                  + (f", share {r['bound_ms'] / k['device_ms']:.3f}"
+                     if r is big else "") + f" [{card}]")
     rng = np.random.default_rng(0)
-    g_t = torch.as_tensor(np.broadcast_to(
-        rng.integers(0, 255, 256, np.int32), (1024, 256)).copy()).to(dev)
-    g_i = torch.as_tensor(
-        rng.integers(0, 256, (1024, 1024)).astype(np.int32)).to(dev)
-    g_il = g_i.long()
-    got = probes.gather_rows(g_t, g_i)
-    rows.append(dict(
-        name="gather_rows", route="cuda",
-        source="tpujpeg_torch/csrc/probes.cu",
-        replaces="tools/bench_gather.py:115", launches=totals["gather_rows"],
-        launches_per_chunk=per_chunk("gather_rows"),
-        max_abs_err=equal_all((got,), (probes.gather_rows_plain(g_t, g_i),),
-                              "gather_rows"),
-        ms=cuda_ms(lambda: probes.gather_rows(g_t, g_i)),
-        plain_ms=cuda_ms(lambda: probes.gather_rows_plain(g_t, g_i)),
-        **bound(nbytes(g_t, g_i, got), g_i.numel()),
-        library_ms=cuda_ms(lambda: torch.gather(g_t, 1, g_il)),
-    ))
-    v_t = g_t[0].contiguous()
-    v_i = g_i.reshape(-1)[: 1 << 18].contiguous()
-    v_il = v_i.long()
-    got = probes.gather_table(v_t, v_i)
-    rows.append(dict(
-        name="gather_table", route="cuda",
-        source="tpujpeg_torch/csrc/probes.cu",
-        replaces="tools/bench_gather.py:137",
-        launches=totals["gather_table"],
-        launches_per_chunk=per_chunk("gather_table"),
-        max_abs_err=equal_all((got,), (probes.gather_table_plain(v_t, v_i),),
-                              "gather_table"),
-        ms=cuda_ms(lambda: probes.gather_table(v_t, v_i)),
-        plain_ms=cuda_ms(lambda: probes.gather_table_plain(v_t, v_i)),
-        **bound(nbytes(v_t, v_i, got), v_i.numel()),
-        library_ms=cuda_ms(lambda: v_t.index_select(0, v_il)),
-    ))
     c_t = torch.as_tensor(
         rng.integers(0, 4096, (4096, 1)).astype(np.int32)).to(dev)
     c_seed = torch.tensor([3], dtype=torch.int32, device=dev)
@@ -1434,7 +1451,6 @@ def main() -> int:
           + f"; the restart scan takes {scan_ms / (stride + 6) * 1e3:.1f} us "
           f"per byte column of {k_prod} symbol steps at {L} lanes and "
           f"{sub_ms / (stride420 + 6) * 1e3:.1f} us at {L420} lanes [{card}]")
-    del g_t, g_i, g_il, got
     del p0, o0, cpo, cpf
 
     # the pixel kernel on the restart chunk: its dense lane matrix read in

@@ -26,7 +26,9 @@ around the 16-row slice and the 128-row chunk, lane counts around the
 `compact_offsets` (the same walk, reading (p, o)) and `spread_full` (the
 body of `place_events`, validity from the event or from o) on the same
 cases, the walk also on `compact_fine`'s residual offsets, `spread_full` past 65,535 event rows and on rows whose offset is
-negative.
+negative; the two gathers on odd row lengths, more rows than the grid,
+tables on both sides of the warp-per-row limit, index views that start
+4, 8 and 12 bytes into their storage, and empty inputs.
 """
 
 import os
@@ -797,28 +799,73 @@ def test_fsm_scan_kernel_equals_plain_by_blocks_per_mcu(cuda, corpus, steps):
         assert np.array_equal(coeffs.cpu().numpy(), entropy_decode(img))
 
 
-def test_gather_kernels_equal_plain(cuda):
+def _at_offset(a, offset: int, device):
+    """int32 tensor on `device` equal to numpy array a whose data starts
+    `offset` bytes past a 16-byte boundary of its storage."""
+    e = offset // 4
+    flat = torch.empty(a.size + e, dtype=torch.int32, device=device)
+    view = flat[e:].view(a.shape)
+    view.copy_(torch.as_tensor(a))
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    return view
+
+
+# ("rows", R, T, K, index offset in bytes) / ("table", T, N, offset): K
+# around the 4-lookup vector, more rows than the grid holds (16,384 rows
+# a warp each, 1,057 rows a block each), T on both sides of the
+# warp-per-row limit (1,536) and at the shared-memory limit, N around the
+# vector and past L2, index views 4, 8 and 12 bytes into their storage,
+# nothing to do, and the refusal of a table past shared memory
+GATHER_CASES = (
+    [("rows", 133, 256, K, 0) for K in (1, 3, 4, 5, 1023, 1025)]
+    + [("rows", R, 256, 1024, 0) for R in (1, 133, 1057, 16384)]
+    + [("rows", 133, T, 1025, 0) for T in (1, 256, 1536, 1537, 12288)]
+    + [("rows", 133, 256, 1023, off) for off in (4, 8, 12)]
+    + [("rows", 133, 1537, 1023, 4), ("rows", 1057, 1537, 100, 0),
+       ("rows", 0, 256, 4, 0), ("rows", 133, 256, 0, 0)]
+    + [("table", 256, N, 0) for N in (1, 3, 5, 1 << 18, 1 << 25)]
+    + [("table", T, 400_000, 0) for T in (1, 12288)]
+    + [("table", 256, 262147, off) for off in (4, 8, 12)]
+    + [("table", 256, 0, 0), ("too_big",)]
+)
+
+
+@pytest.mark.parametrize("case", GATHER_CASES, ids=str)
+def test_gather_kernels_equal_plain(cuda, case):
+    from tpujpeg_torch.runtime import kernels
+
     rng = np.random.default_rng(11)
-    for R, T, K in ((1024, 256, 1024), (7, 300, 1000), (3, 12288, 50)):
+    if case[0] == "too_big":
+        big = torch.zeros((2, 12289), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="shared memory"):
+            probes.gather_rows(big, torch.zeros((2, 4), dtype=torch.int32,
+                                                device=cuda))
+        with pytest.raises(ValueError, match="shared memory"):
+            probes.gather_table(big[0].contiguous(),
+                                torch.zeros(4, dtype=torch.int32,
+                                            device=cuda))
+        return
+    if case[0] == "rows":
+        _, R, T, K, off = case
         t = torch.as_tensor(rng.integers(-9, 255, (R, T)).astype(np.int32)) \
             .to(cuda)
-        i = torch.as_tensor(rng.integers(0, T, (R, K)).astype(np.int32)) \
-            .to(cuda)
-        got = probes.gather_rows(t, i)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.int32
-        assert torch.equal(got, probes.gather_rows_plain(t, i))
-    for T, N in ((256, 1 << 18), (5, 77), (12288, 400_000)):
+        i = _at_offset(rng.integers(0, T, (R, K)).astype(np.int32), off,
+                       cuda)
+        kernel, plain = probes.gather_rows, probes.gather_rows_plain
+    else:
+        _, T, N, off = case
         t = torch.as_tensor(rng.integers(-9, 255, T).astype(np.int32)) \
             .to(cuda)
-        i = torch.as_tensor(rng.integers(0, T, N).astype(np.int32)).to(cuda)
-        got = probes.gather_table(t, i)
-        torch.cuda.synchronize()
-        assert torch.equal(got, probes.gather_table_plain(t, i))
-    big = torch.zeros((2, 12289), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        probes.gather_rows(big, torch.zeros((2, 4), dtype=torch.int32,
-                                            device=cuda))
+        i = _at_offset(rng.integers(0, T, N).astype(np.int32), off, cuda)
+        kernel, plain = probes.gather_table, probes.gather_table_plain
+    name = "gather_" + case[0]
+    before = kernels.LAUNCHES[name]
+    got = kernel(t, i)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == i.shape
+    assert torch.equal(got, plain(t, i))
+    # one launch, none on an empty input
+    assert kernels.LAUNCHES[name] - before == (1 if got.numel() else 0)
 
 
 @pytest.mark.parametrize("source", ["l2", "shared", "readonly"])

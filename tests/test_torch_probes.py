@@ -9,16 +9,23 @@ and a small window (compact_fine_only / compact_only of
 tools/bench_materialize2.py; the tool's own partial no longer passes the
 kernel's required `kc`, so the kernel is driven directly, as
 tests/test_torch_routes.py drives the full-height kernels).  Every
-comparison is `==` (integers, tolerance 0).
+comparison is `==` (integers, tolerance 0).  Also the two gathers' grids
+(`gather_rows_geometry`, `gather_table_blocks`; hypothesis), and their
+constants held equal to csrc/probes.cu's (the kernels themselves run
+only on the card: tests/test_torch_kernels.py).
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from tpujpeg.ops import materialize as jmat
 from tpujpeg_torch.ops import materialize as tmat
@@ -53,6 +60,64 @@ def test_gather_table_matches_take():
     got = probes.gather_table(torch.as_tensor(t), torch.as_tensor(i))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(_np(got), want)
+
+
+@settings(max_examples=200, deadline=None)
+@given(R=st.integers(0, 20_000), T=st.integers(1, 12288),
+       K=st.integers(0, 2048), sms=st.integers(1, 200))
+def test_gather_rows_geometry(R, T, K, sms):
+    # a row a warp where eight warps' tables fit the 48 KB a launch takes
+    # without opting in, else a row a block; the grid at most
+    # BLOCKS_PER_SM blocks an SM, none without a row, none when empty
+    blocks, group = probes.gather_rows_geometry(R, T, K, sms)
+    assert group == (32 if T <= 1536 else 256)
+    assert (probes.THREADS // group) * T * 4 <= 49152
+    groups = probes.THREADS // group
+    if R * K == 0:
+        assert blocks == 0
+    else:
+        assert 1 <= blocks <= sms * probes.BLOCKS_PER_SM
+        assert (blocks - 1) * groups < R
+        assert blocks == sms * probes.BLOCKS_PER_SM or blocks * groups >= R
+
+
+@settings(max_examples=200, deadline=None)
+@given(N=st.integers(0, 1 << 26), sms=st.integers(1, 200))
+def test_gather_table_blocks(N, sms):
+    # at most BLOCKS_PER_SM blocks an SM; no block without a whole pass
+    # of TABLE_PASS index vectors a thread, except the one a small N takes
+    blocks = probes.gather_table_blocks(N, sms)
+    if N == 0:
+        assert blocks == 0
+        return
+    per_block = probes.THREADS * probes.TABLE_PASS
+    assert 1 <= blocks <= sms * probes.BLOCKS_PER_SM
+    assert blocks == 1 or (blocks - 1) * per_block < N // 4
+    assert blocks == sms * probes.BLOCKS_PER_SM or blocks * per_block >= N // 4
+
+
+def test_gather_grid_constants_match_the_kernel_source():
+    # ops/probes.py sizes the grids with copies of csrc/probes.cu's
+    # constants: block size, blocks an SM of both kernels'
+    # __launch_bounds__, gather_table's pass and the warp-per-row limit
+    src = (Path(probes.__file__).parents[1] / "csrc" / "probes.cu") \
+        .read_text()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+    assert int(const("kThreads")) == probes.THREADS
+    assert int(const("kMaxTable")) == probes.MAX_SHARED_TABLE
+    assert int(const("kTablePass")) == probes.TABLE_PASS
+    assert const("kWarpRowsMaxTable") == "kMaxTable / (kThreads / 32)"
+    assert probes.WARP_ROWS_MAX_TABLE == \
+        probes.MAX_SHARED_TABLE // (probes.THREADS // 32)
+    bounds = re.findall(r"__launch_bounds__\((\w+), (\d+)\)\s*\n"
+                        r"(gather_\w+_kernel)", src)
+    assert sorted(k for _, _, k in bounds) == ["gather_rows_kernel",
+                                                "gather_table_kernel"]
+    for threads, per_sm, _ in bounds:
+        assert threads == "kThreads" and int(per_sm) == probes.BLOCKS_PER_SM
 
 
 @pytest.mark.parametrize("steps", [0, 1, 4096])

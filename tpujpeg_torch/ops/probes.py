@@ -31,6 +31,8 @@ for CPU tensors; there is no fallback between the two.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import materialize
@@ -38,6 +40,46 @@ from . import materialize
 CHAIN_SOURCES = {"l2": 0, "shared": 1, "readonly": 2}
 MAX_SHARED_TABLE = 12288   # int32 entries in 48 KB of shared memory
 FINE_W = 1024              # the JAX package's fine window (materialize._W)
+
+# The gathers' grids (csrc/probes.cu, whose constants these copy):
+# blocks of THREADS threads, BLOCKS_PER_SM of them an SM (the kernels'
+# __launch_bounds__), TABLE_PASS 4-lookup index vectors a thread of
+# gather_table loads before its first lookup (kTablePass), and a row a
+# warp where eight warps' tables fit 48 KB (kWarpRowsMaxTable).
+THREADS = 256
+BLOCKS_PER_SM = 4
+TABLE_PASS = 4
+WARP_ROWS_MAX_TABLE = MAX_SHARED_TABLE // (THREADS // 32)   # 1536
+
+
+def gather_rows_geometry(R: int, T: int, K: int,
+                         sms: int) -> tuple[int, int]:
+    """(blocks, group) of `gather_rows` on a card of `sms` SMs: `group`
+    threads share a row's table (32, a row a warp, where T <= 1536, else
+    256, a row a block); the grid is at most BLOCKS_PER_SM blocks an SM
+    and strides over the rows.  blocks == 0: nothing to launch (R == 0 or
+    K == 0)."""
+    group = 32 if T <= WARP_ROWS_MAX_TABLE else THREADS
+    blocks = 0 if R == 0 or K == 0 else min(
+        -(-R // (THREADS // group)), sms * BLOCKS_PER_SM)
+    return blocks, group
+
+
+def gather_table_blocks(N: int, sms: int) -> int:
+    """Blocks of `gather_table` on a card of `sms` SMs: at most
+    BLOCKS_PER_SM an SM and no more than gives every thread one whole pass
+    of TABLE_PASS index vectors.  0: nothing to launch (N == 0)."""
+    if N == 0:
+        return 0
+    return min(max(1, -(-(N // 4) // (THREADS * TABLE_PASS))),
+               sms * BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of CUDA device `device_index`."""
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
 
 
 def gather_rows_plain(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -48,8 +90,9 @@ def gather_rows_plain(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """t int32 [R, T], idx int32 [R, K] in [0, T) -> int32 [R, K] with
     out[r, j] = t[r, idx[r, j]].  CUDA tensors run kernel "gather_rows"
-    (one block per row, the row staged in shared memory); CPU tensors
-    the plain version."""
+    (a row's table staged in shared memory, a row a warp or a block,
+    16-byte index loads and stores; `gather_rows_geometry`; no launch
+    when R or K is 0); CPU tensors the plain version."""
     if not t.is_cuda:
         return gather_rows_plain(t, idx)
     from ..runtime import kernels
@@ -57,14 +100,17 @@ def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     kernels.check_cuda_tensor("t", t, torch.int32, 2)
     kernels.check_cuda_tensor("idx", idx, torch.int32, 2)
     R, T = t.shape
+    K = idx.shape[1]
     if idx.shape[0] != R:
         raise ValueError("gather_rows: t and idx must have one row count")
     if T > MAX_SHARED_TABLE:
         raise ValueError(f"gather_rows: {T} entries exceed shared memory")
+    blocks, group = gather_rows_geometry(R, T, K, sm_count(t.device.index))
     out = torch.empty_like(idx)
-    kernels.launch("gather_rows", t.data_ptr(), idx.data_ptr(),
-                   out.data_ptr(), R, T, idx.shape[1],
-                   kernels.current_stream(t.device))
+    if blocks:
+        kernels.launch("gather_rows", t.data_ptr(), idx.data_ptr(),
+                       out.data_ptr(), R, T, K, blocks, group,
+                       kernels.current_stream(t.device))
     return out
 
 
@@ -75,22 +121,25 @@ def gather_table_plain(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_table(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """t int32 [T], idx int32 [N] in [0, T) -> int32 [N], out[j] =
-    t[idx[j]].  CUDA tensors run kernel "gather_table" (the table in
-    shared memory, a grid-stride walk of the indices); CPU tensors the
-    plain version."""
+    t[idx[j]].  CUDA tensors run kernel "gather_table" (the table staged
+    in shared memory by every block of a grid sized to the card, a
+    grid-stride walk of 16-byte index vectors; `gather_table_blocks`;
+    no launch when N is 0); CPU tensors the plain version."""
     if not t.is_cuda:
         return gather_table_plain(t, idx)
     from ..runtime import kernels
 
     kernels.check_cuda_tensor("t", t, torch.int32, 1)
     kernels.check_cuda_tensor("idx", idx, torch.int32, 1)
-    T = t.shape[0]
+    T, N = t.shape[0], idx.shape[0]
     if T > MAX_SHARED_TABLE:
         raise ValueError(f"gather_table: {T} entries exceed shared memory")
+    blocks = gather_table_blocks(N, sm_count(t.device.index))
     out = torch.empty_like(idx)
-    kernels.launch("gather_table", t.data_ptr(), idx.data_ptr(),
-                   out.data_ptr(), T, idx.shape[0],
-                   kernels.current_stream(t.device))
+    if blocks:
+        kernels.launch("gather_table", t.data_ptr(), idx.data_ptr(),
+                       out.data_ptr(), T, N, blocks,
+                       kernels.current_stream(t.device))
     return out
 
 

@@ -72,10 +72,10 @@ _SIGNATURES = {
     # mcus_x, lane_layout, exact, fconsts(host), dconsts(host), stream
     "tpj_pixels": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P, _P, _P],
-    # t, idx, out, R, T, K, stream
-    "tpj_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
-    # t, idx, out, T, N, stream
-    "tpj_gather_table": [_P, _P, _P, _I, _I, _P],
+    # t, idx, out, R, T, K, blocks, group, stream
+    "tpj_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # t, idx, out, T, N, blocks, stream
+    "tpj_gather_table": [_P, _P, _P, _I, _I, _I, _P],
     # t, seed, out, T, steps, source, stream
     "tpj_chain": [_P, _P, _P, _I, _I, _I, _P],
 }
