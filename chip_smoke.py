@@ -60,9 +60,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      and without restart markers) through backend "fsm" and "host";
   6d. the probe tools, in this process: tools/bench_torch_gather.py's
      launch-path split of the two gathers' calls and its chain walks
-     (print_split, print_chains; its CUDA-graph readings come in phase
-     7, outside the counted run, and its torch.profiler cross-check not
-     at all: it would leave the later launches of this process slower),
+     (print_split, print_chains; its CUDA-graph readings of the gathers
+     and the chain come in phase 7, outside the counted run, and its
+     torch.profiler cross-check not at all: it would leave the later
+     launches of this process slower),
      and tools/bench_torch_materialize.py; together they drive the six
      probe kernels (gather_rows, gather_table, chain, compact_fine,
      compact_staged, spread_ranked);
@@ -100,6 +101,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      beside its byte and sector bounds and index_put_; spread_ranked has
      the same bounds in its row.  A function of an offsets pair (p, o)
      must read p only where o >= 0, so its bounds count p there alone.
+     compact_fine (csrc/compact.cuh's masked walk), compact_staged (that
+     walk, then the ranked walk) and compact_offsets get a line of their
+     own: each beside its byte bound, the sector bound of a scatter of
+     both outputs (2 x 64 bytes an event), and its PyTorch call (a zero
+     fill of p, a -1 fill of o and two index_put_, held equal to the
+     kernel first), with the share of the masked walk's events stored
+     directly (behind its window).
      The pixel kernel is held in both colour modes
      on the restart chunk's dense lane matrix (the engine's input), on
      the same coefficients as [B, n_blocks, 64] (the speculative, Jacobi
@@ -114,7 +122,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      tool's shape and at a shape of the same layout past L2, held equal
      to the plain version at both and on index views 4, 8 and 12 bytes
      into their storage; their row's ms, plain_ms, library_ms and bound
-     are the shape past L2's;
+     are the shape past L2's.  chain is held equal on every source at T
+     4,096 (the step masks) and 4,093 (it multiplies by a reciprocal),
+     at 0, 4,096 and 65,536 steps, and read as device ns per step from a
+     CUDA graph beside its latency floor (the same walk with the step
+     taken out, over a table that is one permutation cycle;
+     tools/bench_torch_gather.py's chain_readings) and the share;
   7b. exact colour over all 134,217,728 triples of [-256, 255]^3 on the
      card, Y slab by Y slab, against the oracle's ycbcr_to_rgb_exact in
      numpy: the pixel kernel's exact mode (DC-only blocks whose samples
@@ -123,8 +136,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      mixed on "scatter") and the three 4:2:0 chunks with both `fancy`
      values (two timed decodes each, after the phase's own decode), the
      device chain of each as the strict engine runs it (median, min and
-     max of 5 runs, 7 for the 4:2:0 chains), and the plane path's stage
-     times (IDCT, block -> raster, upsample, f32 and exact colour, pack).
+     max of 5 runs, 7 for the 4:2:0 chains), the rounds of the Jacobi
+     fixed point on the 4:2:0 spec chunk (run on the host: a flag read
+     after each round) and what those reads cost (the chain against the
+     same launches with no read, the same rgb), and the plane path's
+     stage times (IDCT, block -> raster, upsample, f32 and exact colour,
+     pack).
 
 Each path of phases 2-6d runs with the launch counts set to 0 just before
 it and read just after, and fails if a kernel it must run was not
@@ -1351,31 +1368,66 @@ def main() -> int:
           f"spread_ranked on the mixed chunk's offsets [{BN}, {BL}] equal "
           f"to their plain versions; staged == one full compact")
     offs_bound = bound(offsets_bytes(o0, *cpo), 4 * p0.numel())
+    # a scatter of (p, o) stores 4 bytes into p and 2 into o per event,
+    # each a lone 32-byte sector read and written back: 2 x 64 bytes
+    offs_sectors = (offs_bound["bound_bytes"] + 2 * 64 * n_mixed) \
+        / HBM_BYTES_PER_S * 1e3
+    # the masked walk's lanes behind its window store directly
+    direct = torch.zeros(1, dtype=torch.int32, device=dev)
+    materialize.compact_offsets(p0, o0, mask=W - 1, direct=direct)
+    fine_direct = int(direct[0]) / n_mixed
+    # the PyTorch yardstick: fills and two index_put_ (staged == whole)
+    fine_call = bench_torch_materialize.compact_index_put_call(p0, o0, W - 1)
+    whole_call = bench_torch_materialize.compact_index_put_call(p0, o0)
+    for call, want, what in ((fine_call, fine, "compact_fine"),
+                             (whole_call, cpo, "compact_offsets")):
+        check(all(torch.equal(a, b) for a, b in zip(call(), want)),
+              f"fills + index_put_ != {what}")
+    fine_lib_ms, whole_lib_ms = cuda_ms(fine_call), cuda_ms(whole_call)
+    del fine_call, whole_call
+    by_name["compact_offsets"]["library_ms"] = whole_lib_ms
     probe_rows = [
         ("compact_fine", "tools/bench_materialize2.py:141", fine_err,
          lambda: probes.compact_fine(p0, o0, W),
-         lambda: probes.compact_fine_plain(p0, o0, W), offs_bound, None),
+         lambda: probes.compact_fine_plain(p0, o0, W), offs_bound,
+         fine_lib_ms, dict(sector_bound_ms=offs_sectors,
+                           direct_store_share=fine_direct),
+         "tpujpeg_torch/csrc/compact.cuh"),
         ("compact_staged", "tools/bench_materialize2.py:98", staged_err,
          lambda: probes.compact_staged(p0, o0, W),
-         lambda: probes.compact_staged_plain(p0, o0, W), offs_bound, None),
+         lambda: probes.compact_staged_plain(p0, o0, W), offs_bound,
+         whole_lib_ms, dict(sector_bound_ms=offs_sectors),
+         "tpujpeg_torch/csrc/compact.cuh"),
         ("spread_ranked", "tools/bench_materialize2.py:172", spread_err,
          lambda: probes.spread_ranked(*staged, BM),
          lambda: probes.spread_ranked_plain(*staged, BM),
          bound(offsets_bytes(staged[1], d_probe), 8 * p0.numel()),
-         ranked_lib_ms),
+         ranked_lib_ms, None, "tpujpeg_torch/csrc/routes.cu"),
     ]
     ranked_sectors = sectors_ms(offsets_bytes(staged[1], d_probe), n_mixed)
-    for name, replaces_at, err, fn, plain_fn, bnd, lib_ms in probe_rows:
+    for name, replaces_at, err, fn, plain_fn, bnd, lib_ms, more, src \
+            in probe_rows:
         rows.append(dict(
-            name=name, route="cuda", source="tpujpeg_torch/csrc/routes.cu",
+            name=name, route="cuda", source=src,
             replaces=replaces_at, launches=totals[name],
             launches_per_chunk=per_chunk(name), max_abs_err=err,
             ms=cuda_ms(fn), plain_ms=cuda_ms(plain_fn), **bnd,
             library_ms=lib_ms,
-            **(dict(sector_bound_ms=ranked_sectors)
-               if name == "spread_ranked" else {}),
+            **(more or dict(sector_bound_ms=ranked_sectors)),
         ))
-    del fine, staged, d_probe
+    by_name = {r["name"]: r for r in rows}
+    print("phase 7: the two outputs' masked compaction on the mixed "
+          f"chunk's offsets (ms; byte bound {offs_bound['bound_ms']:.4f} "
+          f"ms, sector bound {offs_sectors:.4f} ms counting 2 x 64 bytes "
+          f"for each of {n_mixed} events): "
+          + "; ".join(f"{k} {by_name[k]['ms']:.4f}, share "
+                      f"{by_name[k]['bound_ms'] / by_name[k]['ms']:.3f}, "
+                      f"fills + index_put_ {by_name[k]['library_ms']:.4f}"
+                      for k in ("compact_fine", "compact_staged",
+                                "compact_offsets"))
+          + f"; the masked walk (window {W}) stores {int(direct[0])} "
+          f"events directly, a share of {fine_direct:.4f} [{card}]")
+    del fine, staged, d_probe, direct
 
     # the two gathers at the tool's shape and past L2 (device ms from a
     # CUDA graph, call ms, host us; tools/bench_torch_gather.py): ms,
@@ -1415,41 +1467,49 @@ def main() -> int:
                   + (f", share {r['bound_ms'] / k['device_ms']:.3f}"
                      if r is big else "") + f" [{card}]")
     rng = np.random.default_rng(0)
-    c_t = torch.as_tensor(
-        rng.integers(0, 4096, (4096, 1)).astype(np.int32)).to(dev)
-    c_seed = torch.tensor([3], dtype=torch.int32, device=dev)
     n_short, n_long = 4096, 65536
-    c_want, chain_plain_ms = timed_once(
+    # the tool's table (T 4,096: the step masks) and one of 4,093 entries
+    # (the step multiplies by the reciprocal)
+    c_tabs = {T: torch.as_tensor(
+        rng.integers(0, T, (T, 1)).astype(np.int32)).to(dev)
+        for T in (4096, 4093)}
+    c_t = c_tabs[4096]
+    c_seed = torch.tensor([3], dtype=torch.int32, device=dev)
+    _, chain_plain_ms = timed_once(
         lambda: probes.chain_plain(c_t, c_seed, n_short))
-    c_want_long = probes.chain_plain(c_t, c_seed, n_long)
     chain_err = 0
-    chain_ms, chain_step_ns = {}, {}
-    for source in probes.CHAIN_SOURCES:
-        chain_err = max(chain_err, equal_all(
-            (probes.chain(c_t, c_seed, n_short, source),
-             probes.chain(c_t, c_seed, n_long, source)),
-            (c_want, c_want_long), f"chain from {source}"))
-        chain_ms[source] = cuda_ms(
-            lambda: probes.chain(c_t, c_seed, n_short, source))
-        long_ms = cuda_ms(lambda: probes.chain(c_t, c_seed, n_long, source))
-        chain_step_ns[source] = (long_ms - chain_ms[source]) \
-            / (n_long - n_short) * 1e6
+    for T, tab in c_tabs.items():
+        want = (probes.chain_plain(tab, c_seed, n_short),
+                probes.chain_plain(tab, c_seed, n_long),
+                probes.chain_plain(tab, c_seed, 0))
+        for source in probes.CHAIN_SOURCES:
+            chain_err = max(chain_err, equal_all(
+                tuple(probes.chain(tab, c_seed, n, source)
+                      for n in (n_short, n_long, 0)),
+                want, f"chain T={T} from {source}"))
+    # device ns per step from a CUDA graph, beside the latency floor (the
+    # walk with the step taken out); outside the counted runs
+    chain_r = bench_torch_gather.chain_readings(dev)
+    chain_ms = {k: v[f"ns_{n_short}"] * n_short / 1e6
+                for k, v in chain_r.items()}
     rows.append(dict(
         name="chain", route="cuda", source="tpujpeg_torch/csrc/probes.cu",
         replaces="tools/bench_gather.py:163", launches=totals["chain"],
         launches_per_chunk=per_chunk("chain"), max_abs_err=chain_err,
         ms=chain_ms["l2"], plain_ms=chain_plain_ms,
-        # nothing overlaps in a dependent chain: its bytes and operations
-        # bound it far below the latency that sets its time
+        # its bytes and operations bound it far below the latency that
+        # sets its time: the latency floor (floor_ms) is its bound
         **bound(nbytes(c_t, c_seed) + 4, 4 * n_short), library_ms=None,
+        floor_ms=chain_r["l2"][f"floor_ns_{n_short}"] * n_short / 1e6,
         ms_shared=chain_ms["shared"], ms_readonly=chain_ms["readonly"],
-        ns_per_dependent_step=chain_step_ns,
+        device_ns_per_step=chain_r,
     ))
-    print("phase 7: chain of dependent lookups, ns per step net of launch "
-          f"({n_long} against {n_short} steps): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in chain_step_ns.items())
-          + f"; the restart scan takes {scan_ms / (stride + 6) * 1e3:.1f} us "
-          f"per byte column of {k_prod} symbol steps at {L} lanes and "
+    bench_torch_gather.print_chain_readings(card, chain_r)
+    print(f"phase 7: chain equal to its plain version on every source at "
+          f"T 4,096 (mask) and 4,093 (reciprocal), 0, {n_short} and "
+          f"{n_long} steps; the restart scan takes "
+          f"{scan_ms / (stride + 6) * 1e3:.1f} us per byte column of "
+          f"{k_prod} symbol steps at {L} lanes and "
           f"{sub_ms / (stride420 + 6) * 1e3:.1f} us at {L420} lanes [{card}]")
     del p0, o0, cpo, cpf
 
@@ -1709,6 +1769,74 @@ def main() -> int:
                   f"max {hi:.2f}): "
                   f"{CHUNK / ms * 1e3:.1f} images/s, "
                   f"{mb / ms * 1e3:.2f} compressed MB/s [{card}]")
+
+    # the Jacobi fixed point runs on the host (fsm._spec_converge: one
+    # count scan a round, one flag read after each; the JAX package runs
+    # the loop on the device).  Its rounds on the 4:2:0 spec chunk, and
+    # what the reads cost: the chain against the same launches for the
+    # same rounds with no read between them.  `unread` is a copy of
+    # _spec_converge's loop without the read; the launch counts hold it
+    # to the same kernels
+    converge = fsm._spec_converge
+    seen = []
+
+    def counting(*a, **k):
+        res = converge(*a, **k)
+        seen.append(res)
+        return res
+
+    def unread(xs, chunk_bits, inherit, max_iters, tables, blk_cap,
+               steps=fsm.STEPS_PRODUCTION):
+        L = chunk_bits.shape[0]
+        stride = xs.shape[1]
+        caps = torch.full((L,), blk_cap, dtype=torch.int32, device=xs.device)
+        sb = torch.zeros(L, dtype=torch.int32, device=xs.device)
+        sm = torch.zeros_like(sb)
+        for _ in range(rounds):
+            st = fsm.fsm_scan_spec(xs, caps, tables, steps, start_bits=sb,
+                                   start_bim=sm, chunk_bits=chunk_bits,
+                                   emit=False)
+            nb, nm = fsm._handoff(st.end_bits, st.end_bim, inherit,
+                                  stride - fsm.SPEC_OVERLAP,
+                                  max_start=stride * 8 - 1)
+            ((nb != sb) | (nm != sm)).any()      # launched, not read
+            sb, sm = nb, nm
+        return sb, sm, st.blk, st.err_mal, st.err_env, False, rounds
+
+    def launched(fn):
+        before = dict(kernels.LAUNCHES)
+        out = fn()
+        return out, {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                     if v != before[k]}
+
+    fsm._spec_converge = counting
+    try:
+        synced, synced_launches = launched(lambda: spec420(False))
+    finally:
+        fsm._spec_converge = converge
+    check(len(seen) == 1 and not seen[0][5], "4:2:0 spec chunk: the Jacobi "
+          "path did not run once, or did not converge")
+    rounds = seen[0][6]
+    fsm._spec_converge = unread
+    try:
+        got, unread_launches = launched(lambda: spec420(False))
+        check(torch.equal(got[0], synced[0]),
+              "4:2:0 spec chain without the flag reads != with them")
+        check(unread_launches == synced_launches and
+              unread_launches.get("fsm_scan", 0) >= rounds,
+              f"4:2:0 spec chain without the flag reads launched "
+              f"{unread_launches}, with them {synced_launches}")
+        free_ms, free_lo, free_hi = cuda_times(lambda: spec420(False), reps=7)
+    finally:
+        fsm._spec_converge = converge
+    sync_ms, sync_lo, sync_hi = cuda_times(lambda: spec420(False), reps=7)
+    del synced, got
+    print(f"phase 8: Jacobi fixed point of the 4:2:0 spec chunk: {rounds} "
+          f"rounds, one flag read after each on the host; the chain "
+          f"{sync_ms:.2f} ms (min {sync_lo:.2f}, max {sync_hi:.2f}), the "
+          f"same launches with no read {free_ms:.2f} ms (min {free_lo:.2f}, "
+          f"max {free_hi:.2f}): the reads cost {sync_ms - free_ms:.2f} ms "
+          f"[{card}]")
     del mixed_parts, sxs420, jxs420
 
     # the plane path's stages on the 4:2:0 restart chunk's coefficients

@@ -26,7 +26,11 @@ around the 16-row slice and the 128-row chunk, lane counts around the
 `compact_offsets` (the same walk, reading (p, o)) and `spread_full` (the
 body of `place_events`, validity from the event or from o) on the same
 cases, the walk also on `compact_fine`'s residual offsets, `spread_full` past 65,535 event rows and on rows whose offset is
-negative; the two gathers on odd row lengths, more rows than the grid,
+negative; compact.cuh's masked walk (`compact_offsets` with mask W - 1)
+on lane counts that are no multiple of 32 or 4, a lane far behind the
+lead and one that jumps ahead of the window, Np at the int16 span and
+the event that packs to 0; `chain` on tables that are no power of two,
+T = 1 and walks of no steps; the two gathers on odd row lengths, more rows than the grid,
 tables on both sides of the warp-per-row limit, index views that start
 4, 8 and 12 bytes into their storage, and empty inputs.
 """
@@ -908,6 +912,148 @@ def test_compact_offsets_mask_and_probe_stages_equal_plain(cuda, W):
     assert torch.equal(dense, probes.spread_ranked_plain(*staged, M))
     assert torch.equal(dense, materialize.place_events(ev, M))
     assert int(dense[0, 1]) == -2048     # the event that packs to 0
+
+
+def _masked_case(case):
+    """(events int32 [N, L], W) for compact.cuh's masked walk: lane counts
+    that are no multiple of 32 or 4; a lane that leads (every row an
+    event), one far behind it (10 events, then rows from 5,000 with an
+    offset of 4,990: its destinations lag the lead by 4,990 rows), one
+    that jumps ahead by ~7,000 rows after a long gap, and a lone event
+    far down; Np at and just below the int16 span; the event that packs
+    to 0."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case.startswith("lanes"):
+        L = int(case[5:])
+        ev = rng.integers(0, 2 ** 31 - 1, (2600, L), dtype=np.int32)
+        ev[rng.random((2600, L)) < rng.random(L) ** 2] = -1
+        return ev, 1024
+    if case.startswith("far"):
+        N, L = 9000, 40
+        ev = np.full((N, L), -1, np.int32)
+        ev[:, 0] = 7
+        ev[:10, 1] = 3
+        ev[5000:, 1] = 9
+        ev[::3, 2] = 5
+        ev[8000, 3] = 11
+        ev[2, 4] = 1
+        ev[7000:7100, 4] = 2
+        ev[:, 8:] = np.where(rng.random((N, L - 8)) < 0.3, 13, -1)
+        return ev, int(case[3:])
+    if case.startswith("rows"):
+        N, L = int(case[4:]), 36
+        ev = rng.integers(0, 2 ** 31 - 1, (N, L), dtype=np.int32)
+        ev[rng.random((N, L)) < 0.7] = -1
+        ev[:, 5] = -1
+        ev[N - 1, 5] = 17                  # offset N - 1 = 32,767 at most
+        return ev, 1024
+    assert case == "zero_event"
+    ev = rng.integers(0, 2 ** 31 - 1, (700, 70), dtype=np.int32)
+    ev[rng.random((700, 70)) < 0.6] = -1
+    ev[0, 1] = 0
+    ev[699, 2] = 0
+    ev[:, 3] = 0
+    ev[300, 4] = 0
+    return ev, 128
+
+
+MASKED_CASES = ["lanes1", "lanes7", "lanes33", "lanes61", "far1024",
+                "far8192", "rows32765", "rows32768", "zero_event"]
+
+
+@pytest.mark.parametrize("case", MASKED_CASES)
+def test_masked_walk_equals_plain(cuda, case):
+    # compact_offsets with a low-bit mask: compact.cuh's walk whose window
+    # follows the destinations it reads; every element written by the
+    # kernel (the outputs start as garbage), direct stores only past a
+    # window of min(W + 127, 576) rows, and the coarse call on its output
+    # is the ranked walk
+    from tpujpeg_torch.runtime import kernels
+
+    ev_h, W = _masked_case(case)
+    ev = torch.as_tensor(ev_h).to(cuda)
+    p0, o0 = probes.offsets_init(ev)
+    direct = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["compact_offsets"]
+    torch.cuda.empty_cache()
+    junk = torch.full((p0.numel() * 6,), 0x5A, dtype=torch.uint8,
+                      device=cuda)
+    del junk                           # the next allocations reuse it
+    fine = materialize.compact_offsets(p0, o0, mask=W - 1, direct=direct)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["compact_offsets"] - before == 1
+    want = materialize.compact_offsets_plain(p0, o0, mask=W - 1)
+    assert torch.equal(fine[0], want[0]) and torch.equal(fine[1], want[1])
+    assert torch.equal(probes.compact_fine(p0, o0, W)[1], want[1])
+    n_direct = int(direct[0])
+    if W + 127 <= 576:                 # the window holds every lag
+        assert n_direct == 0
+    elif case.startswith("far"):
+        assert n_direct > 0            # lane 1 lags by more than the ring
+    whole = materialize.compact_offsets(p0, o0)
+    coarse = materialize.compact_offsets(*fine, mask=~(W - 1))
+    torch.cuda.synchronize()
+    assert torch.equal(coarse[0], whole[0]) and torch.equal(coarse[1], whole[1])
+    assert torch.equal(whole[0], materialize.compact_offsets_plain(p0, o0)[0])
+    if case == "zero_event":
+        assert int(fine[0][0, 1]) == 0 and int(fine[1][0, 1]) == 0
+        assert bool((whole[1][:, 3] == 0).all())
+    if case.startswith("rows"):
+        assert int(o0.max()) == ev.shape[0] - 1
+
+
+@pytest.mark.parametrize("mask", [-1, 0, 1, 1023, ~1023, 2 ** 31 - 1,
+                                  -2 ** 31])
+def test_compact_offsets_takes_every_mask_it_has_a_walk_for_on_the_card(
+        cuda, mask):
+    # each mask the wrapper takes, on offsets that meet its precondition,
+    # equals the plain version; a complement mask on offsets that are no
+    # multiple of W is not checked by the kernel: the plain version
+    # refuses it, and the kernel returns mask -1's result (documented in
+    # compact_offsets)
+    ev = torch.as_tensor(_masked_case("lanes33")[0]).to(cuda)
+    p0, o0 = probes.offsets_init(ev)
+    whole = materialize.compact_offsets(p0, o0)
+    if mask >= -1:
+        pairs = [(materialize.compact_offsets(p0, o0, mask=mask),
+                  materialize.compact_offsets_plain(p0, o0, mask=mask))]
+    else:
+        fine = materialize.compact_offsets(p0, o0, mask=~mask)
+        pairs = [(materialize.compact_offsets(*fine, mask=mask),
+                  materialize.compact_offsets_plain(*fine, mask=mask)),
+                 (materialize.compact_offsets(p0, o0, mask=mask), whole)]
+        with pytest.raises(ValueError, match="no multiple of"):
+            materialize.compact_offsets_plain(p0, o0, mask=mask)
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_compact_offsets_rejects_a_mask_it_has_no_walk_for_on_the_card(
+        cuda):
+    ev = torch.as_tensor(_masked_case("lanes7")[0]).to(cuda)
+    p0, o0 = probes.offsets_init(ev)
+    for mask in (2, 5, ~2):
+        with pytest.raises(ValueError, match="mask"):
+            materialize.compact_offsets(p0, o0, mask=mask)
+
+
+@pytest.mark.parametrize("source", ["l2", "shared", "readonly"])
+def test_chain_kernel_on_odd_tables_and_no_steps(cuda, source):
+    # the step by its reciprocal (T no power of two), T = 1 (the mask of
+    # 0) and a walk of no steps
+    rng = np.random.default_rng(13)
+    seed = torch.tensor([0], dtype=torch.int32, device=cuda)
+    for T in (1, 3, 4093, 12287, 100003):
+        if source == "shared" and T > probes.MAX_SHARED_TABLE:
+            continue
+        tbl = torch.as_tensor(
+            rng.integers(0, 2 ** 28, T).astype(np.int32)).to(cuda)
+        for steps in (0, 1, 5000):
+            got = probes.chain(tbl, seed, steps, source)
+            torch.cuda.synchronize()
+            assert torch.equal(got, probes.chain_plain(tbl, seed, steps)), \
+                (T, steps)
 
 
 def _scan_equal(got, want):

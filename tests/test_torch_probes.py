@@ -12,7 +12,10 @@ tests/test_torch_routes.py drives the full-height kernels).  Every
 comparison is `==` (integers, tolerance 0).  Also the two gathers' grids
 (`gather_rows_geometry`, `gather_table_blocks`; hypothesis), and their
 constants held equal to csrc/probes.cu's (the kernels themselves run
-only on the card: tests/test_torch_kernels.py).
+only on the card: tests/test_torch_kernels.py); the precondition of
+csrc/compact.cuh's masked walk (destinations that rise strictly down each
+lane; hypothesis) and the masks `compact_offsets` takes and refuses; and
+the chain step's reciprocal `==` `%` at the edges and under hypothesis.
 """
 
 import functools
@@ -241,3 +244,108 @@ def test_spread_ranked_equals_the_scatter(offsets):
                                            interpret=True))
     np.testing.assert_array_equal(_np(dense), want[:M])
     assert int(dense[0, 1]) == -2048
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.integers(1, 400), st.integers(1, 9), st.integers(0, 2 ** 32 - 1),
+       st.sampled_from([2, 128, 1024]))
+def test_masked_destinations_rise_strictly_down_each_lane(N, L, seed, W):
+    # the precondition of compact.cuh's masked walk: on offsets_init's
+    # (p, o), the destinations row - (o & (W - 1)) rise strictly down each
+    # lane and never fall below the lane's count of events so far; on the
+    # fine stage's output (offsets multiples of W) the complement mask
+    # ~(W - 1) moves every event to its rank, as mask -1 does
+    rng = np.random.default_rng(seed)
+    dens = rng.random(L) ** 2                  # sparse to full lanes
+    ev = np.where(rng.random((N, L)) < dens, rng.integers(0, 2 ** 31 - 1,
+                                                          (N, L)), -1)
+    ev[rng.random((N, L)) < 0.1] = -1
+    ev = ev.astype(np.int32)
+    gap = rng.integers(0, N + 1)               # a run of empty rows
+    ev[gap : gap + rng.integers(0, N + 1), rng.random(L) < 0.5] = -1
+    p0, o0 = probes.offsets_init(torch.as_tensor(ev))
+    fine = probes.compact_fine(p0, o0, W)
+    rows = np.arange(N)[:, None]
+    for (p, o), mask in (((p0, o0), W - 1), (fine, ~(W - 1))):
+        o = _np(o).astype(np.int64)
+        valid = o >= 0
+        dst = rows - (o & mask)
+        for lane in range(L):
+            d = dst[valid[:, lane], lane]
+            assert (np.diff(d) >= 1).all()
+            assert (d >= np.arange(len(d))).all()
+            if mask < 0:
+                assert (o[valid[:, lane], lane] % W == 0).all()
+                np.testing.assert_array_equal(d, np.arange(len(d)))
+    whole = tmat.compact_offsets(p0, o0)
+    coarse = tmat.compact_offsets(*fine, mask=~(W - 1))
+    assert all(torch.equal(a, b) for a, b in zip(coarse, whole))
+
+
+@pytest.mark.parametrize("mask", [2, 5, -3, 6, 1022, ~1022, 2 ** 31,
+                                  -2 ** 31 - 1])
+def test_compact_offsets_rejects_a_mask_it_has_no_walk_for(offsets, mask):
+    # -1, 2^j - 1 and ~(2^j - 1) only, on CPU tensors as on CUDA ones: no
+    # quiet fallback to the plain scatter
+    _, p0, o0 = offsets
+    with pytest.raises(ValueError, match="mask"):
+        tmat.compact_offsets(p0, o0, mask=mask)
+    with pytest.raises(ValueError, match="mask"):
+        tmat.compact_offsets_plain(p0, o0, mask=mask)
+
+
+@pytest.mark.parametrize("mask", [-1, 0, 1, 1023, ~1023, 2 ** 31 - 1,
+                                  -2 ** 31])
+def test_compact_offsets_takes_every_mask_it_has_a_walk_for(mask):
+    # acceptance alone: what these masks compute is held on the card
+    # (tests/test_torch_kernels.py), where the kernel runs
+    tmat.check_offsets_mask(mask)
+
+
+@pytest.mark.parametrize("W", [2, 128, 1024])
+def test_compact_offsets_plain_refuses_a_complement_mask_off_its_multiples(
+        offsets, W):
+    # ~(W - 1) is valid only on offsets that are multiples of W (the fine
+    # stage's output); the kernel does not check, so the plain version
+    # refuses the rest rather than compute a function the kernel does not
+    _, p0, o0 = offsets
+    o = _np(o0)
+    assert (o[o >= 0] % W != 0).any()
+    with pytest.raises(ValueError, match="no multiple of"):
+        tmat.compact_offsets_plain(p0, o0, mask=~(W - 1))
+    with pytest.raises(ValueError, match="no multiple of"):
+        tmat.compact_offsets(p0, o0, mask=~(W - 1))
+    fine = probes.compact_fine(p0, o0, W)
+    whole = tmat.compact_offsets_plain(p0, o0)
+    got = tmat.compact_offsets_plain(*fine, mask=~(W - 1))
+    assert all(torch.equal(a, b) for a, b in zip(got, whole))
+
+
+_NEAR = (2 ** 31 - 2) // 7     # v with v * 7 + 1 just below 2^31
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 7, 4093, 4096, 12289, 65536,
+                               2 ** 30, 2 ** 30 + 1, 2 ** 31 - 1])
+def test_chain_reciprocal_step_is_the_modulo_at_the_edges(T):
+    # csrc/probes.cu's step: a % T by one multiply-high with the magic
+    # chain_reciprocal gives (the wrapper passes it for T that are no
+    # power of two, and the kernel masks the others)
+    magic, l = probes.chain_reciprocal(T)
+    assert 0 < magic < 2 ** 32 and 0 <= l <= 31
+    q = (2 ** 31 - 1) // T
+    edges = {0, 1, T - 1, T, T + 1, 2 * T - 1, 2 * T, q * T, q * T - 1,
+             2 ** 31 - 1, 2 ** 31 - 2, 2 ** 31 - T, _NEAR * 7 + 1,
+             (_NEAR - 1) * 7 + 1, (2 ** 28 - 1) * 7 + 1}
+    for a in sorted(e for e in edges if 0 <= e < 2 ** 31):
+        assert probes.mod_reciprocal(a, T, magic, l) == a % T, a
+    if T & (T - 1) == 0:
+        assert all(((v * 7 + 1) & (T - 1)) == (v * 7 + 1) % T
+                   for v in (0, 1, _NEAR, 2 ** 28 - 1))
+    with pytest.raises(ValueError):
+        probes.chain_reciprocal(0)
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(0, 2 ** 31 - 1), st.integers(1, 2 ** 31 - 1))
+def test_chain_reciprocal_step_is_the_modulo(a, T):
+    assert probes.mod_reciprocal(a, T, *probes.chain_reciprocal(T)) == a % T

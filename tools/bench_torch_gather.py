@@ -26,15 +26,26 @@ limit, then milliseconds and nanoseconds per lookup for:
      tool shape of item 7, microseconds per call over 1,000 calls each;
   9. kernel "chain": 4,096 DEPENDENT lookups idx = (t[idx] * 7 + 1) %
      4096, one thread, the table read from L2, from shared memory and
-     through the read-only cache path (the load the scan kernel uses).
-     The time per dependent step is taken from the difference between a
-     65,536-step and a 4,096-step walk, so the launch and the staging of
-     the table cancel;
+     through the read-only cache path (the load the scan kernel uses),
+     held equal to its plain version at 4,096 and 65,536 steps and at a
+     table of 4,093 entries (the step's reciprocal, not its mask).  Call
+     ms per walk, and the time per dependent step from the difference
+     between a 65,536-step and a 4,096-step walk, so that the launch and
+     the staging of the table cancel (`print_chains`); then the device
+     time from a CUDA graph (`chain_readings`, `print_chain_readings`):
+     ns per step at 4,096 and 65,536 steps for each source, the same for
+     the chain's latency floor (entry tpj_chain_floor: the walk with the
+     step taken out, idx = t[idx], over a table that is one permutation
+     cycle, so every step loads a new entry), and the share floor /
+     chain at 65,536 steps;
  10. last, torch.profiler's kernel times of both gathers and their
      PyTorch calls at the second shape, a cross-check of items 6-7's
      device times (printed, gating nothing).  It comes last because
      after a profiler session every launch in the process costs the host
      more.
+
+With --chains, item 9 alone:
+    python tools/bench_torch_gather.py --chains
 
 The three readings of items 6-7:
   device ms  one CUDA graph that captures DEVICE_CALLS calls, replayed
@@ -69,6 +80,7 @@ sys.path.insert(0, ROOT)
 
 CHAIN = 4096
 CHAIN_LONG = 65536
+CHAIN_ODD = 4093     # a table whose step takes the reciprocal
 DEVICE_CALLS = 20
 HOST_CALLS = 1000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
@@ -348,24 +360,35 @@ def print_split(dev, smi: str) -> None:
           + f" [{smi}]")
 
 
-def print_chains(dev) -> None:
-    """Item 9: each chain source checked against its plain version, then
-    timed at CHAIN and CHAIN_LONG steps."""
+def _chain_table(dev, T: int = CHAIN):
     import numpy as np
+    import torch
+
+    rng = np.random.default_rng(3)
+    return torch.as_tensor(
+        rng.integers(0, T, (T, 1)).astype(np.int32)).to(dev)
+
+
+def print_chains(dev) -> None:
+    """Item 9, call ms: each chain source checked against its plain
+    version (at CHAIN and CHAIN_LONG steps, and on a CHAIN_ODD-entry
+    table), then timed at CHAIN and CHAIN_LONG steps."""
     import torch
 
     from tpujpeg_torch.ops import probes
 
-    rng = np.random.default_rng(3)
-    tbl = torch.as_tensor(
-        rng.integers(0, CHAIN, (CHAIN, 1)).astype(np.int32)).to(dev)
+    tbl = _chain_table(dev)
+    odd = _chain_table(dev, CHAIN_ODD)
     seed = torch.tensor([3], dtype=torch.int32, device=dev)
     want = {n: probes.chain_plain(tbl, seed, n) for n in (CHAIN, CHAIN_LONG)}
+    want_odd = probes.chain_plain(odd, seed, CHAIN)
     for source in probes.CHAIN_SOURCES:
         for n in (CHAIN, CHAIN_LONG):
             got = probes.chain(tbl, seed, n, source)
             torch.cuda.synchronize()
             assert torch.equal(got, want[n]), (source, n)
+        assert torch.equal(probes.chain(odd, seed, CHAIN, source),
+                           want_odd), (source, CHAIN_ODD)
         short = cuda_ms(lambda: probes.chain(tbl, seed, CHAIN, source))
         long = cuda_ms(lambda: probes.chain(tbl, seed, CHAIN_LONG, source))
         step_ns = (long - short) / (CHAIN_LONG - CHAIN) * 1e6
@@ -375,7 +398,75 @@ def print_chains(dev) -> None:
                f"dependent step net of launch)")
 
 
-def main() -> int:
+def chain_readings(dev) -> dict:
+    """Item 9, device time: for each chain source, ns per dependent step
+    from a CUDA graph (`device_ms`) of the chain at CHAIN and CHAIN_LONG
+    steps and of its latency floor (tpj_chain_floor over a table that is
+    one permutation cycle of CHAIN entries), and the share floor / chain
+    at CHAIN_LONG.  Each walk is checked first: the chain against its
+    plain version, the floor against the cycle."""
+    import numpy as np
+    import torch
+
+    from tpujpeg_torch.ops import probes
+    from tpujpeg_torch.runtime import kernels
+
+    lib = kernels.library()
+    tbl = _chain_table(dev)
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)
+    perm = np.random.default_rng(4).permutation(CHAIN)
+    cyc = np.empty(CHAIN, np.int32)
+    cyc[perm] = np.roll(perm, -1)
+    cycle = torch.as_tensor(cyc).to(dev)
+    start = torch.tensor([int(perm[0])], dtype=torch.int32, device=dev)
+    want = {n: probes.chain_plain(tbl, seed, n) for n in (CHAIN, CHAIN_LONG)}
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def floor(n, src):
+        # the current stream: a graph captures on its own
+        rc = lib.tpj_chain_floor(cycle.data_ptr(), start.data_ptr(),
+                                 out.data_ptr(), CHAIN, n, src,
+                                 kernels.current_stream(dev))
+        if rc:
+            raise RuntimeError(f"tpj_chain_floor failed: error {rc}")
+
+    res = {}
+    for source, src in probes.CHAIN_SOURCES.items():
+        r = {}
+        for n in (CHAIN, CHAIN_LONG):
+            if not torch.equal(probes.chain(tbl, seed, n, source), want[n]):
+                raise RuntimeError(f"chain from {source}: kernel != plain")
+            r[f"ns_{n}"] = device_ms(
+                lambda: probes.chain(tbl, seed, n, source)) / n * 1e6
+            floor(n, src)
+            if int(out[0]) != int(perm[n % CHAIN]):
+                raise RuntimeError(f"floor from {source}: off the cycle")
+            r[f"floor_ns_{n}"] = device_ms(lambda: floor(n, src)) / n * 1e6
+        r["share"] = r[f"floor_ns_{CHAIN_LONG}"] / r[f"ns_{CHAIN_LONG}"]
+        res[source] = r
+    return res
+
+
+def print_chain_readings(smi: str, r: dict) -> None:
+    """Item 9, device time: print the result of chain_readings."""
+    for source, x in r.items():
+        print(f"kernel chain, table from {source}, device ns per dependent "
+              f"step (a graph of {DEVICE_CALLS} calls): {CHAIN} steps "
+              f"{x[f'ns_{CHAIN}']:.2f}, {CHAIN_LONG} steps "
+              f"{x[f'ns_{CHAIN_LONG}']:.2f}; latency floor (idx = t[idx], "
+              f"one cycle) {x[f'floor_ns_{CHAIN}']:.2f} / "
+              f"{x[f'floor_ns_{CHAIN_LONG}']:.2f}; share {x['share']:.3f} "
+              f"[{smi}]")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--chains", action="store_true",
+                    help="item 9 alone")
+    args = ap.parse_args(argv)
+
     import numpy as np
     import torch
 
@@ -390,6 +481,11 @@ def main() -> int:
     ).stdout.strip()
     print(f"card: {smi}")
     dev = torch.device("cuda")
+    if args.chains:
+        print_chains(dev)
+        print_chain_readings(smi, chain_readings(dev))
+        print(f"all times on: {smi}")
+        return 0
     rng = np.random.default_rng(0)
     N = 1 << 20
 
@@ -442,6 +538,7 @@ def main() -> int:
     print_gathers(smi, gather_readings(dev))
     print_split(dev, smi)
     print_chains(dev)
+    print_chain_readings(smi, chain_readings(dev))
     for line in profiler_ms(dev):
         print(line)
     print(f"all times on: {smi}")

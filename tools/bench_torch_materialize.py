@@ -17,15 +17,22 @@ Prints the card's name and power limit, then milliseconds for:
   compact (fine + coarse)           `probes.compact_staged`: kernel
                                     "compact_offsets" with mask W - 1, then
                                     with mask ~(W - 1);
-  compact fine stage only           `probes.compact_fine`;
-  compact, one launch               `materialize.compact_offsets`;
+  compact fine stage only           `probes.compact_fine` (the masked
+                                    walk), with the share of its events
+                                    stored directly (behind the window)
+                                    and one PyTorch call beside it;
+  compact, one launch               `materialize.compact_offsets`, with
+                                    one PyTorch call beside it;
   spread                            `probes.spread_ranked`: kernel
                                     "spread_full" on the compact's output,
                                     with index_put_ beside it;
   transpose + reshape + DC cumsum   torch ops.
 
 Each kernel is checked against its plain version first, and the staged
-compact against the one-launch compact.  Times are CUDA events, the
+compact against the one-launch compact.  The PyTorch call of a compact
+(`compact_index_put_call`) is a zero fill of p, a -1 fill of o and two
+index_put_, its indices and values prepared outside; it is checked equal
+to the kernel.  Times are CUDA events, the
 median of `--iters` warm runs.  Needs a CUDA card.  Run from the repo
 root.
 """
@@ -60,6 +67,35 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def compact_index_put_call(p, o, mask: int = -1):
+    """One PyTorch call for `materialize.compact_offsets(p, o, mask)`: a
+    zero fill of p_out, a -1 fill of o_out and the two index_put_, with
+    the destinations row - (o & mask), lanes and values prepared
+    outside."""
+    import torch
+
+    Np, L = p.shape
+    row = torch.arange(Np, dtype=torch.int64, device=p.device)[:, None]
+    off = o.to(torch.int64)
+    dst = row - (off & mask)
+    valid = (o >= 0) & (dst >= 0)
+    idx = (dst[valid],
+           torch.arange(L, device=p.device).expand(Np, L)[valid])
+    pv = p[valid]
+    ov = (off - (off & mask))[valid].to(o.dtype)
+    p_out = torch.empty_like(p)
+    o_out = torch.empty_like(o)
+
+    def call():
+        p_out.zero_()
+        o_out.fill_(-1)
+        p_out.index_put_(idx, pv)
+        o_out.index_put_(idx, ov)
+        return p_out, o_out
+
+    return call
 
 
 def scan_events(corpus: str, repeat: int, dev):
@@ -170,15 +206,27 @@ def main(argv=None) -> int:
                       (staged, whole)):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     moved = int(((o0 >= 0) & ((o0.to(torch.int32) & (W - 1)) > 0)).sum())
-    print(f"  fine stage moves {moved} of {int((o0 >= 0).sum())} events; "
-          f"largest offset {int(o0.max())}")
+    n_valid = int((o0 >= 0).sum())
+    direct = torch.zeros(1, dtype=torch.int32, device=dev)
+    materialize.compact_offsets(p0, o0, mask=W - 1, direct=direct)
+    n_direct = int(direct[0])
+    print(f"  fine stage moves {moved} of {n_valid} events; largest offset "
+          f"{int(o0.max())}; the masked walk stores {n_direct} directly "
+          f"(behind its window), a share of {n_direct / max(n_valid, 1):.4f}")
+    lib_fine = compact_index_put_call(p0, o0, W - 1)
+    lib_whole = compact_index_put_call(p0, o0)
+    for call, want in ((lib_fine, fine), (lib_whole, staged)):
+        got = call()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     timed("  compact (fine + coarse, compact_offsets x2)",
           lambda: probes.compact_staged(p0, o0, W))
     timed("  compact fine stage only (compact_offsets, mask)",
-          lambda: probes.compact_fine(p0, o0, W))
+          lambda: probes.compact_fine(p0, o0, W),
+          f"  (fills + index_put_ {cuda_ms(lib_fine, args.iters):.4f} ms)")
     timed("  compact, one launch (compact_offsets)",
-          lambda: materialize.compact_offsets(p0, o0))
-    del fine, whole
+          lambda: materialize.compact_offsets(p0, o0),
+          f"  (fills + index_put_ {cuda_ms(lib_whole, args.iters):.4f} ms)")
+    del fine, whole, lib_fine, lib_whole
 
     cp, co = staged
     out16 = probes.spread_ranked(cp, co, M)

@@ -21,7 +21,8 @@
 // What bounds them on Hopper: the two gathers move 4 bytes in and 4 bytes
 // out per lookup and are bound by device memory; the table reads stay in
 // shared memory.  The chain is bound by the latency of one load: nothing
-// overlaps, so its time is steps x (load latency + three integer ops).
+// overlaps, so its time is steps x (load latency + the step's integer
+// ops): a latency floor, not a byte bound.
 //
 // Design of the two gathers: a lookup's bytes are its index and its
 // output, so both kernels stream those as 16-byte vectors (int4: four
@@ -57,7 +58,12 @@
 //     from shared memory (all threads of the block stage it first), and
 //     through the read-only cache path (ld.global.nc, the load the scan
 //     kernel uses for its symbol table), so a tool can print the time per
-//     dependent step of each.
+//     dependent step of each.  The step's `% T` by a runtime T was a
+//     32-bit division of about twenty instructions on the dependent path
+//     of every step; it is a mask where T is a power of two (the tool's
+//     4,096) and a multiply by a reciprocal fixed per launch elsewhere,
+//     the same bits.  Its floor is the walk with no step at all
+//     (tpj_chain_floor), read in the same CUDA graph (PERF.md, section 6).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -232,10 +238,30 @@ gather_table_kernel(const int32_t* __restrict__ t,
 
 enum ChainSource { kL2 = 0, kShared = 1, kReadOnly = 2 };
 
-template <int kSource>
+// The step after each load: the contract's (v * 7 + 1) % T by a mask (T a
+// power of two) or by a reciprocal fixed per launch; or none, idx = v, the
+// latency floor that tools/bench_torch_gather.py reads on a table that is
+// one permutation cycle (entry tpj_chain_floor, outside the port's API).
+enum ChainStep { kMask = 0, kReciprocal = 1, kFloor = 2 };
+
+// a % T for 0 <= a < 2^31 and 1 <= T < 2^31, with l = ceil(log2 T) and
+// magic = ceil(2^(31 + l) / T) (< 2^32; ops/probes.chain_reciprocal):
+// floor(a / T) = (a * magic) >> (31 + l), exact for every such a because
+// magic * T - 2^(31 + l) < T <= 2^l (Granlund and Montgomery, 1994,
+// theorem 4.2 with N = 31).  2a fits 32 bits, so one multiply-high
+// gives (2a * magic) >> 32 = (a * magic) >> 31.  Four dependent integer
+// operations where the division by a runtime T took about twenty.
+__device__ __forceinline__ int mod_reciprocal(int a, int T, unsigned magic,
+                                              int l) {
+  const unsigned q = __umulhi(2u * static_cast<unsigned>(a), magic) >> l;
+  return a - static_cast<int>(q) * T;
+}
+
+template <int kSource, int kStep>
 __global__ void chain_kernel(const int32_t* __restrict__ t,
                              const int32_t* __restrict__ seed,
-                             int32_t* __restrict__ out, int T, int steps) {
+                             int32_t* __restrict__ out, int T, int steps,
+                             unsigned magic, int l) {
   extern __shared__ int32_t tab[];
   if (kSource == kShared) {
     for (int j = threadIdx.x; j < T; j += blockDim.x) tab[j] = t[j];
@@ -252,9 +278,35 @@ __global__ void chain_kernel(const int32_t* __restrict__ t,
     } else {
       v = __ldg(t + idx);
     }
-    idx = (v * 7 + 1) % T;
+    if (kStep == kFloor) {
+      idx = v;
+    } else if (kStep == kMask) {
+      idx = (v * 7 + 1) & (T - 1);
+    } else {
+      idx = mod_reciprocal(v * 7 + 1, T, magic, l);
+    }
   }
   out[0] = idx;
+}
+
+template <int kStep>
+cudaError_t launch_chain(const int32_t* t, const int32_t* seed, int32_t* out,
+                         int T, int steps, int source, unsigned magic, int l,
+                         cudaStream_t stream) {
+  if (source == kShared) {
+    if (T > kMaxTable) return cudaErrorInvalidValue;
+    chain_kernel<kShared, kStep><<<1, kThreads, T * sizeof(int32_t), stream>>>(
+        t, seed, out, T, steps, magic, l);
+  } else if (source == kL2) {
+    chain_kernel<kL2, kStep><<<1, 32, 0, stream>>>(t, seed, out, T, steps,
+                                                   magic, l);
+  } else if (source == kReadOnly) {
+    chain_kernel<kReadOnly, kStep><<<1, 32, 0, stream>>>(t, seed, out, T,
+                                                         steps, magic, l);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -332,21 +384,32 @@ extern "C" int tpj_gather_table(const int32_t* t, const int32_t* idx,
 // t int32 [T] (values >= 0, small enough that v * 7 + 1 fits int32), seed
 // int32 [1] in [0, T) -> out int32 [1]: `steps` dependent lookups
 // idx = (t[idx] * 7 + 1) % T.  source: 0 = L2, 1 = shared memory
-// (T <= 12288), 2 = the read-only cache path.
+// (T <= 12288), 2 = the read-only cache path.  magic == 0: T is a power
+// of two and the step masks; else (magic, l) = ops/probes.chain_reciprocal
+// (T) and the step multiplies by the reciprocal.
 extern "C" int tpj_chain(const int32_t* t, const int32_t* seed,
                          int32_t* out, int T, int steps, int source,
-                         cudaStream_t stream) {
-  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (source == kShared) {
-    if (T > kMaxTable) return static_cast<int>(cudaErrorInvalidValue);
-    chain_kernel<kShared><<<1, kThreads, T * sizeof(int32_t), stream>>>(
-        t, seed, out, T, steps);
-  } else if (source == kL2) {
-    chain_kernel<kL2><<<1, 32, 0, stream>>>(t, seed, out, T, steps);
-  } else if (source == kReadOnly) {
-    chain_kernel<kReadOnly><<<1, 32, 0, stream>>>(t, seed, out, T, steps);
-  } else {
+                         unsigned magic, int l, cudaStream_t stream) {
+  if (T < 1 || l < 0 || l > 31) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (magic == 0) {
+    if (T & (T - 1)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        launch_chain<kMask>(t, seed, out, T, steps, source, 0, 0, stream));
+  }
+  return static_cast<int>(launch_chain<kReciprocal>(t, seed, out, T, steps,
+                                                    source, magic, l, stream));
+}
+
+// The latency floor of tpj_chain: the same walk and launch with the step
+// taken out, idx = t[idx] (t a permutation of [0, T) for a walk of one
+// cycle).  Measurement only (tools/bench_torch_gather.py): no wrapper, no
+// launch count.
+extern "C" int tpj_chain_floor(const int32_t* t, const int32_t* seed,
+                               int32_t* out, int T, int steps, int source,
+                               cudaStream_t stream) {
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_chain<kFloor>(t, seed, out, T, steps, source, 0, 0, stream));
 }

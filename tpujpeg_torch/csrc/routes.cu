@@ -29,26 +29,31 @@
 // none of that is a contract here.
 //
 // Design: two shared bodies, each measured on its first kernel.
-//   * compact_offsets without a mask (the "ranked" route) and compact_full
-//     are csrc/compact.cuh, the walk of slots.cu's compact: a 32-lane tile
-//     walked by 8 warps in 128-row chunks, each element read once, the
-//     rank carried down the lane, the events staged in a shared-memory
-//     window of output rows and written a whole row of the tile at a time,
-//     the empty rows with them, so no memset runs.  compact_offsets reads
-//     (p, o) and takes a row's event as o >= 0 ? p : -1; under its
-//     precondition (o = row - rank on valid rows) the counted rank is
-//     row - o, so the walk computes the scatter's function (12 bytes an
-//     element); compact_full writes cp alone (8 bytes an element).
+//   * compact_offsets and compact_full are csrc/compact.cuh.  Without a
+//     mask (the "ranked" route), with the complement mask ~(W - 1) on the
+//     multiples of W that the fine stage leaves, and in compact_full: the
+//     walk of slots.cu's compact, a 32-lane tile walked by 8 warps in
+//     128-row chunks, each element read once, the rank carried down the
+//     lane, the events staged in a shared-memory window of output rows
+//     and written a whole row of the tile at a time, the empty rows with
+//     them, so no memset runs.  compact_offsets reads (p, o) and takes a
+//     row's event as o >= 0 ? p : -1; under its precondition (o = row -
+//     rank on valid rows) the counted rank is row - o, so the walk
+//     computes the scatter's function (12 bytes an element); compact_full
+//     writes cp alone (8 bytes an element).  With a low-bit mask W - 1
+//     (the probe compact_fine, and compact_staged's first call) the same
+//     tile and chunks, but the destination row - (o & mask) is read, not
+//     counted: it rises down each lane, so the window follows
+//     destinations, holds W + 127 rows (up to 576), and again every
+//     element is written once with no memset (compact.cuh's note).  A
+//     scatter after two memsets stored each event into two lone sectors:
+//     1.34-1.38 ms on the mixed chunk's fine stage, the walk 0.57-0.62.
 //   * spread_full is csrc/place.cuh, the body of materialize.cu's
 //     place_events, with validity from o >= 0 when the caller has offsets
 //     (o is then read first, and cp only on rows with a valid lane) and
 //     from the event's sign otherwise: the dense output zeroed, four
 //     lanes x four rows a thread with all loads before the first store,
 //     rows on gridDim.x.
-//   * compact_offsets with a mask (only the probes compact_fine and
-//     compact_staged) moves each event by o & mask: those destinations
-//     are not ranks, so it stays a scatter with one thread per (row, lane)
-//     element after two memsets.
 // Validity is a sign (ev >= 0, o >= 0), never cp > 0: an event that packs
 // to 0 (blk 0, z 0, val -2048) is placed like any other.
 
@@ -58,56 +63,34 @@
 #include "compact.cuh"
 #include "place.cuh"
 
-namespace {
-
-constexpr int kRowThreads = 256;  // lanes per block of the masked scatter
-
-__global__ void masked_offsets_kernel(const int32_t* __restrict__ p,
-                                      const int16_t* __restrict__ o,
-                                      int32_t* __restrict__ p_out,
-                                      int16_t* __restrict__ o_out, int L,
-                                      int mask) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (lane >= L) return;
-  const size_t i = static_cast<size_t>(r) * L + lane;
-  const int off = __ldg(o + i);
-  if (off < 0) return;             // empty row
-  const int move = off & mask;     // the stages this call runs
-  if (move > r) return;            // an offset past row 0
-  const size_t dst = static_cast<size_t>(r - move) * L + lane;
-  p_out[dst] = __ldg(p + i);
-  o_out[dst] = static_cast<int16_t>(off - move);
-}
-
-}  // namespace
-
 // (p int32, o int16) [Np, L], o = row - rank >= 0 on valid rows ->
 // (p_out, o_out) [Np, L]: each valid event at row - (o & mask) with
-// o_out = o - (o & mask) there (0 when mask is -1), p_out == 0 and
-// o_out == -1 elsewhere.  mask -1: the walk of compact.cuh, every element
-// written once, nothing launched when Np or L is 0.  Any other mask: the
-// scatter after two memsets, one block row per p row (Np <= 65535; the
-// wrapper holds it below 32768).
+// o_out = o - (o & mask) there, p_out == 0 and o_out == -1 elsewhere.
+// mask: -1, W - 1 or ~(W - 1) for W a power of two; ~(W - 1) only on
+// offsets that are multiples of W (it then moves every event to its rank
+// and leaves o_out 0, as -1 does; other offsets are not checked, take the
+// same result, and the plain version refuses them).  Any other mask:
+// cudaErrorInvalidValue.
+// Negative masks run the ranked walk of compact.cuh, W - 1 its masked
+// walk, which adds its direct stores (a lane behind the window) to
+// *direct where direct is not null.  Every element of the outputs is
+// written by the kernel; nothing is launched when Np or L is 0.
 extern "C" int tpj_compact_offsets(const int32_t* p, const int16_t* o,
                                    int32_t* p_out, int16_t* o_out, int Np,
-                                   int L, int mask, cudaStream_t stream) {
-  if (mask == -1) {
+                                   int L, int mask, int* direct,
+                                   cudaStream_t stream) {
+  const unsigned low = mask < 0 ? ~static_cast<unsigned>(mask)
+                                : static_cast<unsigned>(mask);
+  if ((low & (low + 1u)) != 0u) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mask < 0) {
     return static_cast<int>(compact::launch(compact::Offsets{p, o},
                                             compact::RankRows{p_out, o_out},
                                             Np, L, stream));
   }
-  const size_t n = static_cast<size_t>(Np) * L;
-  cudaError_t rc = cudaMemsetAsync(p_out, 0, n * sizeof(int32_t), stream);
-  if (rc == cudaSuccess) {
-    rc = cudaMemsetAsync(o_out, 0xFF, n * sizeof(int16_t), stream);
-  }
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  if (Np == 0 || L == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((L + kRowThreads - 1) / kRowThreads, Np);
-  masked_offsets_kernel<<<grid, kRowThreads, 0, stream>>>(p, o, p_out, o_out,
-                                                          L, mask);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(compact::launch_masked(
+      compact::Masked{p, o, p_out, o_out, mask, direct}, Np, L, stream));
 }
 
 // ev int32 [N, L] (valid when >= 0) -> out int32 [N, L]: the valid events

@@ -1465,7 +1465,8 @@ def _spec_converge(xs, chunk_bits, inherit, max_iters: int,
     scan; lane i's next start is lane i-1's end (rebased) where `inherit`
     holds.  One device flag is read per iteration.  Returns (start_bits,
     start_bim, blk, err_mal, err_env, changed, iters): changed is True
-    when max_iters ran out first."""
+    when max_iters ran out first.  chip_smoke.py phase 8 times a copy of
+    this loop without the read (`unread`); change the two together."""
     L = chunk_bits.shape[0]
     stride = xs.shape[1]
     caps = torch.full((L,), blk_cap, dtype=torch.int32, device=xs.device)

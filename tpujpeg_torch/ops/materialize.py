@@ -55,8 +55,9 @@ Two more routes of the classic contract (kernels "compact_offsets",
              `compact_full` (ranks inside the kernel, payload only) then
              `spread_full` (`place_events_full`).
 
-`compact_offsets` (without a mask) and `compact_full` run the walk of
-slots.cu's `compact` (csrc/compact.cuh), `spread_full` the scatter of
+`compact_offsets` and `compact_full` run the walks of csrc/compact.cuh
+(with a low-bit mask `compact_offsets` takes the one whose window
+follows destinations read from o), `spread_full` the scatter of
 `place_events` (csrc/place.cuh).
 
 `compact_full` marks its empty rows with -1, not with the 0 of the JAX
@@ -247,11 +248,26 @@ def compact_to_rank(ev: torch.Tensor, rank_kernel: bool = True,
     return p, o
 
 
+def check_offsets_mask(mask: int) -> None:
+    """Raise ValueError unless `mask` is one that `compact_offsets` takes:
+    -1, a low-bit mask 2^j - 1, or its complement ~(2^j - 1), as a C int."""
+    low = mask if mask >= 0 else ~mask
+    if not -2 ** 31 <= mask < 2 ** 31 or low & (low + 1):
+        raise ValueError(
+            f"compact_offsets: mask {mask} is not -1, 2^j - 1 or ~(2^j - 1)")
+
+
 def compact_offsets_plain(p: torch.Tensor, o: torch.Tensor, mask: int = -1):
-    """Plain PyTorch version of `compact_offsets` (same contract)."""
+    """Plain PyTorch version of `compact_offsets` (same contract).  It
+    also refuses a complement mask ~(W - 1) on a valid offset that is no
+    multiple of W, which the kernel does not check."""
+    check_offsets_mask(mask)
     Np, L = p.shape
     row = torch.arange(Np, dtype=torch.int64, device=p.device)[:, None]
     off = o.to(torch.int64)
+    if mask < -1 and bool(((o >= 0) & (off & ~mask != 0)).any()):
+        raise ValueError(f"compact_offsets: mask {mask} on an offset that "
+                         f"is no multiple of {~mask + 1}")
     move = off & mask
     dst = row - move
     valid = (o >= 0) & (dst >= 0)
@@ -264,7 +280,8 @@ def compact_offsets_plain(p: torch.Tensor, o: torch.Tensor, mask: int = -1):
 
 
 def compact_offsets(p: torch.Tensor, o: torch.Tensor, mask: int = -1,
-                    counted_as: str = "compact_offsets"):
+                    counted_as: str = "compact_offsets",
+                    direct: torch.Tensor | None = None):
     """(p int32, o int16) [Np, L] -> (p, o) [Np, L], compacted.
 
     A valid row holds o = row - rank >= 0, its distance to its rank row;
@@ -277,24 +294,36 @@ def compact_offsets(p: torch.Tensor, o: torch.Tensor, mask: int = -1,
     Precondition: o = row - rank on every valid row (o >= 0), and p >= 0
     there.  `compact_to_rank(rank_kernel=False, stop_after="init")` gives
     such (p, o), and a masked call keeps it on the rows it moves to, so
-    every producer in the package meets it.
+    every producer in the package meets it.  Under it o never falls down
+    a lane, so each lane's destinations row - (o & mask) rise strictly.
 
     mask (default -1: all of the offset) selects one group of the
     compaction network's stages: every valid event moves up by
-    `o & mask` and keeps the residual `o - (o & mask)`.  mask = W - 1 is
-    the fine stage alone (the contract of _fine_compact_kernel at kc = 1
-    with window W: stages d < W); mask = ~(W - 1) the coarse stages
-    after it.  The network runs its stages low bits first, so the masks
-    compose in that order only: fine, then coarse, equals one full call.
+    `o & mask` and keeps the residual `o - (o & mask)`.  mask = W - 1
+    (W = 2^j) is the fine stage alone (the contract of
+    _fine_compact_kernel at kc = 1 with window W: stages d < W); mask =
+    ~(W - 1) the coarse stages after it, and only on offsets that are
+    multiples of W, which is what the fine stage leaves: there it moves
+    every event to its rank, as mask -1 does.  The plain version raises
+    ValueError on any other valid offset; the kernel does not check (it
+    would cost a reduction and a host sync a call) and returns mask -1's
+    result there.  The network runs its
+    stages low bits first, so the masks compose in that order only:
+    fine, then coarse, equals one full call.  Any other mask raises
+    ValueError, on CPU and CUDA tensors alike.
 
     CUDA tensors run kernel "compact_offsets"; CPU tensors the plain
-    version.  mask -1 runs the walk of csrc/compact.cuh (the body of
-    `compact` and `compact_full`), which counts each lane's rows with
-    o >= 0 and writes each at its counted rank, row - o under the
-    precondition: every element read once and written once, no memset.
-    Any other mask runs a scatter by o & mask, one thread per element,
-    after a fill of the outputs.  counted_as: the name the launch is
-    counted under (the probes of ops/probes.py count their own)."""
+    version.  mask -1 and ~(W - 1) run the walk of csrc/compact.cuh (the
+    body of `compact` and `compact_full`), which counts each lane's rows
+    with o >= 0 and writes each at its counted rank, row - o under the
+    precondition.  mask W - 1 runs compact.cuh's masked walk, which reads
+    each destination and stages it in a window of W + 127 rows (at most
+    576); a lane further behind stores directly, and `direct` (an
+    int32 CUDA tensor [1], or None) adds the count of those stores.
+    Either way every element is read once and written once, no memset.
+    counted_as: the name the launch is counted under (the probes of
+    ops/probes.py count their own)."""
+    check_offsets_mask(mask)
     if not p.is_cuda:
         return compact_offsets_plain(p, o, mask)
     from ..runtime import kernels
@@ -303,6 +332,8 @@ def compact_offsets(p: torch.Tensor, o: torch.Tensor, mask: int = -1,
     kernels.check_cuda_tensor("o", o, torch.int16, 2)
     if p.shape != o.shape:
         raise ValueError("compact_offsets: p and o must have one shape")
+    if direct is not None:
+        kernels.check_cuda_tensor("direct", direct, torch.int32, 1)
     Np, L = p.shape
     if Np > INT16_SPAN:
         raise ValueError(
@@ -312,6 +343,7 @@ def compact_offsets(p: torch.Tensor, o: torch.Tensor, mask: int = -1,
     if p_out.numel():
         kernels.launch(counted_as, p.data_ptr(), o.data_ptr(),
                        p_out.data_ptr(), o_out.data_ptr(), Np, L, mask,
+                       None if direct is None else direct.data_ptr(),
                        kernels.current_stream(p.device))
     return p_out, o_out
 

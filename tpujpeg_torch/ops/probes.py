@@ -16,10 +16,12 @@ tools/bench_materialize2.py:
   compact_fine    compact_fine_only: the fine compact stage alone, every
                   valid (p, o) entry moved up by o & (W - 1) with the
                   residual offset o & ~(W - 1) kept
-                  (`materialize.compact_offsets(mask=W - 1)`);
+                  (`materialize.compact_offsets(mask=W - 1)`: the masked
+                  walk of csrc/compact.cuh);
   compact_staged  compact_only: the fine stage then the coarse stages
-                  (`compact_offsets(mask=~(W - 1))`), equal to one full
-                  `compact_offsets`;
+                  (`compact_offsets(mask=~(W - 1))`, on the multiples of W
+                  the fine stage leaves: the ranked walk), equal to one
+                  full `compact_offsets`;
   spread_ranked   spread_only: compacted (p, o) -> dense int16 [M, L],
                   validity from o >= 0 (`materialize.spread_full`).
 
@@ -155,6 +157,24 @@ def chain_plain(t: torch.Tensor, seed: torch.Tensor,
     return torch.tensor([idx], dtype=torch.int32, device=t.device)
 
 
+def chain_reciprocal(T: int) -> tuple[int, int]:
+    """(magic, l) of kernel "chain"'s step for a table of T entries, 1 <=
+    T < 2^31: l = ceil(log2 T), magic = ceil(2^(31 + l) / T) < 2^32, so
+    that a % T = `mod_reciprocal(a, T, magic, l)` for every 0 <= a <
+    2^31 (csrc/probes.cu::mod_reciprocal)."""
+    if not 1 <= T < 2 ** 31:
+        raise ValueError(f"chain: {T} entries")
+    l = (T - 1).bit_length()
+    return -(-(1 << (31 + l)) // T), l
+
+
+def mod_reciprocal(a: int, T: int, magic: int, l: int) -> int:
+    """a % T as the kernel computes it: one 32-bit multiply-high of 2a by
+    magic, a shift by l, a multiply-subtract."""
+    q = ((2 * a * magic) >> 32) >> l
+    return a - q * T
+
+
 def chain(t: torch.Tensor, seed: torch.Tensor, steps: int,
           source: str = "l2") -> torch.Tensor:
     """`steps` dependent lookups idx = (t[idx] * 7 + 1) % T.
@@ -163,8 +183,9 @@ def chain(t: torch.Tensor, seed: torch.Tensor, steps: int,
     [0, T) -> int32 [1], the last index.  source names where the CUDA
     kernel reads the table: "l2" (ld.global.cg), "shared" (staged first,
     T <= 12288) or "readonly" (ld.global.nc, the scan kernel's table
-    load); all three give the same result.  CPU tensors run the plain
-    version."""
+    load); all three give the same result.  The kernel reduces by a mask
+    where T is a power of two and by `chain_reciprocal(T)` elsewhere.
+    CPU tensors run the plain version."""
     if source not in CHAIN_SOURCES:
         raise ValueError(f"chain: unknown source {source!r}")
     if not t.is_cuda:
@@ -177,9 +198,10 @@ def chain(t: torch.Tensor, seed: torch.Tensor, steps: int,
     T = flat.shape[0]
     if source == "shared" and T > MAX_SHARED_TABLE:
         raise ValueError(f"chain: {T} entries exceed shared memory")
+    magic, l = (0, 0) if T & (T - 1) == 0 else chain_reciprocal(T)
     out = torch.empty(1, dtype=torch.int32, device=t.device)
     kernels.launch("chain", flat.data_ptr(), seed.data_ptr(), out.data_ptr(),
-                   T, steps, CHAIN_SOURCES[source],
+                   T, steps, CHAIN_SOURCES[source], magic, l,
                    kernels.current_stream(t.device))
     return out
 

@@ -54,8 +54,10 @@ a batch that mixes samplings splits by itself.  fancy=True selects
 libjpeg's triangle chroma upsampling on every route (box replication
 otherwise).
 
-Not ported yet (ROADMAP): several devices (13), the prep-pool overlap of
-plan building with device work (8).
+Not ported yet: what ROADMAP.md's queue 1 ("Modules to port") lists,
+among them decode_parsed(fetch=False), the "cpu", "oracle", "auto" and
+"gather" backends, the prep-pool overlap of plan building with device
+work, and several cards.
 """
 
 from __future__ import annotations

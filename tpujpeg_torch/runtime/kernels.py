@@ -62,8 +62,8 @@ _SIGNATURES = {
     "tpj_slot_unpack": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # o2, p, dense, Np, M, L, cshift, gshift, stream
     "tpj_slot_expand": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # p, o, p_out, o_out, Np, L, mask, stream
-    "tpj_compact_offsets": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # p, o, p_out, o_out, Np, L, mask, direct, stream
+    "tpj_compact_offsets": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # ev, out, N, L, stream
     "tpj_compact_full": [_P, _P, _I, _I, _P],
     # cp, o, dense, err, N, M, L, stream
@@ -76,8 +76,12 @@ _SIGNATURES = {
     "tpj_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # t, idx, out, T, N, blocks, stream
     "tpj_gather_table": [_P, _P, _P, _I, _I, _I, _P],
-    # t, seed, out, T, steps, source, stream
-    "tpj_chain": [_P, _P, _P, _I, _I, _I, _P],
+    # t, seed, out, T, steps, source, magic, l, stream
+    "tpj_chain": [_P, _P, _P, _I, _I, _I, ctypes.c_uint, _I, _P],
+    # t, seed, out, T, steps, source, stream: the chain's latency floor,
+    # read by tools/bench_torch_gather.py through library(); no wrapper,
+    # not in KERNELS, not counted
+    "tpj_chain_floor": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 # kernel name (as counted) -> C entry.  The three materialize-stage probes
