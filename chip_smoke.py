@@ -67,6 +67,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      and tools/bench_torch_materialize.py; together they drive the six
      probe kernels (gather_rows, gather_table, chain, compact_fine,
      compact_staged, spread_ranked);
+  6e. the engine's surface: on the 128-image restart chunk, which
+     build_plan's split packs into two stride groups,
+     fsm.entropy_decode_fsm equals the host reference decoder's
+     coefficients with two launches each of fsm_scan and place_events,
+     and the engine's staged branch (the split forced) decodes it
+     bit-exact with the same launches and pixels on [B, n_blocks, 64];
+     both packings are timed with their uploads and with their bytes
+     resident, and the link probe (measured_link_mbps) and the two link
+     rates derived from these readings are printed beside the engine's
+     constants, which must route as they do; decode(fetch=False) on the
+     restart and spec chunks returns None with the fetch=True run's
+     counters (both end to end times printed); backend "cpu" (workers =
+     os.cpu_count()) on the restart chunk launches no kernel (on the
+     goldens where the native library does not build); backend
+     "oracle" on the goldens; backend "auto" takes the route its probe
+     reads; fsm.decode_speculative on 4_800x600 equals the oracle, and
+     decode_speculative_batch / decode_speculative_sync
+     (device_out=False) on the spec chunk equal the reference; the root
+     decode with each backend on one golden;
   7. each kernel against its plain PyTorch version on the chunks' real
      inputs (torch.equal), with both times (CUDA events; kernels warm,
      median of 5; a plain version that takes seconds is timed once, the
@@ -143,7 +162,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      stage times (IDCT, block -> raster, upsample, f32 and exact colour,
      pack).
 
-Each path of phases 2-6d runs with the launch counts set to 0 just before
+Each path of phases 2-6e runs with the launch counts set to 0 just before
 it and read just after, and fails if a kernel it must run was not
 launched; every engine of phases 2-6c reports 0 repaired pixels.  The second-to-last line is a JSON object with one entry per
 kernel (launches summed over those paths, and per 128-image chunk of
@@ -647,7 +666,7 @@ def main() -> int:
     # the slot route at 6 blocks per MCU: 240-block restart lanes whose
     # 8-block slot groups straddle the six-block MCUs
     rimgs420 = sub["restart"][2]
-    plan420 = fsm.build_plan(rimgs420)
+    plan420 = fsm.build_plan(rimgs420, split=False)
     up420 = (torch.as_tensor(plan420.xs).to(dev),
              torch.as_tensor(plan420.seg_n_blocks).to(dev))
     quant420 = quant_of(rimgs420)
@@ -729,6 +748,233 @@ def main() -> int:
           "tools/bench_torch_materialize.py failed")
     torch.cuda.empty_cache()
 
+    # ---- phase 6e: the engine's surface
+    from tpujpeg_torch.runtime import batch as engine
+
+    def counters(st) -> dict:
+        return {k: v for k, v in st.as_dict().items()
+                if k not in ("parse_s", "entropy_s", "device_s", "total_s")}
+
+    rimgs = [parse(d) for d in datas]
+    rgeom = Geometry.of(rimgs[0])
+    rcoef = [host.entropy_decode(parse(d)) for d in streams]
+    plan1 = fsm.build_plan(rimgs, split=False)
+    plan2 = fsm.build_plan(rimgs)
+    check(len(plan1.groups) == 1 and len(plan2.groups) == 2,
+          f"restart chunk: {len(plan2.groups)} stride groups under split")
+    print("phase 6e: restart chunk lane matrices: one group "
+          f"{list(plan1.xs.shape)}; split "
+          + " + ".join(str(list(g[0].shape)) for g in plan2.groups))
+    got = run_path("phase 6e entropy_decode_fsm",
+                   lambda: fsm.entropy_decode_fsm(rimgs),
+                   need=("fsm_scan", "place_events"))
+    counts = by_path["phase 6e entropy_decode_fsm"]
+    check(counts["fsm_scan"] == 2 and counts["place_events"] == 2,
+          f"entropy_decode_fsm launches {counts}")
+    got = got.reshape(CHUNK, rgeom.n_blocks, 64)
+    for i in range(CHUNK):
+        check(np.array_equal(got[i], rcoef[i % 16]),
+              f"entropy_decode_fsm image {i} differs from "
+              f"{host.backend_name()}")
+    del got
+    print(f"phase 6e: entropy_decode_fsm on the split restart chunk equals "
+          f"{host.backend_name()}'s coefficients, {CHUNK} images")
+
+    # the staged branch of the engine: the split taken at any link rate
+    split_at = engine._LINK_MBPS_SPLIT
+    engine._LINK_MBPS_SPLIT = float("inf")
+    try:
+        tdec = BatchDecoder(backend="fsm", chunk_size=CHUNK, device="cuda")
+        tout = run_path("phase 6e staged", lambda: tdec.decode(datas),
+                        need=("fsm_scan", "place_events", "pixels"))
+    finally:
+        engine._LINK_MBPS_SPLIT = split_at
+    counts = by_path["phase 6e staged"]
+    check(counts["fsm_scan"] == 2 and counts["place_events"] == 2
+          and counts["pixels"] == 1, f"staged chain launches {counts}")
+    for i, g in enumerate(tout):
+        check(np.array_equal(g, refs[i % 16]),
+              f"staged output {i} differs from {host.backend_name()}")
+    check(counters(tdec.stats) == counters(stats),
+          f"staged stats {tdec.stats.as_dict()}")
+    tdec.close()
+    del tout
+    print(f"phase 6e: the engine's staged branch (two scans, the perm "
+          f"gather, assemble_batched, pixels on [B, n_blocks, 64]) on the "
+          f"restart chunk: {CHUNK} outputs bit-exact, counters equal to "
+          f"phase 2's")
+
+    # both packings of the restart chunk, each with its upload, then with
+    # its bytes resident; the link probe and the two derived rates
+    rquant = quant_of(rimgs)
+
+    def fused_chain(up):
+        return fused.decode_chunk_fused(plan1, rquant, rgeom, CHUNK,
+                                        uploaded=up, want_coeffs=False,
+                                        exact=True)
+
+    def staged_chain(up):
+        per_lane, _ = fsm.decode_plan(plan2, uploaded=up)
+        coeffs = fsm.assemble_batched(per_lane, layout=plan2.layout,
+                                      pad_to=CHUNK)
+        return pipeline.device_decode_fn(rgeom, coeffs, rquant, exact=True)
+
+    def upload1():
+        return tuple(torch.as_tensor(a).to(dev) for a in plan1.groups[0])
+
+    up1, up2 = upload1(), fsm.upload_plan(plan2, dev)
+    check(torch.equal(fused_chain(up1)[0], staged_chain(up2)[0]),
+          "fused and staged chains differ")
+
+    def entropy_chain():
+        # the fsm route's device entropy decode: scan, materialize, DC
+        ev, mal, _ = fsm.fsm_scan(*up1, plan1.tables)
+        n_cols, K, L = ev.shape
+        ct, _, _ = fsm.materialize_checked(ev.reshape(n_cols * K, L),
+                                           plan1.max_blk * 64, mal)
+        return fsm._dc_cumsum(ct.T.reshape(L, plan1.max_blk, 64)[:, :, 0],
+                              plan1.tables, plan1.max_blk)
+
+    timing = {
+        "fused, upload": lambda: fused_chain(upload1()),
+        "staged, upload": lambda: staged_chain(fsm.upload_plan(plan2, dev)),
+        "fused, resident": lambda: fused_chain(up1),
+        "staged, resident": lambda: staged_chain(up2),
+        "entropy (fused packing)": entropy_chain,
+    }
+    tms = {k: cuda_times(fn) for k, fn in timing.items()}
+    link = engine.measured_link_mbps(dev)
+    bytes1 = sum(a.nbytes for a in plan1.groups[0])
+    bytes2 = sum(a.nbytes for g in plan2.groups for a in g) \
+        + plan2.perm.nbytes
+    coef_bytes = CHUNK * rgeom.n_blocks * 64 * 4   # the host route's int32
+    ent_ms = tms["entropy (fused packing)"][0]
+    fsm_rate = (coef_bytes - bytes1) / ent_ms / 1e3
+    extra_ms = tms["staged, resident"][0] - tms["fused, resident"][0]
+    split_rate = (bytes1 - bytes2) / extra_ms / 1e3 if extra_ms > 0 \
+        else float("inf")
+    for k, (ms, lo, hi) in tms.items():
+        print(f"phase 6e: restart chunk, {k}: {ms:.3f} ms (min {lo:.3f}, "
+              f"max {hi:.3f}) [{card}]")
+    print(f"phase 6e: link probe {link:.1f} MB/s; coefficient bytes "
+          f"{coef_bytes}, scan bytes {bytes1} (one group), {bytes2} (split);"
+          f" entropy chain {ent_ms:.3f} ms -> fsm route pays below "
+          f"{fsm_rate:.1f} MB/s (engine constant "
+          f"{engine._LINK_MBPS_FSM_THRESHOLD}); the staged chain costs "
+          f"{extra_ms:.3f} ms more on the card -> the split pays below "
+          f"{split_rate:.1f} MB/s (engine constant "
+          f"{engine._LINK_MBPS_SPLIT}) [{card}]")
+    check((link < fsm_rate) == (link < engine._LINK_MBPS_FSM_THRESHOLD)
+          and (link < split_rate) == (link < engine._LINK_MBPS_SPLIT),
+          "the engine's link constants route otherwise than this run's "
+          "readings")
+    del up1, up2
+
+    # fetch=False: the same ladder and counters, nothing fetched
+    for name, d, data, st in (("restart", dec, datas, stats),
+                              ("spec", sdec, pdatas, sstats)):
+        res = run_path(f"phase 6e fetch=False {name}",
+                       lambda: d.decode(data, fetch=False),
+                       need=("fsm_scan", "pixels"))
+        check(res is None and counters(d.stats) == counters(st),
+              f"fetch=False {name}: {d.stats.as_dict()}")
+        e2e = {True: [], False: []}
+        for fetch in (True, False, True, False):
+            t0 = time.perf_counter()
+            d.decode(data, fetch=fetch)
+            torch.cuda.synchronize()
+            e2e[fetch].append(f"{(time.perf_counter() - t0) * 1e3:.1f}")
+        print(f"phase 6e: {name} chunk end to end (two warm runs each, in "
+              f"turns), fetch=True {' and '.join(e2e[True])} ms, "
+              f"fetch=False {' and '.join(e2e[False])} ms; counters equal "
+              f"[{card}]")
+
+    # backend "cpu": the native library on a pool, no kernel at all
+    every = tuple(kernels.KERNELS)
+    workers = os.cpu_count()
+    cdec = BatchDecoder(backend="cpu", workers=workers, chunk_size=CHUNK,
+                        device="cuda")
+    native = host.backend_name() != "numpy-oracle"
+    cdata, cwant = (datas, [refs[i % 16] for i in range(CHUNK)]) if native \
+        else (gdatas, gwant)
+    t0 = time.perf_counter()
+    cout = run_path("phase 6e cpu", lambda: cdec.decode(cdata), never=every)
+    t_cpu = (time.perf_counter() - t0) * 1e3
+    cdec.close()
+    for i, (g, w) in enumerate(zip(cout, cwant)):
+        check(np.array_equal(g, w), f"backend cpu output {i} differs")
+    check(cdec.stats.backend == "cpu", f"backend {cdec.stats.backend}")
+    del cout
+    where = "the restart chunk" if native \
+        else "the goldens only: no native library"
+    print(f"phase 6e: backend cpu ({host.backend_name()}, {workers} "
+          f"workers) on {where}: {len(cdata)} outputs bit-exact in "
+          f"{t_cpu:.1f} ms, 0 launches of every kernel")
+
+    # backend "oracle": the numpy decoder's entropy, goldens only
+    odec = BatchDecoder(backend="oracle", device="cuda")
+    oout = run_path("phase 6e oracle", lambda: odec.decode(gdatas))
+    odec.close()
+    for n, g, w in zip(GOLDEN, oout, gwant):
+        check(np.array_equal(g, w), f"golden {n} differs (oracle)")
+    check(odec.stats.backend == "oracle", f"backend {odec.stats.backend}")
+    print(f"phase 6e: backend oracle on the {len(GOLDEN)} goldens "
+          f"bit-exact (the numpy oracle is too slow for the 128-image "
+          f"chunks)")
+
+    # backend "auto": the route its probe reads
+    adec = BatchDecoder(backend="auto", chunk_size=CHUNK, device="cuda")
+    to_fsm = adec._prefers_fsm()
+    aout = run_path("phase 6e auto", lambda: adec.decode(datas),
+                    need=("pixels",) + (("fsm_scan", "place_events")
+                                        if to_fsm else ()),
+                    never=() if to_fsm else ("fsm_scan",))
+    adec.close()
+    for i, g in enumerate(aout):
+        check(np.array_equal(g, refs[i % 16]), f"auto output {i} differs")
+    check(adec.stats.backend == ("fsm" if to_fsm else "host"),
+          f"auto backend {adec.stats.backend}")
+    del aout
+    print(f"phase 6e: backend auto: link {link:.1f} MB/s against "
+          f"{engine._LINK_MBPS_FSM_THRESHOLD} MB/s, native library "
+          f"{host.backend_name()} -> route {adec.stats.backend}; {CHUNK} "
+          f"outputs bit-exact")
+
+    # the single-image and host-returning speculative entry points
+    bimg = parse(big)
+    bcoef = run_path("phase 6e decode_speculative",
+                     lambda: fsm.decode_speculative(bimg),
+                     need=("fsm_scan", "place_events"))
+    check(np.array_equal(bcoef, oracle.entropy_decode(bimg)),
+          "decode_speculative 4_800x600 differs from the oracle")
+    pcoef = [host.entropy_decode(parse(d)) for d in pstreams]
+    for name, fn in (
+            ("decode_speculative_batch",
+             lambda: fsm.decode_speculative_batch(pimgs)),
+            ("decode_speculative_sync",
+             lambda: fsm.decode_speculative_sync(pimgs, device_out=False))):
+        res = run_path(f"phase 6e {name}", fn,
+                       need=("fsm_scan", "place_events"))
+        check(len(res) == CHUNK and all(
+            np.array_equal(r, pcoef[i % 16]) for i, r in enumerate(res)),
+            f"{name}(device_out=False) differs from {host.backend_name()}")
+    print(f"phase 6e: decode_speculative on 4_800x600 equals the oracle; "
+          f"decode_speculative_batch and decode_speculative_sync "
+          f"(device_out=False) on the spec chunk equal "
+          f"{host.backend_name()}, {CHUNK} images")
+
+    # the package root's decode, every backend, on one golden
+    import tpujpeg_torch
+
+    gpath = os.path.join(FIXTURES, GOLDEN[2] + ".jpg")
+    for b in ("cuda", "auto", "cpu", "oracle"):
+        r = tpujpeg_torch.decode(gpath, backend=b)
+        check(r.dtype == np.int32 and np.array_equal(r, gwant[2]),
+              f"tpujpeg_torch.decode backend {b} differs on {GOLDEN[2]}")
+    print(f"phase 6e: tpujpeg_torch.decode with backends cuda, auto, cpu, "
+          f"oracle on {GOLDEN[2]}: bit-exact")
+    torch.cuda.empty_cache()
+
     # ---- phase 7: kernels against their plain versions, real inputs
     rows = []
     chunk_paths = {"restart": "phase 2", "spec": "phase 3"}
@@ -737,7 +983,8 @@ def main() -> int:
     chunk_paths.update({f"4:2:0 {n}": f"phase 6c {n} 4:2:0 fancy=True"
                         for n in sub})
     chunk_paths.update({"gather tool": "phase 6d gather tool",
-                        "materialize tool": "phase 6d materialize tool"})
+                        "materialize tool": "phase 6d materialize tool",
+                        "staged restart": "phase 6e staged"})
 
     def per_chunk(kernel: str) -> dict:
         """Launches of `kernel` per 128-image chunk of each path."""
@@ -756,7 +1003,7 @@ def main() -> int:
                      + 4 * n_planes * steps_total + 2 * Ls,
                      60 * steps_total)
     imgs = [parse(d) for d in datas]
-    plan = fsm.build_plan(imgs)
+    plan = fsm.build_plan(imgs, split=False)
     xs = torch.as_tensor(plan.xs).to(dev)
     sn = torch.as_tensor(plan.seg_n_blocks).to(dev)
     L, stride = plan.xs.shape

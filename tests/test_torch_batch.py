@@ -3,7 +3,9 @@
 The port's engine runs here with device="cpu", so every kernel wrapper
 takes its plain PyTorch version; the retry ladder, the fallbacks and the
 strict repair are the same code that drives the CUDA kernels on a card.
-Comparisons are exact.
+Comparisons are exact.  The backends "cpu", "oracle" and "auto",
+`workers`, fetch=False and the split's staged chain are held against
+the JAX engine too (counters through `_stats_equal`).
 """
 
 import subprocess
@@ -20,6 +22,8 @@ from tpujpeg_torch.ops import fsm as tfsm
 from tpujpeg_torch.runtime.batch import BatchDecoder
 
 from conftest import GOLDEN, fixture_path, make_jpeg, make_jpeg_rst
+from test_torch_buckets import _stats_equal
+from test_torch_entry import split_corpus
 
 
 def _oracle(datas):
@@ -91,9 +95,8 @@ def test_fsm_malformed_raises_without_skip():
         dec.decode_parsed([img])
 
 
-def test_fsm_without_restart_markers_is_not_implemented():
-    # The name is from when backend="fsm" refused streams without restart
-    # markers.  It takes them now: a small one packs as one lane per image
+def test_fsm_takes_a_small_stream_without_restart_markers_as_one_lane():
+    # a small stream without restart markers packs as one lane per image
     # and decodes on the fsm route, exactly
     data = make_jpeg(shape=(32, 48), seed=2)
     dec = BatchDecoder(backend="fsm", device="cpu")
@@ -168,3 +171,201 @@ def test_failed_kernel_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.launch("pixels")
     assert kernels.LAUNCHES == before  # nothing launched, nothing counted
+
+
+# ---------------------------------------------------------------------------
+# the engine's whole surface: fetch=False, "cpu", "oracle", "auto", split
+# ---------------------------------------------------------------------------
+
+
+def _rst_datas():
+    return [make_jpeg_rst(shape=(48, 64), rst_interval=2, seed=s)
+            for s in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("backend", ["fsm", "host", "cpu"])
+def test_fetch_false_returns_none_with_jax_stats(backend):
+    datas = _rst_datas()
+    dec = BatchDecoder(backend=backend, chunk_size=4, device="cpu")
+    assert dec.decode(datas, fetch=False) is None
+    jdec = JaxBatchDecoder(backend=backend, chunk_size=4)
+    assert jdec.decode(datas, fetch=False) is None
+    _stats_equal(dec.stats, jdec.stats)
+    assert dec.stats.backend == backend
+    # decode_parsed the same way, and the fetched run counts the same
+    stats = dec.stats
+    assert dec.decode_parsed([parse(d) for d in datas], fetch=False) is None
+    assert dec.stats.backend == stats.backend
+    got = dec.decode(datas)
+    _stats_equal(dec.stats, jdec.stats)
+    for g, o in zip(got, _oracle(datas)):
+        np.testing.assert_array_equal(g, o)
+
+
+def test_on_error_stays_a_keyword():
+    # decode passes on_error to decode_parsed by name: "skip" is not fetch
+    datas = _rst_datas()[:1] + [b"\xff\xd8 not a jpeg"]
+    dec = BatchDecoder(backend="fsm", device="cpu")
+    got = dec.decode(datas, on_error="skip")
+    assert got[1] is None and set(dec.stats.failures) == {1}
+    np.testing.assert_array_equal(got[0], _oracle(datas[:1])[0])
+    assert dec.decode(datas, fetch=False, on_error="skip") is None
+    assert set(dec.stats.failures) == {1}
+
+
+def test_cpu_backend_mixed_geometry_skip_and_workers():
+    bad = parse(make_jpeg_rst(shape=(48, 64), rst_interval=2, seed=21,
+                              quality=95))
+    bad.scan_data = bad.scan_data.copy()
+    bad.scan_data[-bad.scan_data.size // 3 :] = 0xFF
+    datas = [make_jpeg(shape=(40, 56), seed=1),
+             make_jpeg(shape=(48, 64), subsampling=2, seed=2),
+             make_jpeg_rst(shape=(48, 64), rst_interval=2, seed=3),
+             make_jpeg(shape=(40, 56), seed=4)]
+    imgs = [parse(d) for d in datas]
+    imgs.insert(2, bad)
+    dec = BatchDecoder(backend="cpu", workers=2, chunk_size=2, device="cpu")
+    assert dec.pool._max_workers == 2
+    got = dec.decode_parsed(imgs, on_error="skip")
+    jdec = JaxBatchDecoder(backend="cpu", workers=2, chunk_size=2)
+    jgot = jdec.decode_parsed(imgs, on_error="skip")
+    _stats_equal(dec.stats, jdec.stats)
+    assert dec.stats.backend == "cpu" and set(dec.stats.failures) == {2}
+    assert got[2] is None and jgot[2] is None
+    want = _oracle(datas)
+    for g, j, w in zip(got[:2] + got[3:], jgot[:2] + jgot[3:], want):
+        assert g.dtype == np.uint8
+        np.testing.assert_array_equal(g, j)
+        np.testing.assert_array_equal(g, w)
+    from tpujpeg_torch import JpegError
+
+    with pytest.raises(JpegError):
+        dec.decode_parsed(imgs)
+    # one single-threaded decode per core by default
+    import os
+
+    assert BatchDecoder(backend="cpu").pool._max_workers == (
+        os.cpu_count() or 4)
+
+
+def test_cpu_backend_touches_no_device(monkeypatch):
+    # torch here has no CUDA: a device tensor, a torch.cuda call or a
+    # kernel launch would raise.  The decoder is asked for "cuda" and
+    # decodes all the same
+    import torch
+
+    from tpujpeg_torch.runtime import kernels
+
+    def refuse(*a, **k):
+        raise AssertionError("backend cpu touched the device")
+
+    for name in ("synchronize", "current_stream", "is_available"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    monkeypatch.setattr(kernels, "launch", refuse)
+    before = dict(kernels.LAUNCHES)
+    datas = _rst_datas() + [make_jpeg(shape=(32, 48), seed=2)]
+    dec = BatchDecoder(backend="cpu", device="cuda")
+    got = dec.decode(datas)
+    assert dec.decode(datas, fetch=False) is None
+    dec.close()
+    assert dec.stats.backend == "cpu" and kernels.LAUNCHES == before
+    for g, o in zip(got, _oracle(datas)):
+        np.testing.assert_array_equal(g, o)
+
+
+@pytest.mark.parametrize("buckets", [False, True])
+def test_oracle_backend_matches_jax(buckets):
+    datas = [make_jpeg(shape=(40, 56), seed=1),
+             make_jpeg(shape=(44, 60), seed=2),
+             make_jpeg_rst(shape=(48, 64), rst_interval=2, seed=3)]
+    dec = BatchDecoder(backend="oracle", size_buckets=buckets,
+                       chunk_size=4, device="cpu")
+    got = dec.decode(datas)
+    jdec = JaxBatchDecoder(backend="oracle", size_buckets=buckets,
+                           chunk_size=4)
+    jgot = jdec.decode(datas)
+    _stats_equal(dec.stats, jdec.stats)
+    assert dec.stats.backend == ("oracle-bucketed" if buckets else "oracle")
+    for g, j, w in zip(got, jgot, _oracle(datas)):
+        np.testing.assert_array_equal(g, j)
+        np.testing.assert_array_equal(g, w)
+
+
+def test_backend_arguments_like_jax():
+    with pytest.raises(ValueError, match="not ported"):
+        BatchDecoder(backend="gather", device="cpu")
+    with pytest.raises(ValueError):
+        BatchDecoder(backend="tpu", device="cpu")
+    with pytest.raises(ValueError, match="size_buckets"):
+        BatchDecoder(backend="cpu", size_buckets=True, device="cpu")
+    with pytest.raises(ValueError, match="size_buckets"):
+        JaxBatchDecoder(backend="cpu", size_buckets=True)
+    for backend in ("auto", "host", "oracle", "fsm"):
+        BatchDecoder(backend=backend, size_buckets=True, device="cpu")
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("slow", [True, False])
+def test_auto_routes_like_jax(monkeypatch, slow, native):
+    # the probe patched to one side of each package's own threshold, with
+    # and without the native library: the same routes and counters
+    from tpujpeg.runtime import batch as jbatch
+    from tpujpeg.runtime import host as jhost
+    from tpujpeg_torch.runtime import batch as tbatch
+    from tpujpeg_torch.runtime import host as thost
+
+    t_rate = tbatch._LINK_MBPS_FSM_THRESHOLD * (0.5 if slow else 2)
+    j_rate = jbatch._LINK_MBPS_FSM_THRESHOLD * (0.5 if slow else 2)
+    monkeypatch.setattr(tbatch, "measured_link_mbps", lambda *a: t_rate)
+    monkeypatch.setattr(jbatch, "measured_link_mbps", lambda *a: j_rate)
+    if not native:
+        monkeypatch.setattr(thost, "_load_native", lambda: None)
+        monkeypatch.setattr(jhost, "_load_native", lambda: None)
+    datas = _rst_datas() + [make_jpeg(shape=(32, 48), seed=2)]
+    dec = BatchDecoder(backend="auto", chunk_size=4, device="cpu")
+    got = dec.decode(datas)
+    jdec = JaxBatchDecoder(backend="auto", chunk_size=4)
+    jgot = jdec.decode(datas)
+    _stats_equal(dec.stats, jdec.stats)
+    assert dec.stats.backend == ("fsm" if slow or not native else "host")
+    for g, j, w in zip(got, jgot, _oracle(datas)):
+        np.testing.assert_array_equal(g, j)
+        np.testing.assert_array_equal(g, w)
+
+
+# chip_smoke.py phase 6e's link probe on the H100 (PERF.md, PR 12)
+H100_LINK_MBPS = 9563.2
+
+
+def test_split_follows_the_card(monkeypatch):
+    # the engine splits a chunk into two stride groups only below the
+    # card's _LINK_MBPS_SPLIT, where the staged chain decodes it; at the
+    # H100's own link reading it keeps one group (the JAX engine splits
+    # below its fsm threshold).  Both decode like the JAX engine's split
+    from tpujpeg.runtime import batch as jbatch
+    from tpujpeg_torch.runtime import batch as tbatch
+
+    groups = []
+    build = tfsm.build_plan
+
+    def recording(imgs, split=True):
+        plan = build(imgs, split=split)
+        groups.append(len(plan.groups))
+        return plan
+
+    monkeypatch.setattr(tfsm, "build_plan", recording)
+    monkeypatch.setattr(jbatch, "measured_link_mbps", lambda *a: 1.0)
+    datas = split_corpus()
+    jdec = JaxBatchDecoder(backend="fsm", chunk_size=8)
+    jgot = jdec.decode(datas)
+    want = _oracle(datas)
+    for rate, n_groups in ((tbatch._LINK_MBPS_SPLIT / 2, 2),
+                           (H100_LINK_MBPS, 1)):
+        monkeypatch.setattr(tbatch, "measured_link_mbps", lambda *a: rate)
+        dec = BatchDecoder(backend="fsm", chunk_size=8, device="cpu")
+        got = dec.decode(datas)
+        assert groups[-1] == n_groups
+        _stats_equal(dec.stats, jdec.stats)
+        for g, j, w in zip(got, jgot, want):
+            np.testing.assert_array_equal(g, j)
+            np.testing.assert_array_equal(g, w)

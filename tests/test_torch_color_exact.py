@@ -142,7 +142,7 @@ def test_rgb_444_from_the_lane_matrix(monkeypatch, rst, dc_plane):
     quant = np.stack([np.stack([im.quant_tables[c.quant_id]
                                 for c in im.components]) for im in imgs])
     quant = np.concatenate([quant, quant[:1]]).astype(np.int32)
-    plan = tfsm.build_plan([_port_img(im) for im in imgs])
+    plan = tfsm.build_plan([_port_img(im) for im in imgs], split=False)
     lane, dc = _lane_matrix(plan, coeffs, not dc_plane,
                             np.random.default_rng(rst))
     geom = Geometry.of(_port_img(imgs[0]))
@@ -193,7 +193,7 @@ def test_rgb_444_from_blocks(monkeypatch, shape):
 
 def test_lane_tables_cover_every_mcu_once():
     imgs = [_port_img(im) for im in _streams([(40, 56)] * 3, 3, seed=2)]
-    plan = tfsm.build_plan(imgs)
+    plan = tfsm.build_plan(imgs, split=False)
     geom = Geometry.of(imgs[0])
     L = plan.xs.shape[0]
     cpu = torch.device("cpu")

@@ -2,7 +2,9 @@
 
 Same numpy inputs on both sides; every comparison is exact (`==`):
   * build_tables / build_plan, and convert.tables_from_jax /
-    plan_from_jax, field-equal to the JAX objects;
+    plan_from_jax, field-equal to the JAX objects, one stride group and
+    build_plan's split into two (groups and perm: the committed rst640 x
+    8 chunk and a small synthetic corpus);
   * the scan LUT == the JAX piece select tree (_bst_tree) on every peek;
   * fsm_scan (plain, CPU) == JAX _fsm_scan: events, err_mal, err_env at
     steps (1, 2), 1 and 3, on restart streams, on a noisy q95 stream that
@@ -83,7 +85,12 @@ def corpora():
 def _fields_equal(a, b):
     for f in dataclasses.fields(a):
         va, vb = getattr(a, f.name), getattr(b, f.name)
-        if isinstance(va, np.ndarray):
+        if f.name == "groups":
+            assert len(va) == len(vb), f.name
+            for (xa, sa), (xb, sb) in zip(va, vb):
+                np.testing.assert_array_equal(xa, xb, err_msg="xs")
+                np.testing.assert_array_equal(sa, sb, err_msg="seg_n")
+        elif isinstance(va, np.ndarray):
             np.testing.assert_array_equal(va, vb, err_msg=f.name)
         else:
             assert va == vb, f.name
@@ -98,7 +105,7 @@ def test_tables_and_plan_field_equal(corpora, name):
         assert getattr(tt, f.name) == getattr(jt, f.name), f.name
     assert convert.tables_from_jax(jt) == tt
     jp = jfsm.build_plan(imgs, split=False)
-    tp = tfsm.build_plan(imgs)
+    tp = tfsm.build_plan(imgs, split=False)
     _fields_equal(tp, convert.plan_from_jax(jp))
     (jxs, jsn), = jp.groups
     np.testing.assert_array_equal(tp.xs, jxs)
@@ -106,6 +113,60 @@ def test_tables_and_plan_field_equal(corpora, name):
     assert (tp.max_blk, tp.layout, tp.n_blocks_total) == (
         jp.max_blk, jp.layout, jp.n_blocks_total
     )
+
+
+def _rst640_x8():
+    import os
+
+    from conftest import FIXTURES
+
+    folder = os.path.join(FIXTURES, "rst640")
+    names = sorted(n for n in os.listdir(folder) if n.endswith(".jpg"))
+    return [parse_file(os.path.join(folder, n)) for n in names] * 8
+
+
+def _split_corpus():
+    from test_torch_entry import split_corpus
+
+    return [parse(d) for d in split_corpus()]
+
+
+@pytest.mark.parametrize("corpus", ["rst640_x8", "synthetic"])
+def test_split_plan_field_equal(corpus):
+    imgs = _rst640_x8() if corpus == "rst640_x8" else _split_corpus()
+    jp = jfsm.build_plan(imgs)
+    tp = tfsm.build_plan(imgs)
+    assert len(tp.groups) == len(jp.groups) == 2
+    _fields_equal(tp, convert.plan_from_jax(jp))
+    np.testing.assert_array_equal(tp.perm, jp.perm)
+    for (tx, ts), (jx, js) in zip(tp.groups, jp.groups):
+        np.testing.assert_array_equal(tx, jx)
+        np.testing.assert_array_equal(ts, js)
+    assert tp.perm.dtype == np.int32
+    # every lane appears once in the group-concatenated rows
+    rows = sum(g[0].shape[0] for g in tp.groups)
+    assert len(set(tp.perm.tolist())) == tp.perm.size and tp.perm.max() < rows
+    if corpus == "rst640_x8":
+        assert [g[0].shape for g in tp.groups] == [(4608, 2560),
+                                                   (5760, 1536)]
+    one = tfsm.build_plan(imgs, split=False)
+    _fields_equal(one, convert.plan_from_jax(
+        jfsm.build_plan(imgs, split=False)))
+    assert len(one.groups) == 1
+    np.testing.assert_array_equal(one.perm, np.arange(one.perm.size))
+
+
+def test_single_group_views_raise_on_a_split_plan():
+    imgs = _split_corpus()
+    tp = tfsm.build_plan(imgs)
+    for view in ("xs", "seg_n_blocks"):
+        with pytest.raises(ValueError, match="multi-group"):
+            getattr(tp, view)
+        with pytest.raises(AssertionError, match="multi-group"):
+            getattr(jfsm.build_plan(imgs), view)
+    one = tfsm.build_plan(imgs, split=False)
+    np.testing.assert_array_equal(one.xs, one.groups[0][0])
+    np.testing.assert_array_equal(one.seg_n_blocks, one.groups[0][1])
 
 
 @pytest.mark.parametrize("name", ["rst", "noisy_q95"])
@@ -129,7 +190,7 @@ def test_lut_matches_piece_tree_on_every_peek(corpora, name):
 @pytest.mark.parametrize("steps", [(1, 2), 1, 3])
 @pytest.mark.parametrize("name", list(CORPORA))
 def test_plain_scan_matches_jax(corpora, name, steps):
-    plan = tfsm.build_plan(corpora[name])
+    plan = tfsm.build_plan(corpora[name], split=False)
     # the JAX side runs its own tables (two-level symbol map and all)
     want_ev, want_mal, want_env, _ = _jax_scan(
         jnp.asarray(plan.xs), jnp.asarray(plan.seg_n_blocks),
@@ -149,7 +210,7 @@ def test_plain_scan_matches_jax(corpora, name, steps):
 
 
 def test_scan_rejects_unported_specs(corpora):
-    plan = tfsm.build_plan(corpora["rst"])
+    plan = tfsm.build_plan(corpora["rst"], split=False)
     with pytest.raises(NotImplementedError):
         tfsm.fsm_scan(torch.as_tensor(plan.xs),
                       torch.as_tensor(plan.seg_n_blocks), plan.tables, (2, 4))

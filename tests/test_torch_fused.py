@@ -49,7 +49,7 @@ def test_decode_chunk_matches_jax_fused_program():
         jfused.decode_chunk_fused(jplan, jnp.asarray(quant), jgeom, 2,
                                   slots=False)
     )
-    plan = tfsm.build_plan(imgs)
+    plan = tfsm.build_plan(imgs, split=False)
     rgb, risk, coeffs, dc, mal, env, slot = tfused.decode_chunk_fused(
         plan, torch.as_tensor(quant), Geometry.of(imgs[0]), 2
     )

@@ -77,7 +77,7 @@ def _malformed(img):
 def test_fsm_scan_kernel_equals_plain(cuda, imgs, steps, malformed):
     use = [imgs[0], _malformed(parse_file(os.path.join(CORPUS, "02.jpg")))] \
         if malformed else imgs
-    plan = fsm.build_plan(use)
+    plan = fsm.build_plan(use, split=False)
     xs = torch.as_tensor(plan.xs).to(cuda)
     sn = torch.as_tensor(plan.seg_n_blocks).to(cuda)
     got = fsm.fsm_scan(xs, sn, plan.tables, steps)
@@ -209,7 +209,7 @@ def test_pixels_kernel_equals_plain_on_ragged_rasters(cuda, width):
 def _lane_chunk(cuda, plan_imgs, bucket=None):
     """Scan, place and DC-resolve a chunk: (plan, dense lane matrix
     [max_blk*64, L], dc_lane [L, max_blk])."""
-    plan = (fsm.build_plan(plan_imgs) if bucket is None
+    plan = (fsm.build_plan(plan_imgs, split=False) if bucket is None
             else fsm.build_plan_bucketed(plan_imgs, bucket))
     xs = torch.as_tensor(plan.xs).to(cuda)
     if bucket is None:
@@ -776,7 +776,7 @@ def test_fsm_scan_kernel_equals_plain_by_blocks_per_mcu(cuda, corpus, steps):
             "411": os.path.join(SMALL, "411_rst.jpg")}[corpus]
     img = parse_file(path)
     assert img.blocks_per_mcu == {"420": 6, "gray": 1, "411": 6}[corpus]
-    plan = fsm.build_plan([img])
+    plan = fsm.build_plan([img], split=False)
     xs = torch.as_tensor(plan.xs).to(cuda)
     sn = torch.as_tensor(plan.seg_n_blocks).to(cuda)
     got = fsm.fsm_scan(xs, sn, plan.tables, steps)
@@ -1066,7 +1066,7 @@ def _scan_equal(got, want):
 
 @pytest.mark.parametrize("steps", [(1, 2), 3])
 def test_fsm_scan_warps_that_finish_early_or_hold_one_lane(cuda, imgs, steps):
-    plan = fsm.build_plan(imgs[:1])
+    plan = fsm.build_plan(imgs[:1], split=False)
     L, stride = plan.xs.shape
     assert L == 128 and 32 < int((plan.seg_n_blocks > 0).sum()) <= 96
     # twice the stride: every lane is done long before the last column,
@@ -1097,7 +1097,7 @@ def test_fsm_scan_warps_that_finish_early_or_hold_one_lane(cuda, imgs, steps):
 def test_fsm_scan_reads_column_views_in_place(cuda, imgs, view):
     # pitch > n_data; a width that is no multiple of 4; a row start that
     # is 4-byte but not 16-byte aligned (the staging's 4-byte copies)
-    plan = fsm.build_plan(imgs)
+    plan = fsm.build_plan(imgs, split=False)
     full = torch.as_tensor(plan.xs).to(cuda)
     sn = torch.as_tensor(plan.seg_n_blocks).to(cuda)
     xs = {"prefix": full[:, :1280], "prefix_ragged": full[:, :1107],

@@ -352,7 +352,7 @@ def _noise_spec(monkeypatch, seeds):
     """Small no-restart q95 noise streams on the speculative path, the
     engine's slot route: build_plan refuses them, as it refuses an image
     over one lane (a real one costs tens of seconds of plain scan here)."""
-    def refuse(imgs):
+    def refuse(imgs, split=True):
         raise JpegError("forced: no lane plan")
 
     monkeypatch.setattr(tfsm, "build_plan", refuse)

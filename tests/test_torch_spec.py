@@ -163,7 +163,7 @@ def _resolve(fsm_mod, pending):
 def test_sync_start_and_resolve_match_jax(corpora, name):
     imgs = corpora[name]
     jp = jfsm.spec_sync_start(imgs, CB)
-    tp = tfsm.spec_sync_start(imgs, CB)
+    tp = tfsm.spec_sync_start(imgs, CB, device="cpu")
     L = tp.plan.xs.shape[0]
     for f in ("ev1", "anchors", "ablk", "recm", "ev2", "end2", "b1", "blk2"):
         _eq(getattr(tp, f), getattr(jp, f), f)
@@ -183,7 +183,7 @@ def test_sync_refuses_more_than_8_blocks_per_mcu(corpora):
     imgs = corpora["smooth"]
     plan9 = dataclasses.replace(tfsm.build_spec_plan_batch(imgs, CB), bpm=9)
     with pytest.raises(tfsm.SpecSyncMiss):
-        tfsm.spec_sync_start(imgs, plan=plan9)
+        tfsm.spec_sync_start(imgs, plan=plan9, device="cpu")
     jplan9 = dataclasses.replace(jfsm.build_spec_plan_batch(imgs, CB), bpm=9)
     with pytest.raises(jfsm.SpecSyncMiss):
         jfsm.spec_sync_start(imgs, plan=jplan9)
@@ -193,7 +193,7 @@ def test_sync_refuses_more_than_8_blocks_per_mcu(corpora):
 def smooth_pending(corpora):
     imgs = corpora["smooth"]
     jp = jfsm.spec_sync_start(imgs, CB)
-    tp = tfsm.spec_sync_start(imgs, CB)
+    tp = tfsm.spec_sync_start(imgs, CB, device="cpu")
     quotas, cap_w = tfsm.spec_sync_resolve_host(tp)
     return imgs, jp, tp, quotas, cap_w
 
@@ -233,7 +233,8 @@ def test_spec_tail_matches_jax(smooth_pending, slots):
 def test_decode_speculative_sync_matches_jax(corpora):
     imgs = corpora["smooth"]
     jc, (jerr, _) = jfsm.decode_speculative_sync(imgs, CB, pad_to=2)
-    tc, (terr, tenv) = tfsm.decode_speculative_sync(imgs, CB, pad_to=2)
+    tc, (terr, tenv) = tfsm.decode_speculative_sync(imgs, CB, pad_to=2,
+                                                    device="cpu")
     assert tc.dtype == torch.int32
     _eq(tc, jc, "coeffs")
     _eq(terr, jerr, "err")
@@ -245,13 +246,18 @@ def test_jacobi_matches_jax_and_host(corpora):
     jc, (jm, je) = jfsm.decode_speculative_batch(imgs, CB, device_out=True,
                                                  pad_to=3)
     tc, (tm, te) = tfsm.decode_speculative_batch(imgs, CB, device_out=True,
-                                                 pad_to=3)
+                                                 pad_to=3, device="cpu")
     _eq(tc, jc, "coeffs")
     _eq(tm, jm, "err_mal")
     _eq(te, je, "err_env")
     _eq(tc[:2], _host_coeffs(imgs), "coeffs vs host")
-    with pytest.raises(NotImplementedError):
-        tfsm.decode_speculative_batch(imgs, CB, device_out=False)
+    # and the host list of device_out=False, JAX's default
+    tl = tfsm.decode_speculative_batch(imgs, CB, device="cpu")
+    jl = jfsm.decode_speculative_batch(imgs, CB)
+    assert len(tl) == len(jl) == 2
+    for t, j, w in zip(tl, jl, _host_coeffs(imgs)):
+        _eq(t, j, "host list")
+        _eq(t, w, "host list vs host")
 
 
 def test_rebased_zero_event_is_placed(smooth_pending):
@@ -355,7 +361,7 @@ def test_dense_golden_latches_envelope_like_jax():
     # JAX anchor scan logs (the whole lane costs minutes of plain scan).
     with open(fixture_path("8_401x363"), "rb") as f:
         img = parse(f.read())
-    plan = tfsm.build_plan([img])
+    plan = tfsm.build_plan([img], split=False)
     row, nb = plan.xs[:1], plan.seg_n_blocks[:1]
     jt = jfsm.build_tables(img)
 
@@ -418,7 +424,7 @@ def test_engine_steps_1_1_envelope_retry(big_smooth, monkeypatch):
     got = dec.decode([big_smooth])
     with pytest.raises(tfsm.SpecEnvelopeError):
         tfsm.spec_sync_resolve_host(tfsm.spec_sync_start(
-            [parse(big_smooth)], steps=(1, 1)))
+            [parse(big_smooth)], steps=(1, 1), device="cpu"))
     assert dec.stats.backend == "fsm-spec-sync", dec.stats.as_dict()
     assert dec.stats.fsm_k_retries == 1
     assert dec.stats.spec_sync_misses == 0

@@ -213,7 +213,7 @@ def test_tables_and_plans_field_equal(sampling):
         # one table set: the second set's LUT planes are never selected
         assert set(tt.tsel) == {0}
         assert tfsm.symbol_lut(tt).shape == (4, 65536)
-    plan = tfsm.build_plan(timgs)
+    plan = tfsm.build_plan(timgs, split=False)
     jplan = jfsm.build_plan(imgs, split=False)
     cplan = convert.plan_from_jax(jplan)
     for a in (plan, cplan):
@@ -255,7 +255,7 @@ def test_decode_chunk_fused_matches_jax(case):
         jfsm.build_plan(imgs, split=False), jnp.asarray(quant), jgeom, 2,
         fancy, slots=False)
     got = tfused.decode_chunk_fused(
-        tfsm.build_plan(imgs), torch.as_tensor(quant),
+        tfsm.build_plan(imgs, split=False), torch.as_tensor(quant),
         tpipe.Geometry.of(imgs[0]), 2, fancy=fancy)
     _chunk_equal(got, want[:7], 2, jgeom.width)
     for b, im in enumerate(imgs):
@@ -317,7 +317,7 @@ def test_decode_spec_sync_fused_matches_jax(fancy):
     jp = jfsm.spec_sync_start(imgs, CB)
     want = jfused.decode_spec_sync_fused(jp, jgeom, jnp.asarray(quant), 3, 2,
                                          fancy, slots=False)
-    tp = tfsm.spec_sync_start(imgs, CB)
+    tp = tfsm.spec_sync_start(imgs, CB, device="cpu")
     assert tp.plan.n_lanes > 2 * len(imgs)
     got = tfused.decode_spec_sync_fused(
         tp, tpipe.Geometry.of(imgs[0]), torch.as_tensor(quant), 3, 2,
@@ -325,7 +325,8 @@ def test_decode_spec_sync_fused_matches_jax(fancy):
     _chunk_equal(got, want, 3, jgeom.width)
     # the slot route gives the same tensors
     slotted = tfused.decode_spec_sync_fused(
-        tfsm.spec_sync_start(imgs, CB), tpipe.Geometry.of(imgs[0]),
+        tfsm.spec_sync_start(imgs, CB, device="cpu"),
+        tpipe.Geometry.of(imgs[0]),
         torch.as_tensor(quant), 3, 2, fancy=fancy, slots=256)
     for g, s in zip(got, slotted):
         assert torch.equal(g, s)
@@ -336,7 +337,7 @@ def test_jacobi_matches_jax_at_6_blocks_per_mcu():
     jc, (jm, je) = jfsm.decode_speculative_batch(imgs, CB, device_out=True,
                                                  pad_to=2)
     tc, (tm, te) = tfsm.decode_speculative_batch(imgs, CB, device_out=True,
-                                                 pad_to=2)
+                                                 pad_to=2, device="cpu")
     np.testing.assert_array_equal(_np(tc), np.asarray(jc))
     np.testing.assert_array_equal(_np(tm), np.asarray(jm))
     np.testing.assert_array_equal(_np(te), np.asarray(je))

@@ -161,7 +161,7 @@ def test_slot_capacity_bounds_sliding_windows_of_a_240_block_row():
     assert sliding >= aligned
     C = tmat.suggest_slot_c(per_block)
     assert C == 0 or C >= sliding
-    plan = tfsm.build_plan([img])
+    plan = tfsm.build_plan([img], split=False)
     assert plan.max_blk == 240
     events, err_mal, err_env = tfsm.fsm_scan(
         torch.as_tensor(plan.xs), torch.as_tensor(plan.seg_n_blocks),

@@ -124,7 +124,7 @@ def scan_events(corpus: str, repeat: int, dev):
             return fsm.fsm_scan(xs, sn, plan.tables,
                                 pad_info=(wrap_at, skip))
     else:
-        plan = fsm.build_plan(imgs)
+        plan = fsm.build_plan(imgs, split=False)
         xs = torch.as_tensor(plan.xs).to(dev)
         sn = torch.as_tensor(plan.seg_n_blocks).to(dev)
 

@@ -78,7 +78,7 @@ def scan_cases(repeat: int, dev) -> dict:
     cases = {}
     for label, corpus in (("restart", "rst640"),
                           ("4:2:0 restart", "rst640_420")):
-        plan = fsm.build_plan(_corpus(corpus, repeat))
+        plan = fsm.build_plan(_corpus(corpus, repeat), split=False)
         xs, sn = up(plan.xs, plan.seg_n_blocks)
         cases[label] = (
             lambda xs=xs, sn=sn, t=plan.tables: fsm.fsm_scan(xs, sn, t),

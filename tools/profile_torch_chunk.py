@@ -87,7 +87,7 @@ def restart_stages(dev):
     from tpujpeg_torch.runtime import fused
 
     imgs = _corpus("rst640")
-    plan = fsm.build_plan(imgs)
+    plan = fsm.build_plan(imgs, split=False)
     xs = torch.as_tensor(plan.xs).to(dev)
     sn = torch.as_tensor(plan.seg_n_blocks).to(dev)
     quant = _quant(imgs, dev)

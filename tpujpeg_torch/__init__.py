@@ -20,12 +20,25 @@ The package stands alone: it keeps its own copy of the host layer
 (errors, constants, io/, oracle/, runtime/host.py, runtime/native/) and
 imports neither jax nor the tpujpeg package.
 
-The device is always explicit; the default is "cuda".
+The device is always explicit; the default is "cuda", and so is the
+default backend of `decode` ("cuda") and of `decode_batch` ("fsm"): the
+JAX package's default "auto" would decode a single image on the CPU.
 """
 
 from .errors import JpegError
+from .io.parser import JpegImage, parse, parse_file
 
-__all__ = ["JpegError", "decode", "decode_batch"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "JpegError",
+    "JpegImage",
+    "parse",
+    "parse_file",
+    "decode",
+    "decode_batch",
+    "__version__",
+]
 
 
 def decode(data, backend: str = "cuda", device="cuda", fancy: bool = False):
@@ -34,17 +47,26 @@ def decode(data, backend: str = "cuda", device="cuda", fancy: bool = False):
     backend='cuda' runs host entropy decode, then the port's pixel stage on
     `device` with the reference's exact colour computed there (bit-exact
     with the reference decoder, nothing repaired on the host);
-    backend='oracle' runs the NumPy reference decoder.  fancy=True
-    upsamples subsampled chroma with libjpeg's triangle filter (box
-    replication otherwise).
+    backend='cpu' the native library's whole decode on the host
+    (runtime.host.decode_cpu); backend='auto' is 'cpu' where the native
+    library loads and 'cuda' otherwise (one image cannot amortize a
+    device dispatch); backend='oracle' runs the NumPy reference decoder.
+    All four give the same bits.  fancy=True upsamples subsampled chroma
+    with libjpeg's triangle filter (box replication otherwise).
     """
-    from .io.parser import parse, parse_file
-
     img = parse_file(data) if isinstance(data, str) else parse(data)
+    if backend == "auto":
+        from .runtime import host
+
+        backend = "cpu" if host._load_native() is not None else "cuda"
     if backend == "oracle":
         from .oracle import decoder as oracle
 
         return oracle.decode(img, fancy=fancy)
+    if backend == "cpu":
+        from .runtime import host
+
+        return host.decode_cpu(img, fancy=fancy).astype("int32")
     if backend != "cuda":
         raise ValueError(f"unknown backend {backend!r}")
     from . import pipeline
@@ -52,11 +74,11 @@ def decode(data, backend: str = "cuda", device="cuda", fancy: bool = False):
     return pipeline.decode(img, device=device, fancy=fancy)
 
 
-def decode_batch(datas, **kwargs):
+def decode_batch(datas, backend: str = "fsm", **kwargs):
     """Decode a batch of JPEG byte strings -> list of uint8 [H, W, 3].
 
     Thin wrapper over runtime.batch.BatchDecoder (keyword arguments go to
-    its constructor: backend, chunk_size, strict, device, size_buckets,
+    its constructor: workers, chunk_size, strict, device, size_buckets,
     materialize_route, fancy).  strict=True, the default, computes colour
     exactly on the device (bit-exact with the reference decoder);
     strict=False is the f32 colour of the JAX engine's strict=False.
@@ -64,7 +86,7 @@ def decode_batch(datas, **kwargs):
     (BatchDecoder.decode_parsed)."""
     from .runtime.batch import BatchDecoder
 
-    dec = BatchDecoder(**kwargs)
+    dec = BatchDecoder(backend=backend, **kwargs)
     try:
         return dec.decode(list(datas))
     finally:

@@ -55,17 +55,12 @@ def tables_from_jax(tables) -> fsm.FsmTables:
 
 
 def plan_from_jax(plan) -> fsm.FsmPlan:
-    """tpujpeg.ops.fsm.FsmPlan (one stride group) -> the port's FsmPlan."""
-    if len(plan.groups) != 1:
-        raise ValueError(
-            "the port takes single-group plans (build_plan(split=False))"
-        )
-    xs, seg_n = plan.groups[0]
-    if not np.array_equal(plan.perm, np.arange(len(plan.perm))):
-        raise ValueError("single-group plan with a non-identity lane order")
+    """tpujpeg.ops.fsm.FsmPlan -> the port's FsmPlan (its stride groups
+    and lane permutation as they are)."""
     return fsm.FsmPlan(
-        xs=np.asarray(xs),
-        seg_n_blocks=np.asarray(seg_n),
+        groups=tuple((np.asarray(xs), np.asarray(sn))
+                     for xs, sn in plan.groups),
+        perm=np.asarray(plan.perm),
         tables=tables_from_jax(plan.tables),
         max_blk=plan.max_blk,
         layout=plan.layout,

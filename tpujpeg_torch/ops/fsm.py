@@ -32,6 +32,12 @@ for the longest lane.  csrc/fsm_scan.cu shortens what a byte column
 costs a warp (a symbol step without branches, tables and scan bytes in
 shared memory) and says what was measured and left out.
 
+`build_plan` packs a chunk into one stride class or, with split=True
+(its default, as in the JAX package), two; a plan of two decodes
+through the staged chain (`decode_plan`: a scan per group, the rows put
+back in lane order by `perm`; `assemble` on the host or
+`assemble_batched` on the device; `entropy_decode_fsm` over both).
+
 Mixed-size chunks pack into bucket-raster lanes (`build_plan_bucketed`):
 every image of a size-class bucket gives the same number of lanes, and
 the scan's `pad_info` mode emits each event at its position in the
@@ -39,7 +45,8 @@ bucket's padded MCU raster, so assembly is one static reshape.
 
 Streams without restart markers that do not fit one lane per image take
 the speculative decode at the end of this module (single pass with
-anchor logs, Jacobi fixed point as its fallback).
+anchor logs, Jacobi fixed point as its fallback; `decode_speculative`
+for one image, host lists from device_out=False).
 """
 
 from __future__ import annotations
@@ -333,20 +340,36 @@ def scan_table_lookup(table: np.ndarray, tbl, peek) -> np.ndarray:
 
 @dataclass(frozen=True)
 class FsmPlan:
-    """Lane matrix + metadata for one chunk (one stride class).
+    """Lane matrices + metadata for one chunk, in up to two stride classes.
 
-    xs[L, stride] uint8 holds one restart segment per row (zero padded;
-    L a multiple of 128); seg_n_blocks[L] its block quota (0 for padding
-    lanes).  layout: per image, (first_lane, n_lanes,
-    blocks_per_full_lane, blocks_in_last_lane).
+    `groups` holds per group (xs uint8 [Lg, stride_g], seg_n_blocks int32
+    [Lg]): one restart segment per row (zero padded; Lg a multiple of
+    128), its block quota (0 for padding lanes).  `perm[i]` is the row of
+    original lane i in the group-concatenated per-lane output.  layout:
+    per image, (first_lane, n_lanes, blocks_per_full_lane,
+    blocks_in_last_lane).
     """
 
-    xs: np.ndarray
-    seg_n_blocks: np.ndarray
+    groups: tuple              # ((xs, seg_n_blocks), ...)
+    perm: np.ndarray           # int32 [n_segments]
     tables: FsmTables
     max_blk: int
     layout: tuple
     n_blocks_total: int
+
+    # single-group views (the fused chain, the tools and the tests)
+    @property
+    def xs(self) -> np.ndarray:
+        return self._single()[0]
+
+    @property
+    def seg_n_blocks(self) -> np.ndarray:
+        return self._single()[1]
+
+    def _single(self):
+        if len(self.groups) != 1:
+            raise ValueError("multi-group plan: use .groups")
+        return self.groups[0]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -375,13 +398,17 @@ def _pack_group(seg_bytes, nblocks, idxs):
     return xs, seg_n
 
 
-def build_plan(imgs: list[JpegImage]) -> FsmPlan:
-    """Pack the restart segments of a chunk into one lane matrix.
+def build_plan(imgs: list[JpegImage], split: bool = True) -> FsmPlan:
+    """Pack the restart segments of a chunk into grouped lane matrices.
 
-    The JAX package's build_plan(split=False): one stride class, the case
-    of scan bytes resident on one card.  Raises JpegError when the chunk
-    mixes geometries or tables, misses restart segments or overflows the
-    packed event's block field.
+    split=True allows two stride classes: the split threshold that
+    minimizes the padded bytes, taken when it saves a tenth of them and
+    both groups are substantial (at least 192 segments, 96 short and 8
+    long).  A second group costs a second scan and the `perm` gather
+    (`decode_plan`); split=False packs one group at the top stride, the
+    single-group plan of the fused chain.  Raises JpegError when the
+    chunk mixes geometries or tables, misses restart segments or
+    overflows the packed event's block field.
     """
     tables = build_tables(imgs[0])
     pattern0 = imgs[0].mcu_block_pattern()
@@ -414,11 +441,38 @@ def build_plan(imgs: list[JpegImage]) -> FsmPlan:
         layout.append((first, need, rib, last))
         n_blocks_total += n_mcus * bpm
 
-    xs, seg_n = _pack_group(seg_bytes, nblocks, list(range(len(seg_bytes))))
+    lens = np.array([b.size for b in seg_bytes], np.int64)
+    top_stride = _stride_bucket(int(lens.max()))
+    group_idxs: list[list[int]] = [list(range(len(seg_bytes)))]
+    if split and len(seg_bytes) >= 192:
+        buckets = np.array([_stride_bucket(int(x)) for x in lens])
+        base_cost = len(seg_bytes) * top_stride
+        best = (base_cost, None)
+        for v in sorted(set(buckets.tolist()))[:-1]:
+            n_short = int((buckets <= v).sum())
+            if n_short < 96 or len(seg_bytes) - n_short < 8:
+                continue
+            cost = n_short * v + (len(seg_bytes) - n_short) * top_stride
+            if cost < best[0]:
+                best = (cost, v)
+        if best[1] is not None and best[0] < 0.9 * base_cost:
+            v = best[1]
+            group_idxs = [np.flatnonzero(buckets > v).tolist(),
+                          np.flatnonzero(buckets <= v).tolist()]
+
+    groups = []
+    perm = np.zeros(len(seg_bytes), np.int32)
+    base = 0
+    for idxs in group_idxs:
+        groups.append(_pack_group(seg_bytes, nblocks, idxs))
+        for row, i in enumerate(idxs):
+            perm[i] = base + row
+        base += groups[-1][1].shape[0]
+
     max_blk = max(16, _round_up(max(nblocks), 16))
     return FsmPlan(
-        xs=xs,
-        seg_n_blocks=seg_n,
+        groups=tuple(groups),
+        perm=perm,
         tables=tables,
         max_blk=max_blk,
         layout=tuple(layout),
@@ -1025,6 +1079,101 @@ def _dc_cumsum(dc: torch.Tensor, tables: FsmTables, max_blk: int):
 
 
 # ---------------------------------------------------------------------------
+# The staged restart chain (one scan per stride group)
+# ---------------------------------------------------------------------------
+
+
+def assemble(per_lane: np.ndarray, layout) -> np.ndarray:
+    """Per-lane block rows -> scan-order [n_blocks_total, 64] (host)."""
+    parts = []
+    for first, n_lanes, rib, last in layout:
+        if n_lanes > 1:
+            parts.append(
+                per_lane[first : first + n_lanes - 1, :rib].reshape(-1, 64)
+            )
+        parts.append(per_lane[first + n_lanes - 1, :last])
+    return np.concatenate(parts) if len(parts) > 1 else np.asarray(parts[0])
+
+
+def assemble_batched(per_lane: torch.Tensor, *, layout,
+                     pad_to: int) -> torch.Tensor:
+    """Device-side assemble for a chunk whose images share one block
+    count: [L, max_blk, 64] -> [pad_to, blocks_img, 64], zero padded."""
+    from ..runtime.fused import _assemble_rows
+
+    return _assemble_rows(per_lane, layout, pad_to)
+
+
+def upload_plan(plan: FsmPlan, device="cuda"):
+    """A plan's lane matrices and permutation on `device`:
+    (((xs, seg_n_blocks), ...), perm)."""
+    return (
+        tuple((torch.as_tensor(xs).to(device), torch.as_tensor(sn).to(device))
+              for xs, sn in plan.groups),
+        torch.as_tensor(plan.perm).to(device),
+    )
+
+
+def _decode_group(xs, seg_n, tables: FsmTables, max_blk: int, steps,
+                  route: str):
+    """One stride group: scan, classic materialize, DC resolved per lane.
+    Returns (per_lane int32 [Lg, max_blk, 64], err_mal, err_env)."""
+    events, err_mal, err_env = fsm_scan(xs, seg_n, tables, steps)
+    n_cols, S, L = events.shape
+    coeffs_t, err_mal, _ = materialize_checked(
+        events.reshape(n_cols * S, L), max_blk * 64, err_mal, slots=False,
+        route=route)
+    per_lane = coeffs_t.T.reshape(L, max_blk, 64).to(torch.int32)
+    per_lane[:, :, 0] = _dc_cumsum(per_lane[:, :, 0], tables, max_blk)
+    return per_lane, err_mal, err_env
+
+
+def decode_plan(plan: FsmPlan, uploaded=None, steps=STEPS_PRODUCTION,
+                device="cuda", route: str = "scatter"):
+    """Run the FSM decoder -> (per_lane int32 [n_lanes, max_blk, 64] DC
+    resolved, (err_mal, err_env) bool [n_lanes]).
+
+    Each stride group runs as its own scan; with two groups the rows are
+    concatenated and put back in lane (scan) order by `plan.perm`, so
+    there are n_segments rows; one group keeps its Lg rows, the padding
+    lanes past n_segments included.  `uploaded` is upload_plan's result
+    (on `device` otherwise); route: the classic materialize's route
+    (`materialize_events`)."""
+    groups, perm = uploaded if uploaded is not None \
+        else upload_plan(plan, device)
+    outs = [_decode_group(xs, sn, plan.tables, plan.max_blk, steps, route)
+            for xs, sn in groups]
+    if len(outs) == 1:
+        per_lane, err_mal, err_env = outs[0]
+        return per_lane, (err_mal, err_env)
+    per_lane, err_mal, err_env = (
+        torch.cat(parts).index_select(0, perm) for parts in zip(*outs))
+    return per_lane, (err_mal, err_env)
+
+
+def entropy_decode_fsm(imgs: list[JpegImage], device="cuda") -> np.ndarray:
+    """Decode a batch's scans with the FSM; int32 [total_blocks, 64].
+
+    Production steps first, then STEPS_SAFE.  Raises JpegError on
+    malformed streams or plans outside the FSM envelope (callers fall
+    back to the host runtime)."""
+    plan = build_plan(imgs)
+    uploaded = upload_plan(plan, device)
+    for steps in (STEPS_PRODUCTION, STEPS_SAFE):
+        per_lane, (err_mal, err_env) = decode_plan(plan, uploaded,
+                                                   steps=steps)
+        mal, env = (bool(e.any()) for e in (err_mal, err_env))
+        if mal:
+            raise JpegError("fsm decode failed (malformed or truncated scan)")
+        if not env:
+            return assemble(per_lane.cpu().numpy(), plan.layout)
+    raise JpegError(
+        "fsm: stream outside the decode envelope "
+        f"(> {STEPS_SAFE} symbols/byte sustained)"
+    )
+
+
+# ---------------------------------------------------------------------------
 # Speculative decode of streams without restart markers
 # ---------------------------------------------------------------------------
 #
@@ -1065,6 +1214,50 @@ class SpecEnvelopeError(JpegError):
 class SpecSyncMiss(JpegError):
     """The single-pass resolve could not adopt every lane (callers fall
     back to the Jacobi path)."""
+
+
+@dataclass(frozen=True)
+class SpecPlan:
+    """Speculative plan of one image (the JAX package's SpecPlan)."""
+
+    xs: np.ndarray           # uint8 [L, chunk + overlap]
+    chunk_bits: np.ndarray   # int32 [L]
+    blk_cap: int
+    tables: FsmTables
+    chunk_bytes: int
+    n_lanes: int             # real lanes (before padding)
+    n_blocks_total: int
+    bpm: int
+
+
+def build_spec_plan(img: JpegImage, chunk_bytes: int = 2048) -> SpecPlan:
+    """Split one image's scan into chunk_bytes lanes (+ SPEC_OVERLAP bytes
+    of the next chunk), lanes padded to a multiple of 128."""
+    tables = build_tables(img)
+    scan = img.scan_data
+    S = max(1, -(-scan.size // chunk_bytes))
+    n_blocks = img.n_mcus * img.blocks_per_mcu
+    stride = chunk_bytes + SPEC_OVERLAP
+    L = _round_up(S, 128)
+    xs = np.zeros((L, stride), np.uint8)
+    chunk_bits = np.zeros(L, np.int32)
+    for i in range(S):
+        part = scan[i * chunk_bytes : i * chunk_bytes + stride]
+        xs[i, : part.size] = part
+        chunk_bits[i] = min(chunk_bytes, scan.size - i * chunk_bytes) * 8
+    cap = 8
+    while cap < min(4 * (n_blocks // S + 1) + 64, MAX_BLOCKS_PER_LANE):
+        cap *= 2
+    return SpecPlan(
+        xs=xs,
+        chunk_bits=chunk_bits,
+        blk_cap=cap,
+        tables=tables,
+        chunk_bytes=chunk_bytes,
+        n_lanes=S,
+        n_blocks_total=n_blocks,
+        bpm=img.blocks_per_mcu,
+    )
 
 
 @dataclass(frozen=True)
@@ -1146,10 +1339,11 @@ def _lane_masks(plan: SpecBatchPlan):
 
 
 def _upload_spec(plan: SpecBatchPlan, xs_dev, device):
-    """The plan's byte matrix on the device (xs_dev when given)."""
+    """The plan's byte matrix on the device (xs_dev when given; `device`,
+    default the card, otherwise)."""
     if xs_dev is not None:
         return xs_dev
-    return torch.as_tensor(plan.xs).to(device or "cpu")
+    return torch.as_tensor(plan.xs).to(device or "cuda")
 
 
 def _handoff(end_bits, end_bim, inherit, chunk_bytes: int, max_start=None):
@@ -1234,7 +1428,7 @@ def spec_sync_start(imgs: list[JpegImage], chunk_bytes: int = 1024,
                     plan: SpecBatchPlan | None = None, xs_dev=None,
                     steps=STEPS_PRODUCTION, device=None) -> SpecSyncPending:
     """Run a chunk's cold + stitch scans on the device of `xs_dev` (or
-    `device`, default CPU).  Raises SpecSyncMiss for more than 8 blocks
+    `device`, default the card).  Raises SpecSyncMiss for more than 8 blocks
     per MCU (the anchor's phase field is 3 bits)."""
     if plan is None:
         plan = build_spec_plan_batch(imgs, chunk_bytes)
@@ -1417,6 +1611,7 @@ def _uniform_blocks(plan) -> int:
 
 
 def decode_speculative_sync(imgs: list[JpegImage], chunk_bytes: int = 1024,
+                            device_out: bool = True,
                             pad_to: int | None = None,
                             plan: SpecBatchPlan | None = None, xs_dev=None,
                             steps=STEPS_PRODUCTION,
@@ -1425,7 +1620,12 @@ def decode_speculative_sync(imgs: list[JpegImage], chunk_bytes: int = 1024,
     """Single-pass speculative batch decode, staged: start, resolve, the
     tail on the classic materialize.  Returns (coeffs int32 [pad_to, nb,
     64] DC resolved, (err, all-False)) on the device, like
-    decode_speculative_batch.  Raises SpecSyncMiss / SpecEnvelopeError."""
+    decode_speculative_batch(device_out=True); device_out=False returns
+    per-image host int32 [n_blocks, 64] and raises SpecSyncMiss where a
+    lane latched.  Raises SpecSyncMiss / SpecEnvelopeError.  The batch
+    has one block count either way: the JAX package's device_out=False
+    gathers a mixed batch at the first image's count, the port raises
+    JpegError."""
     if pending is None:
         pending = spec_sync_start(imgs, chunk_bytes, plan, xs_dev, steps,
                                   device)
@@ -1440,6 +1640,11 @@ def decode_speculative_sync(imgs: list[JpegImage], chunk_bytes: int = 1024,
     )
     coeffs = coeffs16.to(torch.int32)
     coeffs[:, :, 0] = dc
+    if not device_out:
+        got = coeffs.cpu().numpy()
+        if bool(err.any()):
+            raise SpecSyncMiss("spec-sync: materialization checksum failed")
+        return [got[i, : int(nbi)] for i, nbi in enumerate(plan.img_blocks)]
     return coeffs, (err, torch.zeros_like(err))
 
 
@@ -1526,31 +1731,30 @@ def _spec_fetch_pack(blocks, err_mal, err_env, changed: bool, countable):
 
 def decode_speculative_batch(imgs: list[JpegImage], chunk_bytes: int = 2048,
                              max_iters: int | None = None,
-                             device_out: bool = True,
+                             device_out: bool = False,
                              pad_to: int | None = None,
                              plan: SpecBatchPlan | None = None, xs_dev=None,
                              steps=STEPS_PRODUCTION,
                              pending: SpecPending | None = None,
                              device=None, route: str = "scatter"):
-    """Jacobi speculative batch decode of a uniform-geometry chunk.
+    """Jacobi speculative batch decode.
 
-    Returns (coeffs int32 [pad_to or B, nb, 64] DC resolved, (err_mal,
-    err_env) [L]) on the device: one host read (block counts and flags)
-    after convergence, then the write pass (scan from the converged
-    states with per-lane quotas, classic materialize by `route`) and the
-    on-device gather.  Raises SpecEnvelopeError when the count pass latched
-    envelope lanes under `steps`, JpegError on malformed streams or
-    non-convergence.  Only device_out=True is ported (ROADMAP)."""
-    if not device_out:
-        raise NotImplementedError(
-            "decode_speculative_batch(device_out=False) is not ported"
-        )
+    One host read (block counts and flags) after convergence, then the
+    write pass (scan from the converged states with per-lane quotas,
+    classic materialize by `route`).  device_out=False returns per-image
+    host int32 [n_blocks, 64] coefficients (geometries may mix; DPCM
+    resolved per component on the host) and raises JpegError where the
+    write pass latched; device_out=True (one block count per batch)
+    returns (coeffs int32 [pad_to or B, nb, 64] DC resolved, (err_mal,
+    err_env) [L]) on the device, gathered there.  Raises
+    SpecEnvelopeError when the count pass latched envelope lanes under
+    `steps`, JpegError on malformed streams or non-convergence."""
     if pending is None:
         pending = spec_start(imgs, chunk_bytes, max_iters, plan, xs_dev,
                              steps, device)
     plan, xs, sb, sm, steps = (pending.plan, pending.xs, pending.sb,
                                pending.sm, pending.steps)
-    nb = _uniform_blocks(plan)
+    nb = _uniform_blocks(plan) if device_out else None
     T = plan.n_lanes
     L = plan.chunk_bits.shape[0]
     fetched = pending.packed.cpu().numpy()
@@ -1585,6 +1789,37 @@ def decode_speculative_batch(imgs: list[JpegImage], chunk_bytes: int = 2048,
         route=route,
     )
     per_lane = coeffs_t.T.reshape(L, cap_w, 64)
-    coeffs = _spec_gather(per_lane, quotas_dev, plan.tables,
-                          pad_to or len(imgs), nb, len(imgs))
-    return coeffs, (err_mal, out.err_env)
+    if device_out:
+        coeffs = _spec_gather(per_lane, quotas_dev, plan.tables,
+                              pad_to or len(imgs), nb, len(imgs))
+        return coeffs, (err_mal, out.err_env)
+    if bool((err_mal | out.err_env).any()):
+        raise JpegError("speculative decode failed (malformed scan)")
+    pl = per_lane.to(torch.int32).cpu().numpy()
+    result = []
+    pattern = np.asarray(plan.tables.comp, np.int32)
+    for first, S, nbi in zip(plan.img_first, plan.img_lanes, plan.img_blocks):
+        coeffs = np.concatenate(
+            [pl[first + i, : quotas[first + i]] for i in range(S)])
+        # DC left the scan as differences: one cumsum per component
+        comp_seq = np.tile(pattern, int(nbi) // plan.bpm)
+        for c in range(plan.tables.n_comp):
+            m = comp_seq == c
+            coeffs[m, 0] = np.cumsum(coeffs[m, 0])
+        result.append(coeffs)
+    return result
+
+
+def decode_speculative(img: JpegImage, chunk_bytes: int = 2048,
+                       max_iters: int | None = None,
+                       device="cuda") -> np.ndarray:
+    """Entropy-decode one stream without restart markers on `device` by
+    the speculative split (decode_speculative_batch).  Returns int32
+    [n_blocks, 64]; a stream denser than the production step budget is
+    decoded once more at STEPS_SAFE."""
+    try:
+        return decode_speculative_batch([img], chunk_bytes, max_iters,
+                                        device=device)[0]
+    except SpecEnvelopeError:
+        return decode_speculative_batch([img], chunk_bytes, max_iters,
+                                        steps=STEPS_SAFE, device=device)[0]

@@ -13,13 +13,21 @@ Counterpart of tpujpeg/runtime/batch.py:
      image for a stream without restart markers of at most 8191
      blocks), the lane plan is uploaded and runtime.fused.
      decode_chunk_fused runs scan -> classic materialize -> DC resolve ->
-     assemble -> pixels on the device.  Otherwise the chunk takes the
-     speculative path: the single-pass sync decode through the slot
+     pixels on the device.  A plan in two stride classes (build_plan's
+     split, taken only below the link rate _LINK_MBPS_SPLIT) takes the
+     staged chain instead: fsm.decode_plan (a scan per group, the `perm`
+     gather), fsm.assemble_batched, pipeline.device_decode_fn.
+     Otherwise the chunk takes the speculative path: the single-pass
+     sync decode through the slot
      materialize (backend 'fsm-spec-sync'), or after a resolve miss the
      Jacobi fixed point ('fsm-spec', counted in spec_sync_misses).  A chunk outside every
      device envelope raises JpegError, or under on_error='skip' goes to
      the host route.  Backend 'host': the native C++ entropy decoder on
-     the host, then the pixel stage;
+     the host, then the pixel stage; 'oracle' the same with the numpy
+     reference decoder; 'cpu' the whole decode in the native library on
+     a pool of `workers` threads (no device is touched); 'auto' routes by
+     a link probe (measured_link_mbps): the fsm route below
+     _LINK_MBPS_FSM_THRESHOLD or without the native library, else host;
   4. `_finish`: the retry ladder, behind one 4-flag device read per
      chunk.  A spec chunk whose slot materialize
      overflowed is decoded again with the classic materialize (counted
@@ -54,14 +62,18 @@ a batch that mixes samplings splits by itself.  fancy=True selects
 libjpeg's triangle chroma upsampling on every route (box replication
 otherwise).
 
+decode_parsed(fetch=False) and decode(fetch=False) run every chunk
+through the ladder and its one-read fence, synchronize the device and
+return None: no RGB leaves the card.
+
 Not ported yet: what ROADMAP.md's queue 1 ("Modules to port") lists,
-among them decode_parsed(fetch=False), the "cpu", "oracle", "auto" and
-"gather" backends, the prep-pool overlap of plan building with device
-work, and several cards.
+among them the "gather" backend, the prep-pool overlap of plan building
+with device work, and several cards.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -73,6 +85,61 @@ from ..errors import JpegError
 from ..io.parser import JpegImage, parse
 from ..pipeline import (Geometry, bucket_geometry, device_decode_fn,
                         pad_coeffs_to_bucket)
+
+# The link rate (MB/s) below which uploading a chunk's dense coefficients
+# (the host route's int32 [B, n_blocks, 64]) costs more than uploading its
+# scan bytes plus the fsm route's device entropy decode (scan, materialize,
+# DC resolve): (coefficient bytes - scan bytes) / entropy ms.  Read by
+# chip_smoke.py phase 6e on the 128-image restart chunk (rst640 x 8) on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: (629,145,600 - 26,255,360) bytes /
+# 1.902 ms = 316,947.7 MB/s.  Every link reads far below it, so "auto"
+# takes the fsm route wherever a card is attached by PCIe.
+_LINK_MBPS_FSM_THRESHOLD = 316_947.7
+
+# The link rate below which build_plan's split (two stride groups, fewer
+# padded upload bytes) pays for the staged chain's extra device time:
+# (single-group bytes - split bytes) / (staged ms - fused ms), both chains
+# with their bytes resident.  The same run: (26,255,360 - 20,726,272)
+# bytes / (7.785 - 2.590) ms = 1,064.5 MB/s.  The split saves 5.5 MB of
+# upload and costs a second scan, int32 lane rows, the perm gather and an
+# assemble; above this rate the engine keeps one group and the fused chain.
+_LINK_MBPS_SPLIT = 1_064.5
+
+_link_mbps_cache: dict = {}
+
+
+def measured_link_mbps(device="cuda") -> float:
+    """Host -> device bandwidth probe (MB/s), cached per device.
+
+    Two buffers (64 KiB and 4 MiB) go up and 8 bytes of each come back;
+    the rate is taken from the difference of the two times, so the fixed
+    cost of a copy does not count as bandwidth.  Each size goes up once
+    untimed first: the first copy of a size also pays the caching
+    allocator's device allocation (on an H100 that read 1,262 MB/s for
+    a link that uploads a chunk's scan bytes at ~5,700).  Where the two
+    times cannot be told apart, the big buffer's own rate (a lower
+    bound)."""
+    key = str(device)
+    if key not in _link_mbps_cache:
+        dev = torch.device(device)
+        small = np.zeros(1 << 16, np.uint8)
+        big = np.zeros(4 << 20, np.uint8)
+
+        def roundtrip(buf):
+            t0 = time.perf_counter()
+            torch.from_numpy(buf).to(dev)[-8:].cpu()
+            return time.perf_counter() - t0
+
+        roundtrip(small)
+        roundtrip(big)
+        t_small = min(roundtrip(small) for _ in range(3))
+        t_big = min(roundtrip(big) for _ in range(3))
+        if t_big > t_small * 1.05:
+            rate = (big.nbytes - small.nbytes) / (t_big - t_small) / 1e6
+        else:
+            rate = big.nbytes / t_big / 1e6
+        _link_mbps_cache[key] = rate
+    return _link_mbps_cache[key]
 
 
 @dataclass
@@ -117,6 +184,7 @@ class _Chunk:
     err_env: object = None
     err_slot: object = None
     out: object = None                 # device (rgb, riskbits or None)
+    rgb_host: list | None = None       # cpu backend: uint8 [H, W, 3] each
     backend: str = ""
     failed: dict | None = None         # local index -> message (skip mode)
     bucketed: bool = False             # geom is a size-class bucket: crop
@@ -152,21 +220,30 @@ def _pack_fence(rgb, err_mal, err_env, err_slot=None) -> torch.Tensor:
 class BatchDecoder:
     """Reusable batched decoder on one explicit device."""
 
-    def __init__(self, backend: str = "fsm", chunk_size: int = 32,
-                 strict: bool = True, device="cuda",
+    def __init__(self, backend: str = "fsm", workers: int | None = None,
+                 chunk_size: int = 32, strict: bool = True, device="cuda",
                  size_buckets: bool = False,
                  materialize_route: str = "scatter", fancy: bool = False):
-        """fancy=True upsamples subsampled chroma with libjpeg's triangle
-        filter on every route (box replication otherwise; no effect on
-        4:4:4 and grayscale).  size_buckets=True decodes corpora of mixed
-        sizes: images group by size-class bucket
-        (pipeline.bucket_geometry) instead of exact geometry, every chunk has the bucket's shapes, and outputs are
-        cropped to each image's true size on the host.  materialize_route
-        is the classic materialize's route (module docstring)."""
+        """backend: "fsm" (the default: the card), "host", "oracle",
+        "cpu" or "auto" (module docstring).  workers: the thread pool's
+        size; backend "cpu" defaults to one single-threaded decode per
+        core.  fancy=True upsamples subsampled chroma with libjpeg's
+        triangle filter on every route (box replication otherwise; no
+        effect on 4:4:4 and grayscale).  size_buckets=True decodes corpora
+        of mixed sizes: images group by size-class bucket
+        (pipeline.bucket_geometry) instead of exact geometry, every chunk
+        has the bucket's shapes, and outputs are cropped to each image's
+        true size on the host.  materialize_route is the classic
+        materialize's route (module docstring)."""
         from ..ops import materialize
 
-        if backend not in ("fsm", "host"):
+        if backend == "gather":
+            raise ValueError("backend 'gather' is not ported")
+        if backend not in ("auto", "host", "fsm", "oracle", "cpu"):
             raise ValueError(f"unknown backend {backend!r}")
+        if size_buckets and backend not in ("auto", "host", "oracle", "fsm"):
+            raise ValueError(
+                "size_buckets requires backend auto/host/oracle/fsm")
         if materialize_route not in materialize.ROUTES:
             raise ValueError(
                 f"unknown materialize_route {materialize_route!r}")
@@ -177,7 +254,10 @@ class BatchDecoder:
         self.chunk_size = chunk_size
         self.strict = strict
         self.device = torch.device(device)
-        self.pool = ThreadPoolExecutor()
+        if workers is None and backend == "cpu":
+            # one single-threaded native decode per core
+            workers = os.cpu_count() or 4
+        self.pool = ThreadPoolExecutor(max_workers=workers)
         self.stats = BatchStats()
         # slot capacity for every later chunk: None until sampled, then
         # an int C (0 = classic materialize)
@@ -198,7 +278,7 @@ class BatchDecoder:
         if not self.size_buckets:
             return (geom,)
         bucket = bucket_geometry(geom)
-        if self.backend == "fsm":
+        if self._prefers_fsm():
             from ..ops.fsm import bucket_lane_k
 
             return (bucket, bucket_lane_k(img))
@@ -228,7 +308,8 @@ class BatchDecoder:
     # -- chunk routes -------------------------------------------------------
 
     def _process_chunk_host(self, chunk: _Chunk, isolate: bool = False):
-        """Native host entropy -> coefficient upload -> pixel stage.
+        """Native host entropy (the numpy oracle's on backend "oracle") ->
+        coefficient upload -> pixel stage.
 
         isolate=True decodes failing images one by one: a bad one yields
         zero coefficients and lands in chunk.failed instead of raising.
@@ -242,10 +323,16 @@ class BatchDecoder:
 
         geom = chunk.geom
         B = len(chunk.imgs)
+        oracle = self.backend == "oracle"
+        if oracle:
+            from ..oracle.decoder import entropy_decode
+        else:
+            def entropy_decode(img):
+                return host.entropy_decode(img, threads=1)
 
         def one(img):
             try:
-                return host.entropy_decode(img, threads=1)
+                return entropy_decode(img)
             except JpegError as e:
                 if not isolate:
                     raise
@@ -273,7 +360,34 @@ class BatchDecoder:
             exact=self.strict,
         )
         chunk.err_mal = chunk.err_env = chunk.err_slot = None
-        chunk.backend = "host-bucketed" if chunk.bucketed else "host"
+        chunk.backend = ("oracle" if oracle else "host") \
+            + ("-bucketed" if chunk.bucketed else "")
+
+    def _process_chunk_cpu(self, chunk: _Chunk, isolate: bool) -> None:
+        """The whole decode per image in the native library (entropy and
+        pixels; host.decode_cpu), one single-threaded decode per pool
+        thread (the whole team for a one-image chunk).  No device is
+        touched: no tensor, no kernel, no torch.cuda call."""
+        from . import host
+
+        nt = 1 if len(chunk.imgs) > 1 else 0
+
+        def one(img):
+            try:
+                return host.decode_cpu(img, fancy=self.fancy, threads=nt)
+            except JpegError as e:
+                if not isolate:
+                    raise
+                return e
+
+        chunk.rgb_host = list(self.pool.map(one, chunk.imgs))
+        for bi, res in enumerate(chunk.rgb_host):
+            if isinstance(res, JpegError):
+                if chunk.failed is None:
+                    chunk.failed = {}
+                chunk.failed[bi] = str(res)
+                chunk.rgb_host[bi] = None
+        chunk.backend = "cpu"
 
     def _slot_capacity(self, chunk: _Chunk):
         """The materialize route for a speculative chunk: False (classic)
@@ -313,9 +427,10 @@ class BatchDecoder:
 
     def _process_chunk_fsm(self, chunk: _Chunk, steps=None) -> bool:
         """Pack the chunk into lanes and run the fused device chain
-        (runtime/fused.py); a chunk that does not pack (fsm.build_plan
-        raises JpegError) takes the speculative path.  Returns False when
-        the chunk is outside every device envelope."""
+        (runtime/fused.py), or the staged chain for a plan in two stride
+        groups; a chunk that does not pack (fsm.build_plan raises
+        JpegError) takes the speculative path.  Returns False when the
+        chunk is outside every device envelope."""
         from ..ops import fsm
         from . import fused
 
@@ -323,23 +438,37 @@ class BatchDecoder:
             return self._process_chunk_fsm_bucketed(chunk, steps)
         if chunk.plan is None:
             try:
-                chunk.plan = fsm.build_plan(chunk.imgs)
+                # the split only where the saved upload bytes pay for the
+                # staged chain (_LINK_MBPS_SPLIT, read on the card)
+                chunk.plan = fsm.build_plan(
+                    chunk.imgs,
+                    split=measured_link_mbps(self.device) < _LINK_MBPS_SPLIT)
             except JpegError:
                 return self._process_chunk_spec(chunk, steps)
-            chunk.uploaded = (
-                torch.as_tensor(chunk.plan.xs).to(self.device),
-                torch.as_tensor(chunk.plan.seg_n_blocks).to(self.device),
-            )
+            chunk.uploaded = fsm.upload_plan(chunk.plan, self.device)
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
         B = len(chunk.imgs)
-        rgb, risk, _, _, err_mal, err_env, err_slot = (
-            fused.decode_chunk_fused(
-                chunk.plan, self._quant_block(chunk, B), chunk.geom, B,
-                steps=chunk.steps, want_coeffs=False,
-                uploaded=chunk.uploaded, slots=False, route=self.route,
-                fancy=self.fancy, exact=self.strict,
+        quant = self._quant_block(chunk, B)
+        groups, _ = chunk.uploaded
+        if len(groups) == 1:
+            rgb, risk, _, _, err_mal, err_env, err_slot = (
+                fused.decode_chunk_fused(
+                    chunk.plan, quant, chunk.geom, B, steps=chunk.steps,
+                    want_coeffs=False, uploaded=groups[0], slots=False,
+                    route=self.route, fancy=self.fancy, exact=self.strict,
+                )
             )
-        )
+        else:
+            # the staged chain: a scan per stride group, rows back in lane
+            # order, assembled per image, then the pixel stage
+            per_lane, (err_mal, err_env) = fsm.decode_plan(
+                chunk.plan, uploaded=chunk.uploaded, steps=chunk.steps,
+                route=self.route)
+            coeffs = fsm.assemble_batched(per_lane, layout=chunk.plan.layout,
+                                          pad_to=B)
+            rgb, risk = device_decode_fn(chunk.geom, coeffs, quant,
+                                         fancy=self.fancy, exact=self.strict)
+            err_slot = None
         chunk.out = (rgb, risk)
         chunk.err_mal = err_mal
         chunk.err_env = err_env
@@ -471,18 +600,36 @@ class BatchDecoder:
             return self._process_chunk_spec(chunk, steps)
         return self._process_chunk_fsm(chunk, steps)
 
-    def _dispatch_chunk(self, chunk: _Chunk, isolate: bool) -> None:
-        if self.backend == "host":
-            self._process_chunk_host(chunk, isolate=isolate)
+    def _prefers_fsm(self) -> bool:
+        """Whether this decoder routes chunks to the device FSM first:
+        backend "fsm", or "auto" without the native library or on a link
+        slower than _LINK_MBPS_FSM_THRESHOLD."""
+        if self.backend == "fsm":
+            return True
+        if self.backend != "auto":
+            return False
+        from . import host
+
+        return (host._load_native() is None
+                or measured_link_mbps(self.device) < _LINK_MBPS_FSM_THRESHOLD)
+
+    def _process_chunk(self, chunk: _Chunk, isolate: bool) -> None:
+        if self.backend == "cpu":
+            self._process_chunk_cpu(chunk, isolate)
             return
-        try:
-            if not self._process_chunk_fsm(chunk):
-                if chunk.bucketed:
-                    # a mixed-size chunk the bucket FSM cannot take (no or
-                    # unaligned restarts): host-bucketed, not an error
-                    self._process_chunk_host(chunk, isolate=isolate)
-                    return
+        if self._prefers_fsm():
+            if self._process_chunk_fsm(chunk):
+                return
+            if self.backend == "fsm" and not chunk.bucketed:
                 raise JpegError("fsm: chunk outside the FSM decode envelope")
+            # a mixed-size chunk the bucket FSM cannot take (no or
+            # unaligned restarts) takes host-bucketed, and "auto" takes
+            # the host route: not an error
+        self._process_chunk_host(chunk, isolate=isolate)
+
+    def _dispatch_chunk(self, chunk: _Chunk, isolate: bool) -> None:
+        try:
+            self._process_chunk(chunk, isolate)
         except JpegError:
             if not isolate:
                 raise
@@ -492,9 +639,14 @@ class BatchDecoder:
 
     # -- decode -------------------------------------------------------------
 
-    def decode_parsed(self, imgs: list[JpegImage], on_error: str = "raise"):
+    def decode_parsed(self, imgs: list[JpegImage], fetch: bool = True,
+                      on_error: str = "raise"):
         """Decode parsed images -> list of uint8 [H, W, 3] (None for images
         that failed under on_error='skip', recorded in stats.failures).
+
+        fetch=False leaves the RGB on the card: every chunk still goes
+        through the ladder and its fence, the device is synchronized and
+        the stats are complete, and the call returns None.
 
         An image that fills its chunk's raster is a view of the chunk's
         one fetched buffer, so each result keeps that buffer (e.g. 157 MB
@@ -510,10 +662,11 @@ class BatchDecoder:
         for chunk in chunks:
             self._dispatch_chunk(chunk, isolate)
         t_ent = time.perf_counter() - t0
-        return self._finish(chunks, len(imgs), t_start, t_ent, isolate)
+        return self._finish(chunks, len(imgs), t_start, t_ent, fetch,
+                            isolate)
 
     def _finish(self, chunks: list[_Chunk], n_images: int, t_start: float,
-                t_ent: float, isolate: bool):
+                t_ent: float, fetch: bool, isolate: bool):
         from ..ops import fsm
 
         n_env = n_mal = n_k = n_slot = 0
@@ -549,7 +702,7 @@ class BatchDecoder:
                 n_mal += int(mal and not failed)
                 n_env += int(failed or (env and not mal))
                 self._process_chunk_host(chunk, isolate=isolate)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and any(c.out is not None for c in chunks):
             torch.cuda.synchronize(self.device)
         t_dev = time.perf_counter() - t0
 
@@ -574,8 +727,16 @@ class BatchDecoder:
                 for bi, msg in chunk.failed.items():
                     self.stats.failures[chunk.indices[bi]] = msg
 
+        if not fetch:
+            self.stats.total_s = time.perf_counter() - t_start
+            return None
         results: list[np.ndarray | None] = [None] * n_images
         for chunk in chunks:
+            if chunk.rgb_host is not None:
+                # backend "cpu": uint8 [H, W, 3] on the host already
+                for bi, i in enumerate(chunk.indices):
+                    results[i] = chunk.rgb_host[bi]
+                continue
             n = len(chunk.imgs)
             # device rgb is planar [B, 3, H, W]: interleave on the device,
             # then one uint8 fetch per chunk
@@ -601,12 +762,14 @@ class BatchDecoder:
         _, mal, env, slot = fence.cpu().tolist()
         return bool(mal), bool(env), bool(slot)
 
-    def decode(self, datas: list[bytes], on_error: str = "raise"):
+    def decode(self, datas: list[bytes], fetch: bool = True,
+               on_error: str = "raise"):
         """Parse + decode a batch of JPEG byte strings.
 
-        on_error='raise' propagates the first malformed stream; 'skip'
-        isolates failures: bad entries yield None and are recorded in
-        stats.failures (keyed by position in `datas`)."""
+        fetch=False returns None and leaves the RGB on the card
+        (decode_parsed).  on_error='raise' propagates the first malformed
+        stream; 'skip' isolates failures: bad entries yield None and are
+        recorded in stats.failures (keyed by position in `datas`)."""
         if on_error not in ("raise", "skip"):
             raise ValueError(f"on_error={on_error!r}")
         t_start = time.perf_counter()
@@ -615,11 +778,14 @@ class BatchDecoder:
         t_parse = time.perf_counter() - t_start
         bad = {i: r for i, r in enumerate(parsed) if isinstance(r, str)}
         pos_of = [i for i, r in enumerate(parsed) if not isinstance(r, str)]
-        out = self.decode_parsed([parsed[i] for i in pos_of], on_error)
+        out = self.decode_parsed([parsed[i] for i in pos_of], fetch=fetch,
+                                 on_error=on_error)
         self.stats.parse_s = t_parse
         self.stats.total_s = time.perf_counter() - t_start
         failures = {pos_of[j]: msg for j, msg in self.stats.failures.items()}
         self.stats.failures = {**bad, **failures}
+        if out is None:
+            return None
         full: list = [None] * len(datas)
         for j, i in enumerate(pos_of):
             full[i] = out[j]
