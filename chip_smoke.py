@@ -147,6 +147,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      CUDA graph beside its latency floor (the same walk with the step
      taken out, over a table that is one permutation cycle;
      tools/bench_torch_gather.py's chain_readings) and the share;
+  6f. the pipelined engine (decode streams; chunks prepared on the prep
+     pool, uploaded from page-locked memory on a copy stream) on batches
+     of several 128-image chunks: R, 1,024 restart streams (rst640 x 64,
+     8 chunks); M, runs of 128 restart and 128 no-restart streams in
+     turns (rst640, photo640; 8 chunks, "fsm" and "fsm-spec-sync"); B,
+     512 mixed sizes (mixed_rst x 32, size_buckets=True, 4 chunks).
+     Every output equals the host reference decoder's, no fallback, and
+     the launch counts equal those of the same bytes decoded one
+     128-image run per decode call (the serial form).  Three warm runs
+     each of the pipelined decode with fetch=True and fetch=False and of
+     the serial form (median, min, max, images/s), the host split of a
+     run (BatchStats parse_s, entropy_s, device_s and the rest of
+     total_s), the device's busy share of a fetch=False run of R from a
+     torch.profiler trace (utils/profiling.device_trace, written to a
+     temporary directory), and one restart chunk's build_plan and
+     its upload four ways (the engine's one pinned buffer a chunk, a
+     ring of pinned buffers packed by numpy, pin_memory() per array,
+     pageable);
   7b. exact colour over all 134,217,728 triples of [-256, 255]^3 on the
      card, Y slab by Y slab, against the oracle's ycbcr_to_rgb_exact in
      numpy: the pixel kernel's exact mode (DC-only blocks whose samples
@@ -162,7 +180,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      stage times (IDCT, block -> raster, upsample, f32 and exact colour,
      pack).
 
-Each path of phases 2-6e runs with the launch counts set to 0 just before
+Each path of phases 2-6f runs with the launch counts set to 0 just before
 it and read just after, and fails if a kernel it must run was not
 launched; every engine of phases 2-6c reports 0 repaired pixels.  The second-to-last line is a JSON object with one entry per
 kernel (launches summed over those paths, and per 128-image chunk of
@@ -177,6 +195,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -973,6 +992,164 @@ def main() -> int:
               f"tpujpeg_torch.decode backend {b} differs on {GOLDEN[2]}")
     print(f"phase 6e: tpujpeg_torch.decode with backends cuda, auto, cpu, "
           f"oracle on {GOLDEN[2]}: bit-exact")
+    torch.cuda.empty_cache()
+
+    # ---- phase 6f: the pipelined engine on batches of several chunks
+    from types import SimpleNamespace
+
+    from tpujpeg_torch.utils.profiling import device_busy, device_trace, scope
+
+    def host_split(st) -> str:
+        rest = st.total_s - st.parse_s - st.entropy_s - st.device_s
+        return (f"parse_s {st.parse_s * 1e3:.1f}, entropy_s "
+                f"{st.entropy_s * 1e3:.1f}, device_s {st.device_s * 1e3:.1f}"
+                f", rest (fetch, crop) {rest * 1e3:.1f} of total_s "
+                f"{st.total_s * 1e3:.1f} ms")
+
+    def wall_runs(fn, n: int = 3) -> list:
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    def ms3(times: list) -> str:
+        return (f"{statistics.median(times):.2f} ms (min {min(times):.2f}, "
+                f"max {max(times):.2f})")
+
+    def spread(times: list, n_imgs: int) -> str:
+        return (f"{ms3(times)}, "
+                f"{n_imgs / statistics.median(times) * 1e3:.1f} images/s")
+
+    runs6f = {
+        "R": ([d for _ in range(REPEAT * 8) for d in streams],
+              [r for _ in range(REPEAT * 8) for r in refs], {}, "fsm"),
+        "M": ([d for k in range(8) for _ in range(REPEAT)
+               for d in (streams if k % 2 == 0 else pstreams)],
+              [r for k in range(8) for _ in range(REPEAT)
+               for r in (refs if k % 2 == 0 else prefs)], {},
+              "fsm+fsm-spec-sync"),
+        "B": ([d for _ in range(REPEAT * 4) for d in mstreams],
+              [r for _ in range(REPEAT * 4) for r in mrefs],
+              {"size_buckets": True}, "fsm-bucketed"),
+    }
+    t_6f = time.perf_counter()
+    for name, (bdatas, brefs, bargs, bbackend) in runs6f.items():
+        n_chunks = len(bdatas) // CHUNK
+        bdec = BatchDecoder(backend="fsm", chunk_size=CHUNK, device="cuda",
+                            **bargs)
+        bout = run_path(f"phase 6f {name}", lambda: bdec.decode(bdatas),
+                        need=("fsm_scan", "pixels"))
+        bst = bdec.stats
+        check(bst.backend == bbackend and bst.chunks == n_chunks,
+              f"6f {name}: backend {bst.backend}, chunks {bst.chunks}")
+        check(bst.fsm_malformed_fallbacks == 0
+              and bst.fsm_envelope_fallbacks == 0
+              and bst.repaired_pixels == 0, f"6f {name}: {bst.as_dict()}")
+        for i, (g, w) in enumerate(zip(bout, brefs)):
+            check(g is not None and np.array_equal(g, w),
+                  f"6f {name}: output {i} differs from {host.backend_name()}")
+        check(len(bout) == len(brefs), f"6f {name}: output count")
+        del bout
+
+        def serial():
+            return [r for j in range(0, len(bdatas), CHUNK)
+                    for r in bdec.decode(bdatas[j : j + CHUNK])]
+
+        sout = run_path(f"phase 6f {name} serial", serial,
+                        need=("fsm_scan", "pixels"))
+        del sout
+        check(by_path[f"phase 6f {name}"]
+              == by_path[f"phase 6f {name} serial"],
+              f"6f {name}: pipelined launches differ from the serial form's")
+        piped = wall_runs(lambda: bdec.decode(bdatas))
+        split_t = host_split(bdec.stats)
+        piped_nf = wall_runs(lambda: bdec.decode(bdatas, fetch=False))
+        split_nf = host_split(bdec.stats)
+        ser = wall_runs(serial)
+        n_imgs = len(bdatas)
+        print(f"phase 6f {name}: {n_imgs} images in {n_chunks} chunks, "
+              f"backend {bst.backend}, outputs bit-exact vs "
+              f"{host.backend_name()}, 0 fallbacks, launches equal to the "
+              f"serial form's {json.dumps(by_path[f'phase 6f {name}'])}")
+        print(f"phase 6f {name}: pipelined decode fetch=True "
+              f"{spread(piped, n_imgs)}; fetch=False "
+              f"{spread(piped_nf, n_imgs)}; serial (one decode per "
+              f"128-image run, fetch=True) {spread(ser, n_imgs)} [{card}]")
+        print(f"phase 6f {name}: host split, fetch=True: {split_t}; "
+              f"fetch=False: {split_nf} [{card}]")
+        if name == "R":
+            with tempfile.TemporaryDirectory() as trace_dir:
+                with device_trace(trace_dir):
+                    with scope("batch R"):
+                        bdec.decode(bdatas, fetch=False)
+                busy = device_busy(os.path.join(trace_dir, "trace.json"),
+                                   "batch R")
+            check(busy["events"] > 0, "6f: the trace holds no device work")
+            print(f"phase 6f R: device_trace of a fetch=False run: "
+                  f"{busy['events']} kernels and copies, busy "
+                  f"{busy['busy_us'] / 1e3:.2f} of {busy['window_us'] / 1e3:.2f}"
+                  f" ms of the batch's wall window: busy share "
+                  f"{busy['busy_us'] / busy['window_us']:.4f} [{card}]")
+            # one chunk's host stages apart: the plan, then its arrays up
+            # three ways (median of 5 warm runs each)
+            cimgs = rimgs[:CHUNK]
+            stub = SimpleNamespace(imgs=cimgs, geom=rgeom)
+            plan_ms = wall_runs(lambda: fsm.build_plan(cimgs, split=False), 5)
+            cplan = fsm.build_plan(cimgs, split=False)
+            arrs = [a for g in cplan.groups for a in g] \
+                + [cplan.perm, bdec._quant_host(stub)]
+            up_bytes = sum(a.nbytes for a in arrs)
+            uploader = bdec._staging()
+
+            def engine_stage():
+                uploader.stage(arrs).event.synchronize()
+
+            # the alternative the engine measured against: a ring of four
+            # page-locked buffers, packed with numpy, one copy on a stream
+            padded = [-(-a.nbytes // 16) * 16 for a in arrs]
+            ring_bufs = [torch.empty(sum(padded), dtype=torch.uint8,
+                                     pin_memory=True) for _ in range(4)]
+            ring_stream = torch.cuda.Stream()
+            ring_turn = [0]
+
+            def ring():
+                buf = ring_bufs[ring_turn[0] % 4]
+                ring_turn[0] += 1
+                host_buf, o = buf.numpy(), 0
+                for a, n in zip(arrs, padded):
+                    host_buf[o : o + a.nbytes] = a.reshape(-1).view(np.uint8)
+                    o += n
+                with torch.cuda.stream(ring_stream):
+                    buf.to(dev, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(ring_stream)
+                ev.synchronize()
+
+            def pin_each():
+                pinned = [torch.from_numpy(a).pin_memory() for a in arrs]
+                [p.to(dev, non_blocking=True) for p in pinned]
+                torch.cuda.synchronize()
+
+            def pageable():
+                [torch.from_numpy(a).to(dev) for a in arrs]
+                torch.cuda.synchronize()
+
+            ups = {k: wall_runs(f, 5) for k, f in (
+                ("the engine's (one pinned buffer a chunk, packed by "
+                 "torch)", engine_stage),
+                ("a ring of 4 pinned buffers packed by numpy", ring),
+                ("pin_memory() per array", pin_each),
+                ("pageable", pageable))}
+            print(f"phase 6f: one 128-image restart chunk: build_plan "
+                  f"{ms3(plan_ms)}; its {up_bytes} bytes up: " + "; ".join(
+                      f"{k} {ms3(v)}, "
+                      f"{up_bytes / statistics.median(v) / 1e3:.1f} MB/s"
+                      for k, v in ups.items()) + f" [{card}]")
+        bdec.close()
+    print(f"phase 6f: {time.perf_counter() - t_6f:.1f} s")
     torch.cuda.empty_cache()
 
     # ---- phase 7: kernels against their plain versions, real inputs

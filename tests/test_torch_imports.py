@@ -71,6 +71,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "tpujpeg_torch.runtime.native.lib" in mods
     assert "tpujpeg_torch.ops.upsample" in mods
     assert "tpujpeg_torch.ops.probes" in mods
+    assert "tpujpeg_torch.cli" in mods
+    assert "tpujpeg_torch.utils.profiling" in mods
     data = make_jpeg_rst(shape=(16, 24), rst_interval=3, seed=3)
     data420 = make_jpeg(shape=(16, 32), subsampling=2, seed=3)
     out = _run_isolated(f"""
@@ -88,6 +90,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             print(backend, "420", sub.shape)
         rgb1 = tpujpeg_torch.decode({fixture_path(GOLDEN[2])!r}, device="cpu")
         print(rgb1.shape)
+        from tpujpeg_torch import cli
+        from tpujpeg_torch.utils import profiling
+        cli.main(["info", {fixture_path(GOLDEN[2])!r}])
+        with profiling.StageTimer().stage("x"):
+            pass
     """)
     assert _foreign(out) == "FOREIGN []", out
     assert "fsm (16, 24, 3) uint8" in out and "(120, 120, 3)" in out
@@ -120,6 +127,13 @@ def test_tools_import_neither_jax_nor_the_jax_package(tool):
         import {tool}
     """, cwd=root)
     assert _foreign(out) == "FOREIGN []", out
+
+
+def test_prep_ahead_equals_jax():
+    from tpujpeg.runtime import batch as jbatch
+    from tpujpeg_torch.runtime import batch as tbatch
+
+    assert tbatch._PREP_AHEAD == jbatch._PREP_AHEAD == 3
 
 
 def test_constants_equal():

@@ -1,5 +1,5 @@
-"""Reader for the reference's `.array` text output format (own copy of
-tpujpeg/io/arrayio.py, without its writer).
+"""Reader/writer for the reference's `.array` text output format (own
+copy of tpujpeg/io/arrayio.py).
 
 Format (reference `cuda-decoder/src/parser.cu:736-743`): first line
 "height width", then three lines of space-separated integers — the R, G, B
@@ -9,6 +9,17 @@ planes flattened row-major, each followed by a trailing space.
 from __future__ import annotations
 
 import numpy as np
+
+
+def write_array(path: str, rgb: np.ndarray) -> None:
+    """Write [H, W, 3] RGB to the reference text format."""
+    h, w = rgb.shape[:2]
+    with open(path, "w") as f:
+        f.write(f"{h} {w}\n")
+        for ch in range(3):
+            plane = np.asarray(rgb[..., ch]).reshape(-1)
+            f.write(" ".join(str(int(v)) for v in plane))
+            f.write(" \n")
 
 
 def read_array(path: str) -> np.ndarray:

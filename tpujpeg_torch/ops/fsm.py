@@ -1338,6 +1338,12 @@ def _lane_masks(plan: SpecBatchPlan):
     return inherit, body
 
 
+def spec_lane_arrays(plan: SpecBatchPlan):
+    """The host arrays spec_sync_start reads beside the byte matrix:
+    (chunk_bits int32 [L], inherit bool [L], body bool [L])."""
+    return (plan.chunk_bits, *_lane_masks(plan))
+
+
 def _upload_spec(plan: SpecBatchPlan, xs_dev, device):
     """The plan's byte matrix on the device (xs_dev when given; `device`,
     default the card, otherwise)."""
@@ -1426,22 +1432,28 @@ def _spec_sync_scan(xs, chunk_bits, inherit, body, tables: FsmTables,
 
 def spec_sync_start(imgs: list[JpegImage], chunk_bytes: int = 1024,
                     plan: SpecBatchPlan | None = None, xs_dev=None,
-                    steps=STEPS_PRODUCTION, device=None) -> SpecSyncPending:
+                    steps=STEPS_PRODUCTION, device=None,
+                    lanes_dev=None) -> SpecSyncPending:
     """Run a chunk's cold + stitch scans on the device of `xs_dev` (or
-    `device`, default the card).  Raises SpecSyncMiss for more than 8 blocks
-    per MCU (the anchor's phase field is 3 bits)."""
+    `device`, default the card).  lanes_dev: the plan's (chunk_bits,
+    inherit, body) already on that device (`spec_lane_arrays`), uploaded
+    here otherwise.  Raises SpecSyncMiss for more than 8 blocks per MCU
+    (the anchor's phase field is 3 bits)."""
     if plan is None:
         plan = build_spec_plan_batch(imgs, chunk_bytes)
     if plan.bpm > 8:
         raise SpecSyncMiss("spec-sync: > 8 blocks per MCU")
     xs = _upload_spec(plan, xs_dev, device)
     dev = xs.device
-    inherit, body = (torch.as_tensor(m).to(dev) for m in _lane_masks(plan))
+    if lanes_dev is None:
+        lanes_dev = tuple(torch.as_tensor(a).to(dev)
+                          for a in spec_lane_arrays(plan))
+    chunk_bits, inherit, body = lanes_dev
     bpc, spc = _steps_spec(steps)
     rows = (SPEC_STITCH_BYTES + SPEC_OVERLAP + 64) * 2 * spc // (bpc * 2)
     out = _spec_sync_scan(
-        xs, torch.as_tensor(plan.chunk_bits).to(dev), inherit, body,
-        plan.tables, plan.blk_cap, steps, rows,
+        xs, chunk_bits, inherit, body, plan.tables, plan.blk_cap, steps,
+        rows,
     )
     return SpecSyncPending(plan, *out, steps)
 

@@ -18,6 +18,7 @@ leading batch dimension B.
     output is the reference decoder's and needs no repair;
   * `decode(img, device, strict, fancy)`: host entropy (the native C++
     decoder of runtime/native) + the pixel stage, exact when strict;
+    `decode_file(path, device, strict)` on a file;
   * `bucket_geometry(geom)`: the size-class bucket of a geometry, with
     `pad_coeffs_to_bucket` for the host side of mixed-size chunks.
 """
@@ -310,3 +311,10 @@ def decode(img: JpegImage, device, strict: bool = True,
     return np.ascontiguousarray(
         np.moveaxis(rgb_dev[0].cpu().numpy(), 0, -1)
     ).astype(np.int32)
+
+
+def decode_file(path: str, device="cuda", strict: bool = True) -> np.ndarray:
+    """Decode the JPEG file at `path` on `device` (`decode`)."""
+    from .io.parser import parse_file
+
+    return decode(parse_file(path), device=device, strict=strict)

@@ -2,12 +2,15 @@
 
 Counterpart of tpujpeg/runtime/batch.py:
 
-  1. parse (host, io/parser.py);
-  2. chunking by geometry, stride-sorted (similar segment lengths share a
-     chunk, so the scan's column count follows the longest segment of a
-     tighter group).  With size_buckets=True chunks group by size-class
-     bucket and restart row count k instead (`_chunk_key`), so images of
-     different sizes share a chunk;
+  1. parse (host, io/parser.py), on the thread pool;
+  2. chunking by geometry (`_chunk_key`; with size_buckets=True by
+     size-class bucket and restart row count k, so images of different
+     sizes share a chunk).  `decode` streams, as the JAX engine's does:
+     a chunk is formed as soon as chunk_size images of one key have
+     been parsed, in arrival order, and dispatched while later streams
+     still parse.  `decode_parsed` sorts each key's images by stride
+     (similar segment lengths share a chunk, so the scan's column count
+     follows the longest segment of a tighter group);
   3. per chunk, backend 'fsm': when the chunk packs into lanes
      (fsm.build_plan: one lane per restart segment, and one lane per
      image for a stream without restart markers of at most 8191
@@ -62,13 +65,26 @@ a batch that mixes samplings splits by itself.  fancy=True selects
 libjpeg's triangle chroma upsampling on every route (box replication
 otherwise).
 
+The prep pool (the JAX engine's, `_prepare_chunk_fsm`): where the
+decoder routes to the device FSM, a rolling window (`_Window`) prepares
+up to _PREP_AHEAD chunks ahead of the dispatch on a two-thread pool of
+its own: the plan (`build_plan`, `build_plan_bucketed`, or the
+speculative `build_spec_plan_batch` for a chunk that does not pack) and
+every array the chunk's chain reads (the plan's, the quant tables, the
+spec lane masks, the bucket extents), staged by `_Uploader`: packed into
+one page-locked buffer and copied up on the decoder's copy stream, the
+compute stream ordered after the copy by an event.  Kernels launch only
+on the dispatching thread, the speculative scans at dispatch; the K and
+slot retries reuse the prepared plan.  A JpegError of a preparation
+routes the chunk as the serial engine would; any other exception
+reaches the caller.
+
 decode_parsed(fetch=False) and decode(fetch=False) run every chunk
 through the ladder and its one-read fence, synchronize the device and
 return None: no RGB leaves the card.
 
-Not ported yet: what ROADMAP.md's queue 1 ("Modules to port") lists,
-among them the "gather" backend, the prep-pool overlap of plan building
-with device work, and several cards.
+Not ported yet: the "gather" backend and several cards (ROADMAP.md,
+queue 1 "Modules to port").
 """
 
 from __future__ import annotations
@@ -104,6 +120,11 @@ _LINK_MBPS_FSM_THRESHOLD = 316_947.7
 # upload and costs a second scan, int32 lane rows, the perm gather and an
 # assemble; above this rate the engine keeps one group and the fused chain.
 _LINK_MBPS_SPLIT = 1_064.5
+
+# How many chunks may be prepared (plan built, its arrays staged on the
+# device) ahead of the dispatch loop, as in the JAX engine: enough to keep
+# the two prep threads busy without holding every chunk's lane matrix.
+_PREP_AHEAD = 3
 
 _link_mbps_cache: dict = {}
 
@@ -172,10 +193,14 @@ class _Chunk:
     geom: Geometry
     indices: list[int]
     imgs: list[JpegImage]
+    plan_future: object = None         # the prep pool's _Prepared
     plan: object = None                # FsmPlan / FsmBucketPlan (retries)
     uploaded: object = None            # plan's arrays on the device
     spec_plan: object = None           # fsm.SpecBatchPlan of the sync path
-    spec_xs: object = None             # its scan bytes on the device
+    spec_dev: object = None            # its (xs, chunk_bits, inherit, body)
+    quant: object = None               # int32 [B, n_comp, 64] on the device
+    extents: object = None             # bucketed: int32 [B, 2] on the device
+    staged: object = None              # _Staged: held until the fence read
     steps: object = None               # FSM steps spec of the last decode
     spec_k_retries: int = 0            # inline STEPS_SAFE retries (spec)
     spec_sync_misses: int = 0          # sync resolve misses -> Jacobi
@@ -215,6 +240,123 @@ def _pack_fence(rgb, err_mal, err_env, err_slot=None) -> torch.Tensor:
         flags.append(torch.zeros((), dtype=torch.int32, device=rgb.device)
                      if e is None else e.any().to(torch.int32))
     return torch.stack(flags)
+
+
+@dataclass
+class _Staged:
+    """A prepared chunk's arrays on the device.  On a card they view one
+    buffer that a single copy filled from page-locked memory on the
+    decoder's copy stream; `event` follows that copy."""
+
+    arrays: tuple
+    event: object = None         # torch.cuda.Event after the copy
+    base: object = None          # the device buffer the arrays view
+    pinned: object = None        # the page-locked source of the copy
+
+
+@dataclass
+class _Prepared:
+    """What `_prepare_chunk_fsm` hands the dispatch: the route ("plan",
+    "bucket" or "spec"), its plan and the staged arrays (the plan's, then
+    the quant tables, then for "bucket" the extents)."""
+
+    kind: str
+    plan: object
+    staged: _Staged
+
+
+def _torch_dtype(dt: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dt)).dtype
+
+
+class _Uploader:
+    """Host -> device staging of prepared chunks.
+
+    On a card a chunk's arrays are packed into one page-locked buffer
+    (PyTorch's caching host allocator: a block is handed out again only
+    once the copies recorded on it are done, so only a new size pays a
+    cudaHostAlloc) and go up in one non-blocking copy on the uploader's
+    own stream, so a prepare on a pool thread neither blocks on the copy
+    nor queues behind the kernels of the chunk before it.  `adopt`, on
+    the dispatching thread, makes the current (compute) stream wait for
+    the event after the copy before the chunk's first kernel and records
+    the device buffer on it for the caching allocator.  On the CPU the
+    arrays are wrapped as tensors: no stream, no copy."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.Stream(device)
+
+    def stage(self, arrays) -> _Staged:
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        if self.stream is None:
+            return _Staged(tuple(torch.from_numpy(a) for a in arrays))
+        offsets, total = [], 0
+        for a in arrays:
+            offsets.append(total)
+            total += -(-a.nbytes // 16) * 16
+        pinned = torch.empty(max(total, 16), dtype=torch.uint8,
+                             pin_memory=True)
+        for a, o in zip(arrays, offsets):
+            pinned[o : o + a.nbytes].copy_(
+                torch.from_numpy(a.reshape(-1).view(np.uint8)))
+        with torch.cuda.stream(self.stream):
+            base = pinned[:total].to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        views = tuple(
+            base[o : o + a.nbytes].view(_torch_dtype(a.dtype))
+            .reshape(a.shape)
+            for a, o in zip(arrays, offsets))
+        return _Staged(views, done, base, pinned)
+
+    def adopt(self, staged: _Staged) -> None:
+        if staged.event is None:
+            return
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(staged.event)
+        staged.base.record_stream(compute)
+
+
+class _Window:
+    """The dispatch loop's rolling window (the JAX engine's `drain`).
+
+    Chunks wait in `pending` in dispatch order.  Where the decoder routes
+    to the device FSM, the first _PREP_AHEAD of them are prepared on its
+    prep pool (`_prepare_chunk_fsm`), so at most _PREP_AHEAD prepared
+    chunks wait undispatched; `drain(block=False)` dispatches chunks
+    while the first one's preparation is done, `drain(block=True)` all of
+    them, each waiting for its own.  `t_ent` sums the dispatch time."""
+
+    def __init__(self, dec: "BatchDecoder", isolate: bool):
+        self.dec = dec
+        self.isolate = isolate
+        self.prep = dec._prefers_fsm()
+        if self.prep:
+            # on this thread, before any prepare reads them
+            measured_link_mbps(dec.device)
+            dec._staging()
+        self.pending: list[_Chunk] = []
+        self.t_ent = 0.0
+
+    def drain(self, block: bool) -> None:
+        dec = self.dec
+        while self.pending:
+            if self.prep:
+                for c in self.pending[:_PREP_AHEAD]:
+                    if c.plan_future is None:
+                        c.plan_future = dec.prep_pool.submit(
+                            dec._prepare_chunk_fsm, c)
+            c = self.pending[0]
+            if (not block and c.plan_future is not None
+                    and not c.plan_future.done()):
+                break
+            self.pending.pop(0)
+            t0 = time.perf_counter()
+            dec._dispatch_chunk(c, self.isolate)
+            self.t_ent += time.perf_counter() - t0
 
 
 class BatchDecoder:
@@ -258,6 +400,10 @@ class BatchDecoder:
             # one single-threaded native decode per core
             workers = os.cpu_count() or 4
         self.pool = ThreadPoolExecutor(max_workers=workers)
+        # chunk preparation (plan, pinned upload) on its own two threads:
+        # on the parse pool it would queue behind every pending parse
+        self.prep_pool = ThreadPoolExecutor(max_workers=2)
+        self._uploader: _Uploader | None = None
         self.stats = BatchStats()
         # slot capacity for every later chunk: None until sampled, then
         # an int C (0 = classic materialize)
@@ -265,6 +411,14 @@ class BatchDecoder:
 
     def close(self) -> None:
         self.pool.shutdown()
+        self.prep_pool.shutdown()
+
+    def _staging(self) -> _Uploader:
+        """The decoder's uploader, made on first use (a device decoder's
+        first prepare; backends that prepare nothing touch no stream)."""
+        if self._uploader is None:
+            self._uploader = _Uploader(self.device)
+        return self._uploader
 
     # -- chunking -----------------------------------------------------------
 
@@ -297,13 +451,107 @@ class BatchDecoder:
                                      bucketed=self.size_buckets))
         return chunks
 
-    def _quant_block(self, chunk: _Chunk, B: int) -> torch.Tensor:
-        quant = np.zeros((B, len(chunk.geom.comps), 64), np.int32)
+    @staticmethod
+    def _quant_host(chunk: _Chunk) -> np.ndarray:
+        quant = np.zeros((len(chunk.imgs), len(chunk.geom.comps), 64),
+                         np.int32)
         for bi, img in enumerate(chunk.imgs):
             quant[bi] = np.stack(
                 [img.quant_tables[comp.quant_id] for comp in img.components]
             )
-        return torch.as_tensor(quant).to(self.device)
+        return quant
+
+    # -- preparation (the prep pool) ----------------------------------------
+
+    def _prepare_plan(self, chunk: _Chunk) -> _Prepared:
+        """A restart chunk: the lane plan (split only below the link rate
+        _LINK_MBPS_SPLIT, read on the card) and its arrays staged.
+        Raises JpegError when the chunk does not pack."""
+        from ..ops import fsm
+
+        plan = fsm.build_plan(
+            chunk.imgs,
+            split=measured_link_mbps(self.device) < _LINK_MBPS_SPLIT)
+        arrays = [a for group in plan.groups for a in group]
+        arrays += [plan.perm, self._quant_host(chunk)]
+        return _Prepared("plan", plan, self._staging().stage(arrays))
+
+    def _prepare_bucket(self, chunk: _Chunk) -> _Prepared:
+        """A bucketed chunk: the bucket-raster plan, its four arrays, the
+        quant tables and the extents staged.  Raises JpegError outside the
+        bucket-FSM envelope (the chunk takes the host-bucketed route)."""
+        from ..ops import fsm
+        from .fused import bucket_extents
+
+        plan = fsm.build_plan_bucketed(chunk.imgs, chunk.geom)
+        B = len(chunk.imgs)
+        arrays = (plan.xs, plan.seg_n, plan.wrap_at, plan.skip,
+                  self._quant_host(chunk), bucket_extents(plan, B))
+        return _Prepared("bucket", plan, self._staging().stage(arrays))
+
+    def _prepare_spec(self, chunk: _Chunk) -> _Prepared:
+        """A chunk that does not pack: the speculative plan and what
+        fsm.spec_sync_start reads, staged.  Its scans launch at dispatch,
+        on the dispatching thread.  Raises JpegError for a chunk of mixed
+        block counts or tables."""
+        from ..ops import fsm
+
+        if len({(im.n_mcus, im.blocks_per_mcu) for im in chunk.imgs}) != 1:
+            raise JpegError("fsm-spec: chunk mixes block counts")
+        plan = fsm.build_spec_plan_batch(chunk.imgs, 1024)
+        arrays = (plan.xs, *fsm.spec_lane_arrays(plan),
+                  self._quant_host(chunk))
+        return _Prepared("spec", plan, self._staging().stage(arrays))
+
+    def _prepare_chunk_fsm(self, chunk: _Chunk):
+        """Build a chunk's plan and stage its arrays (on the prep pool, or
+        on the dispatching thread for a chunk nobody prepared), routed as
+        the JAX engine routes: a bucketed chunk's bucket plan, a restart
+        chunk's lane plan, else the speculative preparation.  Returns the
+        _Prepared, or the JpegError of a chunk outside them; any other
+        exception propagates through the future to the caller."""
+        try:
+            if chunk.bucketed:
+                return self._prepare_bucket(chunk)
+            try:
+                return self._prepare_plan(chunk)
+            except JpegError:
+                return self._prepare_spec(chunk)
+        except JpegError as e:
+            return e
+
+    def _take_prepared(self, chunk: _Chunk):
+        """Adopt the chunk's preparation on the dispatching thread: the
+        pool's result (or one made here), its copy ordered before the
+        chunk's first kernel.  Returns the route or the JpegError."""
+        if chunk.plan_future is not None:
+            res = chunk.plan_future.result()
+            chunk.plan_future = None
+        else:
+            res = self._prepare_chunk_fsm(chunk)
+        if isinstance(res, JpegError):
+            return res
+        self._adopt(chunk, res)
+        return res.kind
+
+    def _adopt(self, chunk: _Chunk, prep: _Prepared) -> None:
+        self._staging().adopt(prep.staged)
+        chunk.staged = prep.staged
+        arrays = prep.staged.arrays
+        if prep.kind == "spec":
+            chunk.spec_plan = prep.plan
+            chunk.spec_dev, chunk.quant = arrays[:4], arrays[4]
+        elif prep.kind == "bucket":
+            chunk.plan = prep.plan
+            chunk.uploaded = arrays[:4]
+            chunk.quant, chunk.extents = arrays[4], arrays[5]
+        else:
+            chunk.plan = prep.plan
+            n = len(prep.plan.groups)
+            chunk.uploaded = (
+                tuple((arrays[2 * g], arrays[2 * g + 1]) for g in range(n)),
+                arrays[2 * n])
+            chunk.quant = arrays[2 * n + 1]
 
     # -- chunk routes -------------------------------------------------------
 
@@ -356,8 +604,8 @@ class BatchDecoder:
             )).to(self.device)
         chunk.out = device_decode_fn(
             geom, torch.as_tensor(coeffs).to(self.device),
-            self._quant_block(chunk, B), fancy=self.fancy, extents=extents,
-            exact=self.strict,
+            torch.as_tensor(self._quant_host(chunk)).to(self.device),
+            fancy=self.fancy, extents=extents, exact=self.strict,
         )
         chunk.err_mal = chunk.err_env = chunk.err_slot = None
         chunk.backend = ("oracle" if oracle else "host") \
@@ -436,19 +684,13 @@ class BatchDecoder:
 
         if chunk.bucketed:
             return self._process_chunk_fsm_bucketed(chunk, steps)
-        if chunk.plan is None:
-            try:
-                # the split only where the saved upload bytes pay for the
-                # staged chain (_LINK_MBPS_SPLIT, read on the card)
-                chunk.plan = fsm.build_plan(
-                    chunk.imgs,
-                    split=measured_link_mbps(self.device) < _LINK_MBPS_SPLIT)
-            except JpegError:
-                return self._process_chunk_spec(chunk, steps)
-            chunk.uploaded = fsm.upload_plan(chunk.plan, self.device)
+        if chunk.plan is None and (chunk.spec_plan is not None
+                                   or self._take_prepared(chunk) != "plan"):
+            # prepared for the speculative path, or not at all
+            return self._process_chunk_spec(chunk, steps)
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
         B = len(chunk.imgs)
-        quant = self._quant_block(chunk, B)
+        quant = chunk.quant
         groups, _ = chunk.uploaded
         if len(groups) == 1:
             rgb, risk, _, _, err_mal, err_env, err_slot = (
@@ -488,29 +730,22 @@ class BatchDecoder:
         from ..ops import fsm, materialize
         from . import fused
 
-        if chunk.plan is None:
-            try:
-                chunk.plan = fsm.build_plan_bucketed(chunk.imgs, chunk.geom)
-            except JpegError:
-                return False
+        if chunk.plan is None and self._take_prepared(chunk) != "bucket":
+            return False
         plan = chunk.plan
         if (self.route != "scatter"
                 and plan.max_blk * 64 > materialize.INT16_SPAN):
             # the dense rows pass the int16 offsets of the "ranked" and
             # "full" routes; the scatter has no such limit
             return False
-        if chunk.uploaded is None:
-            chunk.uploaded = tuple(
-                torch.as_tensor(a).to(self.device)
-                for a in (plan.xs, plan.seg_n, plan.wrap_at, plan.skip))
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
         B = len(chunk.imgs)
         rgb, risk, _, _, err_mal, err_env, err_slot = (
             fused.decode_chunk_bucketed(
-                plan, self._quant_block(chunk, B), chunk.geom, B,
+                plan, chunk.quant, chunk.geom, B,
                 steps=chunk.steps, want_coeffs=False,
                 uploaded=chunk.uploaded, slots=False, route=self.route,
-                fancy=self.fancy, exact=self.strict,
+                fancy=self.fancy, exact=self.strict, extents=chunk.extents,
             )
         )
         chunk.out = (rgb, risk)
@@ -541,21 +776,19 @@ class BatchDecoder:
         if len({(im.n_mcus, im.blocks_per_mcu) for im in chunk.imgs}) != 1:
             return False
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
-        quant = self._quant_block(chunk, B)
         try:
             try:
                 if chunk.spec_plan is None:
-                    chunk.spec_plan = fsm.build_spec_plan_batch(
-                        chunk.imgs, 1024)
-                    chunk.spec_xs = torch.as_tensor(
-                        chunk.spec_plan.xs).to(self.device)
+                    # nobody prepared it (or the restart preparation ran)
+                    self._adopt(chunk, self._prepare_spec(chunk))
+                xs, *lanes = chunk.spec_dev
                 pending = fsm.spec_sync_start(
-                    chunk.imgs, plan=chunk.spec_plan, xs_dev=chunk.spec_xs,
-                    steps=chunk.steps,
+                    chunk.imgs, plan=chunk.spec_plan, xs_dev=xs,
+                    lanes_dev=lanes, steps=chunk.steps,
                 )
                 rgb, risk, _, _, err, err_slot = (
                     fused.decode_spec_sync_fused(
-                        pending, geom, quant, B, len(chunk.imgs),
+                        pending, geom, chunk.quant, B, len(chunk.imgs),
                         want_coeffs=False,
                         slots=self._slot_capacity(chunk), route=self.route,
                         fancy=self.fancy, exact=self.strict,
@@ -586,7 +819,7 @@ class BatchDecoder:
             return self._process_chunk_spec(chunk, steps=fsm.STEPS_SAFE)
         except JpegError:
             return False
-        chunk.out = device_decode_fn(geom, coeffs_dev, quant,
+        chunk.out = device_decode_fn(geom, coeffs_dev, chunk.quant,
                                      fancy=self.fancy, exact=self.strict)
         chunk.err_mal = err_mal
         chunk.err_env = err_env
@@ -643,6 +876,8 @@ class BatchDecoder:
                       on_error: str = "raise"):
         """Decode parsed images -> list of uint8 [H, W, 3] (None for images
         that failed under on_error='skip', recorded in stats.failures).
+        The stride-sorted chunks go through the rolling window (module
+        docstring): later chunks prepare while earlier ones dispatch.
 
         fetch=False leaves the RGB on the card: every chunk still goes
         through the ladder and its fence, the device is synchronized and
@@ -658,11 +893,10 @@ class BatchDecoder:
         t_start = time.perf_counter()
         isolate = on_error == "skip"
         chunks = self._make_chunks(imgs)
-        t0 = time.perf_counter()
-        for chunk in chunks:
-            self._dispatch_chunk(chunk, isolate)
-        t_ent = time.perf_counter() - t0
-        return self._finish(chunks, len(imgs), t_start, t_ent, fetch,
+        window = _Window(self, isolate)
+        window.pending.extend(chunks)
+        window.drain(block=True)
+        return self._finish(chunks, len(imgs), t_start, window.t_ent, fetch,
                             isolate)
 
     def _finish(self, chunks: list[_Chunk], n_images: int, t_start: float,
@@ -702,6 +936,7 @@ class BatchDecoder:
                 n_mal += int(mal and not failed)
                 n_env += int(failed or (env and not mal))
                 self._process_chunk_host(chunk, isolate=isolate)
+            chunk.staged = None   # its copy is done: the fence was read
         if self.device.type == "cuda" and any(c.out is not None for c in chunks):
             torch.cuda.synchronize(self.device)
         t_dev = time.perf_counter() - t0
@@ -764,7 +999,12 @@ class BatchDecoder:
 
     def decode(self, datas: list[bytes], fetch: bool = True,
                on_error: str = "raise"):
-        """Parse + decode a batch of JPEG byte strings.
+        """Parse + decode a batch of JPEG byte strings, pipelined.
+
+        Parses run on the pool; a chunk is formed as soon as chunk_size
+        images of one key (`_chunk_key`) have arrived, in arrival order,
+        and dispatched through the rolling window while later streams
+        still parse and later chunks prepare (the JAX engine's decode).
 
         fetch=False returns None and leaves the RGB on the card
         (decode_parsed).  on_error='raise' propagates the first malformed
@@ -774,12 +1014,45 @@ class BatchDecoder:
             raise ValueError(f"on_error={on_error!r}")
         t_start = time.perf_counter()
         isolate = on_error == "skip"
-        parsed = list(self.pool.map(_try_parse if isolate else parse, datas))
-        t_parse = time.perf_counter() - t_start
-        bad = {i: r for i, r in enumerate(parsed) if isinstance(r, str)}
-        pos_of = [i for i, r in enumerate(parsed) if not isinstance(r, str)]
-        out = self.decode_parsed([parsed[i] for i in pos_of], fetch=fetch,
-                                 on_error=on_error)
+        futs = [self.pool.submit(_try_parse if isolate else parse, d)
+                for d in datas]
+        window = _Window(self, isolate)
+        groups: dict[tuple, tuple[list, list]] = {}
+        chunks: list[_Chunk] = []
+        bad: dict[int, str] = {}
+        pos_of: list[int] = []
+        t_parse = 0.0
+
+        def flush(key, idxs, ims):
+            chunk = _Chunk(key[0], list(idxs), list(ims),
+                           bucketed=self.size_buckets)
+            idxs.clear()
+            ims.clear()
+            chunks.append(chunk)
+            window.pending.append(chunk)
+            window.drain(block=False)
+
+        for i, f in enumerate(futs):
+            t0 = time.perf_counter()
+            res = f.result()   # later parses keep running on the pool
+            t_parse += time.perf_counter() - t0
+            if isinstance(res, str):
+                bad[i] = res
+                continue
+            key = self._chunk_key(res)
+            idxs, ims = groups.setdefault(key, ([], []))
+            idxs.append(len(pos_of))
+            ims.append(res)
+            pos_of.append(i)
+            if len(idxs) == self.chunk_size:
+                flush(key, idxs, ims)
+        for key, (idxs, ims) in groups.items():
+            if idxs:
+                flush(key, idxs, ims)
+        window.drain(block=True)
+
+        out = self._finish(chunks, len(pos_of), t_start, window.t_ent, fetch,
+                           isolate)
         self.stats.parse_s = t_parse
         self.stats.total_s = time.perf_counter() - t_start
         failures = {pos_of[j]: msg for j, msg in self.stats.failures.items()}

@@ -187,13 +187,21 @@ def _pad_lanes(x: torch.Tensor, need: int) -> torch.Tensor:
     return torch.cat([x, pad])
 
 
+def bucket_extents(plan: fsm.FsmBucketPlan, pad_to: int) -> np.ndarray:
+    """int32 [pad_to, 2]: each image's true (mcus_y, mcus_x), zero rows
+    for the padding images."""
+    ext = np.zeros((pad_to, 2), np.int32)
+    ext[: plan.n_imgs] = plan.extents
+    return ext
+
+
 def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
                           bucket: Geometry, pad_to: int,
                           steps=fsm.STEPS_PRODUCTION,
                           want_coeffs: bool = True, uploaded=None,
                           slots: bool | int | None = False,
                           route: str = "scatter", fancy: bool = False,
-                          exact: bool = False):
+                          exact: bool = False, extents=None):
     """Decode one size-class bucket chunk of mixed exact geometries on the
     device of `quant`: scan bytes -> bucket-raster rgb, risk and errors.
 
@@ -209,8 +217,8 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
     replicates at each image's real edge.
 
     quant: int32 [pad_to, n_comp, 64]; `uploaded` is the plan's (xs,
-    seg_n, wrap_at, skip) already on that device; slots, route, fancy and
-    exact as in `decode_chunk_fused`.
+    seg_n, wrap_at, skip) and `extents` its `bucket_extents` already on
+    that device; slots, route, fancy and exact as in `decode_chunk_fused`.
 
     Returns (rgb uint8 [pad_to, 3, Hb, Wb], riskbits uint8 [pad_to, Hb,
     Wb/8] or None when exact, coeffs int16 [pad_to, nb_b, 64] with raw DC
@@ -240,9 +248,8 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
         ev, max_blk * 64, err_mal, slots=slots, route=route)
     per_lane = coeffs_t.T.reshape(L, max_blk, 64)
     dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, max_blk)
-    ext = np.zeros((pad_to, 2), np.int32)
-    ext[: plan.n_imgs] = plan.extents
-    ext = torch.as_tensor(ext).to(dev)
+    ext = extents if extents is not None \
+        else torch.as_tensor(bucket_extents(plan, pad_to)).to(dev)
 
     def assemble():
         # static bucket-raster assembly: lane rows are padded MCU rows
