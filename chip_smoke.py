@@ -162,9 +162,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      total_s), the device's busy share of a fetch=False run of R from a
      torch.profiler trace (utils/profiling.device_trace, written to a
      temporary directory), and one restart chunk's build_plan and
-     its upload four ways (the engine's one pinned buffer a chunk, a
-     ring of pinned buffers packed by numpy, pin_memory() per array,
-     pageable);
+     its upload two ways (the engine's, each array pinned and copied on
+     the copy stream, and pageable);
   7b. exact colour over all 134,217,728 triples of [-256, 255]^3 on the
      card, Y slab by Y slab, against the oracle's ycbcr_to_rgb_exact in
      numpy: the pixel kernel's exact mode (DC-only blocks whose samples
@@ -1094,7 +1093,7 @@ def main() -> int:
                   f" ms of the batch's wall window: busy share "
                   f"{busy['busy_us'] / busy['window_us']:.4f} [{card}]")
             # one chunk's host stages apart: the plan, then its arrays up
-            # three ways (median of 5 warm runs each)
+            # two ways (median of 5 warm runs each)
             cimgs = rimgs[:CHUNK]
             stub = SimpleNamespace(imgs=cimgs, geom=rgeom)
             plan_ms = wall_runs(lambda: fsm.build_plan(cimgs, split=False), 5)
@@ -1102,46 +1101,20 @@ def main() -> int:
             arrs = [a for g in cplan.groups for a in g] \
                 + [cplan.perm, bdec._quant_host(stub)]
             up_bytes = sum(a.nbytes for a in arrs)
-            uploader = bdec._staging()
 
-            def engine_stage():
-                uploader.stage(arrs).event.synchronize()
-
-            # the alternative the engine measured against: a ring of four
-            # page-locked buffers, packed with numpy, one copy on a stream
-            padded = [-(-a.nbytes // 16) * 16 for a in arrs]
-            ring_bufs = [torch.empty(sum(padded), dtype=torch.uint8,
-                                     pin_memory=True) for _ in range(4)]
-            ring_stream = torch.cuda.Stream()
-            ring_turn = [0]
-
-            def ring():
-                buf = ring_bufs[ring_turn[0] % 4]
-                ring_turn[0] += 1
-                host_buf, o = buf.numpy(), 0
-                for a, n in zip(arrs, padded):
-                    host_buf[o : o + a.nbytes] = a.reshape(-1).view(np.uint8)
-                    o += n
-                with torch.cuda.stream(ring_stream):
-                    buf.to(dev, non_blocking=True)
-                    ev = torch.cuda.Event()
-                    ev.record(ring_stream)
-                ev.synchronize()
-
-            def pin_each():
-                pinned = [torch.from_numpy(a).pin_memory() for a in arrs]
-                [p.to(dev, non_blocking=True) for p in pinned]
-                torch.cuda.synchronize()
+            def engine_upload():
+                up = bdec._upload()
+                for a in arrs:
+                    up(a)
+                up.done().event.synchronize()
 
             def pageable():
                 [torch.from_numpy(a).to(dev) for a in arrs]
                 torch.cuda.synchronize()
 
             ups = {k: wall_runs(f, 5) for k, f in (
-                ("the engine's (one pinned buffer a chunk, packed by "
-                 "torch)", engine_stage),
-                ("a ring of 4 pinned buffers packed by numpy", ring),
-                ("pin_memory() per array", pin_each),
+                ("the engine's (each array pinned, copied on the copy "
+                 "stream)", engine_upload),
                 ("pageable", pageable))}
             print(f"phase 6f: one 128-image restart chunk: build_plan "
                   f"{ms3(plan_ms)}; its {up_bytes} bytes up: " + "; ".join(

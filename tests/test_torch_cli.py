@@ -103,6 +103,16 @@ def test_decode_file_on_the_cpu():
         got, jarrayio.read_array(fixture_path(name, ".array")))
 
 
+def test_defaults_stay_on_the_card(monkeypatch):
+    args = tcli.parser().parse_args(["decode", "x.jpg"])
+    assert (args.backend, args.device) == ("cuda", "cuda")
+    # the JAX CLI's default would decode one image on the CPU
+    seen = []
+    monkeypatch.setattr(jcli, "_cmd_decode", lambda a: seen.append(a) or 0)
+    assert jcli.main(["decode", "x.jpg"]) == 0
+    assert seen[0].backend == "auto"
+
+
 def test_runs_as_a_module(tmp_path):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run(
@@ -113,6 +123,7 @@ def test_runs_as_a_module(tmp_path):
     assert json.loads(res.stdout)["width"] == 120
     res = subprocess.run(
         [sys.executable, "-m", "tpujpeg_torch.cli", "decode",
-         fixture_path(GOLDEN[2]), "-o", str(tmp_path / "x.bin")],
+         fixture_path(GOLDEN[2]), "-o", str(tmp_path / "x.bin"),
+         "--device", "cpu"],
         capture_output=True, text=True, timeout=120, cwd=root)
     assert res.returncode != 0 and "unsupported output format" in res.stderr

@@ -243,10 +243,10 @@ def test_no_prepare_off_the_device_fsm(backend, monkeypatch):
         raise AssertionError("a prepare was submitted")
 
     monkeypatch.setattr(dec.prep_pool, "submit", refuse)
+    monkeypatch.setattr(dec, "_upload", refuse)
     got = _bounded(lambda: dec.decode(datas))
     assert _bounded(lambda: dec.decode_parsed(
         [parse(d) for d in datas], fetch=False)) is None
-    assert dec._uploader is None
     for g, w in zip(got, _host(datas)):
         np.testing.assert_array_equal(g, w)
 

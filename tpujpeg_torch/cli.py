@@ -1,14 +1,16 @@
 """Command-line interface (counterpart of tpujpeg/cli.py).
 
   python -m tpujpeg_torch.cli decode IMG.jpg -o OUT.array
-      [--backend auto|cuda|cpu|oracle] [--device cuda] [--fast]
+      [--backend cuda|auto|cpu|oracle] [--device cuda] [--fast]
       [--fancy-upsampling] [-q]
   python -m tpujpeg_torch.cli info IMG.jpg
   python -m tpujpeg_torch.cli compare OUT.array GOLDEN.array [--tolerance N]
 
-`--backend cuda` takes the JAX CLI's `tpu`: host entropy decode, then the
-pixel stage on `--device`; `auto` routes as tpujpeg_torch.decode does
-(the native library where it loads, else cuda).
+`--backend cuda` (the default) takes the JAX CLI's `tpu`: host entropy
+decode, then the pixel stage on `--device`; `auto` routes as
+tpujpeg_torch.decode does (the native library where it loads, else
+cuda).  The defaults stay on the card, as tpujpeg_torch.decode's do; the
+JAX CLI's default `auto` would decode on the CPU.
 """
 
 from __future__ import annotations
@@ -112,7 +114,7 @@ def _cmd_compare(args) -> int:
     return 1
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="tpujpeg_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -120,13 +122,13 @@ def main(argv=None) -> int:
     d.add_argument("input")
     d.add_argument("-o", "--output", default=None)
     d.add_argument(
-        "--backend", choices=["auto", "cuda", "cpu", "oracle"],
-        default="auto",
-        help="auto = the native C++ decoder where it loads, else cuda (one "
+        "--backend", choices=["cuda", "auto", "cpu", "oracle"],
+        default="cuda",
+        help="cuda (default) = host entropy decode, pixels on --device; "
+             "auto = the native C++ decoder where it loads, else cuda (one "
              "image cannot amortize a device dispatch; every backend is "
-             "bit-exact); cuda = host entropy decode, pixels on --device; "
-             "cpu = the native C++ decoder (entropy + pixels); oracle = "
-             "the NumPy reference",
+             "bit-exact); cpu = the native C++ decoder (entropy + pixels); "
+             "oracle = the NumPy reference",
     )
     d.add_argument("--device", default="cuda",
                    help="the device of --backend cuda (default: cuda)")
@@ -154,8 +156,11 @@ def main(argv=None) -> int:
     c.add_argument("b")
     c.add_argument("--tolerance", type=int, default=0)
     c.set_defaults(fn=_cmd_compare)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     return args.fn(args)
 
 

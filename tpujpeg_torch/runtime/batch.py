@@ -71,11 +71,11 @@ up to _PREP_AHEAD chunks ahead of the dispatch on a two-thread pool of
 its own: the plan (`build_plan`, `build_plan_bucketed`, or the
 speculative `build_spec_plan_batch` for a chunk that does not pack) and
 every array the chunk's chain reads (the plan's, the quant tables, the
-spec lane masks, the bucket extents), staged by `_Uploader`: packed into
-one page-locked buffer and copied up on the decoder's copy stream, the
-compute stream ordered after the copy by an event.  Kernels launch only
-on the dispatching thread, the speculative scans at dispatch; the K and
-slot retries reuse the prepared plan.  A JpegError of a preparation
+spec lane masks, the bucket extents), staged by `_Upload`: each pinned
+and copied up on the decoder's copy stream, the compute stream ordered
+after the copies by an event.  Kernels launch only on the dispatching
+thread, the speculative scans at dispatch; the K and slot retries reuse
+the prepared plan.  A JpegError of a preparation
 routes the chunk as the serial engine would; any other exception
 reaches the caller.
 
@@ -200,7 +200,7 @@ class _Chunk:
     spec_dev: object = None            # its (xs, chunk_bits, inherit, body)
     quant: object = None               # int32 [B, n_comp, 64] on the device
     extents: object = None             # bucketed: int32 [B, 2] on the device
-    staged: object = None              # _Staged: held until the fence read
+    staged: object = None              # _Upload: held until the fence read
     steps: object = None               # FSM steps spec of the last decode
     spec_k_retries: int = 0            # inline STEPS_SAFE retries (spec)
     spec_sync_misses: int = 0          # sync resolve misses -> Jacobi
@@ -242,82 +242,67 @@ def _pack_fence(rgb, err_mal, err_env, err_slot=None) -> torch.Tensor:
     return torch.stack(flags)
 
 
-@dataclass
-class _Staged:
-    """A prepared chunk's arrays on the device.  On a card they view one
-    buffer that a single copy filled from page-locked memory on the
-    decoder's copy stream; `event` follows that copy."""
+class _Upload:
+    """One prepared chunk's arrays on their way to the device.
 
-    arrays: tuple
-    event: object = None         # torch.cuda.Event after the copy
-    base: object = None          # the device buffer the arrays view
-    pinned: object = None        # the page-locked source of the copy
+    On a card each array is pinned (PyTorch's caching host allocator: a
+    block is handed out again only once the copies recorded on it are
+    done, so only a new size pays a cudaHostAlloc) and copied up
+    non-blocking on the decoder's copy stream, so a prepare on a pool
+    thread neither blocks on the copy nor queues behind the kernels of
+    the chunk before it; `done` records the event after the copies.
+    `adopt`, on the dispatching thread, makes the current (compute)
+    stream wait for that event before the chunk's first kernel and
+    records each tensor on it for the caching allocator.  On the CPU the
+    arrays are wrapped as tensors: no stream, no copy."""
+
+    def __init__(self, device: torch.device, stream):
+        self.device = device
+        self.stream = stream
+        self.pinned: list = []       # the page-locked sources
+        self.tensors: list = []      # their device copies
+        self.event = None            # torch.cuda.Event after the copies
+
+    def __call__(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.stream is None:
+            return t
+        src = t.pin_memory()
+        with torch.cuda.stream(self.stream):
+            t = src.to(self.device, non_blocking=True)
+        self.pinned.append(src)
+        self.tensors.append(t)
+        return t
+
+    def done(self) -> "_Upload":
+        if self.stream is not None:
+            self.event = torch.cuda.Event()
+            self.event.record(self.stream)
+        return self
+
+    def adopt(self) -> None:
+        if self.event is None:
+            return
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(self.event)
+        for t in self.tensors:
+            t.record_stream(compute)
 
 
 @dataclass
 class _Prepared:
     """What `_prepare_chunk_fsm` hands the dispatch: the route ("plan",
-    "bucket" or "spec"), its plan and the staged arrays (the plan's, then
-    the quant tables, then for "bucket" the extents)."""
+    "bucket" or "spec"), its plan and its arrays on the device.  `arrays`
+    is what the chain reads: for "plan" each stride group's (xs,
+    seg_n_blocks) and perm, for "bucket" xs, seg_n, wrap_at and skip, for
+    "spec" xs and fsm.spec_lane_arrays."""
 
     kind: str
     plan: object
-    staged: _Staged
-
-
-def _torch_dtype(dt: np.dtype) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, dt)).dtype
-
-
-class _Uploader:
-    """Host -> device staging of prepared chunks.
-
-    On a card a chunk's arrays are packed into one page-locked buffer
-    (PyTorch's caching host allocator: a block is handed out again only
-    once the copies recorded on it are done, so only a new size pays a
-    cudaHostAlloc) and go up in one non-blocking copy on the uploader's
-    own stream, so a prepare on a pool thread neither blocks on the copy
-    nor queues behind the kernels of the chunk before it.  `adopt`, on
-    the dispatching thread, makes the current (compute) stream wait for
-    the event after the copy before the chunk's first kernel and records
-    the device buffer on it for the caching allocator.  On the CPU the
-    arrays are wrapped as tensors: no stream, no copy."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.stream = None
-        if device.type == "cuda":
-            self.stream = torch.cuda.Stream(device)
-
-    def stage(self, arrays) -> _Staged:
-        arrays = [np.ascontiguousarray(a) for a in arrays]
-        if self.stream is None:
-            return _Staged(tuple(torch.from_numpy(a) for a in arrays))
-        offsets, total = [], 0
-        for a in arrays:
-            offsets.append(total)
-            total += -(-a.nbytes // 16) * 16
-        pinned = torch.empty(max(total, 16), dtype=torch.uint8,
-                             pin_memory=True)
-        for a, o in zip(arrays, offsets):
-            pinned[o : o + a.nbytes].copy_(
-                torch.from_numpy(a.reshape(-1).view(np.uint8)))
-        with torch.cuda.stream(self.stream):
-            base = pinned[:total].to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        views = tuple(
-            base[o : o + a.nbytes].view(_torch_dtype(a.dtype))
-            .reshape(a.shape)
-            for a, o in zip(arrays, offsets))
-        return _Staged(views, done, base, pinned)
-
-    def adopt(self, staged: _Staged) -> None:
-        if staged.event is None:
-            return
-        compute = torch.cuda.current_stream(self.device)
-        compute.wait_event(staged.event)
-        staged.base.record_stream(compute)
+    arrays: tuple
+    quant: torch.Tensor              # int32 [B, n_comp, 64]
+    upload: _Upload
+    extents: torch.Tensor | None = None    # "bucket": int32 [B, 2]
 
 
 class _Window:
@@ -335,9 +320,10 @@ class _Window:
         self.isolate = isolate
         self.prep = dec._prefers_fsm()
         if self.prep:
-            # on this thread, before any prepare reads them
+            # on this thread, before any prepare reads them: the probe
+            # and the copy stream
             measured_link_mbps(dec.device)
-            dec._staging()
+            dec._upload()
         self.pending: list[_Chunk] = []
         self.t_ent = 0.0
 
@@ -403,7 +389,7 @@ class BatchDecoder:
         # chunk preparation (plan, pinned upload) on its own two threads:
         # on the parse pool it would queue behind every pending parse
         self.prep_pool = ThreadPoolExecutor(max_workers=2)
-        self._uploader: _Uploader | None = None
+        self._copy_stream = None
         self.stats = BatchStats()
         # slot capacity for every later chunk: None until sampled, then
         # an int C (0 = classic materialize)
@@ -413,12 +399,12 @@ class BatchDecoder:
         self.pool.shutdown()
         self.prep_pool.shutdown()
 
-    def _staging(self) -> _Uploader:
-        """The decoder's uploader, made on first use (a device decoder's
-        first prepare; backends that prepare nothing touch no stream)."""
-        if self._uploader is None:
-            self._uploader = _Uploader(self.device)
-        return self._uploader
+    def _upload(self) -> _Upload:
+        """A chunk's upload on the decoder's copy stream, which is made on
+        first use (backends that prepare nothing touch no stream)."""
+        if self._copy_stream is None and self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return _Upload(self.device, self._copy_stream)
 
     # -- chunking -----------------------------------------------------------
 
@@ -472,9 +458,11 @@ class BatchDecoder:
         plan = fsm.build_plan(
             chunk.imgs,
             split=measured_link_mbps(self.device) < _LINK_MBPS_SPLIT)
-        arrays = [a for group in plan.groups for a in group]
-        arrays += [plan.perm, self._quant_host(chunk)]
-        return _Prepared("plan", plan, self._staging().stage(arrays))
+        up = self._upload()
+        arrays = (tuple((up(xs), up(sn)) for xs, sn in plan.groups),
+                  up(plan.perm))
+        quant = up(self._quant_host(chunk))
+        return _Prepared("plan", plan, arrays, quant, up.done())
 
     def _prepare_bucket(self, chunk: _Chunk) -> _Prepared:
         """A bucketed chunk: the bucket-raster plan, its four arrays, the
@@ -484,10 +472,12 @@ class BatchDecoder:
         from .fused import bucket_extents
 
         plan = fsm.build_plan_bucketed(chunk.imgs, chunk.geom)
-        B = len(chunk.imgs)
-        arrays = (plan.xs, plan.seg_n, plan.wrap_at, plan.skip,
-                  self._quant_host(chunk), bucket_extents(plan, B))
-        return _Prepared("bucket", plan, self._staging().stage(arrays))
+        up = self._upload()
+        arrays = tuple(map(up, (plan.xs, plan.seg_n, plan.wrap_at,
+                                plan.skip)))
+        quant = up(self._quant_host(chunk))
+        extents = up(bucket_extents(plan, len(chunk.imgs)))
+        return _Prepared("bucket", plan, arrays, quant, up.done(), extents)
 
     def _prepare_spec(self, chunk: _Chunk) -> _Prepared:
         """A chunk that does not pack: the speculative plan and what
@@ -499,9 +489,10 @@ class BatchDecoder:
         if len({(im.n_mcus, im.blocks_per_mcu) for im in chunk.imgs}) != 1:
             raise JpegError("fsm-spec: chunk mixes block counts")
         plan = fsm.build_spec_plan_batch(chunk.imgs, 1024)
-        arrays = (plan.xs, *fsm.spec_lane_arrays(plan),
-                  self._quant_host(chunk))
-        return _Prepared("spec", plan, self._staging().stage(arrays))
+        up = self._upload()
+        arrays = tuple(map(up, (plan.xs, *fsm.spec_lane_arrays(plan))))
+        quant = up(self._quant_host(chunk))
+        return _Prepared("spec", plan, arrays, quant, up.done())
 
     def _prepare_chunk_fsm(self, chunk: _Chunk):
         """Build a chunk's plan and stage its arrays (on the prep pool, or
@@ -535,23 +526,13 @@ class BatchDecoder:
         return res.kind
 
     def _adopt(self, chunk: _Chunk, prep: _Prepared) -> None:
-        self._staging().adopt(prep.staged)
-        chunk.staged = prep.staged
-        arrays = prep.staged.arrays
+        prep.upload.adopt()
+        chunk.staged = prep.upload
+        chunk.quant, chunk.extents = prep.quant, prep.extents
         if prep.kind == "spec":
-            chunk.spec_plan = prep.plan
-            chunk.spec_dev, chunk.quant = arrays[:4], arrays[4]
-        elif prep.kind == "bucket":
-            chunk.plan = prep.plan
-            chunk.uploaded = arrays[:4]
-            chunk.quant, chunk.extents = arrays[4], arrays[5]
+            chunk.spec_plan, chunk.spec_dev = prep.plan, prep.arrays
         else:
-            chunk.plan = prep.plan
-            n = len(prep.plan.groups)
-            chunk.uploaded = (
-                tuple((arrays[2 * g], arrays[2 * g + 1]) for g in range(n)),
-                arrays[2 * n])
-            chunk.quant = arrays[2 * n + 1]
+            chunk.plan, chunk.uploaded = prep.plan, prep.arrays
 
     # -- chunk routes -------------------------------------------------------
 
