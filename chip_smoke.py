@@ -146,7 +146,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      at 0, 4,096 and 65,536 steps, and read as device ns per step from a
      CUDA graph beside its latency floor (the same walk with the step
      taken out, over a table that is one permutation cycle;
-     tools/bench_torch_gather.py's chain_readings) and the share;
+     tools/bench_torch_gather.py's chain_readings) and the share.
+     fsm_scan at the multi-byte columns (2, 3), (2, 4) and (4, 7) on the
+     restart chunk, held against the plain scan on its first 1,024 lanes
+     (the plain version on the host CPU), each with its ms, bytes, bound
+     and share beside (1, 2) read in the same phase; decode_segments on
+     the restart chunk's segment plan equal to the host reference
+     decoder's coefficients on every image and to its plain version on
+     the first 1,024 lanes (host CPU), with its bound (bytes: the scan,
+     lane arrays, tables and the dense int32 output; operations: ~40 a
+     symbol, counted from this run's nonzero coefficients) on both chunks;
   6f. the pipelined engine (decode streams; chunks prepared on the prep
      pool, uploaded from page-locked memory on a copy stream) on batches
      of several 128-image chunks: R, 1,024 restart streams (rst640 x 64,
@@ -164,6 +173,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      temporary directory), and one restart chunk's build_plan and
      its upload two ways (the engine's, each array pinned and copied on
      the copy stream, and pageable);
+  6g. the gather backend: BatchDecoder(backend="gather") on the 128-image
+     restart chunk (10,240 lanes) and on the spec chunk (one lane an
+     image: a deep walk): outputs as in phases 2 and 3, decode_segments
+     and pixels launched once a chunk and fsm_scan not at all; end to end
+     (three warm runs) and the segment decoder alone and with the pixel
+     stage (plan and bytes resident), median, min and max;
+  6h. the wide-scan superchunk: four restart chunks (the corpus in four
+     orders) through fused.decode_superchunk, one scan of 40,960 lanes,
+     equal to four decode_chunk_fused calls (rgb, coefficients, DC, the
+     masks) and, on four images, to the host reference; with the bytes
+     resident the superchunk against the four calls, and the wide scan
+     alone against four 10,240-lane scans;
   7b. exact colour over all 134,217,728 triples of [-256, 255]^3 on the
      card, Y slab by Y slab, against the oracle's ycbcr_to_rgb_exact in
      numpy: the pixel kernel's exact mode (DC-only blocks whose samples
@@ -177,9 +198,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      after each round) and what those reads cost (the chain against the
      same launches with no read, the same rgb), and the plane path's
      stage times (IDCT, block -> raster, upsample, f32 and exact colour,
-     pack).
+     pack); the restart chain cut after the scan, materialize and
+     assemble (decode_chunk_fused stop_after; cumulative times, the cut
+     checksums held to the scan's events and the full chain's assembled
+     coefficients) and whole.
 
-Each path of phases 2-6f runs with the launch counts set to 0 just before
+Each path of phases 2-6h runs with the launch counts set to 0 just before
 it and read just after, and fails if a kernel it must run was not
 launched; every engine of phases 2-6c reports 0 repaired pixels.  The second-to-last line is a JSON object with one entry per
 kernel (launches summed over those paths, and per 128-image chunk of
@@ -1125,6 +1149,133 @@ def main() -> int:
     print(f"phase 6f: {time.perf_counter() - t_6f:.1f} s")
     torch.cuda.empty_cache()
 
+    # ---- phase 6g: the gather backend (the lockstep-lane segment decoder)
+    from tpujpeg_torch.ops import entropy
+
+    t_6g = time.perf_counter()
+    gather_kernel = {}
+    for name, gdatas, grefs, gimgs in (("restart", datas, refs, rimgs),
+                                       ("spec", pdatas, prefs, pimgs)):
+        gdec = BatchDecoder(backend="gather", chunk_size=CHUNK, strict=True,
+                            device="cuda")
+        path = f"phase 6g {name}"
+        gout = run_path(path, lambda: gdec.decode(gdatas),
+                        need=("decode_segments", "pixels"),
+                        never=("fsm_scan",))
+        counts = by_path[path]
+        check(counts["decode_segments"] == 1 and counts["pixels"] == 1,
+              f"{path}: launches {counts}")
+        gst = gdec.stats
+        check(gst.backend == "gather" and gst.chunks == 1
+              and gst.repaired_pixels == 0 and not gst.failures,
+              f"{path}: stats {gst.as_dict()}")
+        check(len(gout) == CHUNK, f"{path}: output count")
+        for i, g in enumerate(gout):
+            check(g is not None and np.array_equal(g, grefs[i % 16]),
+                  f"{path}: output {i} differs from {host.backend_name()}")
+        del gout
+        e2e = wall_runs(lambda: gdec.decode(gdatas))
+        gdec.close()
+        # the device work with the plan and its bytes resident: the
+        # segment decoder (zero fill + kernel), and it with the pixel stage
+        gplan = entropy.build_segment_plan(gimgs)
+        gup = tuple(torch.as_tensor(a).to(dev)
+                    for a in entropy.plan_arrays(gplan))
+        gquant = quant_of(gimgs)
+        ggeom = Geometry.of(gimgs[0])
+
+        def seg():
+            return entropy.decode_plan(gplan, dev, uploaded=gup)
+
+        def chain():
+            coeffs, _ = seg()
+            return pipeline.device_decode_fn(
+                ggeom, coeffs.reshape(len(gimgs), ggeom.n_blocks, 64), gquant,
+                exact=True)
+
+        k_ms = cuda_times(seg)
+        c_ms = cuda_times(chain)
+        gather_kernel[name] = (gplan, gup, k_ms)
+        print(f"{path}: {CHUNK} outputs bit-exact vs {host.backend_name()}, "
+              f"launches decode_segments {counts['decode_segments']}, "
+              f"pixels {counts['pixels']}, fsm_scan {counts['fsm_scan']}; "
+              f"lanes {int((gplan.seg_n_blocks > 0).sum())} (padded "
+              f"{gplan.seg_n_blocks.shape[0]}), cap {gplan.cap}; end to end "
+              f"{spread(e2e, CHUNK)}; segment decoder (plan and bytes "
+              f"resident) {k_ms[0]:.3f} ms (min {k_ms[1]:.3f}, max "
+              f"{k_ms[2]:.3f}); with the pixel stage, exact "
+              f"{c_ms[0]:.3f} ms (min {c_ms[1]:.3f}, max {c_ms[2]:.3f}) "
+              f"[{card}]")
+        del gup
+    print(f"phase 6g: {time.perf_counter() - t_6g:.1f} s")
+
+    # ---- phase 6h: the wide-scan superchunk: four restart chunks, one scan
+    t_6h = time.perf_counter()
+    # four chunks of the restart corpus, each in another order
+    h_imgs = [[rimgs[(i + 5 * j) % 16] for i in range(CHUNK)]
+              for j in range(4)]
+    h_plans = [fsm.build_plan(ims, split=False) for ims in h_imgs]
+    h_quants = torch.stack([quant_of(ims) for ims in h_imgs])
+    hxs, hsn, h_sub = fused.pack_superchunk(h_plans)
+    h_up = (torch.as_tensor(hxs).to(dev), torch.as_tensor(hsn).to(dev))
+    h_one = [(torch.as_tensor(p.xs).to(dev),
+              torch.as_tensor(p.seg_n_blocks).to(dev)) for p in h_plans]
+    wide = run_path("phase 6h superchunk", lambda: fused.decode_superchunk(
+        h_plans, h_quants, rgeom, CHUNK, uploaded=h_up, exact=True),
+        need=("fsm_scan", "place_events", "pixels"))
+    check(by_path["phase 6h superchunk"]["fsm_scan"] == 1,
+          "superchunk: more than one scan")
+    narrow = run_path("phase 6h four chunks", lambda: [
+        fused.decode_chunk_fused(p, q, rgeom, CHUNK, uploaded=u, exact=True)
+        for p, q, u in zip(h_plans, h_quants, h_one)],
+        need=("fsm_scan", "place_events", "pixels"))
+    base = 0
+    for j, (one, L_j) in enumerate(zip(narrow, h_sub)):
+        for i in (0, 2, 3):   # rgb, coeffs, dc (risk is None: exact)
+            check(torch.equal(one[i], wide[i][j * CHUNK:(j + 1) * CHUNK]),
+                  f"superchunk output {i} of chunk {j} != decode_chunk_fused")
+        for i in (4, 6):      # err_mal, err_slot
+            check(torch.equal(one[i], wide[i][base:base + L_j]),
+                  f"superchunk mask {i} of chunk {j} != decode_chunk_fused")
+        check(not bool(one[4].any() | one[5].any()), "superchunk: latched")
+        base += L_j
+    check(torch.equal(torch.cat([o[5] for o in narrow]), wide[5]),
+          "superchunk err_env != decode_chunk_fused")
+    for j in (0, 3):
+        out_j = wide[0][j * CHUNK:(j + 1) * CHUNK].permute(0, 2, 3, 1).cpu()
+        for i in (0, CHUNK - 1):
+            check(np.array_equal(out_j[i].numpy(), refs[(i + 5 * j) % 16]),
+                  f"superchunk image {i} of chunk {j} differs from "
+                  f"{host.backend_name()}")
+    del wide, narrow, out_j
+    sc_ms = cuda_times(lambda: fused.decode_superchunk(
+        h_plans, h_quants, rgeom, CHUNK, uploaded=h_up, want_coeffs=False,
+        exact=True))
+    four_ms = cuda_times(lambda: [fused.decode_chunk_fused(
+        p, q, rgeom, CHUNK, uploaded=u, want_coeffs=False, exact=True)
+        for p, q, u in zip(h_plans, h_quants, h_one)])
+    wscan_ms = cuda_times(lambda: fsm.fsm_scan(h_up[0], h_up[1],
+                                               h_plans[0].tables))
+    nscan_ms = cuda_times(lambda: [fsm.fsm_scan(u[0], u[1], p.tables)
+                                   for p, u in zip(h_plans, h_one)])
+    print(f"phase 6h: superchunk of four 128-image restart chunks (lane "
+          f"matrix {list(hxs.shape)}, sub-chunks {list(h_sub)}) equals four "
+          f"decode_chunk_fused calls (rgb, coefficients, DC, masks), images "
+          f"0 and {CHUNK - 1} of chunks 0 and 3 equal {host.backend_name()}; "
+          f"launches {json.dumps(by_path['phase 6h superchunk'])} against "
+          f"{json.dumps(by_path['phase 6h four chunks'])} [{card}]")
+    print(f"phase 6h: bytes resident, exact, no coefficients kept: "
+          f"superchunk {sc_ms[0]:.3f} ms (min {sc_ms[1]:.3f}, max "
+          f"{sc_ms[2]:.3f}); four chunks {four_ms[0]:.3f} ms (min "
+          f"{four_ms[1]:.3f}, max {four_ms[2]:.3f}); the scan alone: one "
+          f"scan of {hxs.shape[0]} lanes {wscan_ms[0]:.3f} ms (min "
+          f"{wscan_ms[1]:.3f}, max {wscan_ms[2]:.3f}), four scans of "
+          f"{h_sub[0]} lanes {nscan_ms[0]:.3f} ms (min {nscan_ms[1]:.3f}, "
+          f"max {nscan_ms[2]:.3f}) [{card}]")
+    del h_up, h_one, h_quants
+    print(f"phase 6h: {time.perf_counter() - t_6h:.1f} s")
+    torch.cuda.empty_cache()
+
     # ---- phase 7: kernels against their plain versions, real inputs
     rows = []
     chunk_paths = {"restart": "phase 2", "spec": "phase 3"}
@@ -1134,7 +1285,11 @@ def main() -> int:
                         for n in sub})
     chunk_paths.update({"gather tool": "phase 6d gather tool",
                         "materialize tool": "phase 6d materialize tool",
-                        "staged restart": "phase 6e staged"})
+                        "staged restart": "phase 6e staged",
+                        "gather restart": "phase 6g restart",
+                        "gather spec": "phase 6g spec",
+                        "superchunk of 4 chunks": "phase 6h superchunk",
+                        "4 chunks apart": "phase 6h four chunks"})
 
     def per_chunk(kernel: str) -> dict:
         """Launches of `kernel` per 128-image chunk of each path."""
@@ -1142,13 +1297,13 @@ def main() -> int:
                 for label, path in chunk_paths.items()
                 if by_path[path][kernel]}
 
-    def scan_bound(xs_t, tables, n_planes: int, K: int) -> dict:
-        """Bound of one scan over xs_t [L, n] with `tables`: the byte
-        matrix, quotas and the packed tables read, n_planes int32
-        [n + 6, K, L] planes and two latches written; ~60 32-bit
-        operations per symbol step."""
+    def scan_bound(xs_t, tables, n_planes: int, K: int, bpc: int = 1) -> dict:
+        """Bound of one scan over xs_t [L, n] with `tables` at bpc bytes
+        a column: the byte matrix, quotas and the packed tables read,
+        n_planes int32 [ceil(n / bpc) + 6, K, L] planes and two latches
+        written; ~60 32-bit operations per symbol step."""
         Ls, n = xs_t.shape
-        steps_total = (n + fsm.FLUSH_COLS) * K * Ls
+        steps_total = (-(-n // bpc) + fsm.FLUSH_COLS) * K * Ls
         return bound(Ls * n + 4 * Ls + fsm.scan_table(tables).nbytes
                      + 4 * n_planes * steps_total + 2 * Ls,
                      60 * steps_total)
@@ -1199,7 +1354,7 @@ def main() -> int:
     cbits = torch.as_tensor(splan.chunk_bits).to(dev)
     inherit = torch.as_tensor(fsm._lane_masks(splan)[0]).to(dev)
 
-    k_prod = fsm._scan_steps(fsm.STEPS_PRODUCTION)
+    k_prod = fsm._scan_steps(fsm.STEPS_PRODUCTION)[1]
 
     def cold(plain=False):
         if plain:
@@ -1236,7 +1391,7 @@ def main() -> int:
     # pass (no events) and the write pass, from the same entry states
     jkw = dict(start_bits=P[:1024], start_bim=bim_t[:1024],
                chunk_bits=cbits[:1024])
-    k_safe = fsm._scan_steps(fsm.STEPS_SAFE)
+    k_safe = fsm._scan_steps(fsm.STEPS_SAFE)[1]
     want = fsm.fsm_scan_spec_plain(sxs[:1024], caps[:1024], splan.tables,
                                    k_safe, **jkw)
     for emit in (False, True):
@@ -1307,6 +1462,41 @@ def main() -> int:
           f"equal to the plain scan on the first 1024 lanes; events "
           f"{list(ev420.shape)}, dense [{plan420.max_blk * 64}, {L420}]")
     del got, want
+    # multi-byte columns on the restart chunk: each spec on the card, held
+    # against the plain scan on the first 1,024 lanes on the host CPU (the
+    # plain scan on the card pays a launch per vector op: 10.9 s for the
+    # whole chunk at (1, 2))
+    multi = {}
+    n_mb = 1024
+    xs_h, sn_h = xs[:n_mb].cpu(), sn[:n_mb].cpu()
+    for steps in ((2, 3), (2, 4), (4, 7)):
+        got = fsm.fsm_scan(xs, sn, plan.tables, steps)
+        t0 = time.perf_counter()
+        want = fsm.fsm_scan_plain(xs_h, sn_h, plan.tables, steps)
+        mb_plain = (time.perf_counter() - t0) * 1e3
+        scan_err = max(scan_err, equal_all(
+            (got[0][:, :, :n_mb].cpu(), got[1][:n_mb].cpu(),
+             got[2][:n_mb].cpu()), want, f"fsm_scan {steps}"))
+        lanes = (int(got[1].sum()), int(got[2].sum()))
+        del got, want
+        mb_ms = cuda_times(lambda: fsm.fsm_scan(xs, sn, plan.tables, steps))
+        multi[steps] = dict(ms=mb_ms, plain_ms=mb_plain, lanes=lanes,
+                            **scan_bound(xs, plan.tables, 1, steps[1],
+                                         steps[0]))
+    prod_ms = cuda_times(lambda: fsm.fsm_scan(xs, sn, plan.tables))
+    for steps, r in multi.items():
+        ms, lo, hi = r["ms"]
+        print(f"phase 7: fsm_scan restart steps {steps} on [{L}, {stride}] "
+              f"(events [{-(-stride // steps[0]) + fsm.FLUSH_COLS}, "
+              f"{steps[1]}, {L}]): equal to the plain scan on the first "
+              f"{n_mb} lanes (plain on the host CPU {r['plain_ms']:.1f} ms); "
+              f"lanes mal {r['lanes'][0]} env {r['lanes'][1]}; kernel "
+              f"{ms:.4f} ms (min {lo:.4f}, max {hi:.4f}), "
+              f"{r['bound_bytes']} bytes, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, share {r['bound_ms'] / ms:.3f}; (1, 2) in "
+              f"the same phase {prod_ms[0]:.4f} ms (min {prod_ms[1]:.4f}, "
+              f"max {prod_ms[2]:.4f}) [{card}]")
+    del xs_h, sn_h
     rows.append(dict(
         name="fsm_scan", route="cuda", source="tpujpeg_torch/csrc/fsm_scan.cu",
         replaces="tpujpeg/ops/fsm.py:702", launches=totals["fsm_scan"],
@@ -1322,6 +1512,10 @@ def main() -> int:
         bound_ms_pad_mode=scan_bound(bxs, bplan.tables, 1, k_prod)["bound_ms"],
         ms_420_chunk=sub_ms, plain_ms_420_chunk_1024_lanes=sub_plain_ms,
         bound_ms_420_chunk=scan_bound(xs420, plan420.tables, 1, k_prod)["bound_ms"],
+        **{f"{k}_steps_{b}_{s}": r[k] if k != "ms" else r[k][0]
+           for (b, s), r in multi.items()
+           for k in ("ms", "plain_ms", "bound_ms", "bound_bytes")},
+        plain_lanes_multi_byte=n_mb, plain_device_multi_byte="cpu",
     ))
     def scatter_call(events_t, rows_out, valid):
         """One PyTorch call for events -> dense: a zero fill and one
@@ -1981,6 +2175,74 @@ def main() -> int:
            if k in ("ms", "plain_ms", "bound_ms")},
     ))
     del px_inputs, d_full, bdc_lane
+    # the segment decoder on each chunk's segment plan (phase 6g): the whole
+    # restart chunk against the host reference decoder's coefficients, and
+    # its first 1,024 lanes against the plain version on the host CPU (one
+    # vector op a step pays a launch on the card)
+    seg_rows = {}
+    for name in ("restart", "spec"):
+        gplan, gup, k_ms = gather_kernel[name]
+        coeffs, gerr = entropy.decode_plan(gplan, dev, uploaded=gup)
+        check(not bool(gerr.any()), f"decode_segments {name}: lanes failed")
+        nnz = int((coeffs[:, 1:] != 0).sum())
+        n_lanes = gplan.seg_n_blocks.shape[0]
+        nbytes_seg = (gplan.scan.nbytes + 12 * n_lanes + gplan.rows.nbytes
+                      + gplan.luts.nbytes + gplan.pattern.nbytes
+                      + coeffs.numel() * 4 + n_lanes)
+        # ~40 32-bit operations a symbol: every nonzero AC coefficient is
+        # one, each block a DC and at most one EOB
+        seg_rows[name] = dict(
+            ms=k_ms, nnz=nnz,
+            **bound(nbytes_seg, 40 * (nnz + 2 * gplan.n_blocks_total)))
+        if name == "restart":
+            host_c = coeffs.reshape(-1, rgeom.n_blocks, 64).cpu().numpy()
+            for i in range(host_c.shape[0]):
+                check(np.array_equal(host_c[i], rcoef[i % 16]),
+                      f"decode_segments image {i} differs from "
+                      f"{host.backend_name()}")
+            del host_c
+            n_sub = 1024
+            sub_up = list(gup)
+            sub_up[1:5] = [a[:n_sub] for a in gup[1:5]]
+            got = entropy.decode_segments(
+                *sub_up[:5], entropy.device_luts(gplan.luts, dev), sub_up[5],
+                cap=gplan.cap, n_blocks_total=gplan.n_blocks_total)
+            cpu_in = [a.cpu() for a in sub_up]
+            t0 = time.perf_counter()
+            want = entropy.decode_segments_plain(
+                *cpu_in[:5], torch.as_tensor(gplan.luts), cpu_in[5],
+                cap=gplan.cap, n_blocks_total=gplan.n_blocks_total)
+            seg_plain_ms = (time.perf_counter() - t0) * 1e3
+            seg_err = equal_all(tuple(t.cpu() for t in got), want,
+                                "decode_segments")
+            check(int((want[0] != 0).sum()) > 0, "decode_segments: no output")
+            del got, want, cpu_in
+        del coeffs
+    for name, r in seg_rows.items():
+        ms, lo, hi = r["ms"]
+        held = (f"equal to {host.backend_name()} on every image and to the "
+                f"plain version on the first 1024 lanes (plain on the host "
+                f"CPU {seg_plain_ms:.1f} ms); " if name == "restart" else "")
+        print(f"phase 7: decode_segments on the {name} chunk's segment plan "
+              f"({held}{r['nnz']} nonzero AC coefficients): {ms:.4f} ms (min "
+              f"{lo:.4f}, max {hi:.4f}) with its zero fill, "
+              f"{r['bound_bytes']} bytes, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, share {r['bound_ms'] / ms:.4f} [{card}]")
+    main_seg = seg_rows["restart"]
+    rows.append(dict(
+        name="decode_segments", route="cuda",
+        source="tpujpeg_torch/csrc/segments.cu",
+        replaces="tpujpeg/ops/entropy.py:315",
+        launches=totals["decode_segments"],
+        launches_per_chunk=per_chunk("decode_segments"),
+        max_abs_err=seg_err, ms=main_seg["ms"][0], plain_ms=seg_plain_ms,
+        **{k: main_seg[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                    "bound_ops")},
+        library_ms=None, plain_lanes=1024, plain_device="cpu",
+        ms_spec_chunk=seg_rows["spec"]["ms"][0],
+        bound_ms_spec_chunk=seg_rows["spec"]["bound_ms"],
+    ))
+    del gather_kernel
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"phase 7: {r['name']}: kernel {r['ms']:.4f} ms, bound "
@@ -2079,6 +2341,39 @@ def main() -> int:
               f"{hi:.2f}): "
               f"{CHUNK / ms * 1e3:.1f} images/s, "
               f"{mb / ms * 1e3:.2f} compressed MB/s [{card}]")
+
+    # the restart chain cut after each stage (decode_chunk_fused's
+    # stop_after): cumulative times, then the whole chain
+    def cut(stop, want_coeffs=False):
+        return fused.decode_chunk_fused(plan, quant, geom, CHUNK,
+                                        uploaded=(xs, sn), exact=True,
+                                        want_coeffs=want_coeffs,
+                                        stop_after=stop)
+
+    check(torch.equal(cut("scan")[0], fused._sum32(
+        fsm.fsm_scan(xs, sn, plan.tables)[0])), "scan cut checksum")
+    check(torch.equal(cut("assemble")[0], fused._sum32(
+        *cut(None, want_coeffs=True)[2:4])), "assemble cut checksum")
+    cuts = {stop: cuda_times(lambda: cut(stop))
+            for stop in fused.STOPS + (None,)}
+    # each cut's checksum alone, on that stage's output
+    ev8 = fsm.fsm_scan(xs, sn, plan.tables)[0]
+    dense8 = fsm.materialize_checked(
+        ev8.reshape(-1, ev8.shape[-1]), plan.max_blk * 64,
+        torch.zeros(ev8.shape[-1], dtype=torch.bool, device=dev))[0]
+    asm8 = cut(None, want_coeffs=True)[2:4]
+    sums = {"scan": cuda_times(lambda: fused._sum32(ev8)),
+            "materialize": cuda_times(lambda: fused._sum32(dense8)),
+            "assemble": cuda_times(lambda: fused._sum32(*asm8))}
+    del ev8, dense8, asm8
+    print("phase 8: restart chain cut after each stage (decode_chunk_fused "
+          "stop_after; cumulative, plan and bytes resident, exact colour; "
+          "the cut's checksum alone in brackets): "
+          + "; ".join(f"{stop or 'whole chain'} {ms:.3f} ms (min {lo:.3f}, "
+                      f"max {hi:.3f})" + (f" [checksum {sums[stop][0]:.3f}]"
+                                          if stop else "")
+                      for stop, (ms, lo, hi) in cuts.items())
+          + f" [{card}]")
 
     mb = sum(len(x) for x in mdatas) / 1e6
     for route in ROUTE_KERNELS:

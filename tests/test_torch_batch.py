@@ -292,8 +292,12 @@ def test_oracle_backend_matches_jax(buckets):
 
 
 def test_backend_arguments_like_jax():
-    with pytest.raises(ValueError, match="not ported"):
-        BatchDecoder(backend="gather", device="cpu")
+    # "gather" is a backend of both engines, without size buckets
+    BatchDecoder(backend="gather", device="cpu")
+    with pytest.raises(ValueError, match="size_buckets"):
+        BatchDecoder(backend="gather", size_buckets=True, device="cpu")
+    with pytest.raises(ValueError, match="size_buckets"):
+        JaxBatchDecoder(backend="gather", size_buckets=True)
     with pytest.raises(ValueError):
         BatchDecoder(backend="tpu", device="cpu")
     with pytest.raises(ValueError, match="size_buckets"):

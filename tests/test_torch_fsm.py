@@ -9,6 +9,9 @@ Same numpy inputs on both sides; every comparison is exact (`==`):
   * fsm_scan (plain, CPU) == JAX _fsm_scan: events, err_mal, err_env at
     steps (1, 2), 1 and 3, on restart streams, on a noisy q95 stream that
     leaves the envelope at steps 1, and on a 0xFF-tailed malformed stream;
+    at the multi-byte columns (2, 3), (2, 4) and (4, 7) on the same
+    streams (rows of whole columns and one byte short of them) and with
+    pad_info on bucket-raster plans; the steps specs both refuse;
   * _dc_cumsum == JAX.
 The JAX scan runs under jit with its carry returned (XLA:CPU hangs on a
 scan whose carry is dead).
@@ -209,11 +212,76 @@ def test_plain_scan_matches_jax(corpora, name, steps):
         assert mal.any()
 
 
+MULTI_BYTE = [(2, 3), (2, 4), (4, 7)]
+
+
+@pytest.mark.parametrize("steps", MULTI_BYTE)
+@pytest.mark.parametrize("name", list(CORPORA))
+def test_plain_scan_matches_jax_multi_byte(corpora, name, steps):
+    # columns of 2 and 4 bytes, each refilled on its own with its share of
+    # the column's steps; on the full rows and on a column prefix one byte
+    # short of whole columns (its pad bytes are refilled as data)
+    plan = tfsm.build_plan(corpora[name], split=False)
+    stride = plan.xs.shape[1]
+    for n in (stride, stride - 1):
+        xs = np.ascontiguousarray(plan.xs[:, :n])
+        want_ev, want_mal, want_env, _ = _jax_scan(
+            jnp.asarray(xs), jnp.asarray(plan.seg_n_blocks),
+            jfsm.build_tables(corpora[name][0]), steps,
+        )
+        ev, mal, env = tfsm.fsm_scan(
+            torch.as_tensor(xs), torch.as_tensor(plan.seg_n_blocks),
+            plan.tables, steps,
+        )
+        assert ev.shape == (-(-n // steps[0]) + tfsm.FLUSH_COLS, steps[1],
+                            xs.shape[0])
+        np.testing.assert_array_equal(ev.numpy(), np.asarray(want_ev))
+        np.testing.assert_array_equal(mal.numpy(), np.asarray(want_mal))
+        np.testing.assert_array_equal(env.numpy(), np.asarray(want_env))
+    if name == "malformed":
+        assert mal.any()
+
+
+@pytest.mark.parametrize("steps", MULTI_BYTE)
+@pytest.mark.parametrize("name", ["ragged_k2", "truncated"])
+def test_plain_pad_scan_matches_jax_multi_byte(name, steps):
+    from test_torch_buckets import SCAN_CORPORA, _common_bucket, _jax_scan_pad
+
+    imgs = SCAN_CORPORA[name]()
+    plan = tfsm.build_plan_bucketed(imgs, _common_bucket(imgs))
+    want = _jax_scan_pad(
+        jnp.asarray(plan.xs), jnp.asarray(plan.seg_n),
+        jnp.asarray(plan.wrap_at), jnp.asarray(plan.skip),
+        jfsm.build_tables(imgs[0]), steps)
+    got = tfsm.fsm_scan(
+        torch.as_tensor(plan.xs), torch.as_tensor(plan.seg_n), plan.tables,
+        steps, pad_info=(torch.as_tensor(plan.wrap_at),
+                         torch.as_tensor(plan.skip)))
+    for g, w in zip(got, want[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_scan_rejects_unported_specs(corpora):
+    # the steps specs the JAX scan asserts against: more than 4 bytes a
+    # column, fewer steps than bytes, and multi-byte columns in the
+    # speculative modes (a partial first byte is per byte)
     plan = tfsm.build_plan(corpora["rst"], split=False)
-    with pytest.raises(NotImplementedError):
-        tfsm.fsm_scan(torch.as_tensor(plan.xs),
-                      torch.as_tensor(plan.seg_n_blocks), plan.tables, (2, 4))
+    xs = torch.as_tensor(plan.xs)
+    sn = torch.as_tensor(plan.seg_n_blocks)
+    for bad in ((5, 5), (2, 1), (0, 2)):
+        with pytest.raises(ValueError):
+            tfsm.fsm_scan(xs, sn, plan.tables, bad)
+    starts = torch.zeros_like(sn)
+    for kw in (dict(start_bits=starts), dict(log_anchors=True)):
+        with pytest.raises(ValueError, match="restart mode"):
+            tfsm.fsm_scan_spec(xs, sn, plan.tables, (2, 4), **kw)
+    with pytest.raises(ValueError, match="restart mode"):
+        tfsm.fsm_scan_spec_plain(xs, sn, plan.tables, (2, 4),
+                                 start_bits=starts)
+    with pytest.raises(AssertionError):
+        jfsm._fsm_scan(jnp.asarray(plan.xs).T, jnp.asarray(plan.seg_n_blocks),
+                       jfsm.build_tables(corpora["rst"][0]), steps=(2, 4),
+                       start_bits=jnp.asarray(starts.numpy()))
 
 
 def test_dc_cumsum_matches_jax(corpora):

@@ -62,8 +62,9 @@ def _foreign(out: str) -> str:
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     # every module of the package, and one decode through decode_batch on
-    # the device route (backend "fsm": scan, materialize, pixels, plain
-    # versions on the CPU) and one on the host route
+    # each device route (backend "fsm": scan, materialize, pixels; backend
+    # "gather": the segment decoder, pixels; plain versions on the CPU)
+    # and one on the host route
     mods = sorted(
         m.name for m in pkgutil.walk_packages(tpujpeg_torch.__path__,
                                               "tpujpeg_torch."))
@@ -71,6 +72,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "tpujpeg_torch.runtime.native.lib" in mods
     assert "tpujpeg_torch.ops.upsample" in mods
     assert "tpujpeg_torch.ops.probes" in mods
+    assert "tpujpeg_torch.ops.entropy" in mods
     assert "tpujpeg_torch.cli" in mods
     assert "tpujpeg_torch.utils.profiling" in mods
     data = make_jpeg_rst(shape=(16, 24), rst_interval=3, seed=3)
@@ -81,7 +83,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for m in {mods!r}:
             importlib.import_module(m)
         data = {data!r}
-        for backend in ("fsm", "host"):
+        for backend in ("fsm", "gather", "host"):
             rgb = tpujpeg_torch.decode_batch([data], backend=backend,
                                              device="cpu")[0]
             print(backend, rgb.shape, rgb.dtype)
@@ -99,6 +101,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert _foreign(out) == "FOREIGN []", out
     assert "fsm (16, 24, 3) uint8" in out and "(120, 120, 3)" in out
     assert "fsm 420 (16, 32, 3)" in out and "host 420 (16, 32, 3)" in out
+    assert "gather (16, 24, 3) uint8" in out
+    assert "gather 420 (16, 32, 3)" in out
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -116,7 +120,8 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("tool", ["profile_torch_chunk", "make_torch_corpus",
                                   "bench_torch_gather",
                                   "bench_torch_materialize",
-                                  "bench_torch_scan", "bench_torch_batches"])
+                                  "bench_torch_scan", "bench_torch_batches",
+                                  "diff_torch_sass"])
 def test_tools_import_neither_jax_nor_the_jax_package(tool):
     import os
 

@@ -32,7 +32,12 @@ lead and one that jumps ahead of the window, Np at the int16 span and
 the event that packs to 0; `chain` on tables that are no power of two,
 T = 1 and walks of no steps; the two gathers on odd row lengths, more rows than the grid,
 tables on both sides of the warp-per-row limit, index views that start
-4, 8 and 12 bytes into their storage, and empty inputs.
+4, 8 and 12 bytes into their storage, and empty inputs.  The scan's
+multi-byte columns ((2, 3), (2, 4), (4, 7)) on malformed lanes, on a
+column prefix of no whole number of columns and in pad mode; the segment
+decoder (`decode_segments`) on restart lanes, malformed, truncated and
+step-capped lanes, a lane count that is no multiple of 32, and one lane
+a stream without restart markers; and the gather route end to end.
 """
 
 import os
@@ -1212,3 +1217,127 @@ def test_fsm_scan_with_tables_past_48_kb_of_shared_memory(cuda):
     torch.cuda.synchronize()
     _scan_equal(cold, fsm.fsm_scan_spec_plain(xs, sn, tables, 2,
                                               log_anchors=True))
+
+
+# ---------------------------------------------------------------------------
+# multi-byte scan columns; the segment decoder and the gather route
+# ---------------------------------------------------------------------------
+
+MULTI_BYTE = [(2, 3), (2, 4), (4, 7)]
+
+
+@pytest.mark.parametrize("view", ["full", "prefix_ragged"])
+@pytest.mark.parametrize("steps", MULTI_BYTE)
+def test_fsm_scan_multi_byte_kernel_equals_plain(cuda, imgs, steps, view):
+    # a malformed lane among good ones; the ragged prefix (1,107 bytes, no
+    # whole number of 2- or 4-byte columns) refills its pad bytes as zeros
+    use = [imgs[0], _malformed(parse_file(os.path.join(CORPUS, "02.jpg")))]
+    plan = fsm.build_plan(use, split=False)
+    full = torch.as_tensor(plan.xs).to(cuda)
+    sn = torch.as_tensor(plan.seg_n_blocks).to(cuda)
+    xs = full if view == "full" else full[:, :1107]
+    got = fsm.fsm_scan(xs, sn, plan.tables, steps)
+    want = fsm.fsm_scan_plain(xs.cpu(), sn.cpu(), plan.tables, steps)
+    torch.cuda.synchronize()
+    assert got[0].shape == (-(-xs.shape[1] // steps[0]) + fsm.FLUSH_COLS,
+                            steps[1], xs.shape[0])
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert bool(got[1].any())
+
+
+@pytest.mark.parametrize("steps", MULTI_BYTE)
+def test_fsm_scan_pad_multi_byte_kernel_equals_plain(cuda, steps):
+    names = sorted(os.listdir(MIXED))[:2]
+    use = [parse_file(os.path.join(MIXED, n)) for n in names]
+    plan = fsm.build_plan_bucketed(use, bucket_geometry(Geometry.of(use[0])))
+    # rows cut in four with 7 padding slots after each: the counters wrap
+    # and skip inside every lane
+    pad = (torch.as_tensor(np.maximum(plan.wrap_at // 4, 1)).to(cuda),
+           torch.full((plan.xs.shape[0],), 7, dtype=torch.int32,
+                      device=cuda))
+    xs = torch.as_tensor(plan.xs).to(cuda)
+    sn = torch.as_tensor(plan.seg_n).to(cuda)
+    got = fsm.fsm_scan(xs, sn, plan.tables, steps, pad_info=pad)
+    want = fsm.fsm_scan_plain(xs.cpu(), sn.cpu(), plan.tables, steps,
+                              pad_info=tuple(t.cpu() for t in pad))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_fsm_scan_refuses_multi_byte_speculative_on_the_card(cuda, imgs):
+    plan = fsm.build_plan(imgs[:1], split=False)
+    xs = torch.as_tensor(plan.xs).to(cuda)
+    sn = torch.as_tensor(plan.seg_n_blocks).to(cuda)
+    with pytest.raises(ValueError):
+        fsm.fsm_scan_spec(xs, sn, plan.tables, (2, 4), log_anchors=True)
+
+
+def _segment_case(case):
+    from tpujpeg_torch.ops import entropy
+
+    if case in ("restart", "malformed", "short_cap", "lanes_37"):
+        names = ["00.jpg", "02.jpg"]
+        use = [parse_file(os.path.join(CORPUS, n)) for n in names]
+        if case == "malformed":
+            use[1] = _malformed(use[1])
+    elif case == "truncated":
+        img = parse_file(os.path.join(CORPUS, "03.jpg"))
+        img.scan_data = img.scan_data[: img.scan_data.size // 4].copy()
+        img.segment_offsets = img.segment_offsets[
+            img.segment_offsets < img.scan_data.size]
+        use = [img]
+    else:   # one lane a stream without restart markers, and a 4:1:1 one
+        use = [parse_file(os.path.join(SMALL, case))]
+    plan = entropy.build_segment_plan(use)
+    arrays = list(entropy.plan_arrays(plan))
+    if case == "lanes_37":
+        # a lane count that is no multiple of the 32-thread block
+        arrays[1:5] = [a[:37] for a in arrays[1:5]]
+    cap = 300 if case == "short_cap" else plan.cap
+    return plan, arrays, cap
+
+
+SEGMENT_CASES = ["restart", "malformed", "truncated", "short_cap", "lanes_37",
+                 "gray.jpg", "411_rst.jpg"]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_decode_segments_kernel_equals_plain(cuda, case):
+    from tpujpeg_torch.ops import entropy
+
+    plan, arrays, cap = _segment_case(case)
+    host = [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
+    scan, sb, bb, nb, rows, pattern = (t.to(cuda) for t in host)
+    luts = entropy.device_luts(plan.luts, cuda)
+    got = entropy.decode_segments(scan, sb, bb, nb, rows, luts, pattern,
+                                  cap=cap, n_blocks_total=plan.n_blocks_total)
+    want = entropy.decode_segments_plain(
+        *host[:5], torch.as_tensor(plan.luts), host[5], cap=cap,
+        n_blocks_total=plan.n_blocks_total)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w)
+    fails = case in ("malformed", "truncated", "short_cap")
+    assert bool(got[1].any()) == fails
+
+
+def test_gather_backend_on_the_card(cuda):
+    from tpujpeg_torch.runtime import host, kernels
+    from tpujpeg_torch.runtime.batch import BatchDecoder
+
+    paths = [os.path.join(CORPUS, f"{i:02d}.jpg") for i in range(4)] \
+        + [os.path.join(SMALL, n) for n in ("gray.jpg", "gray_rst.jpg")]
+    datas = [open(p, "rb").read() for p in paths]
+    dec = BatchDecoder(backend="gather", chunk_size=4, device="cuda")
+    kernels.reset_launches()
+    got = dec.decode(datas)
+    torch.cuda.synchronize()
+    assert dec.stats.backend == "gather" and dec.stats.chunks == 2
+    assert kernels.LAUNCHES["decode_segments"] == 2
+    assert kernels.LAUNCHES["fsm_scan"] == 0
+    for g, p in zip(got, paths):
+        assert np.array_equal(g, host.decode_cpu(parse_file(p)))
+    dec.close()

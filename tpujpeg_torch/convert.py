@@ -5,8 +5,9 @@ the port.
 JpegImage (field by field, numpy arrays shared); `tables_from_jax`,
 `plan_from_jax`, `bucket_plan_from_jax` and `spec_plan_from_jax` turn
 tpujpeg.ops.fsm's FsmTables, FsmPlan, FsmBucketPlan and SpecBatchPlan
-(numpy arrays and tuples) into the port's dataclasses, so a test can feed
-both packages identical inputs.  The JAX objects are read by
+(numpy arrays and tuples), and `segment_plan_from_jax`
+tpujpeg.ops.entropy's SegmentPlan, into the port's dataclasses, so a
+test can feed both packages identical inputs.  The JAX objects are read by
 attribute only; this module imports nothing of JAX.  The two-level
 symbol map the JAX tables may carry (len_keys, len_vals, symtab) is a
 TPU device for the select tree and has no counterpart here.
@@ -20,7 +21,7 @@ import numpy as np
 
 from .io.huffman import HuffmanTable
 from .io.parser import Component, JpegImage
-from .ops import fsm
+from .ops import entropy, fsm
 
 
 def image_from_jax(img) -> JpegImage:
@@ -86,3 +87,16 @@ def spec_plan_from_jax(plan) -> fsm.SpecBatchPlan:
     }
     fields["tables"] = tables_from_jax(plan.tables)
     return fsm.SpecBatchPlan(**fields)
+
+
+def segment_plan_from_jax(plan) -> entropy.SegmentPlan:
+    """tpujpeg.ops.entropy.SegmentPlan -> the port's SegmentPlan (numpy
+    fields as numpy arrays, cap and n_blocks_total as ints)."""
+    fields = {
+        f.name: getattr(plan, f.name)
+        for f in dataclasses.fields(entropy.SegmentPlan)
+    }
+    for name, v in fields.items():
+        fields[name] = int(v) if name in ("cap", "n_blocks_total") \
+            else np.asarray(v)
+    return entropy.SegmentPlan(**fields)

@@ -57,6 +57,16 @@
 // while quotas and latches go on counting real blocks.  The restart
 // variant compiles none of that.
 //
+// Multi-byte columns (kBpc = 2..4, restart and pad modes; the JAX scan's
+// steps spec (bpc, K)): a column is kBpc bytes, each refilled on its own
+// and followed by its share of the column's K step slots, front-loaded
+// (K / kBpc, one more for the first K % kBpc bytes); rows are padded with
+// zero bytes to whole columns, and those bytes are refilled as data.  The
+// kernel still walks one byte column at a time: only the refill's bound,
+// a zero for a pad byte, the steps after each byte and the running slot
+// offset change, and each is a compile-time no-op at kBpc = 1, so the
+// production (1, K) variant is the code it was.
+//
 // Bit-exactness with the JAX scan: the buffer is uint32_t and every read
 // of it lies below `navail`, so the bits are those of the JAX int32
 // arithmetic shifts; every shift amount stays in [0, 31].
@@ -149,7 +159,7 @@ __device__ __forceinline__ void stage_tile(uint8_t* stage,
   }
 }
 
-template <bool kSpec, bool kAnchors, bool kPad>
+template <bool kSpec, bool kAnchors, bool kPad, int kBpc>
 __global__ void __launch_bounds__(kWarp)
 fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
                 const int32_t* __restrict__ seg_n,
@@ -168,7 +178,11 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
   const int lane = lane0 + threadIdx.x;
   const bool in_range = lane < L;
   const int row_id = min(lane, L - 1);
-  const int n_cols = n_data + kFlushCols;
+  // byte columns refilled (the data, padded to whole columns) and walked
+  const int n_refill = kBpc == 1 ? n_data : (n_data + kBpc - 1) / kBpc * kBpc;
+  const int n_cols = n_refill + kFlushCols * kBpc;
+  // multi-byte: the steps after each byte of a column
+  const int k_base = K / kBpc, k_extra = K % kBpc;
 
   // the tables: one 16-byte copy per thread and turn
   for (int i = threadIdx.x * 4; i < table_words; i += kWarp * 4) {
@@ -202,6 +216,7 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
   // values)
   const size_t col_step = static_cast<size_t>(K) * L;
   size_t out_col = row_id;
+  size_t out_run = row_id;   // multi-byte: the next step slot's offset
 
   const int n_read = (n_data + 3) & ~3;
   const bool aligned16 =
@@ -235,10 +250,11 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
         }
         word = q.x;
       }
-      const uint32_t byte = word & 0xFFu;
+      uint32_t byte = word & 0xFFu;
       word >>= 8;
+      if (kBpc > 1 && col >= n_data) byte = 0;   // a pad byte of a column
       // ---- refill one byte (none in the flush tail)
-      if (col < n_data && !done && !err_mal && !err_env) {
+      if (col < n_refill && !done && !err_mal && !err_env) {
         int take = 8;
         if (kSpec) {
           // speculative entry: the bits before start_bits are skipped,
@@ -264,9 +280,11 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
           navail += take;
         }
       }
-      size_t out = out_col;
+      size_t out = kBpc == 1 ? out_col : out_run;
+      const int n_steps =
+          kBpc == 1 ? K : k_base + (col % kBpc < k_extra ? 1 : 0);
 #pragma unroll 1
-      for (int s = 0; s < K; ++s, out += L) {
+      for (int s = 0; s < n_steps; ++s, out += L) {
         // One symbol step without a branch: every lane of the warp is in
         // another state, so the warp would walk every side of a branch
         // anyway.  `top` holds the buffered bits left-aligned, padded
@@ -368,6 +386,7 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
           io.recm[out] = mark;
         }
       }
+      if (kBpc > 1) out_run = out;
     }
     __syncwarp();   // all lanes are off this stage before it is refilled
   }
@@ -393,7 +412,7 @@ fsm_scan_kernel(const uint8_t* __restrict__ xs, int pitch, int n_data,
   }
 }
 
-template <bool kSpec, bool kAnchors, bool kPad>
+template <bool kSpec, bool kAnchors, bool kPad, int kBpc = 1>
 cudaError_t launch_scan(int blocks, size_t smem_bytes, cudaStream_t stream,
                         const uint8_t* xs, int pitch, int n_data,
                         const int32_t* seg_n, const uint32_t* table,
@@ -401,7 +420,7 @@ cudaError_t launch_scan(int blocks, size_t smem_bytes, cudaStream_t stream,
                         const SpecIo& io, const int32_t* wrap_at,
                         const int32_t* skip, int32_t* events,
                         uint8_t* err_mal, uint8_t* err_env, int L, int K) {
-  auto kernel = fsm_scan_kernel<kSpec, kAnchors, kPad>;
+  auto kernel = fsm_scan_kernel<kSpec, kAnchors, kPad, kBpc>;
   if (smem_bytes > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -414,6 +433,42 @@ cudaError_t launch_scan(int blocks, size_t smem_bytes, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// The restart variants (kSpec, kAnchors off) at bpc bytes a column.
+template <bool kPad>
+cudaError_t launch_restart(int bpc, int blocks, size_t smem_bytes,
+                           cudaStream_t stream, const uint8_t* xs, int pitch,
+                           int n_data, const int32_t* seg_n,
+                           const uint32_t* table, int table_words,
+                           const ScanMeta& meta, const SpecIo& io,
+                           const int32_t* wrap_at, const int32_t* skip,
+                           int32_t* events, uint8_t* err_mal,
+                           uint8_t* err_env, int L, int K) {
+  switch (bpc) {
+    case 1:
+      return launch_scan<false, false, kPad, 1>(
+          blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+          table_words, meta, io, wrap_at, skip, events, err_mal, err_env, L,
+          K);
+    case 2:
+      return launch_scan<false, false, kPad, 2>(
+          blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+          table_words, meta, io, wrap_at, skip, events, err_mal, err_env, L,
+          K);
+    case 3:
+      return launch_scan<false, false, kPad, 3>(
+          blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+          table_words, meta, io, wrap_at, skip, events, err_mal, err_env, L,
+          K);
+    case 4:
+      return launch_scan<false, false, kPad, 4>(
+          blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+          table_words, meta, io, wrap_at, skip, events, err_mal, err_env, L,
+          K);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // meta_host: int32 [25] = bpm, tsel[16], eob_len[2], eob_code[2],
@@ -421,7 +476,9 @@ cudaError_t launch_scan(int blocks, size_t smem_bytes, cudaStream_t stream,
 // table: the packed Huffman tables of ops/fsm.py::scan_table, table_words
 // 32-bit words (a multiple of 4, 16-byte aligned), copied to shared
 // memory by every block.  xs is [L, pitch] row-major; the scan reads the
-// first n_data bytes of each row.  mode: 0 restart, 1 speculative,
+// first n_data bytes of each row.  steps: symbol steps a column of bpc
+// bytes (1 <= bpc <= steps, bpc <= 4; bpc > 1 in modes 0 and 3 only;
+// events then hold ceil(n_data / bpc) + 6 columns).  mode: 0 restart, 1 speculative,
 // 2 speculative with anchors, 3 restart with bucket-raster emission
 // (start_bits, start_bim, chunk_bits, state may be null in modes 1-2;
 // anchors, ablk, recm are used in mode 2 only; wrap_at and skip, int32
@@ -431,14 +488,16 @@ extern "C" int tpj_fsm_scan(const uint8_t* xs, const int32_t* seg_n,
                             const int32_t* meta_host,
                             int32_t* events, uint8_t* err_mal,
                             uint8_t* err_env, int L, int pitch, int n_data,
-                            int steps, int mode, const int32_t* start_bits,
+                            int steps, int bpc, int mode,
+                            const int32_t* start_bits,
                             const int32_t* start_bim,
                             const int32_t* chunk_bits, int32_t* anchors,
                             int32_t* ablk, int32_t* recm, int32_t* state,
                             const int32_t* wrap_at, const int32_t* skip,
                             cudaStream_t stream) {
-  if (L < 1 || steps < 1 || table_words < kL1Words || (table_words & 3) ||
-      (reinterpret_cast<uintptr_t>(table) & 15)) {
+  if (L < 1 || bpc < 1 || bpc > 4 || steps < bpc ||
+      (bpc > 1 && mode != 0 && mode != 3) || table_words < kL1Words ||
+      (table_words & 3) || (reinterpret_cast<uintptr_t>(table) & 15)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ScanMeta meta;
@@ -462,8 +521,8 @@ extern "C" int tpj_fsm_scan(const uint8_t* xs, const int32_t* seg_n,
       static_cast<size_t>(table_words) * 4 + 2 * kStageBytes;
   cudaError_t rc;
   if (mode == 0) {
-    rc = launch_scan<false, false, false>(
-        blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+    rc = launch_restart<false>(
+        bpc, blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
         table_words, meta, io, nullptr, nullptr, events, err_mal, err_env, L,
         steps);
   } else if (mode == 1) {
@@ -483,8 +542,8 @@ extern "C" int tpj_fsm_scan(const uint8_t* xs, const int32_t* seg_n,
     if (wrap_at == nullptr || skip == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    rc = launch_scan<false, false, true>(
-        blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
+    rc = launch_restart<true>(
+        bpc, blocks, smem_bytes, stream, xs, pitch, n_data, seg_n, table,
         table_words, meta, io, wrap_at, skip, events, err_mal, err_env, L,
         steps);
   } else {

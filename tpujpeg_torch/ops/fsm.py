@@ -90,15 +90,18 @@ def steps_below_safe(steps) -> bool:
     return k * sb < ks * bpc
 
 
-def _scan_steps(steps) -> int:
-    """Symbol steps per 1-byte column; raises on specs the port lacks."""
+def _scan_steps(steps, spec: bool = False) -> tuple:
+    """A steps spec normalized to (bytes per column, symbol steps per
+    column), checked as the JAX scan asserts it: 1 <= bpc <= 4 and k >=
+    bpc; the speculative modes (spec=True) take 1-byte columns only, whose
+    partial first byte is per byte.  Raises ValueError otherwise."""
     bpc, k = _steps_spec(steps)
-    if bpc != 1 or k < 1:
-        raise NotImplementedError(
-            f"steps spec {steps!r}: the port scans 1-byte columns only "
-            "(multi-byte columns are not ported)"
-        )
-    return k
+    if not 1 <= bpc <= 4 or k < bpc:
+        raise ValueError(f"bad steps spec {steps!r}")
+    if spec and bpc > 1:
+        raise ValueError(
+            f"steps spec {steps!r}: multi-byte columns require restart mode")
+    return bpc, k
 
 
 # ---------------------------------------------------------------------------
@@ -634,8 +637,14 @@ def fsm_scan(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
     """Run the symbol FSM over the byte columns of a restart lane matrix.
 
     xs: uint8 [L, stride] (one restart segment per row), seg_n_blocks:
-    int32 [L].  Returns (events int32 [stride + FLUSH_COLS, K, L],
-    err_mal bool [L], err_env bool [L]), K symbol steps per column.
+    int32 [L].  steps: (bytes per column bpc, symbol steps per column K),
+    or an int K for 1-byte columns.  Returns (events int32 [n_cols, K,
+    L], err_mal bool [L], err_env bool [L]) with n_cols = ceil(stride /
+    bpc) + FLUSH_COLS.  A column of bpc bytes refills one byte at a time,
+    each refill followed by its share of the K steps, front-loaded ((4,
+    7) runs 2, 2, 2, 1, so the backlog drains before the later refills);
+    rows are padded with zero bytes to a multiple of bpc, and those pad
+    bytes are refilled as data, as in the JAX scan.
 
     pad_info: optional pair (wrap_at, skip) of int32 [L]: bucket-raster
     emission for a size-class bucket chunk (FsmBucketPlan).  The event's
@@ -646,10 +655,10 @@ def fsm_scan(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
     CUDA tensors run kernel 1 (csrc/fsm_scan.cu); CPU tensors run
     `fsm_scan_plain`.
     """
-    k = _scan_steps(steps)
+    steps = _scan_steps(steps)
     if not xs.is_cuda:
-        return fsm_scan_plain(xs, seg_n_blocks, tables, k, pad_info)
-    out = _scan_cuda(xs, seg_n_blocks, tables, k,
+        return fsm_scan_plain(xs, seg_n_blocks, tables, steps, pad_info)
+    out = _scan_cuda(xs, seg_n_blocks, tables, steps,
                      mode=0 if pad_info is None else 3, pad_info=pad_info)
     return out.events, out.err_mal, out.err_env
 
@@ -672,24 +681,27 @@ def fsm_scan_spec(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
     drops the events (count passes).  Returns a ScanOut.
 
     CUDA tensors run kernel 1's speculative variants; CPU tensors run
-    `fsm_scan_spec_plain`.
+    `fsm_scan_spec_plain`.  Columns are one byte wide here (a multi-byte
+    steps spec raises ValueError, as the JAX scan asserts).
     """
-    k = _scan_steps(steps)
+    steps = _scan_steps(steps, spec=True)
     spec = dict(start_bits=start_bits, start_bim=start_bim,
                 chunk_bits=chunk_bits, log_anchors=log_anchors, emit=emit)
     if not xs.is_cuda:
-        return fsm_scan_spec_plain(xs, seg_n_blocks, tables, k, **spec)
-    return _scan_cuda(xs, seg_n_blocks, tables, k,
+        return fsm_scan_spec_plain(xs, seg_n_blocks, tables, steps, **spec)
+    return _scan_cuda(xs, seg_n_blocks, tables, steps,
                       mode=2 if log_anchors else 1, **spec)
 
 
-def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
+def _scan_cuda(xs, seg_n_blocks, tables, steps, mode, start_bits=None,
                start_bim=None, chunk_bits=None, log_anchors=False,
                emit=True, pad_info=None) -> ScanOut:
     """Launch kernel 1 in `mode` (0 restart, 1 speculative, 2 anchors,
-    3 restart with bucket-raster emission)."""
+    3 restart with bucket-raster emission) at the checked steps spec
+    (bpc, K); multi-byte columns in modes 0 and 3 only."""
     from ..runtime import kernels
 
+    bpc, k = steps
     if not xs.is_cuda or xs.dtype != torch.uint8 or xs.dim() != 2:
         raise ValueError("fsm_scan: xs must be a CUDA uint8 [L, n] tensor")
     L, n_data = xs.shape
@@ -712,7 +724,7 @@ def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
                 raise ValueError(f"fsm_scan: {name} must be [L={L}]")
     table = _device_table(tables, dev)
     meta = scan_meta(tables)
-    n_cols = n_data + FLUSH_COLS
+    n_cols = -(-n_data // bpc) + FLUSH_COLS
 
     def plane():
         return torch.empty((n_cols, k, L), dtype=torch.int32, device=dev)
@@ -734,7 +746,7 @@ def _scan_cuda(xs, seg_n_blocks, tables, k, mode, start_bits=None,
         "fsm_scan",
         xs.data_ptr(), seg_n_blocks.data_ptr(), table.data_ptr(),
         table.numel(), meta.ctypes.data, ptr(events), err_mal.data_ptr(),
-        err_env.data_ptr(), L, pitch, n_data, k, mode,
+        err_env.data_ptr(), L, pitch, n_data, k, bpc, mode,
         ptr(start_bits), ptr(start_bim), ptr(chunk_bits),
         ptr(anchors), ptr(ablk), ptr(recm), ptr(state),
         ptr(wrap_at), ptr(skip), kernels.current_stream(dev),
@@ -760,36 +772,49 @@ def _device_table(tables: FsmTables, device) -> torch.Tensor:
 
 
 def fsm_scan_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
-                   tables: FsmTables, k: int, pad_info=None):
-    """Plain PyTorch version of `fsm_scan` (restart mode, same contract)."""
-    out = _scan_plain(xs, seg_n_blocks, tables, k, pad_info=pad_info)
+                   tables: FsmTables, steps, pad_info=None):
+    """Plain PyTorch version of `fsm_scan` (restart mode, same contract;
+    steps a spec or an int K)."""
+    out = _scan_plain(xs, seg_n_blocks, tables, _scan_steps(steps),
+                      pad_info=pad_info)
     return out.events, out.err_mal, out.err_env
 
 
 def fsm_scan_spec_plain(xs: torch.Tensor, seg_n_blocks: torch.Tensor,
-                        tables: FsmTables, k: int, *, start_bits=None,
+                        tables: FsmTables, steps, *, start_bits=None,
                         start_bim=None, chunk_bits=None,
                         log_anchors: bool = False,
                         emit: bool = True) -> ScanOut:
     """Plain PyTorch version of `fsm_scan_spec` (same contract)."""
-    out = _scan_plain(xs, seg_n_blocks, tables, k, start_bits, start_bim,
+    out = _scan_plain(xs, seg_n_blocks, tables,
+                      _scan_steps(steps, spec=True), start_bits, start_bim,
                       chunk_bits, log_anchors)
     return out if emit else out._replace(events=None)
 
 
-def _scan_plain(xs, seg_n_blocks, tables: FsmTables, k: int,
+def _scan_plain(xs, seg_n_blocks, tables: FsmTables, steps: tuple,
                 start_bits=None, start_bim=None, chunk_bits=None,
                 log_anchors: bool = False, pad_info=None) -> ScanOut:
-    """Plain PyTorch scan: a Python loop over byte columns, each symbol
-    step as vector ops over lanes (the JAX scan body), every mode.
+    """Plain PyTorch scan: a Python loop over columns of `bpc` bytes, a
+    refill of each byte followed by its steps of the schedule, each
+    symbol step as vector ops over lanes (the JAX scan body), every mode.
 
     The bit buffer is int64 masked to 32 bits after every refill, which is
     the uint32 buffer of the kernel; every read of it is masked to bits
     below navail <= 32, so the JAX int32 buffer gives the same bits.
     """
     dev = xs.device
-    L, stride = xs.shape
-    n_cols = stride + FLUSH_COLS
+    bpc, k = steps
+    base, extra = divmod(k, bpc)
+    ks = [base + (1 if b < extra else 0) for b in range(bpc)]
+    if xs.shape[1] % bpc:
+        # pad bytes to whole columns: refilled as data, as in the JAX scan
+        pad = torch.zeros((xs.shape[0], bpc - xs.shape[1] % bpc),
+                          dtype=xs.dtype, device=dev)
+        xs = torch.cat([xs, pad], dim=1)
+    L, n_bytes = xs.shape
+    n_data_cols = n_bytes // bpc
+    n_cols = n_data_cols + FLUSH_COLS
     i64 = torch.int64
     spec = start_bits is not None or chunk_bits is not None or log_anchors
     lut = torch.as_tensor(symbol_lut(tables).reshape(-1)).to(dev).to(i64)
@@ -828,16 +853,21 @@ def _scan_plain(xs, seg_n_blocks, tables: FsmTables, k: int,
     events = plane()
     anchors, ablk, recm = (plane(), plane(), plane()) if log_anchors \
         else (None, None, None)
-    for col in range(n_cols):
+    # (column, byte, step slots): each byte of a column is refilled, then
+    # its share of the column's K step slots runs
+    starts = np.cumsum([0] + ks)
+    schedule = [(col, col * bpc + b, range(starts[b], starts[b + 1]))
+                for col in range(n_cols) for b in range(bpc)]
+    for col, byte, slots in schedule:
         # ---- refill one byte (none in the FLUSH_COLS tail)
         active = ~done & ~err_mal & ~err_env
-        if col < stride:
+        if col < n_data_cols:
             take = torch.where(active, 8, 0)
             if spec:
                 # speculative entry: skip the bits before start_bits; a
                 # partial first byte contributes its low bits
                 take = take - torch.where(
-                    active, torch.clamp(sbits - col * 8, 0, 8), 0)
+                    active, torch.clamp(sbits - byte * 8, 0, 8), 0)
             overflow = navail + take > 32
             if log_anchors:
                 # recover: drop the backlog, resume at the refill frontier
@@ -851,10 +881,10 @@ def _scan_plain(xs, seg_n_blocks, tables: FsmTables, k: int,
             else:
                 err_env = err_env | (active & overflow & (take > 0))
                 take = torch.where(overflow, 0, take)
-            buf = ((buf << take) | (cols[col] & ((1 << take) - 1))) \
+            buf = ((buf << take) | (cols[byte] & ((1 << take) - 1))) \
                 & 0xFFFFFFFF
             navail = navail + take
-        for s in range(k):
+        for s in slots:
             active = ~done & ~err_mal & ~err_env
             # peek 16 bits, padding past the end of the buffer with ones
             sa = torch.clamp(navail - 16, min=0)

@@ -30,7 +30,14 @@ Counterpart of tpujpeg/runtime/batch.py:
      reference decoder; 'cpu' the whole decode in the native library on
      a pool of `workers` threads (no device is touched); 'auto' routes by
      a link probe (measured_link_mbps): the fsm route below
-     _LINK_MBPS_FSM_THRESHOLD or without the native library, else host;
+     _LINK_MBPS_FSM_THRESHOLD or without the native library, else host.
+     Backend 'gather': the lockstep-lane segment decoder
+     (ops/entropy.py, kernel csrc/segments.cu: one lane a restart
+     segment, or an image without restart markers) on the device, then
+     the pixel stage on its [B, n_blocks, 64] coefficients; the
+     coefficients never leave the card.  A lane that fails raises
+     JpegError at dispatch (one device read), as the JAX engine does, so
+     under on_error='skip' the chunk goes to the host route;
   4. `_finish`: the retry ladder, behind one 4-flag device read per
      chunk.  A spec chunk whose slot materialize
      overflowed is decoded again with the classic materialize (counted
@@ -66,10 +73,12 @@ libjpeg's triangle chroma upsampling on every route (box replication
 otherwise).
 
 The prep pool (the JAX engine's, `_prepare_chunk_fsm`): where the
-decoder routes to the device FSM, a rolling window (`_Window`) prepares
+decoder routes to the device FSM or the gather decoder, a rolling window
+(`_Window`) prepares
 up to _PREP_AHEAD chunks ahead of the dispatch on a two-thread pool of
-its own: the plan (`build_plan`, `build_plan_bucketed`, or the
-speculative `build_spec_plan_batch` for a chunk that does not pack) and
+its own: the plan (`build_plan`, `build_plan_bucketed`, the speculative
+`build_spec_plan_batch` for a chunk that does not pack, or the gather
+route's `entropy.build_segment_plan`) and
 every array the chunk's chain reads (the plan's, the quant tables, the
 spec lane masks, the bucket extents), staged by `_Upload`: each pinned
 and copied up on the decoder's copy stream, the compute stream ordered
@@ -83,8 +92,7 @@ decode_parsed(fetch=False) and decode(fetch=False) run every chunk
 through the ladder and its one-read fence, synchronize the device and
 return None: no RGB leaves the card.
 
-Not ported yet: the "gather" backend and several cards (ROADMAP.md,
-queue 1 "Modules to port").
+Not ported yet: several cards (ROADMAP.md, queue 1 "Modules to port").
 """
 
 from __future__ import annotations
@@ -291,11 +299,12 @@ class _Upload:
 
 @dataclass
 class _Prepared:
-    """What `_prepare_chunk_fsm` hands the dispatch: the route ("plan",
-    "bucket" or "spec"), its plan and its arrays on the device.  `arrays`
-    is what the chain reads: for "plan" each stride group's (xs,
+    """What `_prepare_chunk` hands the dispatch: the route ("plan",
+    "bucket", "spec" or "gather"), its plan and its arrays on the device.
+    `arrays` is what the chain reads: for "plan" each stride group's (xs,
     seg_n_blocks) and perm, for "bucket" xs, seg_n, wrap_at and skip, for
-    "spec" xs and fsm.spec_lane_arrays."""
+    "spec" xs and fsm.spec_lane_arrays, for "gather"
+    entropy.plan_arrays."""
 
     kind: str
     plan: object
@@ -309,8 +318,9 @@ class _Window:
     """The dispatch loop's rolling window (the JAX engine's `drain`).
 
     Chunks wait in `pending` in dispatch order.  Where the decoder routes
-    to the device FSM, the first _PREP_AHEAD of them are prepared on its
-    prep pool (`_prepare_chunk_fsm`), so at most _PREP_AHEAD prepared
+    to the device FSM or the gather decoder, the first _PREP_AHEAD of them
+    are prepared on its prep pool (`_prepare_chunk`), so at most
+    _PREP_AHEAD prepared
     chunks wait undispatched; `drain(block=False)` dispatches chunks
     while the first one's preparation is done, `drain(block=True)` all of
     them, each waiting for its own.  `t_ent` sums the dispatch time."""
@@ -318,11 +328,12 @@ class _Window:
     def __init__(self, dec: "BatchDecoder", isolate: bool):
         self.dec = dec
         self.isolate = isolate
-        self.prep = dec._prefers_fsm()
+        self.prep = dec.backend == "gather" or dec._prefers_fsm()
         if self.prep:
             # on this thread, before any prepare reads them: the probe
-            # and the copy stream
-            measured_link_mbps(dec.device)
+            # (the fsm plans' split) and the copy stream
+            if dec.backend != "gather":
+                measured_link_mbps(dec.device)
             dec._upload()
         self.pending: list[_Chunk] = []
         self.t_ent = 0.0
@@ -334,7 +345,7 @@ class _Window:
                 for c in self.pending[:_PREP_AHEAD]:
                     if c.plan_future is None:
                         c.plan_future = dec.prep_pool.submit(
-                            dec._prepare_chunk_fsm, c)
+                            dec._prepare_chunk, c)
             c = self.pending[0]
             if (not block and c.plan_future is not None
                     and not c.plan_future.done()):
@@ -352,9 +363,9 @@ class BatchDecoder:
                  chunk_size: int = 32, strict: bool = True, device="cuda",
                  size_buckets: bool = False,
                  materialize_route: str = "scatter", fancy: bool = False):
-        """backend: "fsm" (the default: the card), "host", "oracle",
-        "cpu" or "auto" (module docstring).  workers: the thread pool's
-        size; backend "cpu" defaults to one single-threaded decode per
+        """backend: "fsm" (the default: the card), "gather", "host",
+        "oracle", "cpu" or "auto" (module docstring).  workers: the thread
+        pool's size; backend "cpu" defaults to one single-threaded decode per
         core.  fancy=True upsamples subsampled chroma with libjpeg's
         triangle filter on every route (box replication otherwise; no
         effect on 4:4:4 and grayscale).  size_buckets=True decodes corpora
@@ -365,9 +376,7 @@ class BatchDecoder:
         materialize's route (module docstring)."""
         from ..ops import materialize
 
-        if backend == "gather":
-            raise ValueError("backend 'gather' is not ported")
-        if backend not in ("auto", "host", "fsm", "oracle", "cpu"):
+        if backend not in ("auto", "host", "fsm", "gather", "oracle", "cpu"):
             raise ValueError(f"unknown backend {backend!r}")
         if size_buckets and backend not in ("auto", "host", "oracle", "fsm"):
             raise ValueError(
@@ -494,6 +503,29 @@ class BatchDecoder:
         quant = up(self._quant_host(chunk))
         return _Prepared("spec", plan, arrays, quant, up.done())
 
+    def _prepare_gather(self, chunk: _Chunk) -> _Prepared:
+        """A gather chunk: the segment plan and its arrays staged (the
+        tables go up once per table set, at dispatch: entropy.device_luts).
+        Raises JpegError for a chunk the plan cannot take."""
+        from ..ops import entropy
+
+        plan = entropy.build_segment_plan(chunk.imgs)
+        up = self._upload()
+        arrays = tuple(map(up, entropy.plan_arrays(plan)))
+        quant = up(self._quant_host(chunk))
+        return _Prepared("gather", plan, arrays, quant, up.done())
+
+    def _prepare_chunk(self, chunk: _Chunk):
+        """The prep pool's task: the gather route's preparation on backend
+        "gather", else the device FSM's.  Returns the _Prepared or the
+        JpegError of a chunk outside the route."""
+        if self.backend == "gather":
+            try:
+                return self._prepare_gather(chunk)
+            except JpegError as e:
+                return e
+        return self._prepare_chunk_fsm(chunk)
+
     def _prepare_chunk_fsm(self, chunk: _Chunk):
         """Build a chunk's plan and stage its arrays (on the prep pool, or
         on the dispatching thread for a chunk nobody prepared), routed as
@@ -519,7 +551,7 @@ class BatchDecoder:
             res = chunk.plan_future.result()
             chunk.plan_future = None
         else:
-            res = self._prepare_chunk_fsm(chunk)
+            res = self._prepare_chunk(chunk)
         if isinstance(res, JpegError):
             return res
         self._adopt(chunk, res)
@@ -591,6 +623,31 @@ class BatchDecoder:
         chunk.err_mal = chunk.err_env = chunk.err_slot = None
         chunk.backend = ("oracle" if oracle else "host") \
             + ("-bucketed" if chunk.bucketed else "")
+
+    def _process_chunk_gather(self, chunk: _Chunk) -> None:
+        """The lockstep-lane segment decoder (ops/entropy.py) as a backend,
+        the JAX engine's `_process_chunk_gather`: the chunk's segment plan
+        (prepared on the prep pool) decodes on the device into int32 [B,
+        n_blocks, 64] with DC resolved, then the pixel stage runs on it as
+        on the host route.  Raises JpegError when a lane fails (one device
+        read): the caller raises it, or under on_error='skip' sends the
+        chunk to the host route."""
+        from ..ops import entropy
+
+        if chunk.plan is None:
+            res = self._take_prepared(chunk)
+            if isinstance(res, JpegError):
+                raise res
+        geom = chunk.geom
+        B = len(chunk.imgs)
+        coeffs, err = entropy.decode_plan(chunk.plan, self.device,
+                                          uploaded=chunk.uploaded)
+        entropy.check_lanes(err)
+        chunk.out = device_decode_fn(
+            geom, coeffs.reshape(B, geom.n_blocks, 64), chunk.quant,
+            fancy=self.fancy, exact=self.strict)
+        chunk.err_mal = chunk.err_env = chunk.err_slot = None
+        chunk.backend = "gather"
 
     def _process_chunk_cpu(self, chunk: _Chunk, isolate: bool) -> None:
         """The whole decode per image in the native library (entropy and
@@ -830,6 +887,9 @@ class BatchDecoder:
     def _process_chunk(self, chunk: _Chunk, isolate: bool) -> None:
         if self.backend == "cpu":
             self._process_chunk_cpu(chunk, isolate)
+            return
+        if self.backend == "gather":
+            self._process_chunk_gather(chunk)
             return
         if self._prefers_fsm():
             if self._process_chunk_fsm(chunk):

@@ -2,9 +2,11 @@
 one device.
 
 Counterparts of tpujpeg/runtime/fused.py: compiled_fused_decoder for a
-single-group restart plan (`decode_chunk_fused`), compiled_fused_bucketed
-for a size-class bucket chunk of mixed exact geometries
-(`decode_chunk_bucketed`) and the sync-spec tail
+single-group restart plan (`decode_chunk_fused`, with its profiling cuts
+`stop_after`), compiled_superchunk_decoder for several such plans behind
+one wide scan (`decode_superchunk`, `pack_superchunk`),
+compiled_fused_bucketed for a size-class bucket chunk of mixed exact
+geometries (`decode_chunk_bucketed`) and the sync-spec tail
 (`decode_spec_sync_fused`).  PyTorch runs eagerly, so each chain is a
 plain function; the kernels launch on the current stream back to back
 and nothing returns to the host until the caller reads a result (the
@@ -133,12 +135,55 @@ def _pixel_tail(geom: Geometry, coeffs_t: torch.Tensor, dc_lane: torch.Tensor,
     return rgb, risk, coeffs, dc
 
 
+STOPS = ("scan", "materialize", "assemble")
+
+
+def _sum32(*tensors) -> torch.Tensor:
+    """The JAX checksums' int32 sum (wraparound) of all elements: summed
+    in int64 on the device, then wrapped to int32."""
+    total = sum(torch.sum(t, dtype=torch.int64) for t in tensors)
+    total = total & 0xFFFFFFFF
+    return torch.where(total >= 1 << 31, total - (1 << 32),
+                       total).to(torch.int32)
+
+
+def _restart_tail(plan: fsm.FsmPlan, ev: torch.Tensor, err_mal: torch.Tensor,
+                  quant: torch.Tensor, geom: Geometry, pad_to: int,
+                  want_coeffs: bool, slots, route: str, fancy: bool,
+                  exact: bool, stop_after: str | None = None):
+    """A restart plan's chain after its scan: materialize its events [N,
+    L] -> DC resolve -> pixels.  Returns (rgb, risk, coeffs, dc, err_mal,
+    err_slot), or (checksum, err_mal, err_slot) at stop_after
+    "materialize" / "assemble"."""
+    L = ev.shape[1]
+    M = plan.max_blk * 64
+    coeffs_t, err_mal, err_slot = fsm.materialize_checked(
+        ev, M, err_mal, slots=slots, route=route)
+    if stop_after == "materialize":
+        return _sum32(coeffs_t), err_mal, err_slot
+    per_lane = coeffs_t.T.reshape(L, plan.max_blk, 64)
+    dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
+
+    def assemble():
+        return (_assemble_rows(per_lane, plan.layout, pad_to),  # [B, nb, 64]
+                _assemble_rows(dc_lane, plan.layout, pad_to))   # [B, nb]
+
+    if stop_after == "assemble":
+        return _sum32(*assemble()), err_mal, err_slot
+    rgb, risk, coeffs, dc = _pixel_tail(
+        geom, coeffs_t, dc_lane,
+        lambda: restart_lanes(plan.layout, L, pad_to, geom.mcus_y,
+                              geom.mcus_x, quant.device),
+        assemble, quant, want_coeffs, fancy, exact)
+    return rgb, risk, coeffs, dc, err_mal, err_slot
+
+
 def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
                        pad_to: int, steps=fsm.STEPS_PRODUCTION,
                        want_coeffs: bool = True, uploaded=None,
                        slots: bool | int | None = False,
                        route: str = "scatter", fancy: bool = False,
-                       exact: bool = False):
+                       exact: bool = False, stop_after: str | None = None):
     """Decode one restart plan on the device of `quant`.
 
     quant: int32 [pad_to, n_comp, 64] zigzag quant tables.  `uploaded` is
@@ -154,7 +199,19 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     differences, dc int32 [pad_to, n_blocks] resolved, err_mal [L],
     err_env [L], err_slot [L]); coeffs and dc are None when want_coeffs
     is False.
+
+    stop_after ("scan", "materialize" or "assemble"; a profiling cut, the
+    JAX program's): the chain stops after that stage and returns a
+    checksum that consumes the stage's whole output, the JAX program's
+    int32 sum with wraparound: (sum of the events, err_mal, err_env)
+    after the scan, (sum of the dense int16 tensor, err_mal, err_env,
+    err_slot) after materialize, (sum of the assembled [pad_to, nb, 64]
+    coefficients plus the assembled DC, err_mal, err_env, err_slot) after
+    assemble.  On 4:4:4 the full chain reads the lane matrix in place, so
+    its cut at "assemble" runs an assembly the full chain does not.
     """
+    if stop_after is not None and stop_after not in STOPS:
+        raise ValueError(f"stop_after={stop_after!r}")
     dev = quant.device
     if uploaded is None:
         uploaded = (torch.as_tensor(plan.xs).to(dev),
@@ -163,19 +220,88 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     events, err_mal, err_env = fsm.fsm_scan(xs, seg_n, plan.tables, steps)
     n_cols, S, L = events.shape
     ev = events.reshape(n_cols * S, L)
-    M = plan.max_blk * 64
-    coeffs_t, err_mal, err_slot = fsm.materialize_checked(
-        ev, M, err_mal, slots=slots, route=route)
-    per_lane = coeffs_t.T.reshape(L, plan.max_blk, 64)
-    dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, plan.max_blk)
-    rgb, risk, coeffs, dc = _pixel_tail(
-        geom, coeffs_t, dc_lane,
-        lambda: restart_lanes(plan.layout, L, pad_to, geom.mcus_y,
-                              geom.mcus_x, dev),
-        lambda: (_assemble_rows(per_lane, plan.layout, pad_to),  # [B, nb, 64]
-                 _assemble_rows(dc_lane, plan.layout, pad_to)),  # [B, nb]
-        quant, want_coeffs, fancy, exact)
+    if stop_after == "scan":
+        return _sum32(ev), err_mal, err_env
+    out = _restart_tail(plan, ev, err_mal, quant, geom, pad_to, want_coeffs,
+                        slots, route, fancy, exact, stop_after)
+    if stop_after is not None:
+        chk, err_mal, err_slot = out
+        return chk, err_mal, err_env, err_slot
+    rgb, risk, coeffs, dc, err_mal, err_slot = out
     return rgb, risk, coeffs, dc, err_mal, err_env, err_slot
+
+
+def pack_superchunk(plans: list):
+    """Concatenate N single-group plans into one wide lane matrix (host).
+
+    Every sub-plan's rows are zero-padded to the largest stride (the zero
+    columns are inert: a lane is done before them and never refills).
+    Returns (xs uint8 [Lw, stride], seg_n int32 [Lw], sub_lanes tuple)."""
+    stride = max(p.groups[0][0].shape[1] for p in plans)
+    xs_parts, sn_parts, sub_lanes = [], [], []
+    for p in plans:
+        xs, sn = p.groups[0]
+        if xs.shape[1] < stride:
+            xs = np.pad(xs, ((0, 0), (0, stride - xs.shape[1])))
+        xs_parts.append(xs)
+        sn_parts.append(sn)
+        sub_lanes.append(xs.shape[0])
+    return np.concatenate(xs_parts), np.concatenate(sn_parts), \
+        tuple(sub_lanes)
+
+
+def decode_superchunk(plans: list, quants: torch.Tensor, geom: Geometry,
+                      pad_to: int, fancy: bool = False,
+                      steps=fsm.STEPS_PRODUCTION, uploaded=None,
+                      want_coeffs: bool = True,
+                      slots: bool | int | None = False,
+                      route: str = "scatter", exact: bool = False):
+    """N single-group restart plans of one geometry and table set, ONE
+    scan: the wide-scan chain (the JAX package's
+    compiled_superchunk_decoder).
+
+    One `fsm_scan` launch walks every sub-plan's lanes (`pack_superchunk`);
+    then each sub-chunk runs decode_chunk_fused's materialize -> DC
+    resolve -> pixels on its own lane columns (copied out of the wide
+    event matrix: the materialize kernels read a contiguous [N, L]).
+    quants: int32 [n_sub, pad_to, n_comp, 64] on the device; `uploaded`
+    is pack_superchunk's (xs, seg_n) already there; slots, route, fancy
+    and exact as in decode_chunk_fused.
+
+    Returns the sub-chunks' (rgb, risk, coeffs, dc) concatenated along the
+    image axis (n_sub * pad_to images), err_mal [Lw], err_env [Lw],
+    err_slot [Lw]; risk is None when exact, coeffs and dc when want_coeffs
+    is False."""
+    for p in plans:
+        if len(p.groups) != 1:
+            raise ValueError("superchunk requires single-group plans")
+        if p.tables != plans[0].tables:
+            raise ValueError("superchunk requires one table set")
+    dev = quants.device
+    if uploaded is None:
+        xs, sn, sub_lanes = pack_superchunk(plans)
+        uploaded = (torch.as_tensor(xs).to(dev), torch.as_tensor(sn).to(dev))
+    else:
+        sub_lanes = tuple(p.groups[0][0].shape[0] for p in plans)
+    xs, seg_n = uploaded
+    events, err_mal, err_env = fsm.fsm_scan(xs, seg_n, plans[0].tables,
+                                            steps)
+    n_cols, S, Lw = events.shape
+    ev = events.reshape(n_cols * S, Lw)
+    outs = []
+    base = 0
+    for plan, Ls, quant in zip(plans, sub_lanes, quants):
+        outs.append(_restart_tail(
+            plan, ev[:, base : base + Ls].contiguous(),
+            err_mal[base : base + Ls], quant, geom, pad_to, want_coeffs,
+            slots, route, fancy, exact))
+        base += Ls
+
+    def cat(i):
+        parts = [o[i] for o in outs]
+        return None if parts[0] is None else torch.cat(parts)
+
+    return (cat(0), cat(1), cat(2), cat(3), cat(4), err_env, cat(5))
 
 
 def _pad_lanes(x: torch.Tensor, need: int) -> torch.Tensor:

@@ -46,14 +46,19 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 # C entry -> argtypes (all entries return int: a cudaError_t)
 _SIGNATURES = {
     # xs, seg_n, table, table_words, meta(host), events, err_mal, err_env,
-    # L, pitch, n_data, steps, mode, start_bits, start_bim, chunk_bits,
-    # anchors, ablk, recm, state, wrap_at, skip, stream
-    "tpj_fsm_scan": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # L, pitch, n_data, steps, bpc, mode, start_bits, start_bim,
+    # chunk_bits, anchors, ablk, recm, state, wrap_at, skip, stream
+    "tpj_fsm_scan": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # scan, n_bytes, start_bits, block_base, n_blocks, rows, n_comp, luts,
+    # n_rows, pattern, bpm, n_steps, coeffs, n_coeffs, err, L, stream
+    "tpj_decode_segments": [_P, _LL, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I,
+                            _P, _LL, _P, _I, _P],
     # ev, out, err, N, M, L, stream
     "tpj_place_events": [_P, _P, _P, _I, _I, _I, _P],
     # ev, p, o, N, L, stream
@@ -97,6 +102,7 @@ KERNELS = {
     "compact_full": "tpj_compact_full",
     "spread_full": "tpj_spread_full",
     "pixels": "tpj_pixels",
+    "decode_segments": "tpj_decode_segments",
     "gather_rows": "tpj_gather_rows",
     "gather_table": "tpj_gather_table",
     "chain": "tpj_chain",
