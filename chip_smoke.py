@@ -151,11 +151,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      restart chunk, held against the plain scan on its first 1,024 lanes
      (the plain version on the host CPU), each with its ms, bytes, bound
      and share beside (1, 2) read in the same phase; decode_segments on
-     the restart chunk's segment plan equal to the host reference
-     decoder's coefficients on every image and to its plain version on
-     the first 1,024 lanes (host CPU), with its bound (bytes: the scan,
-     lane arrays, tables and the dense int32 output; operations: ~40 a
-     symbol, counted from this run's nonzero coefficients) on both chunks;
+     the restart and spec chunks' segment plans equal to the host
+     reference decoder's coefficients on every image, and on the
+     restart chunk's first 1,024 lanes to its plain version (host CPU),
+     with its bound (bytes: the scan, lane arrays, tables and the dense
+     int32 output; operations: ~40 a symbol, counted from this run's
+     nonzero coefficients) on both chunks, its zero fill alone, the
+     deepest lane's symbol steps and their mean (counted on the host
+     from the decoded coefficients: a DC, each nonzero AC, a ZRL per 16
+     zeros before one, an EOB before z = 63), ns a deepest-lane step
+     (kernel less fill) and its latency floor (those steps x the chain
+     probe's shared-memory floor read above) with the share floor /
+     kernel;
   6f. the pipelined engine (decode streams; chunks prepared on the prep
      pool, uploaded from page-locked memory on a copy stream) on batches
      of several 128-image chunks: R, 1,024 restart streams (rst640 x 64,
@@ -330,6 +337,27 @@ def bound(nbytes: float, ops: float) -> dict:
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def segment_steps(coeffs, plan):
+    """Symbol steps of each lane of a segment plan, counted on the host
+    from its decoded coefficients (int32 [n_blocks_total, 64], zigzag):
+    per block 1 DC, 1 per nonzero AC coefficient, 1 ZRL per full 16 zeros
+    before a nonzero, and 1 EOB when the last nonzero lies before z = 63."""
+    import numpy as np
+
+    nz = coeffs[:, 1:] != 0
+    steps = 1 + nz.sum(axis=1, dtype=np.int64)
+    prev = np.zeros(len(coeffs), np.int64)
+    for z in range(1, 64):
+        hit = nz[:, z - 1]
+        steps += np.where(hit, (z - prev - 1) // 16, 0)
+        prev = np.where(hit, z, prev)
+    steps += prev < 63
+    cum = np.concatenate([[0], np.cumsum(steps)])
+    base = plan.seg_block_base.astype(np.int64)
+    live = plan.seg_n_blocks > 0
+    return (cum[base + plan.seg_n_blocks] - cum[base])[live]
 
 
 def read_streams(folder: str, count: int = 16) -> list[bytes]:
@@ -1176,16 +1204,22 @@ def main() -> int:
         del gout
         e2e = wall_runs(lambda: gdec.decode(gdatas))
         gdec.close()
-        # the device work with the plan and its bytes resident: the
-        # segment decoder (zero fill + kernel), and it with the pixel stage
+        # the device work with the plan, its bytes and its tables
+        # resident: the segment decoder (zero fill + kernel), and it with
+        # the pixel stage; apart, on the host's clock, what `decode_plan`
+        # adds at dispatch: `device_luts` finding the table set
         gplan = entropy.build_segment_plan(gimgs)
         gup = tuple(torch.as_tensor(a).to(dev)
                     for a in entropy.plan_arrays(gplan))
+        gluts = entropy.device_luts(gplan.luts, dev)
         gquant = quant_of(gimgs)
         ggeom = Geometry.of(gimgs[0])
+        lookup = wall_runs(lambda: entropy.device_luts(gplan.luts, dev), 5)
 
         def seg():
-            return entropy.decode_plan(gplan, dev, uploaded=gup)
+            return entropy.decode_segments(
+                *gup[:5], gluts, gup[5], cap=gplan.cap,
+                n_blocks_total=gplan.n_blocks_total)
 
         def chain():
             coeffs, _ = seg()
@@ -1201,11 +1235,13 @@ def main() -> int:
               f"pixels {counts['pixels']}, fsm_scan {counts['fsm_scan']}; "
               f"lanes {int((gplan.seg_n_blocks > 0).sum())} (padded "
               f"{gplan.seg_n_blocks.shape[0]}), cap {gplan.cap}; end to end "
-              f"{spread(e2e, CHUNK)}; segment decoder (plan and bytes "
-              f"resident) {k_ms[0]:.3f} ms (min {k_ms[1]:.3f}, max "
+              f"{spread(e2e, CHUNK)}; segment decoder (plan, bytes and "
+              f"tables resident) {k_ms[0]:.3f} ms (min {k_ms[1]:.3f}, max "
               f"{k_ms[2]:.3f}); with the pixel stage, exact "
-              f"{c_ms[0]:.3f} ms (min {c_ms[1]:.3f}, max {c_ms[2]:.3f}) "
-              f"[{card}]")
+              f"{c_ms[0]:.3f} ms (min {c_ms[1]:.3f}, max {c_ms[2]:.3f}); "
+              f"device_luts finding the {gplan.luts.shape[0]} tables "
+              f"(host clock) {statistics.median(lookup):.3f} ms (min "
+              f"{min(lookup):.3f}, max {max(lookup):.3f}) [{card}]")
         del gup
     print(f"phase 6g: {time.perf_counter() - t_6g:.1f} s")
 
@@ -2175,72 +2211,117 @@ def main() -> int:
            if k in ("ms", "plain_ms", "bound_ms")},
     ))
     del px_inputs, d_full, bdc_lane
-    # the segment decoder on each chunk's segment plan (phase 6g): the whole
-    # restart chunk against the host reference decoder's coefficients, and
-    # its first 1,024 lanes against the plain version on the host CPU (one
-    # vector op a step pays a launch on the card)
+    # the segment decoder on each chunk's segment plan (phase 6g), one
+    # launch a chunk at the main path's shape (32 lanes a block on the
+    # restart chunk, 1 on the spec chunk): its output against the host
+    # reference decoder's coefficients, image by image, and against the
+    # plain version on the host CPU (one vector op a step pays a launch on
+    # the card) on a slice of its lanes: the restart chunk's first 1,024,
+    # the spec chunk's shallowest lane whole; the deepest lane's symbol
+    # steps, counted on the host from the decoded coefficients, beside the
+    # kernel and its latency floor (those steps x the chain probe's
+    # shared-memory floor a dependent step)
+    shared_floor_ns = chain_r["shared"][
+        f"floor_ns_{bench_torch_gather.CHAIN_LONG}"]
     seg_rows = {}
-    for name in ("restart", "spec"):
+    seg_err = 0
+    for name, ref_coef, geom in (("restart", rcoef, rgeom),
+                                 ("spec", pcoef, Geometry.of(pimgs[0]))):
         gplan, gup, k_ms = gather_kernel[name]
         coeffs, gerr = entropy.decode_plan(gplan, dev, uploaded=gup)
         check(not bool(gerr.any()), f"decode_segments {name}: lanes failed")
         nnz = int((coeffs[:, 1:] != 0).sum())
         n_lanes = gplan.seg_n_blocks.shape[0]
+        ctab, roff = entropy.device_segment_tables(
+            entropy.device_luts(gplan.luts, dev))
         nbytes_seg = (gplan.scan.nbytes + 12 * n_lanes + gplan.rows.nbytes
-                      + gplan.luts.nbytes + gplan.pattern.nbytes
-                      + coeffs.numel() * 4 + n_lanes)
+                      + (ctab.numel() + roff.numel()) * 4
+                      + gplan.pattern.nbytes + coeffs.numel() * 4 + n_lanes)
+        fill_ms = cuda_times(lambda: torch.zeros(
+            (gplan.n_blocks_total, 64), dtype=torch.int32, device=dev))
+        host_c = coeffs.cpu().numpy()
+        host_err = gerr.cpu()
+        del coeffs, gerr
+        per_img = host_c.reshape(-1, geom.n_blocks, 64)
+        for i in range(per_img.shape[0]):
+            check(np.array_equal(per_img[i], ref_coef[i % 16]),
+                  f"decode_segments {name} chunk image {i} differs from "
+                  f"{host.backend_name()}")
+        lane_steps = segment_steps(host_c, gplan)
+        # the plain version on a slice of the launch's lanes [lo, hi), its
+        # blocks re-based to 0
+        if name == "restart":
+            lo, hi = 0, 1024
+        else:
+            lo = int(np.flatnonzero(gplan.seg_n_blocks > 0)[
+                lane_steps.argmin()])
+            hi = lo + 1
+        b0 = int(gplan.seg_block_base[lo])
+        b1 = b0 + int(gplan.seg_n_blocks[lo:hi].sum())
+        cpu_in = [a.cpu() for a in gup]
+        cpu_in[1:5] = [a[lo:hi] for a in cpu_in[1:5]]
+        cpu_in[2] = cpu_in[2] - b0
+        t0 = time.perf_counter()
+        want = entropy.decode_segments_plain(
+            *cpu_in[:5], torch.as_tensor(gplan.luts), cpu_in[5],
+            cap=gplan.cap, n_blocks_total=b1 - b0)
+        plain_s = time.perf_counter() - t0
+        seg_err = max(seg_err, equal_all(
+            (torch.as_tensor(host_c[b0:b1]), host_err[lo:hi]), want,
+            f"decode_segments {name} lanes {lo}..{hi - 1}"))
+        check(int((want[0] != 0).sum()) > 0, "decode_segments: no output")
+        del host_c, per_img, want, cpu_in
+        deep = int(lane_steps.max())
+        floor_ms = deep * shared_floor_ns / 1e6
         # ~40 32-bit operations a symbol: every nonzero AC coefficient is
         # one, each block a DC and at most one EOB
         seg_rows[name] = dict(
-            ms=k_ms, nnz=nnz,
+            ms=k_ms, nnz=nnz, fill_ms=fill_ms, deepest_steps=deep,
+            plain_lanes=(lo, hi), plain_s=plain_s,
+            mean_steps=float(lane_steps.mean()),
+            ns_per_step=(k_ms[0] - fill_ms[0]) / deep * 1e6,
+            latency_floor_ms=floor_ms,
             **bound(nbytes_seg, 40 * (nnz + 2 * gplan.n_blocks_total)))
-        if name == "restart":
-            host_c = coeffs.reshape(-1, rgeom.n_blocks, 64).cpu().numpy()
-            for i in range(host_c.shape[0]):
-                check(np.array_equal(host_c[i], rcoef[i % 16]),
-                      f"decode_segments image {i} differs from "
-                      f"{host.backend_name()}")
-            del host_c
-            n_sub = 1024
-            sub_up = list(gup)
-            sub_up[1:5] = [a[:n_sub] for a in gup[1:5]]
-            got = entropy.decode_segments(
-                *sub_up[:5], entropy.device_luts(gplan.luts, dev), sub_up[5],
-                cap=gplan.cap, n_blocks_total=gplan.n_blocks_total)
-            cpu_in = [a.cpu() for a in sub_up]
-            t0 = time.perf_counter()
-            want = entropy.decode_segments_plain(
-                *cpu_in[:5], torch.as_tensor(gplan.luts), cpu_in[5],
-                cap=gplan.cap, n_blocks_total=gplan.n_blocks_total)
-            seg_plain_ms = (time.perf_counter() - t0) * 1e3
-            seg_err = equal_all(tuple(t.cpu() for t in got), want,
-                                "decode_segments")
-            check(int((want[0] != 0).sum()) > 0, "decode_segments: no output")
-            del got, want, cpu_in
-        del coeffs
     for name, r in seg_rows.items():
         ms, lo, hi = r["ms"]
-        held = (f"equal to {host.backend_name()} on every image and to the "
-                f"plain version on the first 1024 lanes (plain on the host "
-                f"CPU {seg_plain_ms:.1f} ms); " if name == "restart" else "")
+        a, b = r["plain_lanes"]
+        held = (f"; on lanes {a}..{b - 1} to the plain version on the host "
+                f"CPU, {r['plain_s']:.1f} s")
         print(f"phase 7: decode_segments on the {name} chunk's segment plan "
-              f"({held}{r['nnz']} nonzero AC coefficients): {ms:.4f} ms (min "
-              f"{lo:.4f}, max {hi:.4f}) with its zero fill, "
-              f"{r['bound_bytes']} bytes, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}, share {r['bound_ms'] / ms:.4f} [{card}]")
-    main_seg = seg_rows["restart"]
+              f"(equal to {host.backend_name()} on every image{held}; "
+              f"{r['nnz']} nonzero AC coefficients): {ms:.4f} ms (min "
+              f"{lo:.4f}, max {hi:.4f}) with its zero fill (the fill alone "
+              f"{r['fill_ms'][0]:.4f} ms, min {r['fill_ms'][1]:.4f}, max "
+              f"{r['fill_ms'][2]:.4f}), {r['bound_bytes']} bytes, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share "
+              f"{r['bound_ms'] / ms:.4f}; deepest lane {r['deepest_steps']} "
+              f"symbol steps (mean {r['mean_steps']:.1f}), "
+              f"{r['ns_per_step']:.2f} ns a deepest-lane step (kernel less "
+              f"fill); latency floor {r['deepest_steps']} x "
+              f"{shared_floor_ns:.2f} ns = {r['latency_floor_ms']:.4f} ms, "
+              f"share floor / kernel {r['latency_floor_ms'] / ms:.4f} "
+              f"[{card}]")
+    main_seg, spec_seg = seg_rows["restart"], seg_rows["spec"]
     rows.append(dict(
         name="decode_segments", route="cuda",
         source="tpujpeg_torch/csrc/segments.cu",
         replaces="tpujpeg/ops/entropy.py:315",
         launches=totals["decode_segments"],
         launches_per_chunk=per_chunk("decode_segments"),
-        max_abs_err=seg_err, ms=main_seg["ms"][0], plain_ms=seg_plain_ms,
+        max_abs_err=seg_err, ms=main_seg["ms"][0],
+        plain_ms=main_seg["plain_s"] * 1e3,
         **{k: main_seg[k] for k in ("bound_ms", "bound_by", "bound_bytes",
                                     "bound_ops")},
         library_ms=None, plain_lanes=1024, plain_device="cpu",
-        ms_spec_chunk=seg_rows["spec"]["ms"][0],
-        bound_ms_spec_chunk=seg_rows["spec"]["bound_ms"],
+        plain_lanes_spec_chunk=1,
+        plain_ms_spec_chunk=spec_seg["plain_s"] * 1e3,
+        **{f"{k}_{n}": r[k] for n, r in seg_rows.items()
+           for k in ("deepest_steps", "mean_steps", "ns_per_step",
+                     "latency_floor_ms")},
+        fill_ms=main_seg["fill_ms"][0],
+        ms_spec_chunk=spec_seg["ms"][0], fill_ms_spec_chunk=spec_seg[
+            "fill_ms"][0],
+        bound_ms_spec_chunk=spec_seg["bound_ms"],
     ))
     del gather_kernel
     for r in rows:

@@ -12,11 +12,17 @@ Same numpy inputs on both sides; every comparison is exact (`==`):
     that leaves lanes undone;
   * the engine's backend "gather" == the JAX engine's, outputs and
     counters, with on_error="skip" on a bad stream, and decode_batch.
+  * the kernel's compact tables (segment_tables) == luts on every 16-bit
+    peek of every Huffman table of every stream in tests/fixtures, and of
+    random tables, through segment_table_lookup (the kernel's lookup);
+    device_luts keeps them beside its tensor, once per table set
+    (device_segment_tables).
 The CUDA kernel is held against decode_segments_plain by
 tests/test_torch_kernels.py on a card.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -215,3 +221,69 @@ def test_gather_backend_skip_sends_a_bad_chunk_to_the_host_like_jax():
     with pytest.raises(JpegError, match="device entropy decode failed"):
         dec.decode_parsed(imgs)
     dec.close()
+
+
+FIXTURES = os.path.dirname(fixture_path(GOLDEN[0]))
+TABLE_SETS = ["goldens", "rst640", "photo640", "rst640_420", "photo640_420",
+              "mixed_rst", "mixed_rst_420", "sampling_small", "rst640_opt"]
+
+
+def _assert_tables_exact(luts: np.ndarray):
+    lt = torch.as_tensor(luts)
+    ctab, roff = tent.segment_tables(lt)
+    n = luts.shape[0]
+    assert roff.dtype == torch.int32 and roff.shape == (n + 1,)
+    assert int(roff[-1]) == ctab.numel() and not bool((roff % 64).any())
+    row = torch.arange(n).repeat_interleave(tent.LUT_SIZE)
+    peek = torch.arange(tent.LUT_SIZE).repeat(n)
+    got = tent.segment_table_lookup(ctab, roff, row, peek)
+    want = lt.reshape(-1).to(torch.int64)
+    assert torch.equal(got & 0x1FFF, want)
+    assert torch.equal((got >> 13) & 31, (want >> 8) + (want & 15))
+    assert not bool((got >> 18).any())
+
+
+@pytest.mark.parametrize("folder", TABLE_SETS)
+def test_segment_tables_equal_luts_on_every_peek(folder):
+    # every distinct table of the folder's scans (the JAX plans' luts), as
+    # the rows of one luts array
+    where = FIXTURES if folder == "goldens" else os.path.join(FIXTURES, folder)
+    rows = {}
+    for name in sorted(os.listdir(where)):
+        if name.endswith(".jpg"):
+            luts = jent.build_segment_plan(
+                [parse_file(os.path.join(where, name))]).luts
+            rows.update((r.tobytes(), r) for r in luts)
+    assert rows
+    _assert_tables_exact(np.stack(list(rows.values())))
+
+
+def test_segment_tables_exact_on_random_luts():
+    # entries of random lengths (0..16) and symbols: most 10-bit prefixes
+    # are mixed, some rows are uniform stretches
+    rng = np.random.default_rng(15)
+    length = rng.integers(0, 17, (3, 1024, 1)).repeat(64, 2)
+    length[0, :, 32:] = rng.integers(0, 17, (1024, 32))
+    sym = rng.integers(0, 256, (3, 1024, 64))
+    sym[2] = sym[2, :, :1]
+    _assert_tables_exact(((length << 8) | sym).reshape(3, -1).astype(np.int32))
+
+
+def test_device_segment_tables_cached_per_tensor():
+    # device_luts keeps the kernel's tables beside its tensor, once per
+    # table set; a luts tensor from elsewhere gets them derived anew
+    plan = tent.build_segment_plan(_port_imgs(CASES["rst3"]()))
+    tent._lut_cache.clear()
+    luts = tent.device_luts(plan.luts, "cpu")
+    first = tent.device_segment_tables(luts)
+    assert tent.device_segment_tables(luts) is first
+    assert all(torch.equal(a, b)
+               for a, b in zip(first, tent.segment_tables(luts)))
+    again = tent.build_segment_plan(_port_imgs(CASES["rst3"]()))
+    assert tent.device_segment_tables(
+        tent.device_luts(again.luts, "cpu")) is first
+    other = luts.clone()
+    fresh = tent.device_segment_tables(other)
+    assert fresh is not first and tent.device_segment_tables(other) \
+        is not fresh
+    assert all(torch.equal(a, b) for a, b in zip(fresh, first))

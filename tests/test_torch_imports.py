@@ -121,7 +121,7 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
                                   "bench_torch_gather",
                                   "bench_torch_materialize",
                                   "bench_torch_scan", "bench_torch_batches",
-                                  "diff_torch_sass"])
+                                  "bench_torch_segments", "diff_torch_sass"])
 def test_tools_import_neither_jax_nor_the_jax_package(tool):
     import os
 

@@ -36,10 +36,16 @@ tables on both sides of the warp-per-row limit, index views that start
 multi-byte columns ((2, 3), (2, 4), (4, 7)) on malformed lanes, on a
 column prefix of no whole number of columns and in pad mode; the segment
 decoder (`decode_segments`) on restart lanes, malformed, truncated and
-step-capped lanes, a lane count that is no multiple of 32, and one lane
-a stream without restart markers; and the gather route end to end.
+step-capped lanes, a lane count that is no multiple of 32, one lane a
+stream without restart markers, 17,920 lanes (32 a block), 128 table
+rows in one block, lanes of three table sets in a shuffled order, a scan
+3 bytes into its storage, and scans cut 4 bytes past a lane's bytes or
+40 bytes inside them (the peek's clamp at n_bytes - 4), at 41 lanes and
+at 4,160 lanes with the cut lane inside a block of 32, and one malformed
+lane inside a block of 32; and the gather route end to end.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -1275,13 +1281,22 @@ def test_fsm_scan_refuses_multi_byte_speculative_on_the_card(cuda, imgs):
 
 
 def _segment_case(case):
+    """(plan, arrays, cap) of a SEGMENT_CASES case: `arrays` are
+    plan_arrays(plan), cut or rewritten for the case (the plan's luts may
+    be rewritten too)."""
     from tpujpeg_torch.ops import entropy
 
-    if case in ("restart", "malformed", "short_cap", "lanes_37"):
+    if case in ("restart", "malformed", "short_cap", "lanes_37",
+                "misaligned") or case.startswith("cut_"):
         names = ["00.jpg", "02.jpg"]
         use = [parse_file(os.path.join(CORPUS, n)) for n in names]
         if case == "malformed":
             use[1] = _malformed(use[1])
+    elif case in ("wide", "many_rows", "mixed_tables") \
+            or case.startswith("wide_"):
+        # 17,920 lanes: enough that the kernel puts 32 lanes in a block
+        use = [parse_file(os.path.join(CORPUS, f"{i:02d}.jpg"))
+               for i in range(16)] * 14
     elif case == "truncated":
         img = parse_file(os.path.join(CORPUS, "03.jpg"))
         img.scan_data = img.scan_data[: img.scan_data.size // 4].copy()
@@ -1292,27 +1307,89 @@ def _segment_case(case):
         use = [parse_file(os.path.join(SMALL, case))]
     plan = entropy.build_segment_plan(use)
     arrays = list(entropy.plan_arrays(plan))
+    n_rows = plan.luts.shape[0]
     if case == "lanes_37":
         # a lane count that is no multiple of the 32-thread block
         arrays[1:5] = [a[:37] for a in arrays[1:5]]
+    elif case.startswith("cut_"):
+        # lanes 0..40, the scan cut 4 bytes past lane 40's own bytes (its
+        # last peeks come within 17 bits of the clamp at n_bytes - 4), or
+        # 40 bytes inside them (it walks past the clamp)
+        arrays[1:5] = [a[:41] for a in arrays[1:5]]
+        end = int(plan.seg_start_bits[41]) // 8
+        arrays[0] = arrays[0][: end + 4 if case == "cut_plus_4" else end - 40]
+    elif case.startswith("wide_cut_"):
+        # lanes 0..4159 (4,160 on the H100's 132 SMs: still 32 lanes a
+        # block), the scan cut 4 bytes past lane 4159's own bytes or 40
+        # inside them, and lane 4159 moved to slot 16 of block 64: its
+        # tail walks to the clamp between lanes that decode as usual
+        n = WIDE_CUT_LANES
+        end = int(plan.seg_start_bits[n]) // 8
+        arrays[0] = arrays[0][: end + 4 if case == "wide_cut_plus_4"
+                              else end - 40]
+        order = np.arange(n)
+        order[[WIDE_MID, n - 1]] = order[[n - 1, WIDE_MID]]
+        arrays[1:5] = [a[:n][order] for a in arrays[1:5]]
+    elif case == "wide_malformed":
+        # every byte of lane 8,016 (slot 16 of block 250) 0xFF: no
+        # Huffman code matches, that lane alone latches err
+        lane = 250 * 32 + WIDE_MID % 32
+        lo = int(plan.seg_start_bits[lane]) // 8
+        hi = int(plan.seg_start_bits[lane + 1]) // 8
+        arrays[0] = arrays[0].copy()
+        arrays[0][lo:hi] = 0xFF
+    elif case == "many_rows":
+        # lane i reads copy i % 64 of the tables: 128 rows in one block,
+        # most of them past what the block stages
+        plan = dataclasses.replace(plan, luts=np.tile(plan.luts, (64, 1)))
+        arrays[4] = arrays[4] + (np.arange(arrays[4].shape[0]) % 64
+                                 * n_rows)[:, None, None].astype(np.int32)
+    elif case == "mixed_tables":
+        # the lanes in a shuffled order, each on one of three copies of
+        # the tables at random: every warp mixes table sets
+        rng = np.random.default_rng(15)
+        perm = rng.permutation(arrays[1].shape[0])
+        arrays[1:5] = [a[perm] for a in arrays[1:5]]
+        plan = dataclasses.replace(plan, luts=np.tile(plan.luts, (3, 1)))
+        copy = rng.integers(0, 3, arrays[4].shape[0])
+        arrays[4] = arrays[4] + (copy * n_rows)[:, None, None].astype(
+            np.int32)
     cap = 300 if case == "short_cap" else plan.cap
     return plan, arrays, cap
 
 
+def _segment_inputs(case, device):
+    """The case's tensors on `device` (the scan of "misaligned" 3 bytes
+    into its storage), its plan and cap."""
+    from tpujpeg_torch.ops import entropy
+
+    plan, arrays, cap = _segment_case(case)
+    t = [torch.as_tensor(np.ascontiguousarray(a)).to(device) for a in arrays]
+    if case == "misaligned":
+        buf = torch.zeros(t[0].numel() + 3, dtype=torch.uint8, device=device)
+        buf[3:] = t[0]
+        t[0] = buf[3:]
+    return plan, t, entropy.device_luts(plan.luts, device), cap
+
+
+WIDE_CUT_LANES, WIDE_MID = 4160, 64 * 32 + 16
 SEGMENT_CASES = ["restart", "malformed", "truncated", "short_cap", "lanes_37",
-                 "gray.jpg", "411_rst.jpg"]
+                 "gray.jpg", "411_rst.jpg", "wide", "many_rows",
+                 "mixed_tables", "misaligned", "cut_plus_4", "cut_inside",
+                 "wide_cut_plus_4", "wide_cut_inside", "wide_malformed"]
+# cases whose coefficients equal another case's
+SAME_AS = {"many_rows": "wide", "mixed_tables": "wide",
+           "misaligned": "restart"}
 
 
 @pytest.mark.parametrize("case", SEGMENT_CASES)
 def test_decode_segments_kernel_equals_plain(cuda, case):
     from tpujpeg_torch.ops import entropy
 
-    plan, arrays, cap = _segment_case(case)
-    host = [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
-    scan, sb, bb, nb, rows, pattern = (t.to(cuda) for t in host)
-    luts = entropy.device_luts(plan.luts, cuda)
-    got = entropy.decode_segments(scan, sb, bb, nb, rows, luts, pattern,
-                                  cap=cap, n_blocks_total=plan.n_blocks_total)
+    plan, dev_in, luts, cap = _segment_inputs(case, cuda)
+    got = entropy.decode_segments(*dev_in[:5], luts, dev_in[5], cap=cap,
+                                  n_blocks_total=plan.n_blocks_total)
+    host = [t.cpu() for t in dev_in]
     want = entropy.decode_segments_plain(
         *host[:5], torch.as_tensor(plan.luts), host[5], cap=cap,
         n_blocks_total=plan.n_blocks_total)
@@ -1320,8 +1397,14 @@ def test_decode_segments_kernel_equals_plain(cuda, case):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g.cpu(), w)
-    fails = case in ("malformed", "truncated", "short_cap")
+    fails = case in ("malformed", "truncated", "short_cap",
+                     "wide_malformed")
     assert bool(got[1].any()) == fails
+    if case in SAME_AS:
+        rplan, r_in, rluts, rcap = _segment_inputs(SAME_AS[case], cuda)
+        ref = entropy.decode_segments(*r_in[:5], rluts, r_in[5], cap=rcap,
+                                      n_blocks_total=rplan.n_blocks_total)
+        assert torch.equal(got[0], ref[0]) and not bool(ref[1].any())
 
 
 def test_gather_backend_on_the_card(cuda):

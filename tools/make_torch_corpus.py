@@ -16,6 +16,14 @@ And sixteen photo mosaics of mixed sizes for the size-bucketed path:
     101 x 101 MCU size-class bucket), 4:4:4, quality 90, a restart marker
     every MCU row (the row-aligned intervals the bucket plan needs).
 
+The restart corpus once more with tables optimised for each image:
+
+  * tests/fixtures/rst640_opt/NN.jpg: the 640x640 images, 4:4:4,
+    quality 90, a restart marker every MCU row, Huffman tables optimised
+    per image (OpenCV's IMWRITE_JPEG_OPTIMIZE): four tables of its own
+    per stream, the traffic on which the gather route derives its
+    kernel's tables for every new table set (`write_optimized`).
+
 The same three corpora once more with 4:2:0 chroma (16 x 16 px MCUs):
 
   * tests/fixtures/rst640_420/NN.jpg: the 640x640 images, a restart
@@ -48,6 +56,7 @@ ROOT = os.path.dirname(HERE)
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 SIZE, QUALITY, N_SEEDS = 640, 90, 16
 CORPORA = {"rst640": 1, "photo640": 0}   # directory -> restart rows
+OPTIMIZED = "rst640_opt"
 MIXED, MIXED_SEED, MIXED_LO, MIXED_HI = "mixed_rst", 2024, 624, 800
 SMALL, SMALL_W, SMALL_H, SMALL_SEED = "sampling_small", 200, 152, 7
 
@@ -82,6 +91,26 @@ def encode_sampled(arr, quality: int, sampling: str, rst_rows: int) -> bytes:
     return enc.tobytes()
 
 
+def write_optimized(arrs) -> None:
+    """tests/fixtures/rst640_opt: `arrs` with a restart marker every MCU
+    row and Huffman tables optimised per image."""
+    import cv2
+
+    out = os.path.join(FIXTURES, OPTIMIZED)
+    total = 0
+    for seed, arr in enumerate(arrs):
+        ok, enc = cv2.imencode(".jpg", arr[:, :, ::-1], [
+            cv2.IMWRITE_JPEG_QUALITY, QUALITY,
+            cv2.IMWRITE_JPEG_RST_INTERVAL, -(-arr.shape[1] // 8),
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+            cv2.IMWRITE_JPEG_OPTIMIZE, 1])
+        assert ok
+        total += _write(out, f"{seed:02d}.jpg", enc.tobytes())
+    print(f"wrote {N_SEEDS} streams with optimised tables, {total} bytes, "
+          f"to {out}")
+
+
 def _write(folder: str, name: str, data: bytes) -> int:
     os.makedirs(folder, exist_ok=True)
     with open(os.path.join(folder, name), "wb") as f:
@@ -104,6 +133,7 @@ def main() -> None:
                 f.write(data)
             total += len(data)
         print(f"wrote {N_SEEDS} streams, {total} bytes, to {out}")
+    write_optimized(arrs)
 
     import numpy as np
 

@@ -11,11 +11,13 @@ zero-filled int32 [n_blocks_total, 64] tensor in zigzag order.
 
 The host half (LUT_BITS, SegmentPlan, build_segment_plan) is a numpy copy
 of the JAX package's and field-equal to it.  `decode_segments` runs
-kernel csrc/segments.cu on CUDA tensors (one thread a lane, the tables
-read from L2) and `decode_segments_plain`, the JAX step function as
-vector ops over lanes, on CPU tensors.  The TPU design's step-major emit
-buffers and final scatter are a TPU workaround and are not carried over:
-both versions write in place.
+kernel csrc/segments.cu on CUDA tensors (one thread a lane, the bits in a
+register, `luts` in two levels in shared memory: `segment_tables`,
+derived on the host once per table set by `device_luts`) and
+`decode_segments_plain`, the JAX step function as vector ops over lanes,
+on CPU tensors.  The TPU design's step-major emit buffers and final
+scatter are a TPU workaround and are not carried over: both versions
+write in place.
 
 Contract, bit for bit with the JAX decode_segments (its error edges
 included): the 16-bit peek clamps its byte index at n_bytes - 4; a code
@@ -41,6 +43,8 @@ from ..io.parser import JpegImage
 LUT_BITS = 16
 LUT_SIZE = 1 << LUT_BITS
 _STEP_CHUNK = 256   # the JAX scan's chunk of steps (its `K`)
+SEG_L1_BITS = 10    # the kernel's first level: the top bits of the peek
+SEG_SUB = 1 << (LUT_BITS - SEG_L1_BITS)
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +202,9 @@ def decode_segments(scan: torch.Tensor, seg_start_bits: torch.Tensor,
     Returns (coeffs int32 [n_blocks_total, 64] in zigzag order with DC
     DPCM resolved, err bool [L]: lanes that hit an invalid code or ran out
     of steps).  CUDA tensors run kernel "decode_segments"
-    (csrc/segments.cu); CPU tensors run `decode_segments_plain`.
+    (csrc/segments.cu, on `device_segment_tables(luts)`: the tables
+    `device_luts` keeps, else derived on the card for this call); CPU
+    tensors run `decode_segments_plain`.
     """
     if not scan.is_cuda:
         return decode_segments_plain(
@@ -227,13 +233,14 @@ def decode_segments(scan: torch.Tensor, seg_start_bits: torch.Tensor,
     err = torch.empty(L, dtype=torch.bool, device=dev)
     if L == 0:
         return coeffs, err
+    ctab, roff = device_segment_tables(luts)
     kernels.launch(
         "decode_segments",
         scan.data_ptr(), scan.numel(), seg_start_bits.data_ptr(),
         seg_block_base.data_ptr(), seg_n_blocks.data_ptr(), rows.data_ptr(),
-        n_comp, luts.data_ptr(), luts.shape[0], pattern.data_ptr(), bpm,
-        _n_steps(cap), coeffs.data_ptr(), coeffs.numel(), err.data_ptr(), L,
-        kernels.current_stream(dev),
+        n_comp, ctab.data_ptr(), roff.data_ptr(), luts.shape[0],
+        pattern.data_ptr(), bpm, _n_steps(cap), coeffs.data_ptr(),
+        coeffs.numel(), err.data_ptr(), L, kernels.current_stream(dev),
     )
     return coeffs, err
 
@@ -321,6 +328,68 @@ def decode_segments_plain(scan: torch.Tensor, seg_start_bits: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The kernel's tables
+# ---------------------------------------------------------------------------
+
+
+def _packed(e: torch.Tensor) -> torch.Tensor:
+    """luts entries (length << 8) | symbol with length + (symbol & 15), the
+    bits the entry consumes with its magnitude bits, at bit 13."""
+    return e | (((e >> 8) + (e & 15)) << 13)
+
+
+def segment_tables(luts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`luts` in two levels, as csrc/segments.cu reads them, on luts' device.
+
+    Returns (ctab int32 [words], roff int32 [n_rows + 1]): row r is
+    ctab[roff[r]:roff[r + 1]], a first level of 1,024 words keyed on the
+    top SEG_L1_BITS bits of the 16-bit peek, then one second level of 64
+    words for each such prefix whose 64 peeks do not all share one luts
+    entry (in prefix order), keyed on the low 6 bits.  An entry is
+    `_packed` luts; a first level word of a mixed prefix is bit 31 | its
+    second level's offset from the row.  Exact by construction for any
+    luts whose entries have length <= 16 (`segment_table_lookup`).
+
+    `device_luts` runs it on the host once per table set.  On a CUDA
+    tensor it reads the table size and the mixed prefixes back to the
+    host (two waits on the stream)."""
+    dev = luts.device
+    n = luts.shape[0]
+    e = luts.reshape(n, 1 << SEG_L1_BITS, SEG_SUB)
+    mixed = (e != e[:, :, :1]).any(dim=2)
+    count = mixed.to(torch.int32)
+    rank = torch.cumsum(count, dim=1, dtype=torch.int32) - count
+    words = (1 << SEG_L1_BITS) + SEG_SUB * count.sum(dim=1)
+    roff = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    roff[1:] = torch.cumsum(words, dim=0)
+    sub_off = (1 << SEG_L1_BITS) + SEG_SUB * rank
+    l1 = torch.where(mixed, sub_off | torch.iinfo(torch.int32).min,
+                     _packed(e[:, :, 0]))
+    ctab = torch.empty(int(roff[-1]), dtype=torch.int32, device=dev)
+    q = torch.arange(1 << SEG_L1_BITS, device=dev)
+    ctab[(roff[:-1, None] + q).reshape(-1)] = l1.reshape(-1)
+    r, qm = mixed.nonzero(as_tuple=True)
+    at = roff[r] + sub_off[r, qm]
+    j = torch.arange(SEG_SUB, device=dev)
+    ctab[(at[:, None] + j).reshape(-1)] = _packed(e[r, qm]).reshape(-1)
+    return ctab, roff.to(torch.int32)
+
+
+def segment_table_lookup(ctab: torch.Tensor, roff: torch.Tensor,
+                         row: torch.Tensor,
+                         peek: torch.Tensor) -> torch.Tensor:
+    """Plain lookup in `segment_tables`, as the kernel does it: the entry of
+    table `row` at the 16-bit `peek`, elementwise."""
+    i64 = torch.int64
+    base = roff.to(i64)[row.to(i64)]
+    peek = peek.to(i64)
+    e = ctab[base + (peek >> (LUT_BITS - SEG_L1_BITS))].to(i64)
+    long = e < 0
+    sub = ctab[torch.where(long, base + (e & 0x7FFFFFFF) + (peek & 63), 0)]
+    return torch.where(long, sub.to(i64), e)
+
+
+# ---------------------------------------------------------------------------
 # Plans on a device
 # ---------------------------------------------------------------------------
 
@@ -329,15 +398,28 @@ _lut_cache: dict = {}
 
 def device_luts(luts: np.ndarray, device) -> torch.Tensor:
     """A plan's `luts` on `device`, cached per table set (keyed on the
-    tables' bytes: a batch of one encoder's streams uploads them once)."""
+    tables' bytes: a batch of one encoder's streams uploads them once).
+    The entry keeps the kernel's `segment_tables` beside them, derived
+    on the host and uploaded with them (`device_segment_tables`)."""
     key = (luts.tobytes(), luts.shape, str(device))
-    t = _lut_cache.get(key)
-    if t is None:
-        t = torch.as_tensor(luts).to(device)
+    hit = _lut_cache.get(key)
+    if hit is None:
+        host = torch.as_tensor(luts)
+        hit = (host.to(device),
+               tuple(t.to(device) for t in segment_tables(host)))
         if len(_lut_cache) >= 16:
             _lut_cache.clear()
-        _lut_cache[key] = t
-    return t
+        _lut_cache[key] = hit
+    return hit[0]
+
+
+def device_segment_tables(luts: torch.Tensor) -> tuple:
+    """The kernel's tables for `luts`: those `device_luts` keeps beside it
+    when `luts` came from there, else `segment_tables(luts)` anew."""
+    for t, tables in _lut_cache.values():
+        if t is luts:
+            return tables
+    return segment_tables(luts)
 
 
 def plan_arrays(plan: SegmentPlan) -> tuple:

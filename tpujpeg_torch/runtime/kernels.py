@@ -55,10 +55,10 @@ _SIGNATURES = {
     # chunk_bits, anchors, ablk, recm, state, wrap_at, skip, stream
     "tpj_fsm_scan": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # scan, n_bytes, start_bits, block_base, n_blocks, rows, n_comp, luts,
-    # n_rows, pattern, bpm, n_steps, coeffs, n_coeffs, err, L, stream
-    "tpj_decode_segments": [_P, _LL, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I,
-                            _P, _LL, _P, _I, _P],
+    # scan, n_bytes, start_bits, block_base, n_blocks, rows, n_comp, ctab,
+    # roff, n_rows, pattern, bpm, n_steps, coeffs, n_coeffs, err, L, stream
+    "tpj_decode_segments": [_P, _LL, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I,
+                            _I, _P, _LL, _P, _I, _P],
     # ev, out, err, N, M, L, stream
     "tpj_place_events": [_P, _P, _P, _I, _I, _I, _P],
     # ev, p, o, N, L, stream
