@@ -192,6 +192,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      masks) and, on four images, to the host reference; with the bytes
      resident the superchunk against the four calls, and the wide scan
      alone against four 10,240-lane scans;
+  6i. several devices (tpujpeg_torch/parallel): one card, so every mesh
+     names cuda:0 two or eight times and its shards run in turn (no
+     reading here is one of scaling).  The batch-sharded pixel stage
+     (sharding.compiled_batch_decoder, exact colour) of the 128-image
+     restart chunk's coefficients over two shards equals
+     device_decode_fn on one device, pixels launched once a shard, no
+     transfer between shards, total 128 x 640 x 640, both timed;
+     BatchDecoder(mesh=) on the two-shard mesh over the restart chunk
+     (the staged chain: fsm_scan, place_events; and backend "gather":
+     decode_segments, no scan), the spec chunk (the
+     staged single-pass decode on the classic scatter, no slot kernel)
+     and the mixed chunk (host-bucketed, no scan), each output equal to
+     the host reference its one-device phase holds, pixels launched
+     twice, end to end cold and warm; tools/validate_torch_huge.py's decode_striped of the
+     committed 8192 x 8192 4:2:0 stream on 8 stripes, box and fancy,
+     equal to host.decode_cpu, with 0 and 28 halo copies and 8 gathers;
+     two processes (this script with --dist-worker, gloo over
+     localhost, both on cuda:0) decode their round-robin shards of the
+     16 rst640 streams, equal to the host reference, and
+     allreduce_metrics sums 16 images and the streams' bytes; where
+     there are two cards, the batch-sharded decode again on cuda:0 and
+     cuda:1 (else a line says why it was skipped);
   7b. exact colour over all 134,217,728 triples of [-256, 255]^3 on the
      card, Y slab by Y slab, against the oracle's ycbcr_to_rgb_exact in
      numpy: the pixel kernel's exact mode (DC-only blocks whose samples
@@ -210,7 +232,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      checksums held to the scan's events and the full chain's assembled
      coefficients) and whole.
 
-Each path of phases 2-6h runs with the launch counts set to 0 just before
+Each path of phases 2-6i runs with the launch counts set to 0 just before
 it and read just after, and fails if a kernel it must run was not
 launched; every engine of phases 2-6c reports 0 repaired pixels.  The second-to-last line is a JSON object with one entry per
 kernel (launches summed over those paths, and per 128-image chunk of
@@ -1312,6 +1334,13 @@ def main() -> int:
     print(f"phase 6h: {time.perf_counter() - t_6h:.1f} s")
     torch.cuda.empty_cache()
 
+    # ---- phase 6i: several devices (parallel/sharding.py, distributed.py)
+    t_6i = time.perf_counter()
+    phase_several_devices(run_path, by_path, card, datas, refs, pdatas,
+                          prefs, mdatas, mrefs, rimgs, rgeom, rquant)
+    print(f"phase 6i: {time.perf_counter() - t_6i:.1f} s")
+    torch.cuda.empty_cache()
+
     # ---- phase 7: kernels against their plain versions, real inputs
     rows = []
     chunk_paths = {"restart": "phase 2", "spec": "phase 3"}
@@ -1325,7 +1354,16 @@ def main() -> int:
                         "gather restart": "phase 6g restart",
                         "gather spec": "phase 6g spec",
                         "superchunk of 4 chunks": "phase 6h superchunk",
-                        "4 chunks apart": "phase 6h four chunks"})
+                        "4 chunks apart": "phase 6h four chunks",
+                        "batch-sharded restart, 2 shards":
+                            "phase 6i batch-sharded",
+                        "mesh engine restart, 2 shards":
+                            "phase 6i mesh restart",
+                        "mesh engine gather, 2 shards":
+                            "phase 6i mesh gather",
+                        "mesh engine spec, 2 shards": "phase 6i mesh spec",
+                        "mesh engine mixed, 2 shards":
+                            "phase 6i mesh mixed"})
 
     def per_chunk(kernel: str) -> dict:
         """Launches of `kernel` per 128-image chunk of each path."""
@@ -2681,6 +2719,201 @@ def main() -> int:
     return 0
 
 
+def phase_several_devices(run_path, by_path, card, datas, refs, pdatas,
+                          prefs, mdatas, mrefs, rimgs, rgeom, rquant):
+    """Phase 6i (module docstring): the batch-sharded pixel stage, the
+    engine on a mesh, the stripe-sharded huge image, two processes, and
+    distinct cards where there are two.  A mesh of [cuda:0] * k runs its
+    shards one after the other on one card: its times say nothing of
+    scaling."""
+    import numpy as np
+    import torch
+
+    from tpujpeg_torch import pipeline
+    from tpujpeg_torch.ops import fsm
+    from tpujpeg_torch.parallel import sharding
+    from tpujpeg_torch.runtime.batch import BatchDecoder
+
+    dev0 = torch.device("cuda:0")
+    mesh2 = sharding.make_mesh(2, devices=[dev0] * 2)
+    one_card = "[cuda:0] x 2: one card, shards in turn"
+
+    # the restart chunk's coefficients, DC resolved: [128, 19200, 64]
+    splan = fsm.build_plan(rimgs, split=False)
+    per_lane, _ = fsm.decode_plan(splan, device=dev0)
+    coeffs = fsm.assemble_batched(per_lane, layout=splan.layout,
+                                  pad_to=CHUNK)
+    del per_lane
+    want, _ = pipeline.device_decode_fn(rgeom, coeffs, rquant, exact=True)
+
+    def sharded_restart(mesh, path):
+        fn = sharding.compiled_batch_decoder(rgeom, mesh, exact=True)
+        sharding.reset_transfers()
+        rgb, risk, total = run_path(path, lambda: fn(coeffs, rquant),
+                                    need=("pixels",))
+        n = mesh.shape["batch"]
+        check(by_path[path]["pixels"] == n,
+              f"{path}: pixels launched {by_path[path]['pixels']} times, "
+              f"not once per shard ({n})")
+        check(sharding.TRANSFERS == {"halo": 0, "gather": 0},
+              f"{path}: transfers between shards {sharding.TRANSFERS}")
+        check(total == CHUNK * rgeom.width * rgeom.height,
+              f"{path}: total {total}")
+        check(risk is None and len(rgb) == n, f"{path}: outputs")
+        per = CHUNK // n
+        for i, (shard, d) in enumerate(zip(rgb, mesh.devices[:, 0])):
+            check(shard.device == d, f"{path}: shard {i} on {shard.device}")
+            check(torch.equal(shard.to(dev0), want[i * per:(i + 1) * per]),
+                  f"{path}: shard {i} != the one-device decode")
+        return fn
+
+    fn = sharded_restart(mesh2, "phase 6i batch-sharded")
+    one_ms = cuda_times(lambda: pipeline.device_decode_fn(
+        rgeom, coeffs, rquant, exact=True))
+    two_ms = cuda_times(lambda: fn(coeffs, rquant))
+    print(f"phase 6i: batch-sharded pixel stage of the 128-image restart "
+          f"chunk over 2 shards == device_decode_fn on one device, pixels "
+          f"launched once a shard, 0 transfers between shards, total "
+          f"{CHUNK * rgeom.width * rgeom.height} pixels; exact colour from "
+          f"[128, 19200, 64]: one device {one_ms[0]:.3f} ms (min "
+          f"{one_ms[1]:.3f}, max {one_ms[2]:.3f}), 2 shards "
+          f"{two_ms[0]:.3f} ms (min {two_ms[1]:.3f}, max {two_ms[2]:.3f}) "
+          f"({one_card}) [{card}]")
+
+    # the engine on the two-shard mesh: the JAX engine's routes for a mesh
+    engine = [
+        ("restart", datas, refs, {}, "fsm",
+         dict(need=("fsm_scan", "place_events", "pixels"))),
+        ("gather", datas, refs, {"backend": "gather"}, "gather",
+         dict(need=("decode_segments", "pixels"), never=("fsm_scan",))),
+        ("spec", pdatas, prefs, {}, "fsm-spec-sync",
+         dict(need=("fsm_scan", "place_events", "pixels"),
+              never=SLOT_KERNELS)),
+        ("mixed", mdatas, mrefs, {"size_buckets": True}, "host-bucketed",
+         dict(need=("pixels",), never=("fsm_scan",))),
+    ]
+    for name, data, want_h, kw, backend, kernels_of in engine:
+        path = f"phase 6i mesh {name}"
+        mdec = BatchDecoder(**{"backend": "fsm", **kw}, chunk_size=CHUNK,
+                            strict=True, mesh=mesh2)
+        out = run_path(path, lambda: mdec.decode(data), **kernels_of)
+        st = mdec.stats
+        mdec.decode(data)      # warm: the link probe and slot sample done
+        warm_s = mdec.stats.total_s
+        mdec.close()
+        check(by_path[path]["pixels"] == 2,
+              f"{path}: pixels launched {by_path[path]['pixels']} times")
+        check(st.backend == backend, f"{path}: backend {st.backend}")
+        check(st.chunks == 1 and st.fsm_malformed_fallbacks == 0
+              and st.fsm_envelope_fallbacks == 0, f"{path}: {st.as_dict()}")
+        for i, got in enumerate(out):
+            check(got is not None and np.array_equal(got, want_h[i % 16]),
+                  f"{path}: output {i} differs from the host reference")
+        print(f"phase 6i: BatchDecoder(mesh=2 shards) on the {name} chunk: "
+              f"backend {st.backend}, {CHUNK} outputs == the one-device "
+              f"phase's reference, launches {json.dumps(by_path[path])}; "
+              f"end to end {st.total_s * 1e3:.1f} ms, warm "
+              f"{warm_s * 1e3:.1f} ms ({one_card}) [{card}]")
+
+    # the stripe-sharded huge image (tools/validate_torch_huge.py)
+    import validate_torch_huge
+
+    rec = validate_torch_huge.validate(stripes=8, repeats=1)
+    check(rec["exact"], f"striped decode differs: {json.dumps(rec)}")
+    check(rec["box_transfers"] == {"halo": 0, "gather": 8}
+          and rec["fancy_transfers"] == {"halo": 2 * 2 * 7, "gather": 8},
+          f"striped transfers {rec['box_transfers']}, "
+          f"{rec['fancy_transfers']}")
+    where = "distinct cards" if rec["distinct_cards"] \
+        else "cuda:0 x 8: one card, stripes in turn"
+    print(f"phase 6i: decode_striped of the 8192 x 8192 4:2:0 stream on 8 "
+          f"stripes ({where}) == host.decode_cpu, box and fancy: "
+          f"{json.dumps(rec)}")
+
+    # two processes over gloo on localhost, both on cuda:0
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", str(r),
+         f"127.0.0.1:{port}"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    lines = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"dist worker {r} failed "
+              f"(exit {p.returncode}):\n{out[-4000:]}")
+        lines.append(json.loads([ln for ln in out.splitlines()
+                                 if ln.startswith('{"rank"')][-1]))
+    stream_bytes = sum(len(d) for d in read_streams(RST))
+    for r, w in enumerate(lines):
+        check(w["rank"] == r and w["world"] == 2 and w["exact"],
+              f"dist worker {r}: {w}")
+        check(w["totals"] == {"bytes": float(stream_bytes), "images": 16.0},
+              f"dist worker {r}: totals {w['totals']}")
+    check(sorted(lines[0]["mine"] + lines[1]["mine"]) == list(range(16))
+          and not set(lines[0]["mine"]) & set(lines[1]["mine"]),
+          "dist workers' shards are not disjoint and covering")
+    print(f"phase 6i: two processes (gloo, localhost, both on cuda:0): "
+          f"shards {lines[0]['mine']} and {lines[1]['mine']} of the 16 "
+          f"rst640 streams, each == the host reference, summed metrics "
+          f"{json.dumps(lines[0]['totals'])}; decode ms per process "
+          f"{[w['decode_ms'] for w in lines]} [{card}]")
+
+    if torch.cuda.device_count() >= 2:
+        mesh_d = sharding.make_mesh(2, devices=["cuda:0", "cuda:1"])
+        sharded_restart(mesh_d, "phase 6i distinct cards")
+        print(f"phase 6i: batch-sharded restart chunk on cuda:0 and cuda:1 "
+              f"== one device, pixels once a shard [{card}]")
+    else:
+        print(f"phase 6i: distinct cards skipped: "
+              f"{torch.cuda.device_count()} card on this machine (the "
+              f"batch-sharded decode on cuda:0 and cuda:1 needs two)")
+
+
+def dist_worker(rank: int, addr: str) -> int:
+    """One of phase 6i's two processes: join the gloo group at `addr`,
+    decode this rank's round-robin shard of the 16 rst640 streams on
+    cuda:0, hold it == the host reference, sum the metrics; print one
+    JSON line."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch.distributed
+
+    from tpujpeg_torch.io.parser import parse
+    from tpujpeg_torch.parallel import distributed as dist
+    from tpujpeg_torch.runtime import host
+    from tpujpeg_torch.runtime.batch import BatchDecoder
+
+    dist.initialize(coordinator_address=addr, num_processes=2,
+                    process_id=rank, initialization_timeout=120)
+    streams = read_streams(RST)
+    mine = dist.shard_list(list(range(16)))
+    datas = [streams[i] for i in mine]
+    dec = BatchDecoder(backend="fsm", chunk_size=len(datas), device="cuda:0")
+    t0 = time.perf_counter()
+    out = dec.decode(datas)
+    ms = (time.perf_counter() - t0) * 1e3
+    dec.close()
+    exact = all(np.array_equal(g, host.decode_cpu(parse(d)))
+                for g, d in zip(out, datas))
+    totals = dist.allreduce_metrics(
+        {"images": len(datas), "bytes": float(sum(map(len, datas)))})
+    rank_world = dist.process_info()
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"rank": rank_world[0], "world": rank_world[1],
+                      "mine": mine, "exact": exact, "totals": totals,
+                      "decode_ms": ms}))
+    return 0 if exact else 1
+
+
 def fsm_chunk_stub(imgs):
     """The two fields BatchDecoder._slot_capacity reads of a chunk."""
     from types import SimpleNamespace
@@ -2689,4 +2922,6 @@ def fsm_chunk_stub(imgs):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

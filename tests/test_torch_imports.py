@@ -75,8 +75,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "tpujpeg_torch.ops.entropy" in mods
     assert "tpujpeg_torch.cli" in mods
     assert "tpujpeg_torch.utils.profiling" in mods
+    assert "tpujpeg_torch.parallel.sharding" in mods
+    assert "tpujpeg_torch.parallel.distributed" in mods
     data = make_jpeg_rst(shape=(16, 24), rst_interval=3, seed=3)
     data420 = make_jpeg(shape=(16, 32), subsampling=2, seed=3)
+    tall420 = make_jpeg(shape=(32, 16), subsampling=2, seed=3)
     out = _run_isolated(f"""
         import importlib, sys
         import tpujpeg_torch
@@ -97,12 +100,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         cli.main(["info", {fixture_path(GOLDEN[2])!r}])
         with profiling.StageTimer().stage("x"):
             pass
+        from tpujpeg_torch.parallel import distributed, sharding
+        striped = sharding.decode_striped(
+            tpujpeg_torch.parse({tall420!r}), fancy=True,
+            mesh=sharding.make_mesh(1, 2, devices=["cpu"] * 2))
+        print("striped", striped.shape, distributed.process_info())
     """)
     assert _foreign(out) == "FOREIGN []", out
     assert "fsm (16, 24, 3) uint8" in out and "(120, 120, 3)" in out
     assert "fsm 420 (16, 32, 3)" in out and "host 420 (16, 32, 3)" in out
     assert "gather (16, 24, 3) uint8" in out
     assert "gather 420 (16, 32, 3)" in out
+    assert "striped (32, 16, 3) (0, 1)" in out
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -121,7 +130,8 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
                                   "bench_torch_gather",
                                   "bench_torch_materialize",
                                   "bench_torch_scan", "bench_torch_batches",
-                                  "bench_torch_segments", "diff_torch_sass"])
+                                  "bench_torch_segments", "diff_torch_sass",
+                                  "validate_torch_huge"])
 def test_tools_import_neither_jax_nor_the_jax_package(tool):
     import os
 
@@ -249,6 +259,13 @@ def test_oracle_upsampling_equal(subsampling, fancy):
     got = toracle.decode(tparser.parse(data), fancy=fancy)
     want = joracle.decode(jparser.parse(data), fancy=fancy)
     np.testing.assert_array_equal(got, want)
+
+
+def test_oracle_decode_file_equal():
+    path = fixture_path("8_401x363")
+    got = toracle.decode_file(path)
+    assert got.dtype == np.int32 and got.shape == (363, 401, 3)
+    np.testing.assert_array_equal(got, joracle.decode_file(path))
 
 
 def test_parse_errors_are_the_ports_own():

@@ -42,7 +42,12 @@ rows in one block, lanes of three table sets in a shuffled order, a scan
 3 bytes into its storage, and scans cut 4 bytes past a lane's bytes or
 40 bytes inside them (the peek's clamp at n_bytes - 4), at 41 lanes and
 at 4,160 lanes with the cut lane inside a block of 32, and one malformed
-lane inside a block of 32; and the gather route end to end.
+lane inside a block of 32; and the gather route end to end.  The
+batch-sharded pixel stage (parallel/sharding.compiled_batch_decoder) and
+the engine on a two-shard mesh, each against one device: on one card
+named twice, and on cuda:0 and cuda:1 (skipped below two cards: the
+wrappers make each tensor's device current around its launch, which
+only distinct cards can show).
 """
 
 import dataclasses
@@ -1424,3 +1429,68 @@ def test_gather_backend_on_the_card(cuda):
     for g, p in zip(got, paths):
         assert np.array_equal(g, host.decode_cpu(parse_file(p)))
     dec.close()
+
+
+MESHES = {"one_card": ["cuda:0", "cuda:0"], "two_cards": ["cuda:0", "cuda:1"]}
+
+
+def _mesh_devices(name):
+    """The two shards' devices; the distinct-card case needs two cards."""
+    if torch.cuda.device_count() < len(set(MESHES[name])):
+        pytest.skip("needs two CUDA cards: the shards on distinct cards")
+    return MESHES[name]
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_batch_sharded_pixels_equal_one_device(cuda, name):
+    from tpujpeg_torch import pipeline
+    from tpujpeg_torch.parallel import sharding
+    from tpujpeg_torch.runtime import host, kernels
+
+    devices = _mesh_devices(name)
+    imgs = [parse_file(os.path.join(CORPUS, f"{i:02d}.jpg"))
+            for i in range(4)]
+    geom = Geometry.of(imgs[0])
+    coeffs = torch.as_tensor(np.stack(
+        [host.entropy_decode(im) for im in imgs])).to(cuda)
+    quant = torch.as_tensor(np.stack([np.stack(
+        [im.quant_tables[c.quant_id] for c in im.components])
+        for im in imgs]).astype(np.int32)).to(cuda)
+    want, _ = pipeline.device_decode_fn(geom, coeffs, quant, exact=True)
+    fn = sharding.compiled_batch_decoder(
+        geom, sharding.make_mesh(2, devices=devices), exact=True)
+    sharding.reset_transfers()
+    kernels.reset_launches()
+    rgb, risk, total = fn(coeffs, quant)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pixels"] == 2           # once a shard
+    assert sharding.TRANSFERS == {"halo": 0, "gather": 0}
+    assert risk is None and total == 4 * geom.width * geom.height
+    for i, (shard, d) in enumerate(zip(rgb, devices)):
+        assert shard.device == torch.device(d)
+        assert torch.equal(shard.to(cuda), want[2 * i:2 * i + 2])
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_engine_on_a_two_shard_mesh(cuda, name):
+    from tpujpeg_torch.parallel import sharding
+    from tpujpeg_torch.runtime import host, kernels
+    from tpujpeg_torch.runtime.batch import BatchDecoder
+
+    devices = _mesh_devices(name)
+    paths = [os.path.join(CORPUS, f"{i:02d}.jpg") for i in range(3)]
+    datas = [open(p, "rb").read() for p in paths]
+    dec = BatchDecoder(backend="fsm", chunk_size=4,
+                       mesh=sharding.make_mesh(2, devices=devices))
+    kernels.reset_launches()
+    got = dec.decode(datas)
+    dec.close()
+    # the staged restart chain, then the pixel stage once a shard (three
+    # images padded to four)
+    assert dec.stats.backend == "fsm" and dec.device == torch.device(
+        devices[0])
+    assert kernels.LAUNCHES["fsm_scan"] >= 1
+    assert kernels.LAUNCHES["place_events"] >= 1
+    assert kernels.LAUNCHES["pixels"] == 2
+    for g, p in zip(got, paths):
+        assert np.array_equal(g, host.decode_cpu(parse_file(p)))

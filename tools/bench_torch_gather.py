@@ -250,12 +250,11 @@ def launch_path_us(dev) -> dict:
     i1 = torch.zeros(N, dtype=torch.int32, device=dev)
     i1l = i1.long()
     out = torch.empty_like(i)
-    stream = kernels.current_stream(t.device)
     blocks, group = probes.gather_rows_geometry(
         R, T, K, probes.sm_count(t.device.index))
     lib = kernels.library()
     args = (t.data_ptr(), i.data_ptr(), out.data_ptr(), R, T, K, blocks,
-            group, stream)
+            group)
 
     def checks():
         kernels.check_cuda_tensor("t", t, torch.int32, 2)
@@ -269,7 +268,7 @@ def launch_path_us(dev) -> dict:
         "current_stream": lambda: kernels.current_stream(t.device),
         "library": kernels.library,
         "entry_lookup": lambda: getattr(lib, kernels.KERNELS["gather_rows"]),
-        "launch": lambda: kernels.launch("gather_rows", *args),
+        "launch": lambda: kernels.launch("gather_rows", t.device, *args),
         "wrapper": lambda: probes.gather_rows(t, i),
         "torch.gather": lambda: torch.gather(t, 1, il),
         "gather_table wrapper": lambda: probes.gather_table(t1, i1),

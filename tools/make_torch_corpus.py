@@ -40,6 +40,14 @@ sampling, for the routes that the 4:2:0 chunks do not reach:
     4:4:0, 4:1:1 and grayscale with a restart marker every MCU row, and
     gray.jpg: grayscale without restart markers.
 
+And one huge stream for the stripe-sharded decode:
+
+  * tests/fixtures/huge8192_420.jpg: tools/validate_huge.py's image (a
+    smooth gradient in each channel) at 8192 x 8192, 4:2:0, quality 40
+    (PIL, subsampling=2, no restart markers), about 1.07 MB; 512 MCU rows,
+    so it splits into 8 stripes of 64 (`write_huge`).  The JAX tool's
+    16384 x 16384 default is 7.4 MB even at 4:4:4 and is not committed.
+
 The machine that runs chip_smoke.py has no JPEG encoder, so the streams
 ship as files.
 
@@ -59,6 +67,7 @@ CORPORA = {"rst640": 1, "photo640": 0}   # directory -> restart rows
 OPTIMIZED = "rst640_opt"
 MIXED, MIXED_SEED, MIXED_LO, MIXED_HI = "mixed_rst", 2024, 624, 800
 SMALL, SMALL_W, SMALL_H, SMALL_SEED = "sampling_small", 200, 152, 7
+HUGE, HUGE_SIZE, HUGE_QUALITY = "huge8192_420.jpg", 8192, 40
 
 
 def encode_sampled(arr, quality: int, sampling: str, rst_rows: int) -> bytes:
@@ -109,6 +118,27 @@ def write_optimized(arrs) -> None:
         total += _write(out, f"{seed:02d}.jpg", enc.tobytes())
     print(f"wrote {N_SEEDS} streams with optimised tables, {total} bytes, "
           f"to {out}")
+
+
+def write_huge() -> None:
+    """tests/fixtures/huge8192_420.jpg: tools/validate_huge.py's recipe
+    (its lines 55-66) at HUGE_SIZE, 4:2:0."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    n = HUGE_SIZE
+    yy = np.linspace(0, 255, n, dtype=np.float32)
+    xx = np.linspace(0, 255, n, dtype=np.float32)
+    base = (yy[:, None] * 0.5 + xx[None, :] * 0.5).astype(np.uint8)
+    arr = np.stack([base, base[::-1], base.T[:, ::-1]], axis=-1)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG", quality=HUGE_QUALITY,
+                              subsampling=2)
+    size = _write(FIXTURES, HUGE, buf.getvalue())
+    print(f"wrote {n}x{n} 4:2:0, {size} bytes, to "
+          f"{os.path.join(FIXTURES, HUGE)}")
 
 
 def _write(folder: str, name: str, data: bytes) -> int:
@@ -176,6 +206,7 @@ def main() -> None:
                         encode_sampled(small, QUALITY, sampling, 1))
     total += _write(out, "gray.jpg", encode_sampled(small, QUALITY, "gray", 0))
     print(f"wrote 5 small streams, {total} bytes, to {out}")
+    write_huge()
 
 
 if __name__ == "__main__":

@@ -79,7 +79,7 @@ def decode_batch(datas, backend: str = "fsm", **kwargs):
 
     Thin wrapper over runtime.batch.BatchDecoder (keyword arguments go to
     its constructor: workers, chunk_size, strict, device, size_buckets,
-    materialize_route, fancy).  strict=True, the default, computes colour
+    materialize_route, fancy, mesh).  strict=True, the default, computes colour
     exactly on the device (bit-exact with the reference decoder);
     strict=False is the f32 colour of the JAX engine's strict=False.
     The images of one chunk may share one buffer

@@ -235,12 +235,12 @@ def decode_segments(scan: torch.Tensor, seg_start_bits: torch.Tensor,
         return coeffs, err
     ctab, roff = device_segment_tables(luts)
     kernels.launch(
-        "decode_segments",
+        "decode_segments", dev,
         scan.data_ptr(), scan.numel(), seg_start_bits.data_ptr(),
         seg_block_base.data_ptr(), seg_n_blocks.data_ptr(), rows.data_ptr(),
         n_comp, ctab.data_ptr(), roff.data_ptr(), luts.shape[0],
         pattern.data_ptr(), bpm, _n_steps(cap), coeffs.data_ptr(),
-        coeffs.numel(), err.data_ptr(), L, kernels.current_stream(dev),
+        coeffs.numel(), err.data_ptr(), L,
     )
     return coeffs, err
 

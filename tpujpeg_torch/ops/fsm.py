@@ -743,13 +743,13 @@ def _scan_cuda(xs, seg_n_blocks, tables, steps, mode, start_bits=None,
         return None if t is None else t.data_ptr()
 
     kernels.launch(
-        "fsm_scan",
+        "fsm_scan", dev,
         xs.data_ptr(), seg_n_blocks.data_ptr(), table.data_ptr(),
         table.numel(), meta.ctypes.data, ptr(events), err_mal.data_ptr(),
         err_env.data_ptr(), L, pitch, n_data, k, bpc, mode,
         ptr(start_bits), ptr(start_bim), ptr(chunk_bits),
         ptr(anchors), ptr(ablk), ptr(recm), ptr(state),
-        ptr(wrap_at), ptr(skip), kernels.current_stream(dev),
+        ptr(wrap_at), ptr(skip),
     )
     blk, end_bits, end_bim, rec_last = state if spec else (None,) * 4
     return ScanOut(events, anchors, ablk, recm, err_mal, err_env,
@@ -1658,9 +1658,9 @@ def decode_speculative_sync(imgs: list[JpegImage], chunk_bytes: int = 1024,
                             plan: SpecBatchPlan | None = None, xs_dev=None,
                             steps=STEPS_PRODUCTION,
                             pending: SpecSyncPending | None = None,
-                            device=None):
+                            device=None, route: str = "scatter"):
     """Single-pass speculative batch decode, staged: start, resolve, the
-    tail on the classic materialize.  Returns (coeffs int32 [pad_to, nb,
+    tail on the classic materialize (by `route`, materialize_events).  Returns (coeffs int32 [pad_to, nb,
     64] DC resolved, (err, all-False)) on the device, like
     decode_speculative_batch(device_out=True); device_out=False returns
     per-image host int32 [n_blocks, 64] and raises SpecSyncMiss where a
@@ -1678,7 +1678,7 @@ def decode_speculative_sync(imgs: list[JpegImage], chunk_bytes: int = 1024,
         pending.ev1, pending.anchors, pending.ablk, pending.recm,
         pending.ev2, pending.end2, pending.b1, pending.blk2,
         torch.as_tensor(quotas).to(pending.ev1.device), plan.tables,
-        pad_to or len(imgs), nb, len(imgs), cap_w, slots=False,
+        pad_to or len(imgs), nb, len(imgs), cap_w, slots=False, route=route,
     )
     coeffs = coeffs16.to(torch.int32)
     coeffs[:, :, 0] = dc

@@ -117,10 +117,10 @@ def place_events(ev: torch.Tensor, M: int,
             raise ValueError("place_events: err_mal must be [L]")
     out = torch.empty((M, L), dtype=torch.int16, device=ev.device)
     kernels.launch(
-        "place_events",
+        "place_events", ev.device,
         ev.data_ptr(), out.data_ptr(),
         None if err_mal is None else err_mal.data_ptr(),
-        N, M, L, kernels.current_stream(ev.device),
+        N, M, L,
     )
     return out
 
@@ -243,8 +243,8 @@ def compact_to_rank(ev: torch.Tensor, rank_kernel: bool = True,
     p = torch.empty((N, L), dtype=torch.int32, device=ev.device)
     o = torch.empty((N, L), dtype=torch.int16, device=ev.device)
     if p.numel():
-        kernels.launch("compact", ev.data_ptr(), p.data_ptr(),
-                       o.data_ptr(), N, L, kernels.current_stream(ev.device))
+        kernels.launch("compact", ev.device, ev.data_ptr(), p.data_ptr(),
+                       o.data_ptr(), N, L)
     return p, o
 
 
@@ -341,10 +341,9 @@ def compact_offsets(p: torch.Tensor, o: torch.Tensor, mask: int = -1,
     p_out = torch.empty_like(p)
     o_out = torch.empty_like(o)
     if p_out.numel():
-        kernels.launch(counted_as, p.data_ptr(), o.data_ptr(),
+        kernels.launch(counted_as, p.device, p.data_ptr(), o.data_ptr(),
                        p_out.data_ptr(), o_out.data_ptr(), Np, L, mask,
-                       None if direct is None else direct.data_ptr(),
-                       kernels.current_stream(p.device))
+                       None if direct is None else direct.data_ptr())
     return p_out, o_out
 
 
@@ -375,8 +374,8 @@ def compact_full(ev: torch.Tensor) -> torch.Tensor:
     N, L = ev.shape
     cp = torch.empty_like(ev)
     if cp.numel():
-        kernels.launch("compact_full", ev.data_ptr(), cp.data_ptr(), N, L,
-                       kernels.current_stream(ev.device))
+        kernels.launch("compact_full", ev.device, ev.data_ptr(),
+                       cp.data_ptr(), N, L)
     return cp
 
 
@@ -433,10 +432,10 @@ def spread_full(cp: torch.Tensor, M: int, o: torch.Tensor | None = None,
             raise ValueError("spread_full: err_mal must be [L]")
     out = torch.empty((M, L), dtype=torch.int16, device=cp.device)
     kernels.launch(
-        counted_as, cp.data_ptr(),
+        counted_as, cp.device, cp.data_ptr(),
         None if o is None else o.data_ptr(), out.data_ptr(),
         None if err_mal is None else err_mal.data_ptr(),
-        N, M, L, kernels.current_stream(cp.device),
+        N, M, L,
     )
     return out
 
@@ -504,9 +503,8 @@ def slot_unpack(p: torch.Tensor, o: torch.Tensor, C: int, G: int):
     Np, L = p.shape
     o2 = torch.empty((Np, L), dtype=torch.int16, device=p.device)
     ovf = torch.empty(L, dtype=torch.bool, device=p.device)
-    kernels.launch("slot_unpack", p.data_ptr(), o.data_ptr(), o2.data_ptr(),
-                   ovf.data_ptr(), Np, L, C, _log2(G),
-                   kernels.current_stream(p.device))
+    kernels.launch("slot_unpack", p.device, p.data_ptr(), o.data_ptr(),
+                   o2.data_ptr(), ovf.data_ptr(), Np, L, C, _log2(G))
     return o2, ovf
 
 
@@ -552,9 +550,8 @@ def slot_expand(o2: torch.Tensor, p: torch.Tensor, M: int, C: int,
     if Np > INT16_SPAN:
         raise ValueError(f"slot_expand: {Np} rows exceed the int16 offsets")
     out = torch.empty((M, L), dtype=torch.int16, device=o2.device)
-    kernels.launch("slot_expand", o2.data_ptr(), p.data_ptr(),
-                   out.data_ptr(), Np, M, L, _log2(C), _log2(G),
-                   kernels.current_stream(o2.device))
+    kernels.launch("slot_expand", o2.device, o2.data_ptr(), p.data_ptr(),
+                   out.data_ptr(), Np, M, L, _log2(C), _log2(G))
     return out
 
 

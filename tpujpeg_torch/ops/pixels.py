@@ -278,7 +278,7 @@ def rgb_444(geom, coeffs: torch.Tensor, lanes: LaneTable,
     risk = None if exact else torch.empty(
         (B, H, (W + 7) // 8), dtype=torch.uint8, device=coeffs.device)
     kernels.launch(
-        "pixels",
+        "pixels", coeffs.device,
         coeffs.data_ptr(), quant.data_ptr(),
         None if dc is None else dc.data_ptr(), table.data_ptr(),
         None if extents is None else extents.data_ptr(),
@@ -287,7 +287,6 @@ def rgb_444(geom, coeffs: torch.Tensor, lanes: LaneTable,
         0 if dc is None or not lane_layout else dc.shape[1],
         H, W, geom.mcus_x, int(lane_layout), int(exact),
         KERNEL_CONSTS.ctypes.data, EXACT_CONSTS.ctypes.data,
-        kernels.current_stream(coeffs.device),
     )
     return rgb, risk
 

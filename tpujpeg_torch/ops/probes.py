@@ -110,9 +110,8 @@ def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     blocks, group = gather_rows_geometry(R, T, K, sm_count(t.device.index))
     out = torch.empty_like(idx)
     if blocks:
-        kernels.launch("gather_rows", t.data_ptr(), idx.data_ptr(),
-                       out.data_ptr(), R, T, K, blocks, group,
-                       kernels.current_stream(t.device))
+        kernels.launch("gather_rows", t.device, t.data_ptr(),
+                       idx.data_ptr(), out.data_ptr(), R, T, K, blocks, group)
     return out
 
 
@@ -139,9 +138,8 @@ def gather_table(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     blocks = gather_table_blocks(N, sm_count(t.device.index))
     out = torch.empty_like(idx)
     if blocks:
-        kernels.launch("gather_table", t.data_ptr(), idx.data_ptr(),
-                       out.data_ptr(), T, N, blocks,
-                       kernels.current_stream(t.device))
+        kernels.launch("gather_table", t.device, t.data_ptr(),
+                       idx.data_ptr(), out.data_ptr(), T, N, blocks)
     return out
 
 
@@ -200,9 +198,8 @@ def chain(t: torch.Tensor, seed: torch.Tensor, steps: int,
         raise ValueError(f"chain: {T} entries exceed shared memory")
     magic, l = (0, 0) if T & (T - 1) == 0 else chain_reciprocal(T)
     out = torch.empty(1, dtype=torch.int32, device=t.device)
-    kernels.launch("chain", flat.data_ptr(), seed.data_ptr(), out.data_ptr(),
-                   T, steps, CHAIN_SOURCES[source], magic, l,
-                   kernels.current_stream(t.device))
+    kernels.launch("chain", t.device, flat.data_ptr(), seed.data_ptr(),
+                   out.data_ptr(), T, steps, CHAIN_SOURCES[source], magic, l)
     return out
 
 

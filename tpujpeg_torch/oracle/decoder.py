@@ -460,3 +460,10 @@ def decode(img: JpegImage, fancy: bool = False) -> np.ndarray:
         rgb = ycbcr_to_rgb_exact(yp, cbp, crp)
     return rgb
 
+
+
+def decode_file(path: str) -> np.ndarray:
+    """Decode the JPEG file at `path` (`decode`, box upsampling)."""
+    from ..io.parser import parse_file
+
+    return decode(parse_file(path))

@@ -92,7 +92,18 @@ decode_parsed(fetch=False) and decode(fetch=False) run every chunk
 through the ladder and its one-read fence, synchronize the device and
 return None: no RGB leaves the card.
 
-Not ported yet: several cards (ROADMAP.md, queue 1 "Modules to port").
+Several devices (mesh=, parallel/sharding.py): entropy decode and
+staging run on the mesh's first device, and the pixel stage is sharded
+over the mesh's batch axis (sharding.compiled_batch_decoder), each
+shard's output left on its device until `_finish` fetches it.  On a mesh
+of more than one device the routes change as in the JAX engine: a
+restart chunk leaves the fused chain for the staged one (scan and
+place_events per group, assemble, sharded pixels), a bucketed fsm chunk
+takes the host-bucketed route, a speculative chunk runs the staged
+single-pass decode (fsm.decode_speculative_sync, the classic
+materialize) or the Jacobi path, then sharded pixels; the host, oracle
+and gather routes shard their pixel stage.  B is padded to a multiple of
+the batch axis (`_pad`).  mesh=None is a one-device mesh of `device`.
 """
 
 from __future__ import annotations
@@ -107,6 +118,7 @@ import torch
 
 from ..errors import JpegError
 from ..io.parser import JpegImage, parse
+from ..parallel import sharding
 from ..pipeline import (Geometry, bucket_geometry, device_decode_fn,
                         pad_coeffs_to_bucket)
 
@@ -250,6 +262,25 @@ def _pack_fence(rgb, err_mal, err_env, err_slot=None) -> torch.Tensor:
     return torch.stack(flags)
 
 
+def _fetch(rgb, n: int) -> np.ndarray:
+    """A chunk's first n images as uint8 [n, H, W, 3] on the host.
+
+    Device rgb is planar [B, 3, H, W], one tensor or a list of batch
+    shards (a mesh).  One tensor is interleaved on the device and fetched
+    in one transfer; shards are each interleaved on their device and
+    copied into their rows of one host buffer."""
+    if not isinstance(rgb, list):
+        return rgb[:n].permute(0, 2, 3, 1).contiguous().cpu().numpy()
+    per, _, H, W = rgb[0].shape
+    out = np.empty((n, H, W, 3), np.uint8)
+    for i, shard in enumerate(rgb):
+        lo, hi = i * per, min((i + 1) * per, n)
+        if hi > lo:
+            torch.from_numpy(out[lo:hi]).copy_(
+                shard[: hi - lo].permute(0, 2, 3, 1))
+    return out
+
+
 class _Upload:
     """One prepared chunk's arrays on their way to the device.
 
@@ -356,15 +387,31 @@ class _Window:
             self.t_ent += time.perf_counter() - t0
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two device names can mean one device ("cuda" is cuda:i for
+    every i)."""
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
 class BatchDecoder:
-    """Reusable batched decoder on one explicit device."""
+    """Reusable batched decoder on one explicit device or a mesh."""
 
     def __init__(self, backend: str = "fsm", workers: int | None = None,
                  chunk_size: int = 32, strict: bool = True, device="cuda",
                  size_buckets: bool = False,
-                 materialize_route: str = "scatter", fancy: bool = False):
+                 materialize_route: str = "scatter", fancy: bool = False,
+                 mesh: sharding.Mesh | None = None):
         """backend: "fsm" (the default: the card), "gather", "host",
-        "oracle", "cpu" or "auto" (module docstring).  workers: the thread
+        "oracle", "cpu" or "auto" (module docstring).  device: where
+        entropy decode, staging and (without a mesh) the pixel stage run.
+        mesh (parallel/sharding.make_mesh): the pixel stage sharded over
+        its batch axis; `device` is then the mesh's first device, and a
+        `device` other than the default "cuda" that names another
+        raises.
+        mesh=None is a one-device mesh of `device` (JAX's default takes
+        every device: mesh=make_mesh() does that).  Backend "cpu" takes
+        no mesh (one given is not used).  workers: the thread
         pool's size; backend "cpu" defaults to one single-threaded decode per
         core.  fancy=True upsamples subsampled chroma with libjpeg's
         triangle filter on every route (box replication otherwise; no
@@ -390,7 +437,18 @@ class BatchDecoder:
         self.fancy = fancy
         self.chunk_size = chunk_size
         self.strict = strict
-        self.device = torch.device(device)
+        if mesh is None:
+            self.device = torch.device(device)
+            mesh = sharding.make_mesh(1, devices=[self.device])
+        else:
+            self.device = mesh.devices.flat[0]
+            if device != "cuda" and not _same_device(torch.device(device),
+                                                     self.device):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {self.device}")
+        self.mesh = None if backend == "cpu" else mesh
+        # more than one device: the JAX engine's routes for a mesh
+        self._multi = self.mesh is not None and self.mesh.devices.size > 1
         if workers is None and backend == "cpu":
             # one single-threaded native decode per core
             workers = os.cpu_count() or 4
@@ -446,10 +504,36 @@ class BatchDecoder:
                                      bucketed=self.size_buckets))
         return chunks
 
-    @staticmethod
-    def _quant_host(chunk: _Chunk) -> np.ndarray:
-        quant = np.zeros((len(chunk.imgs), len(chunk.geom.comps), 64),
-                         np.int32)
+    def _pad(self, n: int) -> int:
+        """A chunk's batch of n images padded to a multiple of the mesh's
+        batch axis (the JAX engine's _pad_batch pads chunk_size; the
+        port pads the images the chunk has).  n on one device."""
+        nb = 1 if self.mesh is None else self.mesh.shape["batch"]
+        return -(-n // nb) * nb
+
+    def _pixels(self, geom: Geometry, coeffs: torch.Tensor,
+                quant: torch.Tensor, extents: torch.Tensor | None = None):
+        """The pixel stage of a chunk of B = `_pad` images: on one device
+        device_decode_fn on self.device (rgb one tensor), on a mesh of
+        several sharded over its batch axis (rgb a list of shards, each
+        on its device).  Host tensors go to each shard's device
+        directly."""
+        if not self._multi:
+            return device_decode_fn(
+                geom, coeffs.to(self.device), quant.to(self.device),
+                fancy=self.fancy, exact=self.strict,
+                extents=None if extents is None else extents.to(self.device))
+        fn = sharding.compiled_batch_decoder(
+            geom, self.mesh, self.fancy, bucketed=extents is not None,
+            exact=self.strict)
+        rgb, risk, _ = fn(coeffs, quant, extents)
+        return rgb, risk
+
+    def _quant_host(self, chunk: _Chunk) -> np.ndarray:
+        """int32 [B, n_comp, 64] quant tables, B = `_pad` of the chunk's
+        images; padding rows are zero."""
+        quant = np.zeros((self._pad(len(chunk.imgs)), len(chunk.geom.comps),
+                          64), np.int32)
         for bi, img in enumerate(chunk.imgs):
             quant[bi] = np.stack(
                 [img.quant_tables[comp.quant_id] for comp in img.components]
@@ -535,6 +619,9 @@ class BatchDecoder:
         exception propagates through the future to the caller."""
         try:
             if chunk.bucketed:
+                if self._multi:
+                    raise JpegError("fsm-bucketed: the fused bucket chain "
+                                    "runs on one device")
                 return self._prepare_bucket(chunk)
             try:
                 return self._prepare_plan(chunk)
@@ -583,7 +670,7 @@ class BatchDecoder:
         from . import host
 
         geom = chunk.geom
-        B = len(chunk.imgs)
+        B = self._pad(len(chunk.imgs))
         oracle = self.backend == "oracle"
         if oracle:
             from ..oracle.decoder import entropy_decode
@@ -612,14 +699,15 @@ class BatchDecoder:
                 coeffs[bi] = res
         extents = None
         if chunk.bucketed:
-            extents = torch.as_tensor(np.asarray(
-                [(im.mcus_y, im.mcus_x) for im in chunk.imgs], np.int32
-            )).to(self.device)
-        chunk.out = device_decode_fn(
-            geom, torch.as_tensor(coeffs).to(self.device),
-            torch.as_tensor(self._quant_host(chunk)).to(self.device),
-            fancy=self.fancy, extents=extents, exact=self.strict,
-        )
+            # padding images take the bucket's extents, as in the JAX engine
+            ext = np.tile(np.asarray([geom.mcus_y, geom.mcus_x], np.int32),
+                          (B, 1))
+            ext[: len(chunk.imgs)] = [(im.mcus_y, im.mcus_x)
+                                      for im in chunk.imgs]
+            extents = torch.as_tensor(ext)
+        chunk.out = self._pixels(geom, torch.as_tensor(coeffs),
+                                 torch.as_tensor(self._quant_host(chunk)),
+                                 extents)
         chunk.err_mal = chunk.err_env = chunk.err_slot = None
         chunk.backend = ("oracle" if oracle else "host") \
             + ("-bucketed" if chunk.bucketed else "")
@@ -639,13 +727,15 @@ class BatchDecoder:
             if isinstance(res, JpegError):
                 raise res
         geom = chunk.geom
-        B = len(chunk.imgs)
+        n = len(chunk.imgs)
         coeffs, err = entropy.decode_plan(chunk.plan, self.device,
                                           uploaded=chunk.uploaded)
         entropy.check_lanes(err)
-        chunk.out = device_decode_fn(
-            geom, coeffs.reshape(B, geom.n_blocks, 64), chunk.quant,
-            fancy=self.fancy, exact=self.strict)
+        coeffs = coeffs.reshape(n, geom.n_blocks, 64)
+        B = self._pad(n)
+        if B > n:
+            coeffs = torch.nn.functional.pad(coeffs, (0, 0, 0, 0, 0, B - n))
+        chunk.out = self._pixels(geom, coeffs, chunk.quant)
         chunk.err_mal = chunk.err_env = chunk.err_slot = None
         chunk.backend = "gather"
 
@@ -727,10 +817,10 @@ class BatchDecoder:
             # prepared for the speculative path, or not at all
             return self._process_chunk_spec(chunk, steps)
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
-        B = len(chunk.imgs)
+        B = self._pad(len(chunk.imgs))
         quant = chunk.quant
         groups, _ = chunk.uploaded
-        if len(groups) == 1:
+        if len(groups) == 1 and not self._multi:
             rgb, risk, _, _, err_mal, err_env, err_slot = (
                 fused.decode_chunk_fused(
                     chunk.plan, quant, chunk.geom, B, steps=chunk.steps,
@@ -739,15 +829,15 @@ class BatchDecoder:
                 )
             )
         else:
-            # the staged chain: a scan per stride group, rows back in lane
-            # order, assembled per image, then the pixel stage
+            # the staged chain (a split plan, or a mesh of several
+            # devices): a scan per stride group, rows back in lane order,
+            # assembled per image, then the pixel stage
             per_lane, (err_mal, err_env) = fsm.decode_plan(
                 chunk.plan, uploaded=chunk.uploaded, steps=chunk.steps,
                 route=self.route)
             coeffs = fsm.assemble_batched(per_lane, layout=chunk.plan.layout,
                                           pad_to=B)
-            rgb, risk = device_decode_fn(chunk.geom, coeffs, quant,
-                                         fancy=self.fancy, exact=self.strict)
+            rgb, risk = self._pixels(chunk.geom, coeffs, quant)
             err_slot = None
         chunk.out = (rgb, risk)
         chunk.err_mal = err_mal
@@ -808,7 +898,7 @@ class BatchDecoder:
         from . import fused
 
         geom = chunk.geom
-        B = len(chunk.imgs)
+        B = self._pad(len(chunk.imgs))
         # every spec route needs one block count per chunk; the check is
         # host-known, so a mixed chunk never reaches the device
         if len({(im.n_mcus, im.blocks_per_mcu) for im in chunk.imgs}) != 1:
@@ -824,6 +914,18 @@ class BatchDecoder:
                     chunk.imgs, plan=chunk.spec_plan, xs_dev=xs,
                     lanes_dev=lanes, steps=chunk.steps,
                 )
+                if self._multi:
+                    # the JAX engine's staged single-pass decode (classic
+                    # materialize), then the sharded pixel stage
+                    coeffs_dev, (err_mal, err_env) = \
+                        fsm.decode_speculative_sync(
+                            chunk.imgs, pad_to=B, steps=chunk.steps,
+                            pending=pending, route=self.route)
+                    chunk.out = self._pixels(geom, coeffs_dev, chunk.quant)
+                    chunk.err_mal, chunk.err_env = err_mal, err_env
+                    chunk.err_slot = None
+                    chunk.backend = "fsm-spec-sync"
+                    return True
                 rgb, risk, _, _, err, err_slot = (
                     fused.decode_spec_sync_fused(
                         pending, geom, chunk.quant, B, len(chunk.imgs),
@@ -857,8 +959,7 @@ class BatchDecoder:
             return self._process_chunk_spec(chunk, steps=fsm.STEPS_SAFE)
         except JpegError:
             return False
-        chunk.out = device_decode_fn(geom, coeffs_dev, chunk.quant,
-                                     fancy=self.fancy, exact=self.strict)
+        chunk.out = self._pixels(geom, coeffs_dev, chunk.quant)
         chunk.err_mal = err_mal
         chunk.err_env = err_env
         chunk.err_slot = None
@@ -978,8 +1079,9 @@ class BatchDecoder:
                 n_env += int(failed or (env and not mal))
                 self._process_chunk_host(chunk, isolate=isolate)
             chunk.staged = None   # its copy is done: the fence was read
-        if self.device.type == "cuda" and any(c.out is not None for c in chunks):
-            torch.cuda.synchronize(self.device)
+        if any(c.out is not None for c in chunks):
+            for d in self._cuda_devices():
+                torch.cuda.synchronize(d)
         t_dev = time.perf_counter() - t0
 
         self.stats = BatchStats(
@@ -1013,11 +1115,7 @@ class BatchDecoder:
                 for bi, i in enumerate(chunk.indices):
                     results[i] = chunk.rgb_host[bi]
                 continue
-            n = len(chunk.imgs)
-            # device rgb is planar [B, 3, H, W]: interleave on the device,
-            # then one uint8 fetch per chunk
-            rgb_h = chunk.out[0][:n].permute(0, 2, 3, 1).contiguous() \
-                .cpu().numpy()
+            rgb_h = _fetch(chunk.out[0], len(chunk.imgs))
             for bi, i in enumerate(chunk.indices):
                 if chunk.failed and bi in chunk.failed:
                     continue
@@ -1029,12 +1127,20 @@ class BatchDecoder:
         self.stats.total_s = time.perf_counter() - t_start
         return results
 
+    def _cuda_devices(self) -> list:
+        """The distinct cards this decoder's chunks run on."""
+        devs = [self.device] if self.mesh is None else list(
+            self.mesh.devices.flat)
+        return list({str(d): d for d in devs if d.type == "cuda"}.values())
+
     @staticmethod
     def _flags(chunk: _Chunk) -> tuple[bool, bool, bool]:
         """(any malformed lane, any envelope lane, any slot-overflow lane):
-        one device read, which also fences the chunk's pixels."""
-        fence = _pack_fence(chunk.out[0], chunk.err_mal, chunk.err_env,
-                            chunk.err_slot)
+        one device read, which also fences the chunk's pixels (on a mesh
+        the first shard's; `_finish` synchronizes every device after)."""
+        rgb = chunk.out[0]
+        fence = _pack_fence(rgb[0] if isinstance(rgb, list) else rgb,
+                            chunk.err_mal, chunk.err_env, chunk.err_slot)
         _, mal, env, slot = fence.cpu().tolist()
         return bool(mal), bool(env), bool(slot)
 

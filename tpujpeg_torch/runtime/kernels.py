@@ -5,7 +5,8 @@ use they are compiled with nvcc for Hopper (sm_90a), one nvcc per source
 started together, and linked into one shared library,
 tpujpeg_torch/_build/libtpjcuda.so, loaded with ctypes:
 pointers travel as c_void_p (tensor.data_ptr()), the stream as the raw
-cudaStream_t of torch.cuda.current_stream().  Nothing here imports torch's
+cudaStream_t of torch.cuda.current_stream(), and `launch` makes the
+tensors' device current around the call.  Nothing here imports torch's
 C++ headers, so a build takes seconds, not minutes.
 
 The library is rebuilt when the hash of the sources and flags changes,
@@ -231,11 +232,20 @@ def current_stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel `name`'s C entry; raise if the launch was refused.
+def launch(name: str, device=None, *args) -> None:
+    """Call kernel `name`'s C entry on `device` (None: the current one) with
+    `args` and the device's current stream; raise if the launch was
+    refused.
 
-    Counts the launch in LAUNCHES[name] (the only place counts change)."""
-    rc = getattr(library(), KERNELS[name])(*args)
+    The launch and the entry's cudaFuncSetAttribute act on the current
+    device, so the call runs with `device` made current: a tensor on
+    cuda:1 is never launched on while cuda:0 is current.  Counts the
+    launch in LAUNCHES[name] (the only place counts change)."""
+    import torch
+
+    entry = getattr(library(), KERNELS[name])
+    with torch.cuda.device(device):
+        rc = entry(*args, current_stream(device))
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
     LAUNCHES[name] += 1
