@@ -214,10 +214,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      allreduce_metrics sums 16 images and the streams' bytes; where
      there are two cards, the batch-sharded decode again on cuda:0 and
      cuda:1 (else a line says why it was skipped);
-  7b. exact colour over all 134,217,728 triples of [-256, 255]^3 on the
-     card, Y slab by Y slab, against the oracle's ycbcr_to_rgb_exact in
-     numpy: the pixel kernel's exact mode (DC-only blocks whose samples
-     are the triple) and color.color_exact in float64 (the plane path's);
+  6j. the ported tools, in this process, at a small size, each holding
+     its own checks (a failure raises or returns non-zero):
+     tools/check_torch_goldens.py with backends cuda and batch (6/6
+     matched); tools/batch_torch_decode.py (backend fsm, --format array)
+     on the goldens and a truncated stream in a temporary directory, the
+     manifest's ok lines and .array files == the reference's, the
+     truncated stream an error line, and --resume decoding only that one
+     again; tools/check_torch_photo_exact.py on rst640 x 4 (slots 256 ==
+     classic, the oracle outside the risk mask, exact colour == the
+     oracle); benchmarks/bench_torch_runtime.py on the 200, 1000 and 2000
+     px streams of tests/fixtures/runtime_sizes, backends host and fsm;
+     benchmarks/bench_torch_throughput.py at batches 16 and 128 (chunk
+     128, backend fsm); tools/bench_torch_sustained.py on 512 rst640
+     streams in 4 windows.  The phase prints its wall time;
+  7b. tools/check_torch_color_device.py's proof over all 134,217,728
+     triples of [-256, 255]^3 on the card (every Y slab), against the
+     oracle's ycbcr_to_rgb_exact in numpy: the pixel kernel's exact mode
+     (DC-only blocks whose samples are the triple) and color.color_exact
+     in float64 equal it; in the f32 mode (the kernel's f32 mode and
+     color.ycbcr_to_rgb) every pixel equals it or is flagged risky, and
+     the flagged share is printed;
   8. throughput: end to end for the 4:4:4 chunks (restart, speculative,
      mixed on "scatter") and the three 4:2:0 chunks with both `fancy`
      values (two timed decodes each, after the phase's own decode), the
@@ -232,7 +249,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      checksums held to the scan's events and the full chain's assembled
      coefficients) and whole.
 
-Each path of phases 2-6i runs with the launch counts set to 0 just before
+Each path of phases 2-6j runs with the launch counts set to 0 just before
 it and read just after, and fails if a kernel it must run was not
 launched; every engine of phases 2-6c reports 0 repaired pixels.  The second-to-last line is a JSON object with one entry per
 kernel (launches summed over those paths, and per 128-image chunk of
@@ -1341,6 +1358,12 @@ def main() -> int:
     print(f"phase 6i: {time.perf_counter() - t_6i:.1f} s")
     torch.cuda.empty_cache()
 
+    # ---- phase 6j: the ported tools, in this process, at a small size
+    t_6j = time.perf_counter()
+    phase_tools(run_path, card)
+    print(f"phase 6j: {time.perf_counter() - t_6j:.1f} s")
+    torch.cuda.empty_cache()
+
     # ---- phase 7: kernels against their plain versions, real inputs
     rows = []
     chunk_paths = {"restart": "phase 2", "spec": "phase 3"}
@@ -1364,6 +1387,7 @@ def main() -> int:
                         "mesh engine spec, 2 shards": "phase 6i mesh spec",
                         "mesh engine mixed, 2 shards":
                             "phase 6i mesh mixed"})
+    chunk_paths.update({f"tool: {n}": f"phase 6j {n}" for n in TOOL_PATHS})
 
     def per_chunk(kernel: str) -> dict:
         """Launches of `kernel` per 128-image chunk of each path."""
@@ -2383,17 +2407,27 @@ def main() -> int:
     del events, ev, per_lane, dc_lane, restart_dense
     torch.cuda.empty_cache()
 
-    # ---- phase 7b: exact colour over every triple of [-256, 255]^3
-    t0 = time.perf_counter()
-    bad_kernel, bad_torch = pixels.exact_colour_mismatches(dev)
-    check(bad_kernel == 0 and bad_torch == 0,
-          f"exact colour: {bad_kernel} kernel and {bad_torch} color_exact "
-          f"triples differ from the oracle")
-    print(f"phase 7b: exact colour of all {512 ** 3} triples of "
-          f"[-256, 255]^3 on the card equals the oracle's "
-          f"ycbcr_to_rgb_exact: the pixel kernel's exact mode and "
-          f"color_exact (float64) 0 mismatches "
-          f"({time.perf_counter() - t0:.1f} s)")
+    # ---- phase 7b: both colour modes over every triple of [-256, 255]^3
+    import check_torch_color_device
+
+    proof = check_torch_color_device.prove(dev, log=None)
+    check(proof["exact_kernel_mismatches"] == 0
+          and proof["exact_torch_mismatches"] == 0,
+          f"exact colour: {proof['exact_kernel_mismatches']} kernel and "
+          f"{proof['exact_torch_mismatches']} color_exact triples differ "
+          f"from the oracle")
+    check(proof["f32_kernel_unflagged_mismatches"] == 0
+          and proof["f32_torch_unflagged_mismatches"] == 0,
+          f"f32 colour: unflagged mismatches, first "
+          f"{proof['first_unflagged']}: {json.dumps(proof)}")
+    print(f"phase 7b: tools/check_torch_color_device.py over "
+          f"{proof['checked']} triples ({proof['domain']}) against the "
+          f"oracle's ycbcr_to_rgb_exact: exact colour (the pixel kernel's "
+          f"exact mode, color_exact in float64) 0 mismatches; f32 colour "
+          f"0 unflagged mismatches, flagged {proof['f32_kernel_flagged']} "
+          f"({proof['f32_kernel_flagged_pct']}%) by the pixel kernel, "
+          f"{proof['f32_torch_flagged']} ({proof['f32_torch_flagged_pct']}%)"
+          f" by ycbcr_to_rgb ({proof['runtime_s']} s) [{card}]")
 
     # ---- phase 8: throughput
     # (each decoder is warm: its phase decoded the same chunk once)
@@ -2462,36 +2496,26 @@ def main() -> int:
               f"{mb / ms * 1e3:.2f} compressed MB/s [{card}]")
 
     # the restart chain cut after each stage (decode_chunk_fused's
-    # stop_after): cumulative times, then the whole chain
-    def cut(stop, want_coeffs=False):
-        return fused.decode_chunk_fused(plan, quant, geom, CHUNK,
-                                        uploaded=(xs, sn), exact=True,
-                                        want_coeffs=want_coeffs,
-                                        stop_after=stop)
+    # stop_after): tools/profile_torch_fused.py's cumulative cuts, each
+    # fenced on its checksum, and each checksum alone on its stage's output
+    import profile_torch_fused
 
-    check(torch.equal(cut("scan")[0], fused._sum32(
-        fsm.fsm_scan(xs, sn, plan.tables)[0])), "scan cut checksum")
-    check(torch.equal(cut("assemble")[0], fused._sum32(
-        *cut(None, want_coeffs=True)[2:4])), "assemble cut checksum")
-    cuts = {stop: cuda_times(lambda: cut(stop))
-            for stop in fused.STOPS + (None,)}
-    # each cut's checksum alone, on that stage's output
-    ev8 = fsm.fsm_scan(xs, sn, plan.tables)[0]
-    dense8 = fsm.materialize_checked(
-        ev8.reshape(-1, ev8.shape[-1]), plan.max_blk * 64,
-        torch.zeros(ev8.shape[-1], dtype=torch.bool, device=dev))[0]
-    asm8 = cut(None, want_coeffs=True)[2:4]
-    sums = {"scan": cuda_times(lambda: fused._sum32(ev8)),
-            "materialize": cuda_times(lambda: fused._sum32(dense8)),
-            "assemble": cuda_times(lambda: fused._sum32(*asm8))}
-    del ev8, dense8, asm8
-    print("phase 8: restart chain cut after each stage (decode_chunk_fused "
-          "stop_after; cumulative, plan and bytes resident, exact colour; "
-          "the cut's checksum alone in brackets): "
-          + "; ".join(f"{stop or 'whole chain'} {ms:.3f} ms (min {lo:.3f}, "
-                      f"max {hi:.3f})" + (f" [checksum {sums[stop][0]:.3f}]"
-                                          if stop else "")
-                      for stop, (ms, lo, hi) in cuts.items())
+    staged = profile_torch_fused.Staged("restart", imgs, plan, geom, quant,
+                                        xs, sn, sum(map(len, datas)))
+    profile_torch_fused.check_checksums(staged)
+    cuts = profile_torch_fused.cut_records(staged, dev, exact=True,
+                                           corpus="rst640 x 8", slots_arg="off")
+    sums = profile_torch_fused.checksum_ms(staged, dev, 5)
+    print("phase 8: restart chain cut after each stage "
+          "(tools/profile_torch_fused.py, decode_chunk_fused stop_after; "
+          "cumulative, plan and bytes resident, exact colour; the cut's "
+          "checksum alone in brackets): "
+          + "; ".join(f"{r['cut']} {r['cumulative_ms']:.3f} ms (min "
+                      f"{r['cumulative_min_ms']:.3f}, max "
+                      f"{r['cumulative_max_ms']:.3f})"
+                      + (f" [checksum {sums[r['cut']]:.3f}]"
+                         if r["cut"] in sums else "")
+                      for r in cuts)
           + f" [{card}]")
 
     mb = sum(len(x) for x in mdatas) / 1e6
@@ -2875,6 +2899,113 @@ def phase_several_devices(run_path, by_path, card, datas, refs, pdatas,
         print(f"phase 6i: distinct cards skipped: "
               f"{torch.cuda.device_count()} card on this machine (the "
               f"batch-sharded decode on cuda:0 and cuda:1 needs two)")
+
+
+TOOL_PATHS = ("goldens cuda", "goldens batch", "bulk decode",
+              "bulk decode resume", "photo check", "runtime host",
+              "runtime fsm", "throughput", "sustained")
+
+
+def phase_tools(run_path, card):
+    """Phase 6j (module docstring): each ported tool's function, run here
+    on the card at a small size; a tool whose check fails raises or
+    returns non-zero, and the phase fails."""
+    import numpy as np
+
+    import batch_torch_decode
+    import check_torch_goldens
+    import check_torch_photo_exact
+    import bench_torch_sustained
+    import torch_common as tc
+
+    sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+    import bench_torch_runtime
+    import bench_torch_throughput
+
+    from tpujpeg_torch.io.arrayio import read_array
+
+    dev = tc.device("cuda")
+    for backend, need in (("cuda", ("pixels",)),
+                          ("batch", ("fsm_scan", "place_events", "pixels"))):
+        check(run_path(f"phase 6j goldens {backend}",
+                       lambda: check_torch_goldens.main(
+                           ["--backend", backend]), need=need) == 0,
+              f"tools/check_torch_goldens.py --backend {backend} failed")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        for name in GOLDEN:
+            with open(os.path.join(FIXTURES, name + ".jpg"), "rb") as f:
+                data = f.read()
+            with open(os.path.join(src, name + ".jpg"), "wb") as f:
+                f.write(data)
+        with open(os.path.join(src, "truncated.jpg"), "wb") as f:
+            f.write(data[: len(data) // 3])
+        argv = [src, dst, "--backend", "fsm", "--format", "array"]
+        check(run_path("phase 6j bulk decode",
+                       lambda: batch_torch_decode.main(argv),
+                       need=("fsm_scan", "place_events", "pixels")) == 0,
+              "tools/batch_torch_decode.py failed")
+        check(run_path("phase 6j bulk decode resume",
+                       lambda: batch_torch_decode.main(argv + ["--resume"]))
+              == 0, "tools/batch_torch_decode.py --resume failed")
+        with open(os.path.join(dst, "manifest.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f]
+        ok = [r["name"] for r in lines if r["status"] == "ok"]
+        check(sorted(ok) == [n + ".jpg" for n in GOLDEN]
+              and [r["name"] for r in lines if r["status"] == "error"]
+              == ["truncated.jpg"] * 2,
+              f"bulk decode manifest: {lines}")
+        for name in GOLDEN:
+            check(np.array_equal(
+                read_array(os.path.join(dst, name + ".array")),
+                read_array(os.path.join(FIXTURES, name + ".array"))),
+                f"bulk decode: {name}.array != the reference's")
+    print(f"phase 6j: bulk decode of the {len(GOLDEN)} goldens and a "
+          f"truncated stream (backend fsm, --format array): {len(GOLDEN)} "
+          f"ok == the reference's .array, the truncated one an error line; "
+          f"--resume decoded only the failed stream again")
+
+    photo = run_path("phase 6j photo check",
+                     lambda: check_torch_photo_exact.check(
+                         tc.corpus("rst640", 64), dev),
+                     need=("fsm_scan", "place_events", "compact",
+                           "slot_unpack", "slot_expand", "pixels"))
+    print(f"phase 6j: photo check {json.dumps(photo)} [{card}]")
+
+    for backend in ("host", "fsm"):
+        recs = run_path(f"phase 6j runtime {backend}",
+                        lambda: bench_torch_runtime.run(
+                            bench_torch_runtime.cases([200, 1000, 2000]),
+                            dev, backend, iters=2, log=None),
+                        need=("pixels",))
+        print(f"phase 6j: runtime tool, backend {backend}: "
+              + "; ".join(f"{r['path']} {r['ms_mean']:.1f} ms "
+                          f"({r['backend']})" for r in recs) + f" [{card}]")
+
+    recs = run_path("phase 6j throughput",
+                    lambda: bench_torch_throughput.sweep(
+                        tc.corpus("rst640", 128), dev, [16, 128], [128],
+                        [None], "fsm", iters=2, size=640, log=None),
+                    need=("fsm_scan", "place_events", "pixels"))
+    check([r["batch"] for r in recs] == [16, 128]
+          and all(r["mb_per_s"] > 0 for r in recs),
+          f"throughput records {recs}")
+    print(f"phase 6j: throughput tool, backend fsm, chunk 128: "
+          + "; ".join(f"batch {r['batch']} {r['images_per_s']:.1f} "
+                      f"images/s, {r['mb_per_s']:.1f} MB/s"
+                      for r in recs) + f" [{card}]")
+
+    recs = run_path("phase 6j sustained",
+                    lambda: bench_torch_sustained.sustained(
+                        tc.corpus("rst640", 512), dev, windows=4, log=None),
+                    need=("fsm_scan", "place_events", "pixels"))
+    summary = recs[-1]
+    check(summary["windows"] == 4 and summary["MBps_min"] > 0,
+          f"sustained summary {summary}")
+    print(f"phase 6j: sustained tool, 512 images in 4 windows: "
+          f"{json.dumps(summary)}")
 
 
 def dist_worker(rank: int, addr: str) -> int:

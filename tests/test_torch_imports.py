@@ -131,16 +131,30 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
                                   "bench_torch_materialize",
                                   "bench_torch_scan", "bench_torch_batches",
                                   "bench_torch_segments", "diff_torch_sass",
-                                  "validate_torch_huge"])
+                                  "validate_torch_huge", "torch_common",
+                                  "profile_torch_fused",
+                                  "check_torch_color_device",
+                                  "check_torch_photo_exact",
+                                  "check_torch_goldens",
+                                  "batch_torch_decode",
+                                  "bench_torch_sustained",
+                                  "bench_torch_runtime",
+                                  "bench_torch_throughput",
+                                  "build_torch_dataset",
+                                  "display_torch_array"])
 def test_tools_import_neither_jax_nor_the_jax_package(tool):
+    # tools/ and benchmarks/ on the path: the two benchmark ports live in
+    # benchmarks/, beside the JAX harness's bench_runtime.py
     import os
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = _run_isolated(f"""
         import sys
-        sys.path.insert(0, "tools")
+        sys.path[:0] = ["tools", "benchmarks"]
         import {tool}
+        print("BENCH" if "bench" in sys.modules else "NO_BENCH")
     """, cwd=root)
+    assert "NO_BENCH" in out, out
     assert _foreign(out) == "FOREIGN []", out
 
 

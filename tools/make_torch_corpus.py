@@ -48,8 +48,16 @@ And one huge stream for the stripe-sharded decode:
     so it splits into 8 stripes of 64 (`write_huge`).  The JAX tool's
     16384 x 16384 default is 7.4 MB even at 4:4:4 and is not committed.
 
-The machine that runs chip_smoke.py has no JPEG encoder, so the streams
-ship as files.
+And the runtime-against-size series of benchmarks/bench_runtime.py:
+
+  * tests/fixtures/runtime_sizes/S.jpg for S = 200, 400, ..., 2000:
+    bench.py's synthetic `_make_image(S, S)` (seed S), 4:4:4, quality
+    90, a restart marker every MCU row (`bench._encode(arr, 90,
+    rst_rows=1)`), about 6.5 MB in all: the inputs of
+    benchmarks/bench_torch_runtime.py (`write_runtime_sizes`).
+
+The machine that runs chip_smoke.py and the port's tools has no JPEG
+encoder, so the streams ship as files.
 
 Run from the repo root:  python tools/make_torch_corpus.py
 """
@@ -68,6 +76,7 @@ OPTIMIZED = "rst640_opt"
 MIXED, MIXED_SEED, MIXED_LO, MIXED_HI = "mixed_rst", 2024, 624, 800
 SMALL, SMALL_W, SMALL_H, SMALL_SEED = "sampling_small", 200, 152, 7
 HUGE, HUGE_SIZE, HUGE_QUALITY = "huge8192_420.jpg", 8192, 40
+RUNTIME, RUNTIME_SIZES = "runtime_sizes", range(200, 2001, 200)
 
 
 def encode_sampled(arr, quality: int, sampling: str, rst_rows: int) -> bytes:
@@ -141,6 +150,18 @@ def write_huge() -> None:
           f"{os.path.join(FIXTURES, HUGE)}")
 
 
+def write_runtime_sizes(bench) -> None:
+    """tests/fixtures/runtime_sizes: benchmarks/bench_runtime.py's
+    synthetic series (its `_make_image(size, size)`, q90, rst_rows=1)."""
+    out = os.path.join(FIXTURES, RUNTIME)
+    total = sum(
+        _write(out, f"{s}.jpg",
+               bench._encode(bench._make_image(s, s), QUALITY, rst_rows=1))
+        for s in RUNTIME_SIZES)
+    print(f"wrote {len(RUNTIME_SIZES)} runtime-series streams, {total} "
+          f"bytes, to {out}")
+
+
 def _write(folder: str, name: str, data: bytes) -> int:
     os.makedirs(folder, exist_ok=True)
     with open(os.path.join(folder, name), "wb") as f:
@@ -207,6 +228,7 @@ def main() -> None:
     total += _write(out, "gray.jpg", encode_sampled(small, QUALITY, "gray", 0))
     print(f"wrote 5 small streams, {total} bytes, to {out}")
     write_huge()
+    write_runtime_sizes(bench)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """YCbCr -> RGB (plain PyTorch): the f32 colour with exactness-risk
 flags, and the reference's exact colour.
 
-`color_core` / `color_channels` are the counterpart of
-tpujpeg/ops/color.py: the same f32 constants (rounded from the
+`color_core` / `color_channels` / `ycbcr_to_rgb` (interleaved) are the
+counterpart of tpujpeg/ops/color.py: the same f32 constants (rounded from the
 reference's double constants exactly as there), the same operation
 order, and the same EPS band.  A pixel whose pre-truncation value lies
 within EPS of an integer is flagged `risky`.  torch.round is
@@ -13,6 +13,8 @@ way because a TPU has no f64, and repairs flagged pixels on the host.
 (oracle.decoder.ycbcr_to_rgb_exact) in float64, so it needs no flag and
 no repair: strict decodes use it (on the card for the plane path and
 grayscale; the 4:4:4 pixel kernel has it as its exact mode).
+`pack_mask` packs risk masks 8 pixels a byte; `unpack_mask` reads them
+back on the host.
 """
 
 from __future__ import annotations
@@ -83,6 +85,14 @@ def color_channels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
     return [ch.to(torch.uint8) for ch in rgb], risky
 
 
+def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
+    """int planes -> (rgb uint8 [..., 3] interleaved, risky bool [...]):
+    the f32 colour of `color_core`; `risky` marks every pixel whose value
+    the f32 math may get wrong against the exact colour."""
+    rgb, risky = color_channels(y, cb, cr)
+    return torch.stack(rgb, dim=-1), risky
+
+
 def pack_mask(mask: torch.Tensor) -> torch.Tensor:
     """Pack a [..., W] bool mask into [..., ceil(W/8)] uint8, LSB first."""
     w = mask.shape[-1]
@@ -94,3 +104,10 @@ def pack_mask(mask: torch.Tensor) -> torch.Tensor:
         [1 << i for i in range(8)], dtype=torch.int32, device=mask.device
     )
     return (m * weights).sum(dim=-1).to(torch.uint8)
+
+
+def unpack_mask(packed: np.ndarray, width: int) -> np.ndarray:
+    """Host-side inverse of `pack_mask`: uint8 [..., ceil(W/8)] -> bool
+    [..., width]."""
+    bits = np.unpackbits(packed, axis=-1, bitorder="little")
+    return bits[..., :width].astype(bool)

@@ -1630,16 +1630,21 @@ def _spec_sync_merge(ev1, anchors, ablk, recm, ev2, end2, b1, blk2, quotas):
 def _spec_sync_assemble(ev1, anchors, ablk, recm, ev2, end2, b1, blk2,
                         quotas, tables: FsmTables, pad_to: int, nb: int,
                         n_imgs: int, cap_w: int, slots=None,
-                        route: str = "scatter"):
+                        route: str = "scatter",
+                        stop_after: str | None = None):
     """The spec tail: merge (`_spec_sync_merge`), materialize (slots and
     route as in `materialize_checked`), gather into per-image rows,
     resolve DC.  Returns (coeffs int16 [pad_to, nb,
-    64] raw DC, dc int32 [pad_to, nb], err [L], err_slot [L])."""
+    64] raw DC, dc int32 [pad_to, nb], err [L], err_slot [L]); at
+    stop_after "materialize" (a profiling cut) (dense int16 [cap_w * 64,
+    L], None, err, err_slot)."""
     L = ev1.shape[1]
     ev, err = _spec_sync_merge(ev1, anchors, ablk, recm, ev2, end2, b1,
                                blk2, quotas)
     coeffs_t, err, err_slot = materialize_checked(ev, cap_w * 64, err,
                                                   slots=slots, route=route)
+    if stop_after == "materialize":
+        return coeffs_t, None, err, err_slot
     per_lane = coeffs_t.T.reshape(L, cap_w, 64)
     coeffs, dc = _spec_gather16(per_lane, quotas, tables, pad_to, nb, n_imgs)
     return coeffs, dc, err, err_slot

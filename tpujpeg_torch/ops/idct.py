@@ -106,6 +106,21 @@ def _colpass(x0, x1, x2, x3, x4, x5, x6, x7):
     )
 
 
+def idct_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Two-pass integer IDCT over [..., 8, 8] blocks -> int32 [..., 8, 8]
+    in [-256, 255] (the row pass over each row, then the column pass over
+    each column, as `idct_planes`).  Input values are taken as int32."""
+    b = _w32(blocks.to(torch.int64))
+    cols = [b[..., :, k] for k in range(8)]
+    r = _rowpass(cols[0], cols[4], cols[6], cols[2], cols[1], cols[7],
+                 cols[5], cols[3])
+    b = torch.stack(r, dim=-1)
+    rows = [b[..., k, :] for k in range(8)]
+    r = _colpass(rows[0], rows[4], rows[6], rows[2], rows[1], rows[7],
+                 rows[5], rows[3])
+    return torch.stack(r, dim=-2).to(torch.int32)
+
+
 def idct_planes(planes64: torch.Tensor) -> torch.Tensor:
     """IDCT in coefficient-major layout: [..., 64, N] -> [..., 64, N].
 

@@ -41,7 +41,7 @@ import torch
 
 from ..constants import ZIGZAG_TO_NATURAL
 from .color import (EXACT_CONSTS, KERNEL_CONSTS, color_channels, color_core,
-                    color_exact, pack_mask)
+                    color_exact, pack_mask, ycbcr_to_rgb)
 from .idct import _colpass, _rowpass, _w32
 
 # MCU-axis padding unit of the SoA planes (the JAX kernel's lane tile).
@@ -293,35 +293,85 @@ def rgb_444(geom, coeffs: torch.Tensor, lanes: LaneTable,
 
 def exact_colour_mismatches(device) -> tuple[int, int]:
     """Triples of [-256, 255]^3 whose exact colour on `device` differs
-    from the oracle's ycbcr_to_rgb_exact: (pixel kernel, color_exact).
+    from the oracle's ycbcr_to_rgb_exact: (pixel kernel, color_exact)."""
+    got = colour_proof(device, modes=("exact",))
+    return got["exact_kernel_mismatches"], got["exact_torch_mismatches"]
 
-    Per Y slab, one 512 x 512-MCU image of DC-only blocks with quant 8:
-    DC v gives the constant sample v (row pass 8v, column pass (8v + 4)
-    >> 3), so MCU (cb, cr) holds the triple and its pixel (0, 0) is read
-    back.  Sized for a card: a slab is a 4096 x 4096 image."""
+
+def colour_proof(device, ys=None, step: int = 1,
+                 modes=("exact", "f32"), on_slab=None) -> dict:
+    """Both colour modes on `device` against the oracle's
+    ycbcr_to_rgb_exact over the triples (y, cb, cr): y in `ys` (all of
+    [-256, 255] by default), cb and cr every `step`-th value of [-256,
+    255] (1: all 512).
+
+    Per Y slab, one A x A-MCU image (A = 512 / step) of DC-only blocks
+    with quant 8: DC v gives the constant sample v (row pass 8v, column
+    pass (8v + 4) >> 3), so MCU (cb, cr) holds the triple and its pixel
+    (0, 0) is read back, with its risk bit in the f32 mode.  Sized for a
+    card: at step 1 a slab is a 4096 x 4096 image.
+
+    Counts: "exact" the pixel kernel's exact mode and color_exact
+    (float64) against the oracle; "f32" the pixel kernel's f32 mode and
+    color.ycbcr_to_rgb (color_core), each pixel that differs from the
+    oracle and is not flagged risky, and the flagged pixels.  The first
+    unflagged triple is kept as (source, y, cb, cr, got, oracle).
+    on_slab(i, y, counts) is called after each slab."""
     from ..oracle.decoder import ycbcr_to_rgb_exact
     from ..pipeline import Geometry
 
-    axis = np.arange(-256, 256, dtype=np.int32)
+    axis = np.arange(-256, 256, step, dtype=np.int32)
+    A = axis.size
     cb, cr = (a.ravel() for a in np.meshgrid(axis, axis, indexing="ij"))
     n = cb.size
-    geom = Geometry((4096, 4096, 512, 512, ((1, 1, 0), (1, 1, 1),
-                                             (1, 1, 2))))
+    geom = Geometry((8 * A, 8 * A, A, A, ((1, 1, 0), (1, 1, 1),
+                                          (1, 1, 2))))
     coeffs = torch.zeros((1, 3 * n, 64), dtype=torch.int16, device=device)
     quant = torch.full((1, 3, 64), 8, dtype=torch.int32, device=device)
-    lanes = block_lanes(1, 512, 512, device)
+    lanes = block_lanes(1, A, A, device)
     dc = torch.empty((n, 3), dtype=torch.int32, device=device)
     dc[:, 1] = torch.as_tensor(cb).to(device)
     dc[:, 2] = torch.as_tensor(cr).to(device)
-    bad_kernel = bad_torch = 0
-    for y in range(-256, 256):
+    counts = {"checked": 0}
+    for k in ("exact_kernel_mismatches", "exact_torch_mismatches",
+              "f32_kernel_flagged", "f32_kernel_unflagged_mismatches",
+              "f32_torch_flagged", "f32_torch_unflagged_mismatches"):
+        if k.split("_")[0] in modes:
+            counts[k] = 0
+    counts["first_unflagged"] = None
+
+    def f32(source, got, risky, y, want):
+        bad = (got != want).any(axis=1) & ~risky
+        counts[f"f32_{source}_flagged"] += int(risky.sum())
+        counts[f"f32_{source}_unflagged_mismatches"] += int(bad.sum())
+        if bad.any() and counts["first_unflagged"] is None:
+            j = int(np.flatnonzero(bad)[0])
+            counts["first_unflagged"] = (source, y, int(cb[j]), int(cr[j]),
+                                         got[j].tolist(), want[j].tolist())
+
+    ys = range(-256, 256) if ys is None else ys
+    for i, y in enumerate(ys):
         dc[:, 0] = y
-        rgb, _ = rgb_444(geom, coeffs, lanes, quant, dc=dc.reshape(1, 3 * n),
-                         exact=True)
-        got = rgb[0, :, ::8, ::8].reshape(3, n).T.cpu().numpy()
-        plane = torch.stack(color_exact(dc[:, 0], dc[:, 1], dc[:, 2]),
-                            dim=1).cpu().numpy()
         want = ycbcr_to_rgb_exact(np.full(n, y, np.int32), cb, cr)
-        bad_kernel += int((got != want).any(axis=1).sum())
-        bad_torch += int((plane != want).any(axis=1).sum())
-    return bad_kernel, bad_torch
+        counts["checked"] += n
+        if "exact" in modes:
+            rgb, _ = rgb_444(geom, coeffs, lanes, quant,
+                             dc=dc.reshape(1, 3 * n), exact=True)
+            got = rgb[0, :, ::8, ::8].reshape(3, n).T.cpu().numpy()
+            plane = torch.stack(color_exact(dc[:, 0], dc[:, 1], dc[:, 2]),
+                                dim=1).cpu().numpy()
+            counts["exact_kernel_mismatches"] += int(
+                (got != want).any(axis=1).sum())
+            counts["exact_torch_mismatches"] += int(
+                (plane != want).any(axis=1).sum())
+        if "f32" in modes:
+            rgb, risk = rgb_444(geom, coeffs, lanes, quant,
+                                dc=dc.reshape(1, 3 * n))
+            got = rgb[0, :, ::8, ::8].reshape(3, n).T.cpu().numpy()
+            flag = ((risk[0, ::8, :] & 1) != 0).reshape(n).cpu().numpy()
+            f32("kernel", got, flag, y, want)
+            plane, risky = ycbcr_to_rgb(dc[:, 0], dc[:, 1], dc[:, 2])
+            f32("torch", plane.cpu().numpy(), risky.cpu().numpy(), y, want)
+        if on_slab is not None:
+            on_slab(i, y, counts)
+    return counts

@@ -407,14 +407,28 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
                            want_coeffs: bool = True,
                            slots: bool | int | None = False,
                            route: str = "scatter", fancy: bool = False,
-                           exact: bool = False):
+                           exact: bool = False,
+                           stop_after: str | None = None):
     """Finish a spec_sync_start chunk: the host resolve (one read), then
     merge -> materialize -> gather -> DC resolve -> pixels on the device.
 
     Raises SpecEnvelopeError / SpecSyncMiss from the resolve; fancy and
     exact as in `decode_chunk_fused`.  Returns (rgb, risk, coeffs int16
     [pad_to, nb, 64] raw DC, dc int32 [pad_to, nb], err [L], err_slot
-    [L]); coeffs and dc are None when want_coeffs is False."""
+    [L]); coeffs and dc are None when want_coeffs is False.
+
+    stop_after (a profiling cut, as in `decode_chunk_fused`): returns
+    (checksum, err, err_slot), the checksum `_sum32` of the stage's whole
+    output: after "scan" every tensor of `pending` (the cold and stitch
+    scans and the resolve's device part; no read yet, err and err_slot
+    None), after "materialize" the merged events' dense int16 tensor,
+    after "assemble" the gathered coefficients plus the resolved DC."""
+    if stop_after is not None and stop_after not in STOPS:
+        raise ValueError(f"stop_after={stop_after!r}")
+    if stop_after == "scan":
+        return _sum32(pending.ev1, pending.anchors, pending.ablk,
+                      pending.recm, pending.ev2, pending.end2, pending.b1,
+                      pending.blk2, pending.packed), None, None
     plan = pending.plan
     quotas, cap_w = fsm.spec_sync_resolve_host(pending)
     coeffs, dc, err, err_slot = fsm._spec_sync_assemble(
@@ -422,7 +436,11 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
         pending.ev2, pending.end2, pending.b1, pending.blk2,
         torch.as_tensor(quotas).to(quant.device), plan.tables, pad_to,
         int(plan.img_blocks[0]), n_imgs, cap_w, slots=slots, route=route,
+        stop_after=stop_after,
     )
+    if stop_after is not None:
+        return _sum32(*(t for t in (coeffs, dc) if t is not None)), err, \
+            err_slot
     rgb, risk = device_decode_fn(geom, coeffs, quant, fancy=fancy, dc=dc,
                                  exact=exact)
     if not want_coeffs:
