@@ -1087,7 +1087,7 @@ def main() -> int:
     # ---- phase 6f: the pipelined engine on batches of several chunks
     from types import SimpleNamespace
 
-    from tpujpeg_torch.utils.profiling import device_busy, device_trace, scope
+    from tpujpeg_torch.utils.profiling import device_busy, device_trace, span
 
     def host_split(st) -> str:
         rest = st.total_s - st.parse_s - st.entropy_s - st.device_s
@@ -1173,10 +1173,10 @@ def main() -> int:
         if name == "R":
             with tempfile.TemporaryDirectory() as trace_dir:
                 with device_trace(trace_dir):
-                    with scope("batch R"):
+                    with span("batch R"):
                         bdec.decode(bdatas, fetch=False)
                 busy = device_busy(os.path.join(trace_dir, "trace.json"),
-                                   "batch R")
+                                   "tpujpeg.batch R")
             check(busy["events"] > 0, "6f: the trace holds no device work")
             print(f"phase 6f R: device_trace of a fetch=False run: "
                   f"{busy['events']} kernels and copies, busy "

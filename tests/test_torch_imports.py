@@ -98,7 +98,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from tpujpeg_torch import cli
         from tpujpeg_torch.utils import profiling
         cli.main(["info", {fixture_path(GOLDEN[2])!r}])
-        with profiling.StageTimer().stage("x"):
+        with profiling.span("x"):
             pass
         from tpujpeg_torch.parallel import distributed, sharding
         striped = sharding.decode_striped(

@@ -1,65 +1,30 @@
-"""tpujpeg_torch.utils.profiling against tpujpeg.utils.profiling.
+"""tpujpeg_torch.utils.profiling's trace.
 
-`StageTimer` writes the JAX package's records and JSONL lines (apart from
-the seconds); `device_trace` writes a Chrome trace on the CPU (the card's
-kernels and copies are recorded only where there is one: chip_smoke.py
-phase 6f); `device_busy` reads the device's busy time inside a labelled
-span back from a trace.
+`device_trace` writes a Chrome trace on the CPU (the card's kernels and
+copies are recorded only where there is one: chip_smoke.py phase 6f);
+`device_busy` reads the device's busy time inside a labelled span back
+from a trace.  The spans and counters: tests/test_torch_spans.py.
 """
 
 import json
 
 import pytest
 
-from tpujpeg.utils import profiling as jprof
 from tpujpeg_torch.utils import profiling as tprof
-
-
-def _run_stages(timer_cls, path):
-    timer = timer_cls(str(path))
-    with timer.stage("parse", n=3):
-        pass
-    with timer.stage("decode", backend="fsm", chunk=1):
-        pass
-    with pytest.raises(ValueError):
-        with timer.stage("fail"):
-            raise ValueError("recorded all the same")
-    return timer.records, path.read_text().splitlines()
-
-
-def _without_seconds(rec):
-    assert isinstance(rec["s"], float) and rec["s"] >= 0
-    return {k: v for k, v in rec.items() if k != "s"}
-
-
-def test_stage_timer_equals_jax(tmp_path):
-    trec, tlines = _run_stages(tprof.StageTimer, tmp_path / "t.jsonl")
-    jrec, jlines = _run_stages(jprof.StageTimer, tmp_path / "j.jsonl")
-    assert [_without_seconds(r) for r in trec] == \
-        [_without_seconds(r) for r in jrec]
-    assert [_without_seconds(json.loads(x)) for x in tlines] == \
-        [_without_seconds(r) for r in trec]
-    assert [list(json.loads(x)) for x in tlines] == \
-        [list(json.loads(x)) for x in jlines]   # key order too
-    # no path: records only
-    timer = tprof.StageTimer()
-    with timer.stage("x"):
-        pass
-    assert [_without_seconds(r) for r in timer.records] == [{"stage": "x"}]
 
 
 def test_device_trace_on_the_cpu_writes_a_trace(tmp_path):
     import torch
 
     with tprof.device_trace(str(tmp_path / "trace"), device="cpu") as prof:
-        with tprof.scope("batch"):
+        with tprof.span("batch"):
             torch.ones(256).cumsum(0).sum()
     path = tmp_path / "trace" / tprof.TRACE_FILE
     trace = json.loads(path.read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "batch" in names
-    assert any(e.key == "batch" for e in prof.key_averages())
-    busy = tprof.device_busy(str(path), "batch")
+    assert "tpujpeg.batch" in names
+    assert any(e.key == "tpujpeg.batch" for e in prof.key_averages())
+    busy = tprof.device_busy(str(path), "tpujpeg.batch")
     assert busy["busy_us"] == 0.0 and busy["events"] == 0
     assert busy["window_us"] > 0
     with pytest.raises(ValueError, match="no span"):

@@ -92,6 +92,26 @@ decode_parsed(fetch=False) and decode(fetch=False) run every chunk
 through the ladder and its one-read fence, synchronize the device and
 return None: no RGB leaves the card.
 
+Every stage of a call is a span (utils/profiling.span), on the thread
+that runs it; BatchStats is made from the call's record:
+
+  dispatching thread  decode (the root); parse_wait (a parse future);
+                      dispatch (a chunk; attribute route) > prep_wait,
+                      prepare, host_entropy > host_pad, upload, launch;
+                      finish > fence, retry (kind steps_safe or slots),
+                      host_fallback, sync; fetch and crop (a chunk)
+  parse pool          parse (a stream); huffman (an image of a host
+                      route chunk)
+  prep pool           prep_queue (submit to start), then prepare
+                      (attributes route, outcome ok or miss) > plan,
+                      stage
+
+parse_s, entropy_s and device_s are the sums of parse_wait, dispatch and
+finish, total_s the root's; span_s holds every name's sum, route_chunks
+the chunks by the route that returned them, prep_misses the
+preparations thrown away, and the retry and fallback counters are the
+call's counters (utils/profiling.count).
+
 Several devices (mesh=, parallel/sharding.py): entropy decode and
 staging run on the mesh's first device, and the pixel stage is sharded
 over the mesh's batch axis (sharding.compiled_batch_decoder), each
@@ -110,6 +130,7 @@ from __future__ import annotations
 
 import os
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -121,6 +142,8 @@ from ..io.parser import JpegImage, parse
 from ..parallel import sharding
 from ..pipeline import (Geometry, bucket_geometry, device_decode_fn,
                         pad_coeffs_to_bucket)
+from ..utils import profiling
+from ..utils.profiling import span
 
 # The link rate (MB/s) below which uploading a chunk's dense coefficients
 # (the host route's int32 [B, n_blocks, 64]) costs more than uploading its
@@ -185,7 +208,8 @@ def measured_link_mbps(device="cuda") -> float:
 
 @dataclass
 class BatchStats:
-    """Counters and wall-clock seconds of the last decode() call."""
+    """Counters and wall-clock seconds of the last decode() call, from
+    its spans and counters (module docstring)."""
 
     n_images: int = 0
     compressed_bytes: int = 0
@@ -203,6 +227,10 @@ class BatchStats:
     fsm_malformed_fallbacks: int = 0  # chunks redone on host: bad stream
     spec_sync_misses: int = 0         # spec chunks that fell back to Jacobi
     fsm_slot_retries: int = 0         # chunks re-decoded with slots=False
+    span_s: dict = field(default_factory=dict)   # span name -> seconds
+    route_chunks: dict = field(default_factory=dict)  # route -> chunks
+    prep_misses: int = 0              # preparations thrown away
+    spans: list = field(default_factory=list)  # logged while profiled
 
     def as_dict(self) -> dict:
         return dict(self.__dict__)
@@ -234,6 +262,7 @@ class _Chunk:
     failed: dict | None = None         # local index -> message (skip mode)
     bucketed: bool = False             # geom is a size-class bucket: crop
     #                                    each output to its image's size
+    id: int = -1                       # its place in the call's chunks
 
 
 def _stride_key(img: JpegImage) -> int:
@@ -245,11 +274,16 @@ def _stride_key(img: JpegImage) -> int:
     return int((ends - offs).max())
 
 
-def _try_parse(data: bytes):
-    try:
-        return parse(data)
-    except JpegError as e:
-        return str(e)
+def _parse_stream(data: bytes, isolate: bool):
+    """One stream's parse on the pool; under isolate a JpegError comes
+    back as its message."""
+    with span("parse"):
+        try:
+            return parse(data)
+        except JpegError as e:
+            if not isolate:
+                raise
+            return str(e)
 
 
 def _pack_fence(rgb, err_mal, err_env, err_slot=None) -> torch.Tensor:
@@ -354,7 +388,7 @@ class _Window:
     _PREP_AHEAD prepared
     chunks wait undispatched; `drain(block=False)` dispatches chunks
     while the first one's preparation is done, `drain(block=True)` all of
-    them, each waiting for its own.  `t_ent` sums the dispatch time."""
+    them, each waiting for its own."""
 
     def __init__(self, dec: "BatchDecoder", isolate: bool):
         self.dec = dec
@@ -367,7 +401,6 @@ class _Window:
                 measured_link_mbps(dec.device)
             dec._upload()
         self.pending: list[_Chunk] = []
-        self.t_ent = 0.0
 
     def drain(self, block: bool) -> None:
         dec = self.dec
@@ -376,15 +409,15 @@ class _Window:
                 for c in self.pending[:_PREP_AHEAD]:
                     if c.plan_future is None:
                         c.plan_future = dec.prep_pool.submit(
-                            dec._prepare_chunk, c)
+                            profiling.bind(dec._prepare_chunk,
+                                           queue="prep_queue", chunk=c.id),
+                            c)
             c = self.pending[0]
             if (not block and c.plan_future is not None
                     and not c.plan_future.done()):
                 break
             self.pending.pop(0)
-            t0 = time.perf_counter()
             dec._dispatch_chunk(c, self.isolate)
-            self.t_ent += time.perf_counter() - t0
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -501,7 +534,8 @@ class BatchDecoder:
             for j in range(0, len(idxs), self.chunk_size):
                 part = idxs[j : j + self.chunk_size]
                 chunks.append(_Chunk(geom, part, [imgs[i] for i in part],
-                                     bucketed=self.size_buckets))
+                                     bucketed=self.size_buckets,
+                                     id=len(chunks)))
         return chunks
 
     def _pad(self, n: int) -> int:
@@ -514,15 +548,13 @@ class BatchDecoder:
     def _pixels(self, geom: Geometry, coeffs: torch.Tensor,
                 quant: torch.Tensor, extents: torch.Tensor | None = None):
         """The pixel stage of a chunk of B = `_pad` images: on one device
-        device_decode_fn on self.device (rgb one tensor), on a mesh of
-        several sharded over its batch axis (rgb a list of shards, each
-        on its device).  Host tensors go to each shard's device
-        directly."""
+        device_decode_fn on tensors already on self.device (rgb one
+        tensor), on a mesh of several sharded over its batch axis (rgb a
+        list of shards, each on its device).  On a mesh, host tensors go
+        to each shard's device directly."""
         if not self._multi:
-            return device_decode_fn(
-                geom, coeffs.to(self.device), quant.to(self.device),
-                fancy=self.fancy, exact=self.strict,
-                extents=None if extents is None else extents.to(self.device))
+            return device_decode_fn(geom, coeffs, quant, fancy=self.fancy,
+                                    exact=self.strict, extents=extents)
         fn = sharding.compiled_batch_decoder(
             geom, self.mesh, self.fancy, bucketed=extents is not None,
             exact=self.strict)
@@ -548,14 +580,16 @@ class BatchDecoder:
         Raises JpegError when the chunk does not pack."""
         from ..ops import fsm
 
-        plan = fsm.build_plan(
-            chunk.imgs,
-            split=measured_link_mbps(self.device) < _LINK_MBPS_SPLIT)
-        up = self._upload()
-        arrays = (tuple((up(xs), up(sn)) for xs, sn in plan.groups),
-                  up(plan.perm))
-        quant = up(self._quant_host(chunk))
-        return _Prepared("plan", plan, arrays, quant, up.done())
+        with span("plan"):
+            plan = fsm.build_plan(
+                chunk.imgs,
+                split=measured_link_mbps(self.device) < _LINK_MBPS_SPLIT)
+        with span("stage"):
+            up = self._upload()
+            arrays = (tuple((up(xs), up(sn)) for xs, sn in plan.groups),
+                      up(plan.perm))
+            quant = up(self._quant_host(chunk))
+            return _Prepared("plan", plan, arrays, quant, up.done())
 
     def _prepare_bucket(self, chunk: _Chunk) -> _Prepared:
         """A bucketed chunk: the bucket-raster plan, its four arrays, the
@@ -564,13 +598,16 @@ class BatchDecoder:
         from ..ops import fsm
         from .fused import bucket_extents
 
-        plan = fsm.build_plan_bucketed(chunk.imgs, chunk.geom)
-        up = self._upload()
-        arrays = tuple(map(up, (plan.xs, plan.seg_n, plan.wrap_at,
-                                plan.skip)))
-        quant = up(self._quant_host(chunk))
-        extents = up(bucket_extents(plan, len(chunk.imgs)))
-        return _Prepared("bucket", plan, arrays, quant, up.done(), extents)
+        with span("plan"):
+            plan = fsm.build_plan_bucketed(chunk.imgs, chunk.geom)
+        with span("stage"):
+            up = self._upload()
+            arrays = tuple(map(up, (plan.xs, plan.seg_n, plan.wrap_at,
+                                    plan.skip)))
+            quant = up(self._quant_host(chunk))
+            extents = up(bucket_extents(plan, len(chunk.imgs)))
+            return _Prepared("bucket", plan, arrays, quant, up.done(),
+                             extents)
 
     def _prepare_spec(self, chunk: _Chunk) -> _Prepared:
         """A chunk that does not pack: the speculative plan and what
@@ -581,11 +618,13 @@ class BatchDecoder:
 
         if len({(im.n_mcus, im.blocks_per_mcu) for im in chunk.imgs}) != 1:
             raise JpegError("fsm-spec: chunk mixes block counts")
-        plan = fsm.build_spec_plan_batch(chunk.imgs, 1024)
-        up = self._upload()
-        arrays = tuple(map(up, (plan.xs, *fsm.spec_lane_arrays(plan))))
-        quant = up(self._quant_host(chunk))
-        return _Prepared("spec", plan, arrays, quant, up.done())
+        with span("plan"):
+            plan = fsm.build_spec_plan_batch(chunk.imgs, 1024)
+        with span("stage"):
+            up = self._upload()
+            arrays = tuple(map(up, (plan.xs, *fsm.spec_lane_arrays(plan))))
+            quant = up(self._quant_host(chunk))
+            return _Prepared("spec", plan, arrays, quant, up.done())
 
     def _prepare_gather(self, chunk: _Chunk) -> _Prepared:
         """A gather chunk: the segment plan and its arrays staged (the
@@ -593,22 +632,35 @@ class BatchDecoder:
         Raises JpegError for a chunk the plan cannot take."""
         from ..ops import entropy
 
-        plan = entropy.build_segment_plan(chunk.imgs)
-        up = self._upload()
-        arrays = tuple(map(up, entropy.plan_arrays(plan)))
-        quant = up(self._quant_host(chunk))
-        return _Prepared("gather", plan, arrays, quant, up.done())
+        with span("plan"):
+            plan = entropy.build_segment_plan(chunk.imgs)
+        with span("stage"):
+            up = self._upload()
+            arrays = tuple(map(up, entropy.plan_arrays(plan)))
+            quant = up(self._quant_host(chunk))
+            return _Prepared("gather", plan, arrays, quant, up.done())
 
     def _prepare_chunk(self, chunk: _Chunk):
         """The prep pool's task: the gather route's preparation on backend
         "gather", else the device FSM's.  Returns the _Prepared or the
-        JpegError of a chunk outside the route."""
-        if self.backend == "gather":
-            try:
-                return self._prepare_gather(chunk)
-            except JpegError as e:
-                return e
-        return self._prepare_chunk_fsm(chunk)
+        JpegError of a chunk outside the route, counted in prep_misses
+        (the span keeps its route and outcome, never the error)."""
+        with span("prepare") as sp:
+            if self.backend == "gather":
+                try:
+                    res = self._prepare_gather(chunk)
+                except JpegError as e:
+                    res = e
+            else:
+                res = self._prepare_chunk_fsm(chunk)
+            if isinstance(res, JpegError):
+                profiling.count("prep_misses")
+                sp.set(route="gather" if self.backend == "gather" else
+                       "bucket" if chunk.bucketed else "spec",
+                       outcome="miss")
+            else:
+                sp.set(route=res.kind, outcome="ok")
+            return res
 
     def _prepare_chunk_fsm(self, chunk: _Chunk):
         """Build a chunk's plan and stage its arrays (on the prep pool, or
@@ -635,7 +687,8 @@ class BatchDecoder:
         pool's result (or one made here), its copy ordered before the
         chunk's first kernel.  Returns the route or the JpegError."""
         if chunk.plan_future is not None:
-            res = chunk.plan_future.result()
+            with span("prep_wait"):
+                res = chunk.plan_future.result()
             chunk.plan_future = None
         else:
             res = self._prepare_chunk(chunk)
@@ -679,24 +732,29 @@ class BatchDecoder:
                 return host.entropy_decode(img, threads=1)
 
         def one(img):
-            try:
-                return entropy_decode(img)
-            except JpegError as e:
-                if not isolate:
-                    raise
-                return e
+            with span("huffman"):
+                try:
+                    return entropy_decode(img)
+                except JpegError as e:
+                    if not isolate:
+                        raise
+                    return e
 
-        coeffs = np.zeros((B, geom.n_blocks, 64), np.int32)
-        for bi, res in enumerate(self.pool.map(one, chunk.imgs)):
-            if isinstance(res, JpegError):
-                if chunk.failed is None:
-                    chunk.failed = {}
-                chunk.failed[bi] = str(res)
-            elif chunk.bucketed:
-                pad_coeffs_to_bucket(Geometry.of(chunk.imgs[bi]), geom, res,
-                                     coeffs[bi])
-            else:
-                coeffs[bi] = res
+        with span("host_entropy"):
+            coeffs = np.zeros((B, geom.n_blocks, 64), np.int32)
+            for bi, res in enumerate(self.pool.map(profiling.bind(one),
+                                                   chunk.imgs)):
+                if isinstance(res, JpegError):
+                    if chunk.failed is None:
+                        chunk.failed = {}
+                    chunk.failed[bi] = str(res)
+                    continue
+                with span("host_pad"):
+                    if chunk.bucketed:
+                        pad_coeffs_to_bucket(Geometry.of(chunk.imgs[bi]),
+                                             geom, res, coeffs[bi])
+                    else:
+                        coeffs[bi] = res
         extents = None
         if chunk.bucketed:
             # padding images take the bucket's extents, as in the JAX engine
@@ -705,9 +763,16 @@ class BatchDecoder:
             ext[: len(chunk.imgs)] = [(im.mcus_y, im.mcus_x)
                                       for im in chunk.imgs]
             extents = torch.as_tensor(ext)
-        chunk.out = self._pixels(geom, torch.as_tensor(coeffs),
-                                 torch.as_tensor(self._quant_host(chunk)),
-                                 extents)
+        coeffs = torch.as_tensor(coeffs)
+        quant = torch.as_tensor(self._quant_host(chunk))
+        if not self._multi:
+            # a mesh's pixel stage sends each shard's rows to its device
+            with span("upload"):
+                coeffs, quant = coeffs.to(self.device), quant.to(self.device)
+                if extents is not None:
+                    extents = extents.to(self.device)
+        with span("launch"):
+            chunk.out = self._pixels(geom, coeffs, quant, extents)
         chunk.err_mal = chunk.err_env = chunk.err_slot = None
         chunk.backend = ("oracle" if oracle else "host") \
             + ("-bucketed" if chunk.bucketed else "")
@@ -728,14 +793,16 @@ class BatchDecoder:
                 raise res
         geom = chunk.geom
         n = len(chunk.imgs)
-        coeffs, err = entropy.decode_plan(chunk.plan, self.device,
-                                          uploaded=chunk.uploaded)
-        entropy.check_lanes(err)
-        coeffs = coeffs.reshape(n, geom.n_blocks, 64)
-        B = self._pad(n)
-        if B > n:
-            coeffs = torch.nn.functional.pad(coeffs, (0, 0, 0, 0, 0, B - n))
-        chunk.out = self._pixels(geom, coeffs, chunk.quant)
+        with span("launch"):
+            coeffs, err = entropy.decode_plan(chunk.plan, self.device,
+                                              uploaded=chunk.uploaded)
+            entropy.check_lanes(err)
+            coeffs = coeffs.reshape(n, geom.n_blocks, 64)
+            B = self._pad(n)
+            if B > n:
+                coeffs = torch.nn.functional.pad(coeffs,
+                                                 (0, 0, 0, 0, 0, B - n))
+            chunk.out = self._pixels(geom, coeffs, chunk.quant)
         chunk.err_mal = chunk.err_env = chunk.err_slot = None
         chunk.backend = "gather"
 
@@ -820,25 +887,27 @@ class BatchDecoder:
         B = self._pad(len(chunk.imgs))
         quant = chunk.quant
         groups, _ = chunk.uploaded
-        if len(groups) == 1 and not self._multi:
-            rgb, risk, _, _, err_mal, err_env, err_slot = (
-                fused.decode_chunk_fused(
-                    chunk.plan, quant, chunk.geom, B, steps=chunk.steps,
-                    want_coeffs=False, uploaded=groups[0], slots=False,
-                    route=self.route, fancy=self.fancy, exact=self.strict,
+        with span("launch"):
+            if len(groups) == 1 and not self._multi:
+                rgb, risk, _, _, err_mal, err_env, err_slot = (
+                    fused.decode_chunk_fused(
+                        chunk.plan, quant, chunk.geom, B, steps=chunk.steps,
+                        want_coeffs=False, uploaded=groups[0], slots=False,
+                        route=self.route, fancy=self.fancy,
+                        exact=self.strict,
+                    )
                 )
-            )
-        else:
-            # the staged chain (a split plan, or a mesh of several
-            # devices): a scan per stride group, rows back in lane order,
-            # assembled per image, then the pixel stage
-            per_lane, (err_mal, err_env) = fsm.decode_plan(
-                chunk.plan, uploaded=chunk.uploaded, steps=chunk.steps,
-                route=self.route)
-            coeffs = fsm.assemble_batched(per_lane, layout=chunk.plan.layout,
-                                          pad_to=B)
-            rgb, risk = self._pixels(chunk.geom, coeffs, quant)
-            err_slot = None
+            else:
+                # the staged chain (a split plan, or a mesh of several
+                # devices): a scan per stride group, rows back in lane
+                # order, assembled per image, then the pixel stage
+                per_lane, (err_mal, err_env) = fsm.decode_plan(
+                    chunk.plan, uploaded=chunk.uploaded, steps=chunk.steps,
+                    route=self.route)
+                coeffs = fsm.assemble_batched(
+                    per_lane, layout=chunk.plan.layout, pad_to=B)
+                rgb, risk = self._pixels(chunk.geom, coeffs, quant)
+                err_slot = None
         chunk.out = (rgb, risk)
         chunk.err_mal = err_mal
         chunk.err_env = err_env
@@ -868,14 +937,16 @@ class BatchDecoder:
             return False
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
         B = len(chunk.imgs)
-        rgb, risk, _, _, err_mal, err_env, err_slot = (
-            fused.decode_chunk_bucketed(
-                plan, chunk.quant, chunk.geom, B,
-                steps=chunk.steps, want_coeffs=False,
-                uploaded=chunk.uploaded, slots=False, route=self.route,
-                fancy=self.fancy, exact=self.strict, extents=chunk.extents,
+        with span("launch"):
+            rgb, risk, _, _, err_mal, err_env, err_slot = (
+                fused.decode_chunk_bucketed(
+                    plan, chunk.quant, chunk.geom, B,
+                    steps=chunk.steps, want_coeffs=False,
+                    uploaded=chunk.uploaded, slots=False, route=self.route,
+                    fancy=self.fancy, exact=self.strict,
+                    extents=chunk.extents,
+                )
             )
-        )
         chunk.out = (rgb, risk)
         chunk.err_mal = err_mal
         chunk.err_env = err_env
@@ -908,32 +979,37 @@ class BatchDecoder:
             try:
                 if chunk.spec_plan is None:
                     # nobody prepared it (or the restart preparation ran)
-                    self._adopt(chunk, self._prepare_spec(chunk))
-                xs, *lanes = chunk.spec_dev
-                pending = fsm.spec_sync_start(
-                    chunk.imgs, plan=chunk.spec_plan, xs_dev=xs,
-                    lanes_dev=lanes, steps=chunk.steps,
-                )
-                if self._multi:
-                    # the JAX engine's staged single-pass decode (classic
-                    # materialize), then the sharded pixel stage
-                    coeffs_dev, (err_mal, err_env) = \
-                        fsm.decode_speculative_sync(
-                            chunk.imgs, pad_to=B, steps=chunk.steps,
-                            pending=pending, route=self.route)
-                    chunk.out = self._pixels(geom, coeffs_dev, chunk.quant)
-                    chunk.err_mal, chunk.err_env = err_mal, err_env
-                    chunk.err_slot = None
-                    chunk.backend = "fsm-spec-sync"
-                    return True
-                rgb, risk, _, _, err, err_slot = (
-                    fused.decode_spec_sync_fused(
-                        pending, geom, chunk.quant, B, len(chunk.imgs),
-                        want_coeffs=False,
-                        slots=self._slot_capacity(chunk), route=self.route,
-                        fancy=self.fancy, exact=self.strict,
+                    with span("prepare", route="spec"):
+                        self._adopt(chunk, self._prepare_spec(chunk))
+                with span("launch"):
+                    xs, *lanes = chunk.spec_dev
+                    pending = fsm.spec_sync_start(
+                        chunk.imgs, plan=chunk.spec_plan, xs_dev=xs,
+                        lanes_dev=lanes, steps=chunk.steps,
                     )
-                )
+                    if self._multi:
+                        # the JAX engine's staged single-pass decode
+                        # (classic materialize), then the sharded pixel
+                        # stage
+                        coeffs_dev, (err_mal, err_env) = \
+                            fsm.decode_speculative_sync(
+                                chunk.imgs, pad_to=B, steps=chunk.steps,
+                                pending=pending, route=self.route)
+                        chunk.out = self._pixels(geom, coeffs_dev,
+                                                 chunk.quant)
+                        chunk.err_mal, chunk.err_env = err_mal, err_env
+                        chunk.err_slot = None
+                        chunk.backend = "fsm-spec-sync"
+                        return True
+                    rgb, risk, _, _, err, err_slot = (
+                        fused.decode_spec_sync_fused(
+                            pending, geom, chunk.quant, B, len(chunk.imgs),
+                            want_coeffs=False,
+                            slots=self._slot_capacity(chunk),
+                            route=self.route, fancy=self.fancy,
+                            exact=self.strict,
+                        )
+                    )
                 chunk.out = (rgb, risk)
                 chunk.err_mal = err
                 chunk.err_env = torch.zeros_like(err)
@@ -948,10 +1024,13 @@ class BatchDecoder:
                 chunk.spec_sync_misses += 1
             except fsm.SpecSyncMiss:
                 chunk.spec_sync_misses += 1
-            coeffs_dev, (err_mal, err_env) = fsm.decode_speculative_batch(
-                chunk.imgs, device_out=True, pad_to=B, steps=chunk.steps,
-                device=self.device, route=self.route,
-            )
+            with span("launch"):
+                coeffs_dev, (err_mal, err_env) = \
+                    fsm.decode_speculative_batch(
+                        chunk.imgs, device_out=True, pad_to=B,
+                        steps=chunk.steps, device=self.device,
+                        route=self.route,
+                    )
         except fsm.SpecEnvelopeError:
             if not fsm.steps_below_safe(chunk.steps):
                 return False
@@ -959,7 +1038,8 @@ class BatchDecoder:
             return self._process_chunk_spec(chunk, steps=fsm.STEPS_SAFE)
         except JpegError:
             return False
-        chunk.out = self._pixels(geom, coeffs_dev, chunk.quant)
+        with span("launch"):
+            chunk.out = self._pixels(geom, coeffs_dev, chunk.quant)
         chunk.err_mal = err_mal
         chunk.err_env = err_env
         chunk.err_slot = None
@@ -1003,14 +1083,16 @@ class BatchDecoder:
         self._process_chunk_host(chunk, isolate=isolate)
 
     def _dispatch_chunk(self, chunk: _Chunk, isolate: bool) -> None:
-        try:
-            self._process_chunk(chunk, isolate)
-        except JpegError:
-            if not isolate:
-                raise
-            # skip mode: a chunk the FSM cannot take goes to the host
-            # route, which isolates the bad streams image by image
-            self._process_chunk_host(chunk, isolate=True)
+        with span("dispatch", chunk=chunk.id) as sp:
+            try:
+                self._process_chunk(chunk, isolate)
+            except JpegError:
+                if not isolate:
+                    raise
+                # skip mode: a chunk the FSM cannot take goes to the host
+                # route, which isolates the bad streams image by image
+                self._process_chunk_host(chunk, isolate=True)
+            sp.set(route=chunk.backend)
 
     # -- decode -------------------------------------------------------------
 
@@ -1032,81 +1114,30 @@ class BatchDecoder:
         H100 host (PERF.md)."""
         if on_error not in ("raise", "skip"):
             raise ValueError(f"on_error={on_error!r}")
-        t_start = time.perf_counter()
         isolate = on_error == "skip"
-        chunks = self._make_chunks(imgs)
-        window = _Window(self, isolate)
-        window.pending.extend(chunks)
-        window.drain(block=True)
-        return self._finish(chunks, len(imgs), t_start, window.t_ent, fetch,
-                            isolate)
+        with profiling.call() as rec:
+            chunks = self._make_chunks(imgs)
+            window = _Window(self, isolate)
+            window.pending.extend(chunks)
+            window.drain(block=True)
+            out = self._finish(chunks, len(imgs), fetch, isolate)
+        self.stats = self._stats(rec, chunks, len(imgs))
+        return out
 
-    def _finish(self, chunks: list[_Chunk], n_images: int, t_start: float,
-                t_ent: float, fetch: bool, isolate: bool):
-        from ..ops import fsm
-
-        n_env = n_mal = n_k = n_slot = 0
-        t0 = time.perf_counter()
-        for chunk in chunks:
-            if chunk.err_mal is None:
-                continue
-            mal, env, slot = self._flags(chunk)
-            failed = False
-            if slot and not chunk.slots_off:
-                # a slot group overflowed its capacity: decode the chunk
-                # again through the classic materialize, and serve later
-                # chunks at the next capacity up (or classic)
-                chunk.slots_off = True
-                n_slot += 1
-                self._bump_slot_capacity()
-                failed = not self._redecode(chunk, chunk.steps)
-                if not failed:
-                    mal, env, slot = self._flags(chunk)
-            if (not failed and env and not mal
-                    and fsm.steps_below_safe(chunk.steps)):
-                # denser than the fast symbol-step envelope: decode the
-                # chunk again on the device at the safe step count
-                n_k += 1
-                failed = not self._redecode(chunk, fsm.STEPS_SAFE)
-                if not failed:
-                    mal, env, slot = self._flags(chunk)
-            if mal or env or failed:
-                # bad stream, outside the envelope even at STEPS_SAFE, or
-                # a retry that produced nothing (its chunk keeps no stale
-                # output): the host route raises (or records) a precise
-                # JpegError
-                n_mal += int(mal and not failed)
-                n_env += int(failed or (env and not mal))
-                self._process_chunk_host(chunk, isolate=isolate)
-            chunk.staged = None   # its copy is done: the fence was read
-        if any(c.out is not None for c in chunks):
-            for d in self._cuda_devices():
-                torch.cuda.synchronize(d)
-        t_dev = time.perf_counter() - t0
-
-        self.stats = BatchStats(
-            n_images=n_images,
-            compressed_bytes=sum(
-                im.scan_data.size for c in chunks for im in c.imgs
-            ),
-            pixels=sum(im.width * im.height for c in chunks for im in c.imgs),
-            entropy_s=t_ent,
-            device_s=t_dev,
-            backend="+".join(sorted({c.backend for c in chunks})),
-            chunks=len(chunks),
-            fsm_envelope_fallbacks=n_env,
-            fsm_malformed_fallbacks=n_mal,
-            fsm_k_retries=n_k + sum(c.spec_k_retries for c in chunks),
-            spec_sync_misses=sum(c.spec_sync_misses for c in chunks),
-            fsm_slot_retries=n_slot,
-        )
-        for chunk in chunks:
-            if chunk.failed:
-                for bi, msg in chunk.failed.items():
-                    self.stats.failures[chunk.indices[bi]] = msg
-
+    def _finish(self, chunks: list[_Chunk], n_images: int, fetch: bool,
+                isolate: bool):
+        """The retry ladder behind each chunk's fence, the device sync,
+        then (fetch=True) each chunk's RGB fetched and cropped: the
+        results in the chunks' index order, or None."""
+        with span("finish"):
+            for chunk in chunks:
+                if chunk.err_mal is not None:
+                    self._ladder(chunk, isolate)
+            if any(c.out is not None for c in chunks):
+                with span("sync"):
+                    for d in self._cuda_devices():
+                        torch.cuda.synchronize(d)
         if not fetch:
-            self.stats.total_s = time.perf_counter() - t_start
             return None
         results: list[np.ndarray | None] = [None] * n_images
         for chunk in chunks:
@@ -1115,17 +1146,97 @@ class BatchDecoder:
                 for bi, i in enumerate(chunk.indices):
                     results[i] = chunk.rgb_host[bi]
                 continue
-            rgb_h = _fetch(chunk.out[0], len(chunk.imgs))
-            for bi, i in enumerate(chunk.indices):
-                if chunk.failed and bi in chunk.failed:
-                    continue
-                img = chunk.imgs[bi]
-                # bucket rasters carry padding: crop to the true image (a
-                # view where the image fills the raster: decode_parsed)
-                results[i] = np.ascontiguousarray(
-                    rgb_h[bi, : img.height, : img.width])
-        self.stats.total_s = time.perf_counter() - t_start
+            with span("fetch", chunk=chunk.id):
+                rgb_h = _fetch(chunk.out[0], len(chunk.imgs))
+            with span("crop", chunk=chunk.id):
+                for bi, i in enumerate(chunk.indices):
+                    if chunk.failed and bi in chunk.failed:
+                        continue
+                    img = chunk.imgs[bi]
+                    # bucket rasters carry padding: crop to the true image
+                    # (a view where the image fills the raster:
+                    # decode_parsed)
+                    results[i] = np.ascontiguousarray(
+                        rgb_h[bi, : img.height, : img.width])
         return results
+
+    def _ladder(self, chunk: _Chunk, isolate: bool) -> None:
+        """One device chunk's fence and retries (module docstring, 4),
+        counted in the call's record."""
+        from ..ops import fsm
+
+        with span("fence", chunk=chunk.id):
+            mal, env, slot = self._flags(chunk)
+        failed = False
+        if slot and not chunk.slots_off:
+            # a slot group overflowed its capacity: decode the chunk
+            # again through the classic materialize, and serve later
+            # chunks at the next capacity up (or classic)
+            with span("retry", chunk=chunk.id, kind="slots"):
+                chunk.slots_off = True
+                profiling.count("fsm_slot_retries")
+                self._bump_slot_capacity()
+                failed = not self._redecode(chunk, chunk.steps)
+                if not failed:
+                    with span("fence"):
+                        mal, env, slot = self._flags(chunk)
+        if (not failed and env and not mal
+                and fsm.steps_below_safe(chunk.steps)):
+            # denser than the fast symbol-step envelope: decode the
+            # chunk again on the device at the safe step count
+            with span("retry", chunk=chunk.id, kind="steps_safe"):
+                profiling.count("fsm_k_retries")
+                failed = not self._redecode(chunk, fsm.STEPS_SAFE)
+                if not failed:
+                    with span("fence"):
+                        mal, env, slot = self._flags(chunk)
+        if mal or env or failed:
+            # bad stream, outside the envelope even at STEPS_SAFE, or
+            # a retry that produced nothing (its chunk keeps no stale
+            # output): the host route raises (or records) a precise
+            # JpegError
+            if mal and not failed:
+                profiling.count("fsm_malformed_fallbacks")
+            else:
+                profiling.count("fsm_envelope_fallbacks")
+            with span("host_fallback", chunk=chunk.id):
+                self._process_chunk_host(chunk, isolate=isolate)
+        chunk.staged = None   # its copy is done: the fence was read
+
+    @staticmethod
+    def _stats(rec: profiling.Call, chunks: list[_Chunk],
+               n_images: int) -> BatchStats:
+        """A call's BatchStats from its record and its chunks."""
+        sec, cnt = rec.seconds, rec.counts
+        routes = dict(Counter(c.backend for c in chunks))
+        stats = BatchStats(
+            n_images=n_images,
+            compressed_bytes=sum(
+                im.scan_data.size for c in chunks for im in c.imgs
+            ),
+            pixels=sum(im.width * im.height for c in chunks for im in c.imgs),
+            parse_s=sec.get("parse_wait", 0.0),
+            entropy_s=sec.get("dispatch", 0.0),
+            device_s=sec.get("finish", 0.0),
+            total_s=sec["decode"],
+            backend="+".join(sorted(routes)),
+            chunks=len(chunks),
+            fsm_envelope_fallbacks=cnt.get("fsm_envelope_fallbacks", 0),
+            fsm_malformed_fallbacks=cnt.get("fsm_malformed_fallbacks", 0),
+            fsm_k_retries=cnt.get("fsm_k_retries", 0)
+            + sum(c.spec_k_retries for c in chunks),
+            spec_sync_misses=sum(c.spec_sync_misses for c in chunks),
+            fsm_slot_retries=cnt.get("fsm_slot_retries", 0),
+            span_s=dict(sec),
+            route_chunks=routes,
+            prep_misses=cnt.get("prep_misses", 0),
+            spans=rec.spans,
+        )
+        for chunk in chunks:
+            if chunk.failed:
+                for bi, msg in chunk.failed.items():
+                    stats.failures[chunk.indices[bi]] = msg
+        return stats
 
     def _cuda_devices(self) -> list:
         """The distinct cards this decoder's chunks run on."""
@@ -1159,49 +1270,44 @@ class BatchDecoder:
         recorded in stats.failures (keyed by position in `datas`)."""
         if on_error not in ("raise", "skip"):
             raise ValueError(f"on_error={on_error!r}")
-        t_start = time.perf_counter()
         isolate = on_error == "skip"
-        futs = [self.pool.submit(_try_parse if isolate else parse, d)
-                for d in datas]
-        window = _Window(self, isolate)
         groups: dict[tuple, tuple[list, list]] = {}
         chunks: list[_Chunk] = []
         bad: dict[int, str] = {}
         pos_of: list[int] = []
-        t_parse = 0.0
+        with profiling.call() as rec:
+            futs = [self.pool.submit(profiling.bind(_parse_stream), d,
+                                     isolate) for d in datas]
+            window = _Window(self, isolate)
 
-        def flush(key, idxs, ims):
-            chunk = _Chunk(key[0], list(idxs), list(ims),
-                           bucketed=self.size_buckets)
-            idxs.clear()
-            ims.clear()
-            chunks.append(chunk)
-            window.pending.append(chunk)
-            window.drain(block=False)
+            def flush(key, idxs, ims):
+                chunk = _Chunk(key[0], list(idxs), list(ims),
+                               bucketed=self.size_buckets, id=len(chunks))
+                idxs.clear()
+                ims.clear()
+                chunks.append(chunk)
+                window.pending.append(chunk)
+                window.drain(block=False)
 
-        for i, f in enumerate(futs):
-            t0 = time.perf_counter()
-            res = f.result()   # later parses keep running on the pool
-            t_parse += time.perf_counter() - t0
-            if isinstance(res, str):
-                bad[i] = res
-                continue
-            key = self._chunk_key(res)
-            idxs, ims = groups.setdefault(key, ([], []))
-            idxs.append(len(pos_of))
-            ims.append(res)
-            pos_of.append(i)
-            if len(idxs) == self.chunk_size:
-                flush(key, idxs, ims)
-        for key, (idxs, ims) in groups.items():
-            if idxs:
-                flush(key, idxs, ims)
-        window.drain(block=True)
-
-        out = self._finish(chunks, len(pos_of), t_start, window.t_ent, fetch,
-                           isolate)
-        self.stats.parse_s = t_parse
-        self.stats.total_s = time.perf_counter() - t_start
+            for i, f in enumerate(futs):
+                with span("parse_wait"):
+                    res = f.result()   # later parses keep running
+                if isinstance(res, str):
+                    bad[i] = res
+                    continue
+                key = self._chunk_key(res)
+                idxs, ims = groups.setdefault(key, ([], []))
+                idxs.append(len(pos_of))
+                ims.append(res)
+                pos_of.append(i)
+                if len(idxs) == self.chunk_size:
+                    flush(key, idxs, ims)
+            for key, (idxs, ims) in groups.items():
+                if idxs:
+                    flush(key, idxs, ims)
+            window.drain(block=True)
+            out = self._finish(chunks, len(pos_of), fetch, isolate)
+        self.stats = self._stats(rec, chunks, len(pos_of))
         failures = {pos_of[j]: msg for j, msg in self.stats.failures.items()}
         self.stats.failures = {**bad, **failures}
         if out is None:
