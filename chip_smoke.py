@@ -52,7 +52,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      buckets, backend "fsm-bucketed", route "scatter").  Every output
      equals the host reference decoder's with the same `fancy`, two per
      chunk equal the oracle's, no host fallback, and the pixel kernel is
-     not launched: subsampled pixels take the plane path (torch ops).
+     not launched: subsampled pixels take the planes kernel
+     (csrc/planes.cu), launched at least once a chunk.
      Then the slot route at 6 blocks per MCU (the 4:2:0 restart chunk
      through fused.decode_chunk_fused(slots=C) equals the classic
      scatter, no overflow), and the five small streams of
@@ -133,7 +134,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      and host routes' layout) and on the mixed chunk's bucket-raster lane
      matrix (padded rows, DC masked outside each image's extent: the
      bucketed chain's input, the whole 808x808 raster compared), with
-     kernel, plain, bytes, bound and share.  The two gathers are read
+     kernel, plain, bytes, bound and share.  The planes kernel (the
+     subsampled pixel stage) is held in both colour modes with fancy
+     upsampling at the two shapes the engine feeds it: an ImageNet-like
+     host-bucketed chunk (11 pictures in a 34 x 34-MCU 4:2:0 bucket,
+     int32, extents; the 4:2:0 restart streams' coefficients cut to 32 x
+     32 MCUs, the last row a padding image) and the 4:2:0 restart chunk
+     (int16 [128, 9600, 64] with its resolved DC), with kernel (device
+     time from a CUDA graph of 20 calls) and call times, plain plane
+     path, bytes, bound and share.  The two gathers are read
      apart from their launch path (tools/bench_torch_gather.py's
      gather_readings): device ms from one CUDA graph of 20 calls, call ms
      (one call between events) and the host's us per call, for the
@@ -242,10 +251,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      max of 5 runs, 7 for the 4:2:0 chains), the rounds of the Jacobi
      fixed point on the 4:2:0 spec chunk (run on the host: a flag read
      after each round) and what those reads cost (the chain against the
-     same launches with no read, the same rgb), and the plane path's
-     stage times (IDCT, block -> raster, upsample, f32 and exact colour,
-     pack); the restart chain cut after the scan, materialize and
-     assemble (decode_chunk_fused stop_after; cumulative times, the cut
+     same launches with no read, the same rgb), and the plain plane
+     path's stage times (IDCT, block -> raster, upsample, f32 and exact
+     colour, pack) beside the planes kernel's whole stage; the restart
+     chain cut after the scan, materialize and assemble (decode_chunk_fused stop_after; cumulative times, the cut
      checksums held to the scan's events and the full chain's assembled
      coefficients) and whole.
 
@@ -736,7 +745,7 @@ def main() -> int:
                                 device="cuda", fancy=fancy,
                                 size_buckets=name == "mixed")
             out420 = run_path(tag, lambda: d420.decode(data),
-                              need=("fsm_scan", "place_events"),
+                              need=("fsm_scan", "place_events", "planes"),
                               never=plane_never)
             s420 = d420.stats
             print(f"{tag}: stats {json.dumps(s420.as_dict())}")
@@ -757,6 +766,10 @@ def main() -> int:
                   and s420.fsm_envelope_fallbacks == 0,
                   f"{tag}: host fallback")
             check(s420.repaired_pixels == 0, f"{tag}: repaired pixels")
+            check(by_path[tag]["planes"] >= s420.chunks
+                  and s420.plane_kernel_chunks == s420.chunks,
+                  f"{tag}: planes launched {by_path[tag]['planes']} times, "
+                  f"{s420.plane_kernel_chunks} of {s420.chunks} chunks")
             why = ""
             if name == "spec" and s420.spec_sync_misses:
                 why = ("; the single-pass resolve missed (some lanes do not "
@@ -788,7 +801,8 @@ def main() -> int:
         "phase 6c slots 4:2:0", lambda: fused.decode_chunk_fused(
             plan420, quant420, geom420, CHUNK, uploaded=up420, fancy=True,
             slots=c420),
-        need=("fsm_scan",) + SLOT_KERNELS, never=("pixels", "place_events"))
+        need=("fsm_scan", "planes") + SLOT_KERNELS,
+        never=("pixels", "place_events"))
     if bool(slotted420[-1].any()):
         # the sampled image is not the densest of the chunk
         c420 = 512
@@ -821,7 +835,8 @@ def main() -> int:
             tag = f"phase 6c small {backend} fancy={fancy}"
             sout = run_path(
                 tag, lambda: sd.decode(small),
-                need=("fsm_scan", "place_events") if backend == "fsm" else (),
+                need=(("fsm_scan", "place_events") if backend == "fsm"
+                      else ()) + ("planes",),
                 never=plane_never)
             sd.close()
             for i, got in enumerate(sout):
@@ -861,8 +876,11 @@ def main() -> int:
     from tpujpeg_torch.runtime import batch as engine
 
     def counters(st) -> dict:
+        # the counts of a call: its times (the four sums and span_s, the
+        # seconds by span name) differ from run to run
         return {k: v for k, v in st.as_dict().items()
-                if k not in ("parse_s", "entropy_s", "device_s", "total_s")}
+                if k not in ("parse_s", "entropy_s", "device_s", "total_s",
+                             "span_s")}
 
     rimgs = [parse(d) for d in datas]
     rgeom = Geometry.of(rimgs[0])
@@ -2273,6 +2291,78 @@ def main() -> int:
            if k in ("ms", "plain_ms", "bound_ms")},
     ))
     del px_inputs, d_full, bdc_lane
+
+    # the planes kernel (the subsampled pixel stage) at the two shapes the
+    # engine feeds it: the ImageNet-like host-bucketed chunk (11 pictures
+    # in a 34 x 34-MCU 4:2:0 bucket, int32 from the host, extents; here
+    # the 4:2:0 restart streams' coefficients cut to the bucket, 32 x 32
+    # MCUs real, the last row a padding image) and the 4:2:0 restart
+    # chunk's assembled int16 [128, 9600, 64] with its resolved DC
+    from tpujpeg_torch.ops import planes as planes_op
+
+    c420, d420 = fused.decode_chunk_fused(
+        plan420, quant420, geom420, CHUNK, uploaded=up420,
+        want_coeffs=True)[2:4]
+    g34 = Geometry((34 * 16, 34 * 16, 34, 34, geom420.comps))
+    cut = c420[:11].reshape(11, geom420.mcus_y, geom420.mcus_x, 6, 64)
+    c34 = torch.zeros((11, 34, 34, 6, 64), dtype=torch.int32, device=dev)
+    c34[:10, :32, :32] = cut[:10, :32, :32].to(torch.int32)
+    c34[:10, :32, :32, :, 0] = d420[:10].reshape(
+        10, geom420.mcus_y, geom420.mcus_x, 6)[:, :32, :32]
+    e34 = torch.tensor([[32, 32]] * 10 + [[34, 34]], dtype=torch.int32,
+                       device=dev)
+    pl_inputs = {
+        "ilsvrc420 bucket": (g34, c34.reshape(11, g34.n_blocks, 64),
+                             quant420[:11], None, e34),
+        "4:2:0 restart": (geom420, c420, quant420, d420, None),
+    }
+    pl = {}
+    for shape_name, (g, c_in, q_in, dc_in, ext_in) in pl_inputs.items():
+        for exact in (True, False):
+            args = (g, c_in, q_in, True, dc_in, ext_in, exact)
+            got = planes_op.planes_rgb(*args)
+            equal_all(got, planes_op.planes_rgb_plain(*args),
+                      f"planes {shape_name} exact={exact}")
+            # ~1,200 32-bit operations per block (dequant, two IDCT
+            # passes), ~40 per pixel (fancy filter, f32 colour); exact
+            # colour adds ~12 f64 operations a pixel at half the rate
+            n_px = c_in.shape[0] * g.width * g.height
+            ops = 1200 * c_in.shape[0] * g.n_blocks + 40 * n_px \
+                + (24 * n_px if exact else 0)
+            # the kernel's device time from a CUDA graph (a call between
+            # two events is paced by the host's enqueue at this size)
+            pl[shape_name, exact] = dict(
+                ms=bench_torch_gather.device_ms(
+                    lambda: planes_op.planes_rgb(*args)),
+                call_ms=cuda_ms(lambda: planes_op.planes_rgb(*args), reps=20),
+                plain_ms=cuda_ms(lambda: planes_op.planes_rgb_plain(*args),
+                                 reps=3),
+                **bound(nbytes(c_in, q_in, dc_in, ext_in, *got), ops))
+            r = pl[shape_name, exact]
+            print(f"phase 7: planes on the {shape_name} chunk "
+                  f"{list(c_in.shape)} {c_in.dtype} -> {g.width}x{g.height}, "
+                  f"fancy, exact={exact}: equal to the plain plane path in "
+                  f"every bit; kernel {r['ms']:.4f} ms (CUDA graph; a call "
+                  f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                  f"{r['bound_bytes']} bytes, bound {r['bound_ms']:.4f} ms "
+                  f"by {r['bound_by']}, share "
+                  f"{r['bound_ms'] / r['ms']:.3f} [{card}]")
+            del got
+    main_pl = pl["ilsvrc420 bucket", True]
+    rows.append(dict(
+        name="planes", route="cuda", source="tpujpeg_torch/csrc/planes.cu",
+        replaces="none (tpujpeg/pipeline.py's plane path is XLA ops)",
+        launches=totals["planes"], launches_per_chunk=per_chunk("planes"),
+        max_abs_err=0, ms=main_pl["ms"], plain_ms=main_pl["plain_ms"],
+        **{k: main_pl[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                   "bound_ops")},
+        library_ms=None,
+        **{f"{k}_{'bucket' if n.startswith('ilsvrc') else 'restart'}_"
+           f"{'exact' if ex else 'f32'}": v
+           for (n, ex), r in pl.items() for k, v in r.items()
+           if k in ("ms", "plain_ms", "bound_ms")},
+    ))
+    del pl_inputs, c420, d420, c34, cut
     # the segment decoder on each chunk's segment plan (phase 6g), one
     # launch a chunk at the main path's shape (32 lanes a block on the
     # restart chunk, 1 on the spec chunk): its output against the host
@@ -2674,7 +2764,9 @@ def main() -> int:
           f"[{card}]")
     del mixed_parts, sxs420, jxs420
 
-    # the plane path's stages on the 4:2:0 restart chunk's coefficients
+    # the plain plane path's stages on the 4:2:0 restart chunk's
+    # coefficients (the CPU version of the planes kernel, here on the
+    # card), and the pipeline's pixel stage, which runs the kernel
     coeffs420, dc420 = restart420(False, want_coeffs=True)[2:4]
     pix420 = pipeline._idct_planar(geom420, coeffs420, quant420, dc420)
 
@@ -2706,13 +2798,13 @@ def main() -> int:
         ("pack (pack_mask)", lambda: pack_mask(risky420)),
         ("colour, exact (color_exact + stack, float64)",
          lambda: torch.stack(color_exact(*crop420), dim=1)),
-        ("whole pixel stage, box (device_decode_fn)",
+        ("whole pixel stage, box (device_decode_fn: the planes kernel)",
          lambda: pipeline.device_decode_fn(geom420, coeffs420, quant420,
                                            dc=dc420)),
-        ("whole pixel stage, box, exact (device_decode_fn)",
+        ("whole pixel stage, box, exact (device_decode_fn: the planes kernel)",
          lambda: pipeline.device_decode_fn(geom420, coeffs420, quant420,
                                            dc=dc420, exact=True)),
-        ("whole pixel stage, fancy (device_decode_fn)",
+        ("whole pixel stage, fancy (device_decode_fn: the planes kernel)",
          lambda: pipeline.device_decode_fn(geom420, coeffs420, quant420,
                                            fancy=True, dc=dc420)),
     ]

@@ -42,8 +42,11 @@ rows in one block, lanes of three table sets in a shuffled order, a scan
 3 bytes into its storage, and scans cut 4 bytes past a lane's bytes or
 40 bytes inside them (the peek's clamp at n_bytes - 4), at 41 lanes and
 at 4,160 lanes with the cut lane inside a block of 32, and one malformed
-lane inside a block of 32; and the gather route end to end.  The
-batch-sharded pixel stage (parallel/sharding.compiled_batch_decoder) and
+lane inside a block of 32; and the gather route end to end.  The planes
+kernel (csrc/planes.cu) on the cases of tests/plane_cases.py (the 4:2:0
+fixtures: restart, without restart markers, mixed sizes in bucket rows
+with extents; 4:1:1; seeded 4:2:2 and 4:4:0), box and fancy, both colour
+modes, against the plain plane path on the CPU.  The batch-sharded pixel stage (parallel/sharding.compiled_batch_decoder) and
 the engine on a two-shard mesh, each against one device: on one card
 named twice, and on cuda:0 and cuda:1 (skipped below two cards: the
 wrappers make each tensor's device current around its launch, which
@@ -60,6 +63,9 @@ import torch
 from tpujpeg_torch.io.parser import parse_file
 from tpujpeg_torch.ops import fsm, materialize, pixels, probes
 from tpujpeg_torch.pipeline import Geometry, bucket_geometry
+from tpujpeg_torch.runtime import kernels
+
+from plane_cases import PLANE_CASES, plane_case
 
 pytestmark = pytest.mark.gpu
 
@@ -280,6 +286,112 @@ def test_pixels_kernel_exact_colour_is_exhaustively_the_oracles(cuda):
     # chip_smoke.py's phase 7b: the kernel's exact mode and color_exact
     # (float64) on every triple of [-256, 255]^3 against the oracle
     assert pixels.exact_colour_mismatches(cuda) == (0, 0)
+
+
+def _planes_equal_plain(geom, coeffs, quant, dc, ext, fancy, exact):
+    """The planes kernel (CUDA tensors) == the plain plane path (the same
+    inputs on the CPU) on the whole raster, every value and risk bit."""
+    from tpujpeg_torch.ops import planes
+
+    args = [None if a is None else torch.as_tensor(a)
+            for a in (coeffs, quant, dc, ext)]
+    kernels.reset_launches()
+    got = planes.planes_rgb(geom, *(None if a is None else a.cuda()
+                                    for a in args[:2]), fancy,
+                            *(None if a is None else a.cuda()
+                              for a in args[2:]), exact)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["planes"] == 1
+    want = planes.planes_rgb_plain(geom, args[0], args[1], fancy, args[2],
+                                   args[3], exact)
+    assert got[0].dtype == torch.uint8 and got[0].is_cuda
+    assert tuple(got[0].shape) == (coeffs.shape[0], 3, geom.height,
+                                   geom.width)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert (got[1] is None) == exact == (want[1] is None)
+    if not exact:
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["f32", "exact"])
+@pytest.mark.parametrize("fancy", [False, True], ids=["box", "fancy"])
+@pytest.mark.parametrize("case", PLANE_CASES)
+def test_planes_kernel_equals_plain(cuda, case, fancy, exact):
+    # the 4:2:0 fixtures (restart, without restart markers, mixed sizes in
+    # bucket rows with per-image extents, one of a single MCU, and a
+    # padding row at the bucket's extents), 4:1:1 (box at 4x), seeded
+    # 4:2:2 and 4:4:0; int16 and int32, DC given and in the
+    # coefficients, B 1, 3, 5 and 33.  The plain path on the CPU is the
+    # JAX package's device_decode_fn (tests/test_torch_planes.py)
+    geom, coeffs, quant, dc, ext = plane_case(case)
+    _planes_equal_plain(Geometry(geom), coeffs, quant, dc, ext, fancy, exact)
+
+
+def test_planes_kernel_is_the_pipelines_subsampled_stage(cuda):
+    # device_decode_fn takes the kernel once for a subsampled chunk on the
+    # card, never the pixel kernel, with no int64 or float64 tensor, and
+    # leaves grayscale in plain PyTorch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from tpujpeg_torch import pipeline
+
+    seen = set()
+
+    class Dtypes(TorchDispatchMode):
+        """Records the dtype of every tensor an operator returns."""
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            seen.update(t.dtype for t in tree_flatten(out)[0]
+                        if isinstance(t, torch.Tensor))
+            return out
+
+    geom, coeffs, quant, dc, _ = plane_case("rst420-int16-dc-b1")
+    geom = Geometry(geom)
+    args = (torch.as_tensor(coeffs).cuda(), torch.as_tensor(quant).cuda())
+    dc_dev = torch.as_tensor(dc).cuda()
+    kernels.reset_launches()
+    with Dtypes():
+        rgb, risk = pipeline.device_decode_fn(geom, *args, fancy=True,
+                                              dc=dc_dev, exact=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["planes"] == 1 and kernels.LAUNCHES["pixels"] == 0
+    # no int64 or float64 temporary on the card: int16 planes, uint8 out
+    assert seen and not seen & {torch.int64, torch.float64}, seen
+    assert risk is None
+    want, _ = pipeline.device_decode_fn(
+        geom, torch.as_tensor(coeffs), torch.as_tensor(quant), fancy=True,
+        dc=torch.as_tensor(dc), exact=True)
+    assert torch.equal(rgb.cpu(), want)
+    gray = parse_file(os.path.join(SMALL, "gray_rst.jpg"))
+    from tpujpeg_torch.runtime.host import entropy_decode
+
+    kernels.reset_launches()
+    pipeline.device_decode_fn(
+        Geometry.of(gray), torch.as_tensor(entropy_decode(gray))[None].cuda(),
+        torch.as_tensor(_quant([gray])).cuda(), exact=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["planes"] == 0 and kernels.LAUNCHES["pixels"] == 0
+
+
+def test_planes_kernel_refuses_what_it_does_not_take(cuda):
+    from tpujpeg_torch.ops import planes
+
+    geom, coeffs, quant, dc, _ = plane_case("rst420-int16-dc-b1")
+    geom = Geometry(geom)
+    c, q = torch.as_tensor(coeffs).cuda(), torch.as_tensor(quant).cuda()
+    with pytest.raises(TypeError):
+        planes.planes_rgb(geom, c.to(torch.int64), q)
+    with pytest.raises(ValueError):
+        planes.planes_rgb(geom, c[:, :-6], q)
+    with pytest.raises(ValueError):
+        planes.planes_rgb(geom, c, q.cpu())
+    with pytest.raises(ValueError):
+        planes.planes_rgb(geom, c, q, dc=torch.as_tensor(dc).cuda()[:, :-1])
+    with pytest.raises(ValueError):
+        planes.planes_rgb(geom, c.transpose(1, 2).contiguous().transpose(
+            1, 2), q)
 
 
 @pytest.fixture(scope="module")

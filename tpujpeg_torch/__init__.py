@@ -9,10 +9,10 @@ coefficient scatter and its two other routes (offset compaction,
 full-height compaction and spread), the slot route's compact, unpack and
 expand, and the fused dequant + IDCT + colour pixel stage of 4:4:4,
 which reads the coefficients where the chain leaves them and writes
-the cropped RGB raster.
-Subsampled and grayscale pixels take the plane path (IDCT, block ->
-raster, box or fancy chroma upsampling, colour), plain PyTorch on the
-card as it is plain XLA in the JAX package.  csrc/probes.cu holds the
+the cropped RGB raster, and its subsampled sibling (csrc/planes.cu:
+IDCT into sample planes, box or fancy chroma upsampling, colour; one
+launch a chunk), whose contract is the plain PyTorch plane path (plain
+XLA in the JAX package).  Grayscale pixels stay plain PyTorch.  csrc/probes.cu holds the
 lookup and materialize-stage probes that tools/bench_torch_gather.py and
 tools/bench_torch_materialize.py time.
 

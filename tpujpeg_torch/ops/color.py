@@ -11,8 +11,9 @@ way because a TPU has no f64, and repairs flagged pixels on the host.
 
 `color_exact` is the reference's own mixed-precision colour
 (oracle.decoder.ycbcr_to_rgb_exact) in float64, so it needs no flag and
-no repair: strict decodes use it (on the card for the plane path and
-grayscale; the 4:4:4 pixel kernel has it as its exact mode).
+no repair: strict decodes use it (on the card for grayscale and the
+stripe-sharded plane path; the pixel and planes kernels have it as their
+exact mode).
 `pack_mask` packs risk masks 8 pixels a byte; `unpack_mask` reads them
 back on the host.
 """

@@ -9,10 +9,14 @@ leading batch dimension B.
     riskbits uint8 [B, H, W/8], None when exact).  Three full-resolution
     components (4:4:4) go through the fused pixel kernel
     (ops/pixels.rgb_444), which writes the cropped raster itself; every
-    other geometry (4:2:0, 4:2:2, 4:4:0, 4:1:1, grayscale) takes the
-    plane path: `_idct_planar`, `_plane_from_soa`, `upsample_planes` (box
-    or fancy, ops/upsample.py), `planes_to_rgb`.  The JAX package has no
-    Pallas kernel on the plane path, and it is plain PyTorch here.
+    subsampled geometry (4:2:0, 4:2:2, 4:4:0, 4:1:1) takes the plane
+    path, ops/planes.planes_rgb: on CUDA tensors one launch of the planes
+    kernel (csrc/planes.cu), on CPU tensors the plain plane path
+    (`decode_subsampled_planes`: `_idct_planar`, `_plane_from_soa`; then
+    `upsample_planes`, box or fancy, ops/upsample.py; `planes_to_rgb`),
+    its contract.  The JAX package has no Pallas kernel on the plane
+    path.  Grayscale stays plain PyTorch (`_idct_planar` in the block
+    domain, `raster_from_blocks`).
     exact=True computes colour with the reference's exact mixed
     precision (ops/color.color_exact; the kernel's exact mode), so the
     output is the reference decoder's and needs no repair;
@@ -36,6 +40,7 @@ from .io.parser import JpegImage
 from .ops.color import color_channels, color_exact, pack_mask
 from .ops.idct import idct_planes
 from .ops.pixels import block_lanes, raster_from_blocks, rgb_444
+from .ops.planes import planes_rgb
 
 
 class Geometry(tuple):
@@ -254,7 +259,8 @@ def device_decode_fn(geom: Geometry, coeffs: torch.Tensor,
     Routing as in the JAX package: three full-resolution components take
     the pixel kernel (`rgb_444`, one MCU-row run per image row); grayscale
     takes the block-domain order through `_idct_planar`; subsampled
-    geometries take the plane path.
+    geometries take the plane path (`planes_rgb`: the planes kernel on
+    the card, the plain plane path on the CPU).
     """
     if geom.is_444:
         B = coeffs.shape[0]
@@ -271,9 +277,13 @@ def device_decode_fn(geom: Geometry, coeffs: torch.Tensor,
             return raster_from_blocks(geom, color_exact(pix, zeros, zeros),
                                       None)
         return raster_from_blocks(geom, *color_channels(pix, zeros, zeros))
-    planes = decode_subsampled_planes(geom, coeffs, quant, dc)
-    return planes_to_rgb(geom, upsample_planes(geom, planes, fancy, extents),
-                         exact)
+    if dc is not None:
+        dc = dc.to(torch.int32).contiguous()
+    if extents is not None:
+        extents = extents.to(torch.int32).contiguous()
+    return planes_rgb(geom, coeffs.contiguous(),
+                      quant.to(torch.int32).contiguous(), fancy=fancy, dc=dc,
+                      extents=extents, exact=exact)
 
 
 # ---------------------------------------------------------------------------

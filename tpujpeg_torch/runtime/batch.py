@@ -66,9 +66,10 @@ materialize_route names how the classic materialize places events
 package's TPUJPEG_RANK_KERNEL=0) or "full" (TPUJPEG_PALLAS=1).
 
 Every sampling the parser takes decodes on every route: 4:4:4 through
-the fused pixel kernel, 4:2:0, 4:2:2, 4:4:0, 4:1:1 and grayscale through
-the plane path (pipeline.device_decode_fn).  Chunks key on Geometry, so
-a batch that mixes samplings splits by itself.  fancy=True selects
+the fused pixel kernel, 4:2:0, 4:2:2, 4:4:0, 4:1:1 through the planes
+kernel and grayscale through plain PyTorch (pipeline.device_decode_fn).
+Chunks key on Geometry, so a batch that mixes samplings splits by
+itself.  fancy=True selects
 libjpeg's triangle chroma upsampling on every route (box replication
 otherwise).
 
@@ -109,8 +110,10 @@ that runs it; BatchStats is made from the call's record:
 parse_s, entropy_s and device_s are the sums of parse_wait, dispatch and
 finish, total_s the root's; span_s holds every name's sum, route_chunks
 the chunks by the route that returned them, prep_misses the
-preparations thrown away, and the retry and fallback counters are the
-call's counters (utils/profiling.count).
+preparations thrown away, plane_kernel_chunks the chunks whose dispatch
+launched the planes kernel (csrc/planes.cu: the subsampled pixel stage
+on the card), and the retry and fallback counters are the call's
+counters (utils/profiling.count).
 
 Several devices (mesh=, parallel/sharding.py): entropy decode and
 staging run on the mesh's first device, and the pixel stage is sharded
@@ -144,6 +147,7 @@ from ..pipeline import (Geometry, bucket_geometry, device_decode_fn,
                         pad_coeffs_to_bucket)
 from ..utils import profiling
 from ..utils.profiling import span
+from . import kernels
 
 # The link rate (MB/s) below which uploading a chunk's dense coefficients
 # (the host route's int32 [B, n_blocks, 64]) costs more than uploading its
@@ -230,6 +234,8 @@ class BatchStats:
     span_s: dict = field(default_factory=dict)   # span name -> seconds
     route_chunks: dict = field(default_factory=dict)  # route -> chunks
     prep_misses: int = 0              # preparations thrown away
+    plane_kernel_chunks: int = 0      # chunks whose pixel stage launched
+    #                                   the planes kernel at dispatch
     spans: list = field(default_factory=list)  # logged while profiled
 
     def as_dict(self) -> dict:
@@ -1083,6 +1089,8 @@ class BatchDecoder:
         self._process_chunk_host(chunk, isolate=isolate)
 
     def _dispatch_chunk(self, chunk: _Chunk, isolate: bool) -> None:
+        # kernels launch on the dispatching thread alone
+        planes0 = kernels.LAUNCHES["planes"]
         with span("dispatch", chunk=chunk.id) as sp:
             try:
                 self._process_chunk(chunk, isolate)
@@ -1093,6 +1101,8 @@ class BatchDecoder:
                 # route, which isolates the bad streams image by image
                 self._process_chunk_host(chunk, isolate=True)
             sp.set(route=chunk.backend)
+        if kernels.LAUNCHES["planes"] != planes0:
+            profiling.count("plane_kernel_chunks")
 
     # -- decode -------------------------------------------------------------
 
@@ -1230,6 +1240,7 @@ class BatchDecoder:
             span_s=dict(sec),
             route_chunks=routes,
             prep_misses=cnt.get("prep_misses", 0),
+            plane_kernel_chunks=cnt.get("plane_kernel_chunks", 0),
             spans=rec.spans,
         )
         for chunk in chunks:

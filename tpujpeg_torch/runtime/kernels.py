@@ -78,6 +78,11 @@ _SIGNATURES = {
     # mcus_x, lane_layout, exact, fconsts(host), dconsts(host), stream
     "tpj_pixels": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P, _P, _P],
+    # coef, quant, dc, ext, planes, rgb, risk, coef_bytes, B, n_comp,
+    # n_blocks, bpm, mcus_x, H, W, fancy, exact, per_image, comps(host),
+    # fconsts(host), dconsts(host), stream
+    "tpj_planes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _I, _LL, _P, _P, _P, _P],
     # t, idx, out, R, T, K, blocks, group, stream
     "tpj_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # t, idx, out, T, N, blocks, stream
@@ -103,6 +108,7 @@ KERNELS = {
     "compact_full": "tpj_compact_full",
     "spread_full": "tpj_spread_full",
     "pixels": "tpj_pixels",
+    "planes": "tpj_planes",
     "decode_segments": "tpj_decode_segments",
     "gather_rows": "tpj_gather_rows",
     "gather_table": "tpj_gather_table",
