@@ -6,8 +6,10 @@ On the CPU, with tiny corpora: the span tree and the chunks by route of
 every route and of the retry at STEPS_SAFE; BatchStats' seconds as the
 sums of their spans; no record_function and no log with no profiler
 recording; the logged spans in device_trace's trace.json on the
-profiler's clock, each once; idle_gaps' names on a synthetic trace; each
-reader on a hand-made context.
+profiler's clock, each once; idle_gaps' names on a synthetic trace; the
+speculative route's spans and counters (single pass and a forced miss);
+each reader on a hand-made context, and spec_scan_roofline on a
+hand-made trace.
 """
 
 import importlib.util
@@ -175,6 +177,50 @@ def test_span_tree_and_route_chunks(route, monkeypatch):
     # dispatch, and the host routes have no latch)
     assert want.startswith("fsm") == ("fence" in {c.name
                                                   for c in kids[fin.id]})
+
+
+@pytest.mark.parametrize("miss", [False, True])
+def test_spec_route_spans_and_counters(miss, monkeypatch):
+    _refuse_plan(monkeypatch)
+    if miss:
+        def refuse(pending):
+            raise tfsm.SpecSyncMiss("forced")
+
+        monkeypatch.setattr(tfsm, "spec_sync_resolve_host", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled",
+                        True)
+    datas = [make_jpeg(shape=(16, 24), seed=s) for s in (1, 2, 3, 4)]
+    dec = BatchDecoder(backend="fsm", chunk_size=2, device="cpu")
+    try:
+        dec.decode(datas)
+    finally:
+        dec.close()
+    st = dec.stats
+    want = "fsm-spec" if miss else "fsm-spec-sync"
+    assert st.route_chunks == {want: 2}, st.as_dict()
+    by_id, kids = _tree(st.spans)
+    for disp in (s for s in st.spans if s.name == "dispatch"):
+        launches = [c for c in kids[disp.id] if c.name == "launch"]
+        inner = [g.name for c in launches for g in kids[c.id]]
+        # the scans' enqueue, then the host's one read, inside launch
+        assert inner[:2] == ["spec_scan", "spec_resolve"], inner
+        if miss:
+            (jac,) = [g for c in launches for g in kids[c.id]
+                      if g.name == "jacobi"]
+            assert dict(jac.attrs)["steps"] == tfsm.STEPS_PRODUCTION
+        else:
+            assert "jacobi" not in inner
+    for name in ("spec_scan", "spec_resolve", "jacobi"):
+        spans = [s for s in st.spans if s.name == name]
+        assert len(spans) == (0 if name == "jacobi" and not miss else 2)
+        assert all(by_id[s.parent].name == "launch" for s in spans)
+        logged = sum(s.end_ns - s.start_ns for s in spans) * 1e-9
+        assert logged == pytest.approx(st.span_s.get(name, 0.0), abs=1e-3)
+    # the counters are the call's: one miss a chunk, one slot chunk a
+    # chunk that took the single pass with a slot capacity
+    assert st.spec_sync_misses == (2 if miss else 0)
+    assert st.spec_slot_chunks == (0 if miss else 2 * bool(dec._slot_c))
+    assert st.fsm_k_retries == 0 and st.fsm_envelope_fallbacks == 0
 
 
 @pytest.mark.parametrize("entry", ["decode", "decode_parsed"])
@@ -351,7 +397,8 @@ def test_pool_threads_add_to_one_call_under_contention():
 # -- the benchmark's readers -------------------------------------------------
 
 READERS = ("parse_ms_per_image", "prep_wait_share", "host_entropy_share",
-           "upload_share", "launch_share", "fetch_share", "host_route_share")
+           "upload_share", "launch_share", "fetch_share", "host_route_share",
+           "spec_resolve_share", "jacobi_share")
 
 
 def _reader(name):
@@ -367,20 +414,23 @@ def _ctx(stats):
 
 
 CALLS = [
-    {"n_images": 128, "total_s": 0.5, "chunks": 12,
+    {"n_images": 128, "total_s": 0.5, "chunks": 12, "spec_sync_misses": 0,
      "span_s": {"parse": 0.64, "prep_wait": 0.05, "host_entropy": 0.3,
                 "upload": 0.02, "launch": 0.01, "fetch": 0.04},
      "route_chunks": {"host-bucketed": 12}},
-    {"n_images": 128, "total_s": 0.5, "chunks": 2,
+    {"n_images": 128, "total_s": 0.5, "chunks": 2, "spec_sync_misses": 1,
      "span_s": {"parse": 0.64, "prep_wait": 0.15, "launch": 0.03,
-                "fetch": 0.16},
+                "spec_scan": 0.005, "spec_resolve": 0.02, "fetch": 0.16},
      "route_chunks": {"fsm": 1, "host": 1}},
 ]
 
 WANT = {"parse_ms_per_image": 1280.0 / 256, "prep_wait_share": 20.0,
         "host_entropy_share": 30.0, "upload_share": 2.0,
         "launch_share": 4.0, "fetch_share": 20.0,
-        "host_route_share": 100.0 * 13 / 14}
+        "host_route_share": 100.0 * 13 / 14,
+        # Σ spec_resolve over every call's time; the misses over the
+        # chunks of the calls that ran the speculative scans
+        "spec_resolve_share": 2.0, "jacobi_share": 50.0}
 
 
 @pytest.mark.parametrize("name", READERS)
@@ -393,3 +443,43 @@ def test_reader_on_a_hand_made_context(name):
            for c in CALLS]
     assert mod.read(_ctx(old)) is None
     assert mod.read(_ctx([])) is None
+
+
+def _trace_ctx(op_seconds, stats):
+    from jpegbench.devtrace import Trace
+
+    streams = [SimpleNamespace(scan_bytes=200_000, n_blocks=19_200),
+               SimpleNamespace(scan_bytes=300_000, n_blocks=19_200)]
+    trace = Trace(window_s=2.0, busy_s=1.0, op_seconds=op_seconds)
+    win = SimpleNamespace(trace=trace, stats=stats, calls=[[0, 1], [1, 0]])
+    return SimpleNamespace(streams=streams, window=win,
+                           device_kind="NVIDIA H100 80GB HBM3",
+                           peaks={"cards": {"NVIDIA H100 80GB HBM3":
+                                            {"hbm_bytes_per_s": 1e12}}})
+
+
+def test_spec_scan_roofline_on_a_hand_made_trace():
+    mod = _reader("spec_scan_roofline")
+    ops = {"void fsm_scan_kernel<true, false, false>": 0.004,
+           "void (anonymous namespace)::compact_kernel<4>": 0.001,
+           "slot_unpack_kernel": 0.001, "slot_expand_kernel<2>": 0.002,
+           "place::scatter_kernel<4>": 0.002,
+           # the gather has no kernel of its own name: left out
+           "void at::native::index_select_kernel": 0.5,
+           "Memcpy DtoH (Device -> Pageable)": 1.0}
+    spec = [{"span_s": {"spec_scan": 0.01, "spec_resolve": 0.02}}]
+    # need: two calls of both pictures, scan bytes + int16 coefficients
+    need = 2 * (500_000 + 2 * 19_200 * 128)
+    got = mod.read(_trace_ctx(ops, spec))
+    assert got == pytest.approx(100.0 * need / 1e12 / 0.010)
+    # the parent's stats (no spec_scan span), an unknown card, no trace,
+    # no kernel of the five: nothing to read
+    assert mod.read(_trace_ctx(ops, [{"span_s": {"launch": 0.1}}])) is None
+    assert mod.read(_trace_ctx(ops, [{}])) is None
+    ctx = _trace_ctx(ops, spec)
+    ctx.device_kind = "cpu"
+    assert mod.read(ctx) is None
+    ctx = _trace_ctx(ops, spec)
+    ctx.window.trace = None
+    assert mod.read(ctx) is None
+    assert mod.read(_trace_ctx({"Memcpy DtoH": 1.0}, spec)) is None

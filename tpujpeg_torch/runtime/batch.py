@@ -99,6 +99,10 @@ that runs it; BatchStats is made from the call's record:
   dispatching thread  decode (the root); parse_wait (a parse future);
                       dispatch (a chunk; attribute route) > prep_wait,
                       prepare, host_entropy > host_pad, upload, launch;
+                      a speculative chunk's launch > spec_scan (the
+                      cold and stitch scans' enqueue), spec_resolve
+                      (the host's one read and its chain check), jacobi
+                      (the fallback fixed point; attribute steps);
                       finish > fence, retry (kind steps_safe or slots),
                       host_fallback, sync; fetch and crop (a chunk)
   parse pool          parse (a stream); huffman (an image of a host
@@ -112,8 +116,9 @@ finish, total_s the root's; span_s holds every name's sum, route_chunks
 the chunks by the route that returned them, prep_misses the
 preparations thrown away, plane_kernel_chunks the chunks whose dispatch
 launched the planes kernel (csrc/planes.cu: the subsampled pixel stage
-on the card), and the retry and fallback counters are the call's
-counters (utils/profiling.count).
+on the card), spec_slot_chunks the speculative chunks dispatched with a
+slot capacity, and spec_sync_misses and the retry and fallback counters
+are the call's counters (utils/profiling.count).
 
 Several devices (mesh=, parallel/sharding.py): entropy decode and
 staging run on the mesh's first device, and the pixel stage is sharded
@@ -236,6 +241,8 @@ class BatchStats:
     prep_misses: int = 0              # preparations thrown away
     plane_kernel_chunks: int = 0      # chunks whose pixel stage launched
     #                                   the planes kernel at dispatch
+    spec_slot_chunks: int = 0         # spec chunks dispatched with a slot
+    #                                   capacity (slot materialize)
     spans: list = field(default_factory=list)  # logged while profiled
 
     def as_dict(self) -> dict:
@@ -257,7 +264,8 @@ class _Chunk:
     staged: object = None              # _Upload: held until the fence read
     steps: object = None               # FSM steps spec of the last decode
     spec_k_retries: int = 0            # inline STEPS_SAFE retries (spec)
-    spec_sync_misses: int = 0          # sync resolve misses -> Jacobi
+    slot_c: int = 0                    # slot capacity of its spec decode
+    #                                    (0: classic materialize)
     slots_off: bool = False            # slot overflow: classic from now on
     err_mal: object = None
     err_env: object = None
@@ -989,10 +997,11 @@ class BatchDecoder:
                         self._adopt(chunk, self._prepare_spec(chunk))
                 with span("launch"):
                     xs, *lanes = chunk.spec_dev
-                    pending = fsm.spec_sync_start(
-                        chunk.imgs, plan=chunk.spec_plan, xs_dev=xs,
-                        lanes_dev=lanes, steps=chunk.steps,
-                    )
+                    with span("spec_scan"):
+                        pending = fsm.spec_sync_start(
+                            chunk.imgs, plan=chunk.spec_plan, xs_dev=xs,
+                            lanes_dev=lanes, steps=chunk.steps,
+                        )
                     if self._multi:
                         # the JAX engine's staged single-pass decode
                         # (classic materialize), then the sharded pixel
@@ -1007,15 +1016,16 @@ class BatchDecoder:
                         chunk.err_slot = None
                         chunk.backend = "fsm-spec-sync"
                         return True
+                    slots = self._slot_capacity(chunk)
                     rgb, risk, _, _, err, err_slot = (
                         fused.decode_spec_sync_fused(
                             pending, geom, chunk.quant, B, len(chunk.imgs),
-                            want_coeffs=False,
-                            slots=self._slot_capacity(chunk),
+                            want_coeffs=False, slots=slots,
                             route=self.route, fancy=self.fancy,
                             exact=self.strict,
                         )
                     )
+                chunk.slot_c = slots or 0
                 chunk.out = (rgb, risk)
                 chunk.err_mal = err
                 chunk.err_env = torch.zeros_like(err)
@@ -1027,10 +1037,10 @@ class BatchDecoder:
                     raise  # the outer ladder retries the sync at SAFE
                 # envelope at SAFE can be a broken-chain artifact of the
                 # sync scheme: the Jacobi path gets its own try
-                chunk.spec_sync_misses += 1
+                profiling.count("spec_sync_misses")
             except fsm.SpecSyncMiss:
-                chunk.spec_sync_misses += 1
-            with span("launch"):
+                profiling.count("spec_sync_misses")
+            with span("launch"), span("jacobi", steps=chunk.steps):
                 coeffs_dev, (err_mal, err_env) = \
                     fsm.decode_speculative_batch(
                         chunk.imgs, device_out=True, pad_to=B,
@@ -1103,6 +1113,8 @@ class BatchDecoder:
             sp.set(route=chunk.backend)
         if kernels.LAUNCHES["planes"] != planes0:
             profiling.count("plane_kernel_chunks")
+        if chunk.slot_c:
+            profiling.count("spec_slot_chunks")
 
     # -- decode -------------------------------------------------------------
 
@@ -1235,12 +1247,13 @@ class BatchDecoder:
             fsm_malformed_fallbacks=cnt.get("fsm_malformed_fallbacks", 0),
             fsm_k_retries=cnt.get("fsm_k_retries", 0)
             + sum(c.spec_k_retries for c in chunks),
-            spec_sync_misses=sum(c.spec_sync_misses for c in chunks),
+            spec_sync_misses=cnt.get("spec_sync_misses", 0),
             fsm_slot_retries=cnt.get("fsm_slot_retries", 0),
             span_s=dict(sec),
             route_chunks=routes,
             prep_misses=cnt.get("prep_misses", 0),
             plane_kernel_chunks=cnt.get("plane_kernel_chunks", 0),
+            spec_slot_chunks=cnt.get("spec_slot_chunks", 0),
             spans=rec.spans,
         )
         for chunk in chunks:

@@ -35,6 +35,7 @@ import torch
 from ..ops import fsm
 from ..ops.pixels import LaneTable, lane_table, rgb_444
 from ..pipeline import Geometry, device_decode_fn
+from ..utils.profiling import span
 
 
 @functools.lru_cache(maxsize=64)
@@ -409,8 +410,9 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
                            route: str = "scatter", fancy: bool = False,
                            exact: bool = False,
                            stop_after: str | None = None):
-    """Finish a spec_sync_start chunk: the host resolve (one read), then
-    merge -> materialize -> gather -> DC resolve -> pixels on the device.
+    """Finish a spec_sync_start chunk: the host resolve (one read; span
+    `spec_resolve`), then merge -> materialize -> gather -> DC resolve ->
+    pixels on the device.
 
     Raises SpecEnvelopeError / SpecSyncMiss from the resolve; fancy and
     exact as in `decode_chunk_fused`.  Returns (rgb, risk, coeffs int16
@@ -430,7 +432,8 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
                       pending.recm, pending.ev2, pending.end2, pending.b1,
                       pending.blk2, pending.packed), None, None
     plan = pending.plan
-    quotas, cap_w = fsm.spec_sync_resolve_host(pending)
+    with span("spec_resolve"):
+        quotas, cap_w = fsm.spec_sync_resolve_host(pending)
     coeffs, dc, err, err_slot = fsm._spec_sync_assemble(
         pending.ev1, pending.anchors, pending.ablk, pending.recm,
         pending.ev2, pending.end2, pending.b1, pending.blk2,
