@@ -18,6 +18,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      host fallback, no pixel repaired (strict colour is exact on the
      card); the engine materializes packed lanes through the classic
      scatter, and the pixel kernel reads its dense lane matrix in place;
+     the results view a page-locked block of PyTorch's caching host
+     allocator, survive, held, a call on other streams, and the call
+     after a dropped one takes its block from the pool (fetch_pinned_hits);
   3. speculative path: the same engine on the 128-image chunk of the
      no-restart streams of tests/fixtures/photo640 (640x640 q90 4:4:4,
      ~123 lanes per image), materialized through the slot route: backend
@@ -521,6 +524,31 @@ def main() -> int:
           f"2 vs oracle; k_retries {stats.fsm_k_retries}, slot_retries "
           f"{stats.fsm_slot_retries}, repaired pixels "
           f"{stats.repaired_pixels}")
+    # the fetch's page-locked blocks (PyTorch's caching host allocator):
+    # the results view one; phase 2's results, held, survive a call on
+    # other streams of the same shape, which takes another block; a call
+    # after that call's results are dropped takes its block from the pool
+    blk = out[0]
+    while not isinstance(blk, torch.Tensor):
+        blk = blk.base
+    check(blk.is_pinned(), "phase 2: the fetched block is not page-locked")
+    check(stats.fetch_chunks == 1, f"fetch_chunks {stats.fetch_chunks}")
+    kept = [o.copy() for o in out[:16]]
+    other = datas[1:] + datas[:1]
+    out2 = dec.decode(other)
+    for i in range(16):
+        check(np.array_equal(out[i], kept[i]),
+              f"phase 2: held output {i} changed by the next call")
+        check(np.array_equal(out2[i], refs[(i + 1) % 16]),
+              f"phase 2: the next call's output {i} differs")
+    del out2
+    dec.decode(other)
+    check(dec.stats.fetch_pinned_hits == dec.stats.fetch_chunks == 1,
+          f"phase 2: pinned hits {dec.stats.fetch_pinned_hits} of "
+          f"{dec.stats.fetch_chunks} fetched chunks after a dropped call")
+    print("phase 2: results view a page-locked block; held results "
+          "unchanged by a call on other streams; the call after a "
+          "dropped one takes its block from the pool")
 
     # ---- phase 3: the speculative path on one 128-image chunk
     pstreams = read_streams(PHOTO)
@@ -876,11 +904,12 @@ def main() -> int:
     from tpujpeg_torch.runtime import batch as engine
 
     def counters(st) -> dict:
-        # the counts of a call: its times (the four sums and span_s, the
-        # seconds by span name) differ from run to run
+        # the counts of a call's decode: its times (the four sums and
+        # span_s, the seconds by span name) differ from run to run, and
+        # its fetch counters follow fetch= and the host allocator's pool
         return {k: v for k, v in st.as_dict().items()
                 if k not in ("parse_s", "entropy_s", "device_s", "total_s",
-                             "span_s")}
+                             "span_s", "fetch_chunks", "fetch_pinned_hits")}
 
     rimgs = [parse(d) for d in datas]
     rgeom = Geometry.of(rimgs[0])
@@ -1003,7 +1032,8 @@ def main() -> int:
         res = run_path(f"phase 6e fetch=False {name}",
                        lambda: d.decode(data, fetch=False),
                        need=("fsm_scan", "pixels"))
-        check(res is None and counters(d.stats) == counters(st),
+        check(res is None and counters(d.stats) == counters(st)
+              and d.stats.fetch_chunks == 0,
               f"fetch=False {name}: {d.stats.as_dict()}")
         e2e = {True: [], False: []}
         for fetch in (True, False, True, False):

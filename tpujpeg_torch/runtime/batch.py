@@ -117,8 +117,11 @@ the chunks by the route that returned them, prep_misses the
 preparations thrown away, plane_kernel_chunks the chunks whose dispatch
 launched the planes kernel (csrc/planes.cu: the subsampled pixel stage
 on the card), spec_slot_chunks the speculative chunks dispatched with a
-slot capacity, and spec_sync_misses and the retry and fallback counters
-are the call's counters (utils/profiling.count).
+slot capacity, fetch_chunks the device chunks fetched to the host,
+fetch_pinned_hits those of them whose page-locked host block came from
+the caching host allocator's pool without growing it (`_fetch`), and
+spec_sync_misses and the retry and fallback counters are the call's
+counters (utils/profiling.count).
 
 Several devices (mesh=, parallel/sharding.py): entropy decode and
 staging run on the mesh's first device, and the pixel stage is sharded
@@ -243,6 +246,9 @@ class BatchStats:
     #                                   the planes kernel at dispatch
     spec_slot_chunks: int = 0         # spec chunks dispatched with a slot
     #                                   capacity (slot materialize)
+    fetch_chunks: int = 0             # device chunks fetched to the host
+    fetch_pinned_hits: int = 0        # of them, page-locked blocks served
+    #                                   from the host allocator's pool
     spans: list = field(default_factory=list)  # logged while profiled
 
     def as_dict(self) -> dict:
@@ -314,19 +320,35 @@ def _fetch(rgb, n: int) -> np.ndarray:
     """A chunk's first n images as uint8 [n, H, W, 3] on the host.
 
     Device rgb is planar [B, 3, H, W], one tensor or a list of batch
-    shards (a mesh).  One tensor is interleaved on the device and fetched
-    in one transfer; shards are each interleaved on their device and
-    copied into their rows of one host buffer."""
-    if not isinstance(rgb, list):
-        return rgb[:n].permute(0, 2, 3, 1).contiguous().cpu().numpy()
-    per, _, H, W = rgb[0].shape
-    out = np.empty((n, H, W, 3), np.uint8)
-    for i, shard in enumerate(rgb):
+    shards (a mesh); each shard is interleaved on its device and copied
+    into its rows of one host block.  From a card that block is
+    page-locked, drawn from PyTorch's caching host allocator: a block
+    returns to its pool only when the last tensor or array viewing it
+    is freed, so a block the caller still holds is never handed out
+    again, and a pooled block needs neither a cudaHostAlloc nor first-
+    touch page faults.  Counted: `fetch_chunks`, and `fetch_pinned_hits`
+    where the allocator served the block without growing its pool (a
+    pool that another thread grows meanwhile reads as a miss)."""
+    shards = rgb if isinstance(rgb, list) else [rgb]
+    per, _, H, W = shards[0].shape
+    profiling.count("fetch_chunks")
+    cards = {s.device for s in shards if s.is_cuda}
+    if cards:
+        grown = torch.cuda.host_memory_stats()["num_host_alloc"]
+        out = torch.empty((n, H, W, 3), dtype=torch.uint8, pin_memory=True)
+        if torch.cuda.host_memory_stats()["num_host_alloc"] == grown:
+            profiling.count("fetch_pinned_hits")
+    else:
+        out = torch.empty((n, H, W, 3), dtype=torch.uint8)
+    for i, shard in enumerate(shards):
         lo, hi = i * per, min((i + 1) * per, n)
         if hi > lo:
-            torch.from_numpy(out[lo:hi]).copy_(
-                shard[: hi - lo].permute(0, 2, 3, 1))
-    return out
+            # from a card, copy_ interleaves on the device, then one D2H
+            out[lo:hi].copy_(shard[: hi - lo].permute(0, 2, 3, 1),
+                             non_blocking=True)
+    for d in cards:
+        torch.cuda.current_stream(d).synchronize()
+    return out.numpy()
 
 
 class _Upload:
@@ -1133,7 +1155,11 @@ class BatchDecoder:
         one fetched buffer, so each result keeps that buffer (e.g. 157 MB
         for 128 images of 640x640) alive; copy an image to keep it alone.
         A copy per image doubled the end-to-end time of such chunks on an
-        H100 host (PERF.md)."""
+        H100 host (PERF.md).  From a card the buffer is a page-locked
+        block of PyTorch's caching host allocator, which rounds its size
+        up to a power of two (a 157 MB chunk takes a 256 MB block):
+        results the caller holds keep that block out of the pool, so a
+        later call never overwrites them and allocates another."""
         if on_error not in ("raise", "skip"):
             raise ValueError(f"on_error={on_error!r}")
         isolate = on_error == "skip"
@@ -1180,6 +1206,8 @@ class BatchDecoder:
                     # decode_parsed)
                     results[i] = np.ascontiguousarray(
                         rgb_h[bi, : img.height, : img.width])
+            # only the results may keep this block from the next fetch
+            del rgb_h
         return results
 
     def _ladder(self, chunk: _Chunk, isolate: bool) -> None:
@@ -1254,6 +1282,8 @@ class BatchDecoder:
             prep_misses=cnt.get("prep_misses", 0),
             plane_kernel_chunks=cnt.get("plane_kernel_chunks", 0),
             spec_slot_chunks=cnt.get("spec_slot_chunks", 0),
+            fetch_chunks=cnt.get("fetch_chunks", 0),
+            fetch_pinned_hits=cnt.get("fetch_pinned_hits", 0),
             spans=rec.spans,
         )
         for chunk in chunks:
