@@ -40,10 +40,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   6b. mixed sizes: BatchDecoder(backend="fsm", size_buckets=True) on one
      128-image chunk of the 16 committed mixed-size streams of
      tests/fixtures/mixed_rst (624-800 px a side, 4:4:4 q90, a restart
-     marker every MCU row, one 101 x 101 MCU bucket; each 8 times), once
-     per materialize route ("scatter", "ranked", "full"): backend
-     "fsm-bucketed", no fallback, outputs as in phase 2, and each route
-     launched its own kernels and no other route's;
+     marker every MCU row, one 101 x 101 MCU bucket; each 8 times):
+     backend "fsm-bucketed", no fallback, outputs as in phase 2, and the
+     classic scatter launched (place_events) with no kernel of the other
+     two placements or the slot route;
   6c. 4:2:0, with box and with fancy chroma upsampling (fancy=False,
      True), 128 images each: the restart chunk (tests/fixtures/rst640_420,
      5,120 lanes of 240 blocks, backend "fsm"), the chunk without restart
@@ -74,13 +74,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   6e. the engine's surface: on the 128-image restart chunk, which
      build_plan's split packs into two stride groups,
      fsm.entropy_decode_fsm equals the host reference decoder's
-     coefficients with two launches each of fsm_scan and place_events,
-     and the engine's staged branch (the split forced) decodes it
-     bit-exact with the same launches and pixels on [B, n_blocks, 64];
+     coefficients with two launches each of fsm_scan and place_events;
      both packings are timed with their uploads and with their bytes
-     resident, and the link probe (measured_link_mbps) and the two link
-     rates derived from these readings are printed beside the engine's
-     constants, which must route as they do; decode(fetch=False) on the
+     resident (the engine packs one group), and the link probe
+     (measured_link_mbps) and the two link rates derived from these
+     readings are printed, the fsm route's beside the engine's "auto"
+     threshold, which must route as it does; decode(fetch=False) on the
      restart and spec chunks returns None with the fetch=True run's
      counters (both end to end times printed); backend "cpu" (workers =
      os.cpu_count()) on the restart chunk launches no kernel (on the
@@ -122,7 +121,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      second entry of csrc/place.cuh (the body of place_events), gets a
      line of its own on the mixed chunk, with and without offsets,
      beside its byte and sector bounds and index_put_; spread_ranked has
-     the same bounds in its row.  A function of an offsets pair (p, o)
+     the same bounds in its row.  The classic materialize's three
+     placements (place_events, place_events_ranked, place_events_full)
+     are timed on the mixed chunk's events.  A function of an offsets pair (p, o)
      must read p only where o >= 0, so its bounds count p there alone.
      compact_fine (csrc/compact.cuh's masked walk), compact_staged (that
      walk, then the ranked walk) and compact_offsets get a line of their
@@ -248,7 +249,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      color.ycbcr_to_rgb) every pixel equals it or is flagged risky, and
      the flagged share is printed;
   8. throughput: end to end for the 4:4:4 chunks (restart, speculative,
-     mixed on "scatter") and the three 4:2:0 chunks with both `fancy`
+     mixed) and the three 4:2:0 chunks with both `fancy`
      values (two timed decodes each, after the phase's own decode), the
      device chain of each as the strict engine runs it (median, min and
      max of 5 runs, 7 for the 4:2:0 chains), the rounds of the Jacobi
@@ -296,10 +297,9 @@ DENSE_GOLDEN = "8_401x363"
 CHUNK = 128
 REPEAT = CHUNK // 16
 SLOT_KERNELS = ("compact", "slot_unpack", "slot_expand")
-# materialize route -> the kernels only it launches on a bucketed chunk
-ROUTE_KERNELS = {"scatter": ("place_events",),
-                 "ranked": ("compact_offsets", "spread_full"),
-                 "full": ("compact_full", "spread_full")}
+# the kernels of the classic materialize's two other placements, which
+# no decode path launches
+OTHER_PLACEMENTS = ("compact_offsets", "compact_full", "spread_full")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 OPS_PER_S = 67e12           # H100 SXM 32-bit rate outside the tensor cores
 
@@ -493,7 +493,7 @@ def main() -> int:
             totals[k] += n
         return out
 
-    materialize_route = ((SLOT_KERNELS, ("place_events",)),)
+    slots_or_scatter = ((SLOT_KERNELS, ("place_events",)),)
 
     # ---- phase 2: the restart path on one 128-image chunk
     streams = read_streams(RST)
@@ -663,7 +663,7 @@ def main() -> int:
     with open(os.path.join(FIXTURES, "4_800x600.jpg"), "rb") as f:
         big = f.read()
     bout = run_path("phase 6 spec", lambda: gdec.decode([big]),
-                    need=("fsm_scan", "pixels"), any_of=materialize_route)
+                    need=("fsm_scan", "pixels"), any_of=slots_or_scatter)
     check(gdec.stats.backend == "fsm-spec-sync"
           and gdec.stats.repaired_pixels == 0,
           f"4_800x600 backend {gdec.stats.backend}")
@@ -681,7 +681,7 @@ def main() -> int:
           f"(one lane each, routes above) and host; 4_800x600 bit-exact "
           f"through fsm-spec-sync")
 
-    # ---- phase 6b: mixed sizes through the size buckets, per route
+    # ---- phase 6b: mixed sizes through the size buckets
     mstreams = read_streams(MIXED)
     mdatas = mstreams * REPEAT
     mimgs = [parse(d) for d in mdatas]
@@ -698,37 +698,30 @@ def main() -> int:
           f"{bucket.mcus_y} MCUs")
     mwant = {i: oracle.decode(parse(mstreams[i])).astype(np.uint8)
              for i in (4, 11)}
-    mdecs = {}
-    for route, own in ROUTE_KERNELS.items():
-        others = {k for r, ks in ROUTE_KERNELS.items() if r != route
-                  for k in ks} - set(own)
-        mdec = BatchDecoder(backend="fsm", chunk_size=CHUNK, strict=True,
-                            device="cuda", size_buckets=True,
-                            materialize_route=route)
-        mout = run_path(f"phase 6b {route}", lambda: mdec.decode(mdatas),
-                        need=("fsm_scan", "pixels") + own,
-                        never=tuple(others) + SLOT_KERNELS)
-        mstats = mdec.stats
-        print(f"phase 6b {route}: stats {json.dumps(mstats.as_dict())}")
-        check(len(mout) == CHUNK, "output count")
-        for i, got in enumerate(mout):
-            check(got is not None and np.array_equal(got, mrefs[i % 16]),
-                  f"mixed {route} output {i} differs from "
-                  f"{host.backend_name()}")
-        for i, want in mwant.items():
-            check(np.array_equal(mout[i], want),
-                  f"mixed {route} output {i} differs from oracle")
-        check(mstats.backend == "fsm-bucketed", f"backend {mstats.backend}")
-        check(mstats.chunks == 1, f"chunks {mstats.chunks}")
-        check(mstats.fsm_malformed_fallbacks == 0, "malformed fallback")
-        check(mstats.fsm_envelope_fallbacks == 0, "envelope fallback")
-        check(mstats.repaired_pixels == 0, "repaired pixels")
-        print(f"phase 6b {route}: {CHUNK} outputs of 16 sizes bit-exact vs "
-              f"{host.backend_name()}, 2 vs oracle; k_retries "
-              f"{mstats.fsm_k_retries}, repaired pixels "
-              f"{mstats.repaired_pixels}")
-        mdecs[route] = mdec
-        del mout
+    mdec = BatchDecoder(backend="fsm", chunk_size=CHUNK, strict=True,
+                        device="cuda", size_buckets=True)
+    mout = run_path("phase 6b", lambda: mdec.decode(mdatas),
+                    need=("fsm_scan", "pixels", "place_events"),
+                    never=OTHER_PLACEMENTS + SLOT_KERNELS)
+    mstats = mdec.stats
+    print(f"phase 6b: stats {json.dumps(mstats.as_dict())}")
+    check(len(mout) == CHUNK, "output count")
+    for i, got in enumerate(mout):
+        check(got is not None and np.array_equal(got, mrefs[i % 16]),
+              f"mixed output {i} differs from {host.backend_name()}")
+    for i, want in mwant.items():
+        check(np.array_equal(mout[i], want),
+              f"mixed output {i} differs from oracle")
+    check(mstats.backend == "fsm-bucketed", f"backend {mstats.backend}")
+    check(mstats.chunks == 1, f"chunks {mstats.chunks}")
+    check(mstats.fsm_malformed_fallbacks == 0, "malformed fallback")
+    check(mstats.fsm_envelope_fallbacks == 0, "envelope fallback")
+    check(mstats.repaired_pixels == 0, "repaired pixels")
+    print(f"phase 6b: {CHUNK} outputs of 16 sizes bit-exact vs "
+          f"{host.backend_name()}, 2 vs oracle; k_retries "
+          f"{mstats.fsm_k_retries}, repaired pixels "
+          f"{mstats.repaired_pixels}")
+    del mout
 
     # ---- phase 6c: 4:2:0 chunks, box and fancy; the other samplings
     def quant_of(images):
@@ -936,30 +929,6 @@ def main() -> int:
     print(f"phase 6e: entropy_decode_fsm on the split restart chunk equals "
           f"{host.backend_name()}'s coefficients, {CHUNK} images")
 
-    # the staged branch of the engine: the split taken at any link rate
-    split_at = engine._LINK_MBPS_SPLIT
-    engine._LINK_MBPS_SPLIT = float("inf")
-    try:
-        tdec = BatchDecoder(backend="fsm", chunk_size=CHUNK, device="cuda")
-        tout = run_path("phase 6e staged", lambda: tdec.decode(datas),
-                        need=("fsm_scan", "place_events", "pixels"))
-    finally:
-        engine._LINK_MBPS_SPLIT = split_at
-    counts = by_path["phase 6e staged"]
-    check(counts["fsm_scan"] == 2 and counts["place_events"] == 2
-          and counts["pixels"] == 1, f"staged chain launches {counts}")
-    for i, g in enumerate(tout):
-        check(np.array_equal(g, refs[i % 16]),
-              f"staged output {i} differs from {host.backend_name()}")
-    check(counters(tdec.stats) == counters(stats),
-          f"staged stats {tdec.stats.as_dict()}")
-    tdec.close()
-    del tout
-    print(f"phase 6e: the engine's staged branch (two scans, the perm "
-          f"gather, assemble_batched, pixels on [B, n_blocks, 64]) on the "
-          f"restart chunk: {CHUNK} outputs bit-exact, counters equal to "
-          f"phase 2's")
-
     # both packings of the restart chunk, each with its upload, then with
     # its bytes resident; the link probe and the two derived rates
     rquant = quant_of(rimgs)
@@ -1018,12 +987,10 @@ def main() -> int:
           f"{fsm_rate:.1f} MB/s (engine constant "
           f"{engine._LINK_MBPS_FSM_THRESHOLD}); the staged chain costs "
           f"{extra_ms:.3f} ms more on the card -> the split pays below "
-          f"{split_rate:.1f} MB/s (engine constant "
-          f"{engine._LINK_MBPS_SPLIT}) [{card}]")
-    check((link < fsm_rate) == (link < engine._LINK_MBPS_FSM_THRESHOLD)
-          and (link < split_rate) == (link < engine._LINK_MBPS_SPLIT),
-          "the engine's link constants route otherwise than this run's "
-          "readings")
+          f"{split_rate:.1f} MB/s (the engine packs one group) [{card}]")
+    check((link < fsm_rate) == (link < engine._LINK_MBPS_FSM_THRESHOLD),
+          "the engine's \"auto\" threshold routes otherwise than this "
+          "run's readings")
     del up1, up2
 
     # fetch=False: the same ladder and counters, nothing fetched
@@ -1415,13 +1382,11 @@ def main() -> int:
     # ---- phase 7: kernels against their plain versions, real inputs
     rows = []
     chunk_paths = {"restart": "phase 2", "spec": "phase 3"}
-    chunk_paths.update({f"bucketed {r}": f"phase 6b {r}"
-                        for r in ROUTE_KERNELS})
+    chunk_paths["bucketed"] = "phase 6b"
     chunk_paths.update({f"4:2:0 {n}": f"phase 6c {n} 4:2:0 fancy=True"
                         for n in sub})
     chunk_paths.update({"gather tool": "phase 6d gather tool",
                         "materialize tool": "phase 6d materialize tool",
-                        "staged restart": "phase 6e staged",
                         "gather restart": "phase 6g restart",
                         "gather spec": "phase 6g spec",
                         "superchunk of 4 chunks": "phase 6h superchunk",
@@ -1954,7 +1919,7 @@ def main() -> int:
             **extra[k],
         ))
 
-    # the two other routes' kernels on the mixed chunk's events
+    # the two other placements' kernels on the mixed chunk's events
     BM = bplan.max_blk * 64
     BN = mev.shape[0]
     p0, o0 = materialize.compact_to_rank(mev, rank_kernel=False,
@@ -1982,10 +1947,10 @@ def main() -> int:
         "spread_full with offsets"))
     d_scatter = materialize.place_events(mev, BM)
     check(torch.equal(d_full, d_scatter) and torch.equal(d_rank, d_scatter),
-          "the three routes' dense tensors differ")
+          "the three placements' dense tensors differ")
     print(f"phase 7: compact_offsets, compact_full, spread_full on the "
           f"mixed chunk's events [{BN}, {BL}] -> [{BM}, {BL}] equal; the "
-          f"three routes' dense tensors equal")
+          f"three placements' dense tensors equal")
     lib_call = scatter_call(cpf, BM, cpf >= 0)
     check(torch.equal(lib_call(), d_full), "index_put_ != spread_full")
     spread_lib_ms = cuda_ms(lib_call)
@@ -2062,11 +2027,14 @@ def main() -> int:
           f"with offsets {spread_o_ms:.4f}, "
           f"{sf['bound_ms_with_offsets']:.4f}, {spread_o_sectors:.4f}; "
           f"index_put_ {spread_lib_ms:.4f} [{card}]")
-    route_ms = {r: cuda_ms(lambda: fsm.materialize_events(mev, BM, r))
-                for r in ROUTE_KERNELS}
+    placements = {"scatter": materialize.place_events,
+                  "ranked": materialize.place_events_ranked,
+                  "full": materialize.place_events_full}
+    place_ms = {r: cuda_ms(lambda: place(mev, BM))
+                for r, place in placements.items()}
     compact_mixed_ms = cuda_ms(lambda: materialize.compact_to_rank(mev))
-    print(f"phase 7: materialize on the mixed chunk by route: "
-          + ", ".join(f"{r} {t:.4f} ms" for r, t in route_ms.items())
+    print(f"phase 7: materialize on the mixed chunk by placement: "
+          + ", ".join(f"{r} {t:.4f} ms" for r, t in place_ms.items())
           + f"; ranked = cumsum init {init_ms:.4f} + compact_offsets + "
           f"spread_full with offsets {spread_o_ms:.4f}; compact on the "
           f"same events {compact_mixed_ms:.4f} ms [{card}]")
@@ -2552,7 +2520,7 @@ def main() -> int:
     # ---- phase 8: throughput
     # (each decoder is warm: its phase decoded the same chunk once)
     e2e = [("restart", dec, datas), ("spec", sdec, pdatas),
-           ("bucketed scatter", mdecs["scatter"], mdatas)]
+           ("bucketed", mdec, mdatas)]
     e2e += [(f"4:2:0 {name} fancy={fancy}", d, sub[name][1])
             for (name, fancy), d in decs420.items()]
     for name, d, data in e2e:
@@ -2569,7 +2537,7 @@ def main() -> int:
               f"{times[0] * 1e3:.1f} and {times[1] * 1e3:.1f} ms (two warm "
               f"runs); the faster: {CHUNK / t:.1f} images/s, {mb / t:.2f} "
               f"compressed MB/s, backend {d.stats.backend} [{card}]")
-    for d in [x[1] for x in e2e] + list(mdecs.values()):
+    for d in [x[1] for x in e2e]:
         d.close()
 
     squant = torch.as_tensor(np.stack([
@@ -2639,23 +2607,21 @@ def main() -> int:
           + f" [{card}]")
 
     mb = sum(len(x) for x in mdatas) / 1e6
-    for route in ROUTE_KERNELS:
-        def bucket_chain():
-            return fused.decode_chunk_bucketed(
-                bplan, mquant, bucket, CHUNK, uploaded=bup, route=route,
-                want_coeffs=False, exact=True)
 
-        out = bucket_chain()
-        check(not bool(out[4].any() | out[5].any()),
-              f"bucketed {route}: latched lanes")
-        del out
-        ms, lo, hi = cuda_times(bucket_chain)
-        print(f"phase 8: device chain bucketed route={route} (plan and "
-              f"bytes resident; pad scan, materialize, DC, pixels from the "
-              f"lane matrix at {bucket.width}x{bucket.height}, DC masked "
-              f"there) {ms:.2f} ms (min {lo:.2f}, max {hi:.2f}): "
-              f"{CHUNK / ms * 1e3:.1f} "
-              f"images/s, {mb / ms * 1e3:.2f} compressed MB/s [{card}]")
+    def bucket_chain():
+        return fused.decode_chunk_bucketed(
+            bplan, mquant, bucket, CHUNK, uploaded=bup, want_coeffs=False,
+            exact=True)
+
+    out = bucket_chain()
+    check(not bool(out[4].any() | out[5].any()), "bucketed: latched lanes")
+    del out
+    ms, lo, hi = cuda_times(bucket_chain)
+    print(f"phase 8: device chain bucketed (plan and bytes resident; pad "
+          f"scan, materialize, DC, pixels from the lane matrix at "
+          f"{bucket.width}x{bucket.height}, DC masked there) {ms:.2f} ms "
+          f"(min {lo:.2f}, max {hi:.2f}): {CHUNK / ms * 1e3:.1f} images/s, "
+          f"{mb / ms * 1e3:.2f} compressed MB/s [{card}]")
 
     # the 4:2:0 chunks' device chains (plans and bytes resident)
     simgs420 = sub["spec"][2]

@@ -12,9 +12,9 @@ through cv2/PIL encoders, every comparison `==` (integers, tolerance 0):
   * the engine with size_buckets=True against the JAX engine and the
     oracle on the cases of tests/test_buckets.py (mixed sizes, unaligned
     restarts fall back to the host-bucketed route, mixed k splits
-    chunks), BatchStats counters equal, on each materialize route;
-  * the int16 gate of the "ranked" and "full" routes, which the
-    "scatter" route does not have: both sides of it.
+    chunks), BatchStats counters equal;
+  * past the JAX engine's int16 gate: a bucket the JAX engine hands to
+    the host decodes on the device, the port's scatter having no gate.
 
 The JAX scan runs under jit with its carry surfaced (XLA:CPU hangs on a
 scan whose carry outputs are dead).
@@ -46,7 +46,6 @@ from tpujpeg_torch.runtime.batch import BatchDecoder
 
 from conftest import make_jpeg, make_jpeg_rst
 
-ROUTES = ("scatter", "ranked", "full")
 MIXED = [(64, 80), (60, 88), (57, 41), (120, 56), (48, 64), (64, 80)]
 
 
@@ -139,8 +138,8 @@ def test_shape_ladder_equal():
         assert tladder.mcu_bucket_ladder(m) == jladder.mcu_bucket_ladder(m)
     keys = tladder.bucketed_keys(2000, 4096, k_values=(1, 2))
     assert keys == jladder.bucketed_jit_keys(2000, 4096, k_values=(1, 2))
-    # the scatter route has no int16 gate: its ladder keeps the buckets
-    # the gated routes hand to the host
+    # the port's scatter has no int16 gate: its ladder keeps the buckets
+    # the JAX engine's gate hands to the host
     wide = tladder.bucketed_keys(2000, 4096, k_values=(1, 2),
                                  max_blk_cap=None)
     assert set(keys) < set(wide)
@@ -369,16 +368,11 @@ def test_decode_chunk_bucketed_matches_jax(case):
             im.mcus_y, im.mcus_x, 3)
         np.testing.assert_array_equal(dcb[i, : im.mcus_y, : im.mcus_x], want)
     assert not dcb[len(imgs):].any()
-    # want_coeffs=False drops them; every route gives the same tensors
-    for route in ROUTES[1:]:
-        r2 = tfused.decode_chunk_bucketed(
-            plan, torch.as_tensor(quant), bucket, pad_to, route=route,
-            want_coeffs=route == "ranked")
-        assert torch.equal(r2[0], rgb) and torch.equal(r2[1], risk)
-        if route == "ranked":
-            assert torch.equal(r2[2], coeffs) and torch.equal(r2[3], dc)
-        else:
-            assert r2[2] is None and r2[3] is None
+    # want_coeffs=False drops them and keeps the pixels
+    r2 = tfused.decode_chunk_bucketed(plan, torch.as_tensor(quant), bucket,
+                                      pad_to, want_coeffs=False)
+    assert torch.equal(r2[0], rgb) and torch.equal(r2[1], risk)
+    assert r2[2] is None and r2[3] is None
 
 
 # ---------------------------------------------------------------------------
@@ -409,11 +403,10 @@ def mixed():
     return datas, jout, jdec.stats, _oracle(datas)
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_engine_mixed_sizes_match_jax_and_oracle(mixed, route):
+def test_engine_mixed_sizes_match_jax_and_oracle(mixed):
     datas, jout, jstats, want = mixed
     dec = BatchDecoder(backend="fsm", size_buckets=True, chunk_size=4,
-                       device="cpu", materialize_route=route)
+                       device="cpu")
     out = dec.decode(datas)
     dec.close()
     assert dec.stats.backend == "fsm-bucketed", dec.stats.as_dict()
@@ -513,26 +506,23 @@ def test_engine_bucketed_malformed_goes_to_host_bucketed():
     np.testing.assert_array_equal(out[0], _oracle([good])[0])
 
 
-@pytest.mark.parametrize("route", ["scatter", "ranked"])
-def test_engine_int16_gate_holds_on_the_int16_routes_only(route):
+def test_engine_int16_gate_holds_on_the_int16_routes_only():
     # 37 MCUs wide -> bucket 45; four rows per lane: 45 * 4 * 3 = 540
     # blocks, 34,560 dense rows, past the int16 offsets.  The JAX engine
-    # refuses such chunks on the device whatever its route (a TPU gate);
-    # the port refuses them on "ranked" and "full" only
+    # refuses such chunks on the device (a TPU gate); the port's scatter
+    # has no such gate and decodes them there
     datas = [_smooth_rst((64, 296), seed=1, k=4),
              _smooth_rst((60, 290), seed=2, k=4)]
     dec = BatchDecoder(backend="fsm", size_buckets=True, chunk_size=2,
-                       device="cpu", materialize_route=route)
+                       device="cpu")
     out = dec.decode(datas)
     dec.close()
-    assert dec.stats.backend == ("fsm-bucketed" if route == "scatter"
-                                 else "host-bucketed")
+    assert dec.stats.backend == "fsm-bucketed"
     assert dec.stats.fsm_malformed_fallbacks == 0
     assert dec.stats.fsm_envelope_fallbacks == 0
     for g, w in zip(out, _oracle(datas)):
         np.testing.assert_array_equal(g, w)
-    if route == "ranked":
-        jdec = JaxBatchDecoder(backend="fsm", size_buckets=True,
-                               chunk_size=2, mesh=_mesh1())
-        jdec.decode(datas)
-        assert jdec.stats.backend == "host-bucketed"
+    jdec = JaxBatchDecoder(backend="fsm", size_buckets=True, chunk_size=2,
+                           mesh=_mesh1())
+    jdec.decode(datas)
+    assert jdec.stats.backend == "host-bucketed"

@@ -697,8 +697,9 @@ def test_route_kernels_equal_plain(cuda, shape):
     classic = materialize.place_events(ev, M)
     assert torch.equal(d_c, classic)
     assert int(d_c[0, 1]) == -2048     # the event that packs to 0
-    for route in ("ranked", "full"):
-        assert torch.equal(fsm.materialize_events(ev, M, route), classic)
+    for place in (materialize.place_events_ranked,
+                  materialize.place_events_full):
+        assert torch.equal(place(ev, M), classic)
 
 
 def _compact_case(case):
@@ -799,7 +800,7 @@ def test_compact_offsets_walk_equals_plain_and_compact(cuda, case):
     assert torch.equal(p, pw) and torch.equal(o, ow)
     pk, ok = materialize.compact_to_rank(ev)
     assert torch.equal(p, pk) and torch.equal(o, ok)
-    # and through the ranked route's own call
+    # and through the ranked placement's own call
     pr, orr = materialize.compact_to_rank(ev, rank_kernel=False)
     assert torch.equal(pr, pw) and torch.equal(orr, ow)
 

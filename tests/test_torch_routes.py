@@ -1,24 +1,28 @@
-"""The three routes of tpujpeg_torch's classic materialize == the JAX
-package's, and each other.
+"""The three placements of tpujpeg_torch's classic materialize == the
+JAX package's, and each other.
 
-  "scatter"  place_events (one kernel; tests/test_torch_materialize.py);
-  "ranked"   column cumsum + compact_offsets + spread_full, held against
-             the JAX package's _compact_to_rank with its rank kernel off
-             (materialize._RANK_KERNEL False, the TPUJPEG_RANK_KERNEL=0
-             switch) at the cuts 'init' and 'compact', interpret mode;
-             also the identity compact_offsets' kernel (the walk of
-             csrc/compact.cuh) relies on: under o = row - rank, moving
-             each valid row up by o is ranking the rows with o >= 0;
-  "full"     compact_full + spread_full (place_events_full), held against
-             place_events_pallas(interpret=True) and its two kernels.
+  place_events         one kernel (tests/test_torch_materialize.py); the
+                       one every decode path takes;
+  place_events_ranked  column cumsum + compact_offsets + spread_full,
+                       held against the JAX package's _compact_to_rank
+                       with its rank kernel off (materialize._RANK_KERNEL
+                       False, the TPUJPEG_RANK_KERNEL=0 switch) at the
+                       cuts 'init' and 'compact', interpret mode; also
+                       the identity compact_offsets' kernel (the walk of
+                       csrc/compact.cuh) relies on: under o = row - rank,
+                       moving each valid row up by o is ranking the rows
+                       with o >= 0;
+  place_events_full    compact_full + spread_full, held against
+                       place_events_pallas(interpret=True) and its two
+                       kernels.
 
 Every comparison is `==` on integers (tolerance 0), inputs from a numpy
 seed (tests/test_materialize.py's generators).  The JAX compact kernel
 writes 0 in its empty rows and its spread kernel takes `cp > 0` for
 validity, so the real event that packs to 0 (blk 0, z 0, val -2048) is
 dropped there; the port marks empty rows with -1 and keeps validity a
-sign, so that event is held against the truth on all three routes, and
-the compacted payloads are compared as where(cp < 0, 0, cp).
+sign, so that event is held against the truth in all three placements,
+and the compacted payloads are compared as where(cp < 0, 0, cp).
 """
 
 import jax
@@ -28,17 +32,15 @@ import pytest
 import torch
 
 from tpujpeg.ops import materialize as jmat
-from tpujpeg.oracle import decoder as oracle
-from tpujpeg.io.parser import parse
 from tpujpeg_torch.ops import fsm as tfsm
 from tpujpeg_torch.ops import materialize as tmat
-from tpujpeg_torch.runtime.batch import BatchDecoder
 
-from conftest import make_jpeg_rst
 from test_materialize import _block_events, _random_events
 from test_torch_slots import COMPACT_EDGES, _compact_edge
 
-ROUTES = ("scatter", "ranked", "full")
+PLACEMENTS = {"scatter": tmat.place_events,
+              "ranked": tmat.place_events_ranked,
+              "full": tmat.place_events_full}
 
 
 def _np(t):
@@ -244,17 +246,32 @@ def test_compact_full_plain_matches_jax_kernel_on_edge_lanes(case):
     np.testing.assert_array_equal((cp >= 0).sum(0), (ev >= 0).sum(0))
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_routes_match_each_other_and_truth(events, route):
-    ev, want, M = events
+# the four shapes of the full placement's test on the other two, and
+# the decode-realistic events on all three
+MATCH_CASES = [(name, "events") for name in PLACEMENTS] + [
+    (name, case) for name in ("scatter", "ranked") for case in CASES]
+
+
+@pytest.mark.parametrize("name, case", MATCH_CASES,
+                         ids=[f"{n}-{c}" for n, c in MATCH_CASES])
+def test_routes_match_each_other_and_truth(events, name, case):
+    if case == "events":
+        ev, want, M = events
+    else:
+        n_rows, max_blk, density = CASES[case]
+        rng = np.random.default_rng(n_rows + int(density * 100))
+        M = max_blk * 64
+        ev, want = _random_events(rng, n_rows, max_blk, 128, density)
     err = torch.zeros(ev.shape[1], dtype=torch.bool)
-    got = tfsm.materialize_events(torch.as_tensor(ev), M, route, err)
-    assert got.dtype == torch.int16
+    got = PLACEMENTS[name](torch.as_tensor(ev), M, err)
+    assert got.dtype == torch.int16 and tuple(got.shape) == (M, 128)
     np.testing.assert_array_equal(_np(got).astype(np.int32), want)
     assert not bool(err.any())
+    if name != "scatter":
+        assert torch.equal(got, tmat.place_events(torch.as_tensor(ev), M))
 
 
-@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("route", list(PLACEMENTS))
 def test_zero_packed_event_is_placed_on_every_route(route):
     # blk 0, z 0, val -2048 packs to exactly 0; held against the truth,
     # not against the JAX kernels, which drop it
@@ -265,7 +282,7 @@ def test_zero_packed_event_is_placed_on_every_route(route):
     truth[0, 5] = -2048
     ev[3, 5] = (9 << 18) | (2 << 12) | (2048 - 3)     # blk 9, z 2, val -3
     truth[9 * 64 + 2, 5] = -3
-    got = tfsm.materialize_events(torch.as_tensor(ev), M, route)
+    got = PLACEMENTS[route](torch.as_tensor(ev), M)
     np.testing.assert_array_equal(_np(got).astype(np.int32), truth)
     if route == "full":
         cp = tmat.compact_full(torch.as_tensor(ev))
@@ -275,7 +292,7 @@ def test_zero_packed_event_is_placed_on_every_route(route):
         assert j[0, 5] == 0   # the fault this port does not copy
 
 
-@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("route", list(PLACEMENTS))
 def test_out_of_range_target_latches_lane_on_every_route(route):
     L, M = 8, 4 * 64
     ev = np.full((5, L), -1, np.int32)
@@ -283,38 +300,40 @@ def test_out_of_range_target_latches_lane_on_every_route(route):
     ev[2, 2] = (4 << 18) | 2048            # block 4: target 256 == M
     ev[4, 6] = (63 << 18) | (63 << 12) | 4095
     err = torch.zeros(L, dtype=torch.bool)
-    got = tfsm.materialize_events(torch.as_tensor(ev), M, route, err)
+    got = PLACEMENTS[route](torch.as_tensor(ev), M, err)
     want = np.zeros((M, L), np.int16)
     want[64 + 7, 2] = 9
     np.testing.assert_array_equal(_np(got), want)
     np.testing.assert_array_equal(_np(err), np.arange(L) % 4 == 2)
 
 
-def test_route_gate_and_the_scatter_past_it():
-    assert tmat.route_gate("scatter", 10 ** 6, 10 ** 6)
-    for route in ("ranked", "full"):
-        assert tmat.route_gate(route, 32767, 32767)
-        assert not tmat.route_gate(route, 32768, 64)
-        assert not tmat.route_gate(route, 64, 32768)
-    with pytest.raises(ValueError, match="route"):
-        tmat.route_gate("butterfly", 1, 1)
-    with pytest.raises(ValueError, match="route"):
-        tfsm.materialize_events(torch.zeros((1, 1), dtype=torch.int32), 64,
-                                "v3")
-    # past the int16 gate every route still places the events (through
-    # the scatter): 600 blocks of dense rows, one lane
+@pytest.mark.parametrize("route", list(PLACEMENTS))
+def test_int16_gate_and_the_scatter_past_it(route):
+    # the ranked and full placements carry int16 offsets: heights of
+    # 32768 rows or more raise, on the events and on the dense side; the
+    # scatter has no such limit and places the event (600 blocks of
+    # dense rows, one lane)
+    place = PLACEMENTS[route]
+    small = torch.full((64, 1), -1, dtype=torch.int32)
+    assert int(place(small, 32767).abs().sum()) == 0
     M = 600 * 64
     ev = np.full((40, 1), -1, np.int32)
     ev[7, 0] = (599 << 18) | (63 << 12) | (2048 + 5)
-    for route in ROUTES:
-        got = tfsm.materialize_events(torch.as_tensor(ev), M, route)
+    tall = torch.full((tmat.INT16_SPAN, 1), -1, dtype=torch.int32)
+    if route == "scatter":
+        got = place(torch.as_tensor(ev), M)
         assert int(got[599 * 64 + 63, 0]) == 5 and int(got.abs().sum()) == 5
+        assert int(place(tall, 64).abs().sum()) == 0
+        return
+    for events, rows in ((torch.as_tensor(ev), M), (tall, 64)):
+        with pytest.raises(ValueError, match="int16"):
+            place(events, rows)
 
 
 @pytest.mark.parametrize("slots", [False, 64])
-@pytest.mark.parametrize("route", ROUTES)
-def test_materialize_checked_carries_the_route(events, route, slots,
-                                               monkeypatch):
+def test_materialize_checked_carries_the_route(events, slots, monkeypatch):
+    # the classic materialize is the scatter; the slot route compacts
+    # through the rank kernel
     ev, want, M = events
     calls = []
     for name in ("place_events", "compact_offsets", "compact_full",
@@ -325,38 +344,11 @@ def test_materialize_checked_carries_the_route(events, route, slots,
         monkeypatch.setattr(tmat, name, spy)
     err = torch.zeros(ev.shape[1], dtype=torch.bool)
     got, mal, ovf = tfsm.materialize_checked(torch.as_tensor(ev), M, err,
-                                             slots=slots, route=route)
+                                             slots=slots)
     ok = ~_np(ovf)
     assert ok.all() or slots
     np.testing.assert_array_equal(_np(got).astype(np.int32)[:, ok],
                                   want[:, ok])
     assert not bool(mal.any())
-    if slots:
-        # the slot route shares the compact stage only
-        assert calls == (["compact_offsets"] if route == "ranked"
-                         else ["compact_to_rank_plain"])
-    else:
-        assert calls == {"scatter": ["place_events"],
-                         "ranked": ["compact_offsets", "spread_full"],
-                         "full": ["compact_full", "spread_full"]}[route]
-
-
-@pytest.mark.parametrize("route", ROUTES)
-def test_engine_restart_chunk_on_every_route(route):
-    datas = [make_jpeg_rst(shape=(32, 48), rst_interval=2, seed=s)
-             for s in (1, 2)]
-    dec = BatchDecoder(backend="fsm", chunk_size=2, device="cpu",
-                       materialize_route=route)
-    got = dec.decode(datas)
-    dec.close()
-    assert dec.stats.backend == "fsm"
-    assert dec.stats.fsm_malformed_fallbacks == 0
-    assert dec.stats.fsm_envelope_fallbacks == 0
-    for d, g in zip(datas, got):
-        np.testing.assert_array_equal(
-            g, oracle.decode(parse(d)).astype(np.uint8))
-
-
-def test_engine_rejects_an_unknown_route():
-    with pytest.raises(ValueError, match="materialize_route"):
-        BatchDecoder(device="cpu", materialize_route="slots")
+    assert calls == (["compact_to_rank_plain"] if slots
+                     else ["place_events"])

@@ -5,8 +5,8 @@ BatchDecoder(fancy=) on "fsm" and "host", at exact geometry and in
 size-class buckets, against the JAX engine's outputs, routes and
 counters: a batch that mixes every sampling, mixed sizes of 4:2:0, the
 speculative path at 6 blocks per MCU (resolved, and missed into the
-Jacobi path), the int16 gate of the "ranked" and "full" routes read from
-the plan's row capacity, and the slot capacity on a 240-block row.
+Jacobi path), a plan row capacity past the JAX engine's int16 gate
+decoded on the device, and the slot capacity on a 240-block row.
 Streams and the comparison rule are those of
 tests/test_torch_subsampled.py: outputs `==`, counters `==` by
 tests/test_torch_buckets.py::_stats_equal (the port's repaired_pixels
@@ -107,41 +107,32 @@ def test_engine_spec_420_routes_like_jax(calm):
         np.testing.assert_array_equal(g, w)
 
 
-GATE_CASES = [("scatter", 2, "fsm-bucketed"), ("ranked", 2, "host-bucketed"),
-              ("full", 2, "host-bucketed"), ("ranked", 1, "fsm-bucketed"),
-              ("full", 1, "fsm-bucketed")]
-
-
-@pytest.mark.parametrize("case", GATE_CASES,
-                         ids=lambda c: f"{c[0]}-k{c[1]}")
-def test_engine_gate_reads_the_plan_row_capacity_at_bpm_6(case):
-    # 37 MCUs of 16 px -> bucket 45; at 6 blocks per MCU a one-row lane
-    # holds 270 blocks, a two-row lane 540: past the 512 blocks (32,768
-    # dense rows) of the int16 routes, which hand the chunk to the host;
-    # the scatter has no such gate.  (The shape ladder's enumerator counts
-    # 3 blocks per MCU and is not the engine's gate.)
-    route, k, backend = case
+def test_engine_gate_reads_the_plan_row_capacity_at_bpm_6():
+    # 37 MCUs of 16 px -> bucket 45; at 6 blocks per MCU a two-row lane
+    # holds 540 blocks: past the 512 blocks (32,768 dense rows) of the
+    # JAX engine's int16 gate, which hands the chunk to the host; the
+    # port's scatter has no such gate.  (The shape ladder's enumerator
+    # counts 3 blocks per MCU and is not the JAX engine's gate.)
+    k = 2
     datas = [_encode((64, 592), "420", seed=1, rst_rows=k, quality=50),
              _encode((60, 580), "420", seed=2, rst_rows=k, quality=50)]
     imgs = [parse(d) for d in datas]
     bucket = tpipe.bucket_geometry(tpipe.Geometry.of(imgs[0]))
     plan = tfsm.build_plan_bucketed(imgs, bucket)
-    assert plan.max_blk == k * 45 * 6
-    assert (plan.max_blk > 512) == (k == 2)
+    assert plan.max_blk == k * 45 * 6 > 512
     dec = BatchDecoder(backend="fsm", size_buckets=True, chunk_size=2,
-                       device="cpu", materialize_route=route)
+                       device="cpu")
     out = dec.decode(datas)
     dec.close()
-    assert dec.stats.backend == backend, dec.stats.as_dict()
+    assert dec.stats.backend == "fsm-bucketed", dec.stats.as_dict()
     assert dec.stats.fsm_malformed_fallbacks == 0
     assert dec.stats.fsm_envelope_fallbacks == 0
     for g, w in zip(out, _oracle(datas)):
         np.testing.assert_array_equal(g, w)
-    if route == "ranked" and k == 2:
-        jdec = JaxBatchDecoder(backend="fsm", size_buckets=True,
-                               chunk_size=2, mesh=_mesh1())
-        jdec.decode(datas)
-        assert jdec.stats.backend == "host-bucketed"
+    jdec = JaxBatchDecoder(backend="fsm", size_buckets=True, chunk_size=2,
+                           mesh=_mesh1())
+    jdec.decode(datas)
+    assert jdec.stats.backend == "host-bucketed"
 
 
 def test_slot_capacity_bounds_sliding_windows_of_a_240_block_row():

@@ -14,11 +14,11 @@ scan bytes already on the card:
     on [B, n_blocks, 64]);
   * bucketed: tests/fixtures/mixed_rst (16 sizes of 624-800 px, a
     restart marker every MCU row) through the size-bucketed chain
-    (runtime/fused.decode_chunk_bucketed): pad_info scan, materialize by
-    route (scatter; ranked = cumsum init, compact_offsets, spread_full;
-    full = compact_full, spread_full), lane transpose + DC cumsum, the
-    pixel kernel on the lane matrix at the bucket's size (DC masked
-    inside it).
+    (runtime/fused.decode_chunk_bucketed): pad_info scan, materialize
+    (the scatter; beside it the two other placements as stages: ranked =
+    cumsum init, compact_offsets, spread_full; full = compact_full,
+    spread_full), lane transpose + DC cumsum, the pixel kernel on the
+    lane matrix at the bucket's size (DC masked inside it).
 
 Per stage, the median of 5 warm runs timed with CUDA events, each stage
 synchronised on its own; then each whole chain as the strict engine
@@ -192,8 +192,8 @@ def spec_stages(dev):
 
 
 def bucketed_stages(dev):
-    """(stages, chain, shapes) of the mixed-size chunk; the chain is the
-    scatter route's, the other routes' chains are stages."""
+    """(stages, chain, shapes) of the mixed-size chunk; the chain takes
+    the scatter, the other placements are stages."""
     import torch
 
     from tpujpeg_torch.ops import fsm, materialize, pixels
@@ -229,10 +229,10 @@ def bucketed_stages(dev):
         pl = dense.T.reshape(L, plan.max_blk, 64)
         fsm._dc_cumsum(pl[:, :, 0], plan.tables, plan.max_blk)
 
-    def chain(route="scatter"):
+    def chain():
         return fused.decode_chunk_bucketed(plan, quant, bucket, CHUNK,
-                                           uploaded=up, route=route,
-                                           want_coeffs=False, exact=True)
+                                           uploaded=up, want_coeffs=False,
+                                           exact=True)
 
     stages = [
         ("scan (fsm_scan, pad_info)", scan),
@@ -253,8 +253,6 @@ def bucketed_stages(dev):
         ("pixel kernel on the lane matrix at bucket size, exact (pixels)",
          lambda: pixels.rgb_444(bucket, dense, lanes, quant, dc=dc_lane,
                                 extents=ext, exact=True)),
-        ("chain, route ranked", lambda: chain("ranked")),
-        ("chain, route full", lambda: chain("full")),
     ]
     shapes = (f"lane matrix {list(xs.shape)}, bucket {bucket.mcus_x} x "
               f"{bucket.mcus_y} MCUs, events {list(ev.shape)}, dense "

@@ -5,9 +5,9 @@ grayscale), with or without restart markers, of one exact size or of
 mixed sizes (size-class buckets), runs on the card through hand-written
 CUDA kernels (csrc/): the Huffman symbol FSM scan (restart lanes,
 bucket-raster emission, the speculative modes), the events -> dense
-coefficient scatter and its two other routes (offset compaction,
-full-height compaction and spread), the slot route's compact, unpack and
-expand, and the fused dequant + IDCT + colour pixel stage of 4:4:4,
+coefficient scatter and its two other placements (offset compaction,
+full-height compaction and spread; no decode path takes them), the
+slot route's compact, unpack and expand, and the fused dequant + IDCT + colour pixel stage of 4:4:4,
 which reads the coefficients where the chain leaves them and writes
 the cropped RGB raster, and its subsampled sibling (csrc/planes.cu:
 IDCT into sample planes, box or fancy chroma upsampling, colour; one
@@ -79,8 +79,7 @@ def decode_batch(datas, backend: str = "fsm", **kwargs):
 
     Thin wrapper over runtime.batch.BatchDecoder (keyword arguments go to
     its constructor: workers, chunk_size, strict, device, size_buckets,
-    materialize_route, fancy, mesh).  strict=True, the default, computes colour
-    exactly on the device (bit-exact with the reference decoder);
+    fancy, mesh).  strict=True, the default, computes colour exactly on the device (bit-exact with the reference decoder);
     strict=False is the f32 colour of the JAX engine's strict=False.
     The images of one chunk may share one buffer
     (BatchDecoder.decode_parsed)."""

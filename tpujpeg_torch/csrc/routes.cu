@@ -1,5 +1,7 @@
-// The two other routes of the classic materialize (kernels
-// "compact_offsets", "compact_full" and "spread_full" of tpujpeg_torch).
+// The two other placements of the classic materialize (kernels
+// "compact_offsets", "compact_full" and "spread_full" of tpujpeg_torch;
+// ops/materialize.place_events_ranked and place_events_full, which no
+// decode path takes: the scatter of materialize.cu is as fast or faster).
 //
 // Replace, in tpujpeg/ops/materialize.py:
 //   * compact_offsets — _fine_compact_kernel (materialize.py:271) with the
@@ -30,7 +32,7 @@
 //
 // Design: two shared bodies, each measured on its first kernel.
 //   * compact_offsets and compact_full are csrc/compact.cuh.  Without a
-//     mask (the "ranked" route), with the complement mask ~(W - 1) on the
+//     mask (the ranked placement), with the complement mask ~(W - 1) on the
 //     multiples of W that the fine stage leaves, and in compact_full: the
 //     walk of slots.cu's compact, a 32-lane tile walked by 8 warps in
 //     128-row chunks, each element read once, the rank carried down the

@@ -33,7 +33,8 @@ costs a warp (a symbol step without branches, tables and scan bytes in
 shared memory) and says what was measured and left out.
 
 `build_plan` packs a chunk into one stride class or, with split=True
-(its default, as in the JAX package), two; a plan of two decodes
+(its default, as in the JAX package), two (the engine asks for one); a
+plan of two decodes
 through the staged chain (`decode_plan`: a scan per group, the rows put
 back in lane order by `perm`; `assemble` on the host or
 `assemble_batched` on the device; `entropy_decode_fsm` over both).
@@ -1006,38 +1007,8 @@ def _scan_plain(xs, seg_n_blocks, tables: FsmTables, steps: tuple,
 # ---------------------------------------------------------------------------
 
 
-def materialize_events(ev: torch.Tensor, M: int, route: str = "scatter",
-                       err_mal: torch.Tensor | None = None) -> torch.Tensor:
-    """Packed events [N, L] -> dense int16 [M, L] by the classic contract,
-    through one of three routes (the JAX package's _materialize_events
-    dispatch, with the route an argument and not an environment switch):
-
-      "scatter"  one kernel, `materialize.place_events` (the default);
-      "ranked"   column cumsum, `compact_offsets`, `spread_full` (the JAX
-                 package with TPUJPEG_RANK_KERNEL=0);
-      "full"     `compact_full`, `spread_full` (TPUJPEG_PALLAS=1).
-
-    All three give the same tensor and latch `err_mal` (bool [L], in
-    place) for an event whose target is outside [0, M).  "ranked" and
-    "full" carry int16 offsets, so shapes outside `materialize.route_gate`
-    take the scatter, as the JAX dispatch leaves its kernels for another
-    implementation there."""
-    from . import materialize
-
-    N = ev.shape[0]
-    if not materialize.route_gate(route, N, M):
-        route = "scatter"
-    if route == "ranked":
-        p, o = materialize.compact_to_rank(ev, rank_kernel=False)
-        return materialize.spread_full(p, M, o=o, err_mal=err_mal)
-    if route == "full":
-        return materialize.place_events_full(ev, M, err_mal)
-    return materialize.place_events(ev, M, err_mal)
-
-
 def materialize_checked(ev: torch.Tensor, M: int, err_mal: torch.Tensor,
-                        slots: bool | int | None = False,
-                        route: str = "scatter"):
+                        slots: bool | int | None = False):
     """Materialize events [N, L] -> dense int16 [M, L], checked.
 
     slots: False = the classic scatter (place_events); None / True = the
@@ -1047,10 +1018,7 @@ def materialize_checked(ev: torch.Tensor, M: int, err_mal: torch.Tensor,
     bool [L]): err_slot marks slot-overflow lanes (their dense rows are
     undefined; callers re-decode the chunk with slots=False), all-False
     on the classic route.  The classic route latches err_mal for an event
-    whose target is outside [0, M).  route: how the classic route places
-    the events (`materialize_events`); on the slot route "ranked" swaps
-    the compact stage, which both families share, and "full" changes
-    nothing.  Under TPUJPEG_SELFCHECK=1 a per-lane
+    whose target is outside [0, M).  Under TPUJPEG_SELFCHECK=1 a per-lane
     checksum sum(val * (target + 1)) of the event stream is compared with
     sum(value * (row + 1)) of the dense tensor, in int32 wraparound, and a
     mismatch latches err_mal outside the overflow lanes.
@@ -1065,12 +1033,10 @@ def materialize_checked(ev: torch.Tensor, M: int, err_mal: torch.Tensor,
         if not materialize.slot_gate(N, M, C):
             C = None
     if C is None:
-        coeffs_t = materialize_events(ev, M, route, err_mal)
+        coeffs_t = materialize.place_events(ev, M, err_mal)
         err_slot = torch.zeros(L, dtype=torch.bool, device=ev.device)
     else:
-        materialize.route_gate(route, N, M)   # raises on an unknown route
-        coeffs_t, err_slot = materialize.place_events_slots(
-            ev, M, C, rank_kernel=route != "ranked")
+        coeffs_t, err_slot = materialize.place_events_slots(ev, M, C)
     if os.environ.get("TPUJPEG_SELFCHECK", "auto") == "1":
         valid = ev >= 0
         e = ev.to(torch.int64)
@@ -1144,22 +1110,20 @@ def upload_plan(plan: FsmPlan, device="cuda"):
     )
 
 
-def _decode_group(xs, seg_n, tables: FsmTables, max_blk: int, steps,
-                  route: str):
+def _decode_group(xs, seg_n, tables: FsmTables, max_blk: int, steps):
     """One stride group: scan, classic materialize, DC resolved per lane.
     Returns (per_lane int32 [Lg, max_blk, 64], err_mal, err_env)."""
     events, err_mal, err_env = fsm_scan(xs, seg_n, tables, steps)
     n_cols, S, L = events.shape
     coeffs_t, err_mal, _ = materialize_checked(
-        events.reshape(n_cols * S, L), max_blk * 64, err_mal, slots=False,
-        route=route)
+        events.reshape(n_cols * S, L), max_blk * 64, err_mal, slots=False)
     per_lane = coeffs_t.T.reshape(L, max_blk, 64).to(torch.int32)
     per_lane[:, :, 0] = _dc_cumsum(per_lane[:, :, 0], tables, max_blk)
     return per_lane, err_mal, err_env
 
 
 def decode_plan(plan: FsmPlan, uploaded=None, steps=STEPS_PRODUCTION,
-                device="cuda", route: str = "scatter"):
+                device="cuda"):
     """Run the FSM decoder -> (per_lane int32 [n_lanes, max_blk, 64] DC
     resolved, (err_mal, err_env) bool [n_lanes]).
 
@@ -1167,11 +1131,10 @@ def decode_plan(plan: FsmPlan, uploaded=None, steps=STEPS_PRODUCTION,
     concatenated and put back in lane (scan) order by `plan.perm`, so
     there are n_segments rows; one group keeps its Lg rows, the padding
     lanes past n_segments included.  `uploaded` is upload_plan's result
-    (on `device` otherwise); route: the classic materialize's route
-    (`materialize_events`)."""
+    (on `device` otherwise)."""
     groups, perm = uploaded if uploaded is not None \
         else upload_plan(plan, device)
-    outs = [_decode_group(xs, sn, plan.tables, plan.max_blk, steps, route)
+    outs = [_decode_group(xs, sn, plan.tables, plan.max_blk, steps)
             for xs, sn in groups]
     if len(outs) == 1:
         per_lane, err_mal, err_env = outs[0]
@@ -1630,10 +1593,9 @@ def _spec_sync_merge(ev1, anchors, ablk, recm, ev2, end2, b1, blk2, quotas):
 def _spec_sync_assemble(ev1, anchors, ablk, recm, ev2, end2, b1, blk2,
                         quotas, tables: FsmTables, pad_to: int, nb: int,
                         n_imgs: int, cap_w: int, slots=None,
-                        route: str = "scatter",
                         stop_after: str | None = None):
-    """The spec tail: merge (`_spec_sync_merge`), materialize (slots and
-    route as in `materialize_checked`), gather into per-image rows,
+    """The spec tail: merge (`_spec_sync_merge`), materialize (slots as in
+    `materialize_checked`), gather into per-image rows,
     resolve DC.  Returns (coeffs int16 [pad_to, nb,
     64] raw DC, dc int32 [pad_to, nb], err [L], err_slot [L]); at
     stop_after "materialize" (a profiling cut) (dense int16 [cap_w * 64,
@@ -1642,7 +1604,7 @@ def _spec_sync_assemble(ev1, anchors, ablk, recm, ev2, end2, b1, blk2,
     ev, err = _spec_sync_merge(ev1, anchors, ablk, recm, ev2, end2, b1,
                                blk2, quotas)
     coeffs_t, err, err_slot = materialize_checked(ev, cap_w * 64, err,
-                                                  slots=slots, route=route)
+                                                  slots=slots)
     if stop_after == "materialize":
         return coeffs_t, None, err, err_slot
     per_lane = coeffs_t.T.reshape(L, cap_w, 64)
@@ -1663,9 +1625,9 @@ def decode_speculative_sync(imgs: list[JpegImage], chunk_bytes: int = 1024,
                             plan: SpecBatchPlan | None = None, xs_dev=None,
                             steps=STEPS_PRODUCTION,
                             pending: SpecSyncPending | None = None,
-                            device=None, route: str = "scatter"):
+                            device=None):
     """Single-pass speculative batch decode, staged: start, resolve, the
-    tail on the classic materialize (by `route`, materialize_events).  Returns (coeffs int32 [pad_to, nb,
+    tail on the classic materialize.  Returns (coeffs int32 [pad_to, nb,
     64] DC resolved, (err, all-False)) on the device, like
     decode_speculative_batch(device_out=True); device_out=False returns
     per-image host int32 [n_blocks, 64] and raises SpecSyncMiss where a
@@ -1683,7 +1645,7 @@ def decode_speculative_sync(imgs: list[JpegImage], chunk_bytes: int = 1024,
         pending.ev1, pending.anchors, pending.ablk, pending.recm,
         pending.ev2, pending.end2, pending.b1, pending.blk2,
         torch.as_tensor(quotas).to(pending.ev1.device), plan.tables,
-        pad_to or len(imgs), nb, len(imgs), cap_w, slots=False, route=route,
+        pad_to or len(imgs), nb, len(imgs), cap_w, slots=False,
     )
     coeffs = coeffs16.to(torch.int32)
     coeffs[:, :, 0] = dc
@@ -1783,12 +1745,12 @@ def decode_speculative_batch(imgs: list[JpegImage], chunk_bytes: int = 2048,
                              plan: SpecBatchPlan | None = None, xs_dev=None,
                              steps=STEPS_PRODUCTION,
                              pending: SpecPending | None = None,
-                             device=None, route: str = "scatter"):
+                             device=None):
     """Jacobi speculative batch decode.
 
     One host read (block counts and flags) after convergence, then the
     write pass (scan from the converged states with per-lane quotas,
-    classic materialize by `route`).  device_out=False returns per-image
+    classic materialize).  device_out=False returns per-image
     host int32 [n_blocks, 64] coefficients (geometries may mix; DPCM
     resolved per component on the host) and raises JpegError where the
     write pass latched; device_out=True (one block count per batch)
@@ -1833,7 +1795,6 @@ def decode_speculative_batch(imgs: list[JpegImage], chunk_bytes: int = 2048,
                         start_bim=sm)
     coeffs_t, err_mal, _ = materialize_checked(
         out.events.reshape(-1, L), cap_w * 64, out.err_mal, slots=False,
-        route=route,
     )
     per_lane = coeffs_t.T.reshape(L, cap_w, 64)
     if device_out:

@@ -1,13 +1,13 @@
 """Events -> dense coefficients: the classic scatter, its two other
-routes, and the slot route.
+placements, and the slot route.
 
 Contract of tpujpeg/ops/materialize.py::place_events_v3 and of
 fsm._materialize_events: packed events int32 [N, L]
 (`blk << 18 | z << 12 | (val + 2048)`, valid when >= 0) go to row
 64*blk + z of their lane in an int16 [M, L] tensor; every other row is 0.
 
-Classic route (kernel "place_events", csrc/materialize.cu; its body,
-csrc/place.cuh, is also spread_full's).  On the TPU
+Classic materialize (kernel "place_events", csrc/materialize.cu; its
+body, csrc/place.cuh, is also spread_full's).  On the TPU
 this takes a stable compaction and a monotone spread through butterfly
 networks (the Pallas kernels _fine_compact_rank_kernel and
 _fine_spread_kernel plus their XLA coarse stages), because XLA:TPU
@@ -40,20 +40,22 @@ z 0 / val -2048 event packs to 0 and is placed like any other.  The
 butterflies and VMEM windows of the TPU version are not contracts; on
 Hopper the expand is a scatter from slot coordinates.  Overflow lanes
 leave their dense rows undefined; callers re-decode with the classic
-route.
+materialize.
 
-Two more routes of the classic contract (kernels "compact_offsets",
-"compact_full" and "spread_full", csrc/routes.cu), selected by the
-`route` argument of ops/fsm.materialize_events:
+Two more placements of the classic contract (kernels "compact_offsets",
+"compact_full" and "spread_full", csrc/routes.cu), the counterparts of
+the JAX package's other two classic routes.  No decode path takes them:
+the scatter is as fast or faster on every chunk the card has timed.
 
-  "ranked"   the JAX package's _compact_to_rank with the rank kernel off
-             (TPUJPEG_RANK_KERNEL=0): offsets pos - rank from a column
-             cumsum (`compact_to_rank(ev, rank_kernel=False)`, cut 'init'),
-             then `compact_offsets` moves every event up by its offset
-             (cut 'compact'), then `spread_full` places the rank rows;
-  "full"     the JAX package's place_events_pallas (TPUJPEG_PALLAS=1):
-             `compact_full` (ranks inside the kernel, payload only) then
-             `spread_full` (`place_events_full`).
+  `place_events_ranked`  the JAX package's _compact_to_rank with the
+             rank kernel off (TPUJPEG_RANK_KERNEL=0): offsets pos - rank
+             from a column cumsum (`compact_to_rank(ev, rank_kernel=
+             False)`, cut 'init'), then `compact_offsets` moves every
+             event up by its offset (cut 'compact'), then `spread_full`
+             places the rank rows;
+  `place_events_full`    the JAX package's place_events_pallas
+             (TPUJPEG_PALLAS=1): `compact_full` (ranks inside the
+             kernel, payload only) then `spread_full`.
 
 `compact_offsets` and `compact_full` run the walks of csrc/compact.cuh
 (with a low-bit mask `compact_offsets` takes the one whose window
@@ -62,8 +64,9 @@ follows destinations read from o), `spread_full` the scatter of
 
 `compact_full` marks its empty rows with -1, not with the 0 of the JAX
 kernel, whose spread then takes `cp > 0` for validity and drops the event
-that packs to 0.  Offsets are int16 on both routes, so they take event and
-dense heights below 32768 only (`route_gate`).
+that packs to 0.  Offsets are int16 in both placements, so both take
+event and dense heights below 32768 only, and raise ValueError past them
+(`_check_int16`).
 
 Every wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (`*_plain`) for CPU tensors.
@@ -440,25 +443,35 @@ def spread_full(cp: torch.Tensor, M: int, o: torch.Tensor | None = None,
     return out
 
 
+def _check_int16(name: str, N: int, M: int) -> None:
+    """Raise ValueError unless events [N, L] -> dense [M, L] fit the int16
+    offsets of `place_events_ranked` and `place_events_full` (rank rows
+    below N, spread rows below max(N, M)): the gate of the JAX package's
+    kernels.  `place_events` has no such limit."""
+    if N >= INT16_SPAN or M >= INT16_SPAN:
+        raise ValueError(f"{name}: events [{N}, L] -> dense [{M}, L] pass "
+                         f"the int16 offsets")
+
+
+def place_events_ranked(ev: torch.Tensor, M: int,
+                        err_mal: torch.Tensor | None = None) -> torch.Tensor:
+    """events int32 [N, L] -> values int16 [M, L] through the column
+    cumsum, `compact_offsets` and `spread_full` with offsets: the JAX
+    package's classic route with its rank kernel off, equal to
+    `place_events` on every input it takes."""
+    _check_int16("place_events_ranked", ev.shape[0], M)
+    p, o = compact_to_rank(ev, rank_kernel=False)
+    return spread_full(p, M, o=o, err_mal=err_mal)
+
+
 def place_events_full(ev: torch.Tensor, M: int,
                       err_mal: torch.Tensor | None = None) -> torch.Tensor:
     """events int32 [N, L] -> values int16 [M, L] through `compact_full`
     then `spread_full`: the contract of the JAX package's
-    place_events_pallas, equal to `place_events` on every input."""
+    place_events_pallas, equal to `place_events` on every input it
+    takes."""
+    _check_int16("place_events_full", ev.shape[0], M)
     return spread_full(compact_full(ev), M, err_mal=err_mal)
-
-
-ROUTES = ("scatter", "ranked", "full")
-
-
-def route_gate(route: str, N: int, M: int) -> bool:
-    """Whether `route` takes events [N, L] -> dense [M, L]: "scatter"
-    always; "ranked" and "full" carry int16 offsets in their contracts
-    (rank rows below N, spread rows below max(N, M)), so both heights must
-    stay below 32768, the gate of the JAX package's kernels."""
-    if route not in ROUTES:
-        raise ValueError(f"unknown materialize route {route!r}")
-    return route == "scatter" or (N < INT16_SPAN and M < INT16_SPAN)
 
 
 def slot_unpack_plain(p: torch.Tensor, o: torch.Tensor, C: int, G: int):
@@ -556,21 +569,17 @@ def slot_expand(o2: torch.Tensor, p: torch.Tensor, M: int, C: int,
 
 
 def place_events_slots(ev: torch.Tensor, M: int, C: int | None = None,
-                       G: int | None = None, stop_after: str | None = None,
-                       rank_kernel: bool = True):
+                       G: int | None = None, stop_after: str | None = None):
     """events int32 [N, L] -> (dense int16 [M, L], overflow bool [L])
     through the slot route: compact, unpack, expand.
 
     Dense rows equal `place_events` on every lane whose overflow flag is
     clear.  stop_after="compact" returns (p, o); "unpack" returns
     (o2, p, overflow): the cuts of the JAX package's place_events_slots.
-    rank_kernel=False takes the compact stage through the cumsum and
-    `compact_offsets` (`compact_to_rank`), the stage both materialize
-    families share.
     """
     C = SLOT_C if C is None else C
     G = SLOT_G if G is None else G
-    p, o = compact_to_rank(ev, rank_kernel=rank_kernel)
+    p, o = compact_to_rank(ev)
     if stop_after == "compact":
         return p, o
     o2, overflow = slot_unpack(p, o, C, G)

@@ -14,13 +14,10 @@ Counterpart of tpujpeg/runtime/batch.py:
   3. per chunk, backend 'fsm': when the chunk packs into lanes
      (fsm.build_plan: one lane per restart segment, and one lane per
      image for a stream without restart markers of at most 8191
-     blocks), the lane plan is uploaded and runtime.fused.
-     decode_chunk_fused runs scan -> classic materialize -> DC resolve ->
-     pixels on the device.  A plan in two stride classes (build_plan's
-     split, taken only below the link rate _LINK_MBPS_SPLIT) takes the
-     staged chain instead: fsm.decode_plan (a scan per group, the `perm`
-     gather), fsm.assemble_batched, pipeline.device_decode_fn.
-     Otherwise the chunk takes the speculative path: the single-pass
+     blocks), the lane plan (one stride group: build_plan(split=False))
+     is uploaded and runtime.fused.decode_chunk_fused runs scan ->
+     classic materialize (materialize.place_events) -> DC resolve ->
+     pixels on the device.  Otherwise the chunk takes the speculative path: the single-pass
      sync decode through the slot
      materialize (backend 'fsm-spec-sync'), or after a resolve miss the
      Jacobi fixed point ('fsm-spec', counted in spec_sync_misses).  A chunk outside every
@@ -60,10 +57,6 @@ at the bucket's size); every other bucketed chunk takes the host-bucketed
 route ('host-bucketed': host entropy, coefficients padded into the
 bucket's MCU raster).  Both go through the same ladder in `_finish`,
 which crops each image to its true height and width.
-
-materialize_route names how the classic materialize places events
-(ops/fsm.materialize_events): "scatter" (default), "ranked" (the JAX
-package's TPUJPEG_RANK_KERNEL=0) or "full" (TPUJPEG_PALLAS=1).
 
 Every sampling the parser takes decodes on every route: 4:4:4 through
 the fused pixel kernel, 4:2:0, 4:2:2, 4:4:0, 4:1:1 through the planes
@@ -128,8 +121,8 @@ staging run on the mesh's first device, and the pixel stage is sharded
 over the mesh's batch axis (sharding.compiled_batch_decoder), each
 shard's output left on its device until `_finish` fetches it.  On a mesh
 of more than one device the routes change as in the JAX engine: a
-restart chunk leaves the fused chain for the staged one (scan and
-place_events per group, assemble, sharded pixels), a bucketed fsm chunk
+restart chunk leaves the fused chain for the staged one (scan,
+place_events, assemble, sharded pixels), a bucketed fsm chunk
 takes the host-bucketed route, a speculative chunk runs the staged
 single-pass decode (fsm.decode_speculative_sync, the classic
 materialize) or the Jacobi path, then sharded pixels; the host, oracle
@@ -166,15 +159,6 @@ from . import kernels
 # 1.902 ms = 316,947.7 MB/s.  Every link reads far below it, so "auto"
 # takes the fsm route wherever a card is attached by PCIe.
 _LINK_MBPS_FSM_THRESHOLD = 316_947.7
-
-# The link rate below which build_plan's split (two stride groups, fewer
-# padded upload bytes) pays for the staged chain's extra device time:
-# (single-group bytes - split bytes) / (staged ms - fused ms), both chains
-# with their bytes resident.  The same run: (26,255,360 - 20,726,272)
-# bytes / (7.785 - 2.590) ms = 1,064.5 MB/s.  The split saves 5.5 MB of
-# upload and costs a second scan, int32 lane rows, the perm gather and an
-# assemble; above this rate the engine keeps one group and the fused chain.
-_LINK_MBPS_SPLIT = 1_064.5
 
 # How many chunks may be prepared (plan built, its arrays staged on the
 # device) ahead of the dispatch loop, as in the JAX engine: enough to keep
@@ -431,10 +415,7 @@ class _Window:
         self.isolate = isolate
         self.prep = dec.backend == "gather" or dec._prefers_fsm()
         if self.prep:
-            # on this thread, before any prepare reads them: the probe
-            # (the fsm plans' split) and the copy stream
-            if dec.backend != "gather":
-                measured_link_mbps(dec.device)
+            # the copy stream, on this thread before any prepare reads it
             dec._upload()
         self.pending: list[_Chunk] = []
 
@@ -468,8 +449,7 @@ class BatchDecoder:
 
     def __init__(self, backend: str = "fsm", workers: int | None = None,
                  chunk_size: int = 32, strict: bool = True, device="cuda",
-                 size_buckets: bool = False,
-                 materialize_route: str = "scatter", fancy: bool = False,
+                 size_buckets: bool = False, fancy: bool = False,
                  mesh: sharding.Mesh | None = None):
         """backend: "fsm" (the default: the card), "gather", "host",
         "oracle", "cpu" or "auto" (module docstring).  device: where
@@ -488,21 +468,14 @@ class BatchDecoder:
         of mixed sizes: images group by size-class bucket
         (pipeline.bucket_geometry) instead of exact geometry, every chunk
         has the bucket's shapes, and outputs are cropped to each image's
-        true size on the host.  materialize_route is the classic
-        materialize's route (module docstring)."""
-        from ..ops import materialize
-
+        true size on the host."""
         if backend not in ("auto", "host", "fsm", "gather", "oracle", "cpu"):
             raise ValueError(f"unknown backend {backend!r}")
         if size_buckets and backend not in ("auto", "host", "oracle", "fsm"):
             raise ValueError(
                 "size_buckets requires backend auto/host/oracle/fsm")
-        if materialize_route not in materialize.ROUTES:
-            raise ValueError(
-                f"unknown materialize_route {materialize_route!r}")
         self.backend = backend
         self.size_buckets = size_buckets
-        self.route = materialize_route
         self.fancy = fancy
         self.chunk_size = chunk_size
         self.strict = strict
@@ -611,15 +584,12 @@ class BatchDecoder:
     # -- preparation (the prep pool) ----------------------------------------
 
     def _prepare_plan(self, chunk: _Chunk) -> _Prepared:
-        """A restart chunk: the lane plan (split only below the link rate
-        _LINK_MBPS_SPLIT, read on the card) and its arrays staged.
-        Raises JpegError when the chunk does not pack."""
+        """A restart chunk: the lane plan in one stride group and its
+        arrays staged.  Raises JpegError when the chunk does not pack."""
         from ..ops import fsm
 
         with span("plan"):
-            plan = fsm.build_plan(
-                chunk.imgs,
-                split=measured_link_mbps(self.device) < _LINK_MBPS_SPLIT)
+            plan = fsm.build_plan(chunk.imgs, split=False)
         with span("stage"):
             up = self._upload()
             arrays = (tuple((up(xs), up(sn)) for xs, sn in plan.groups),
@@ -906,8 +876,8 @@ class BatchDecoder:
 
     def _process_chunk_fsm(self, chunk: _Chunk, steps=None) -> bool:
         """Pack the chunk into lanes and run the fused device chain
-        (runtime/fused.py), or the staged chain for a plan in two stride
-        groups; a chunk that does not pack (fsm.build_plan raises
+        (runtime/fused.py), or the staged chain on a mesh of several
+        devices; a chunk that does not pack (fsm.build_plan raises
         JpegError) takes the speculative path.  Returns False when the
         chunk is outside every device envelope."""
         from ..ops import fsm
@@ -924,22 +894,19 @@ class BatchDecoder:
         quant = chunk.quant
         groups, _ = chunk.uploaded
         with span("launch"):
-            if len(groups) == 1 and not self._multi:
+            if not self._multi:
                 rgb, risk, _, _, err_mal, err_env, err_slot = (
                     fused.decode_chunk_fused(
                         chunk.plan, quant, chunk.geom, B, steps=chunk.steps,
                         want_coeffs=False, uploaded=groups[0], slots=False,
-                        route=self.route, fancy=self.fancy,
-                        exact=self.strict,
+                        fancy=self.fancy, exact=self.strict,
                     )
                 )
             else:
-                # the staged chain (a split plan, or a mesh of several
-                # devices): a scan per stride group, rows back in lane
-                # order, assembled per image, then the pixel stage
+                # the staged chain of a mesh of several devices: the scan,
+                # rows assembled per image, then the sharded pixel stage
                 per_lane, (err_mal, err_env) = fsm.decode_plan(
-                    chunk.plan, uploaded=chunk.uploaded, steps=chunk.steps,
-                    route=self.route)
+                    chunk.plan, uploaded=chunk.uploaded, steps=chunk.steps)
                 coeffs = fsm.assemble_batched(
                     per_lane, layout=chunk.plan.layout, pad_to=B)
                 rgb, risk = self._pixels(chunk.geom, coeffs, quant)
@@ -957,28 +924,21 @@ class BatchDecoder:
         static assemble, pixels at the bucket's size
         (fused.decode_chunk_bucketed).  Returns False when the chunk is
         outside the bucket-FSM envelope (no or unaligned restarts, exotic
-        tables, a row capacity past the route's int16 gate), and the
-        caller takes the host-bucketed route.  A kernel that fails to
+        tables), and the caller takes the host-bucketed route.  A kernel that fails to
         build or launch raises; it is never turned into a fallback."""
-        from ..ops import fsm, materialize
+        from ..ops import fsm
         from . import fused
 
         if chunk.plan is None and self._take_prepared(chunk) != "bucket":
-            return False
-        plan = chunk.plan
-        if (self.route != "scatter"
-                and plan.max_blk * 64 > materialize.INT16_SPAN):
-            # the dense rows pass the int16 offsets of the "ranked" and
-            # "full" routes; the scatter has no such limit
             return False
         chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
         B = len(chunk.imgs)
         with span("launch"):
             rgb, risk, _, _, err_mal, err_env, err_slot = (
                 fused.decode_chunk_bucketed(
-                    plan, chunk.quant, chunk.geom, B,
+                    chunk.plan, chunk.quant, chunk.geom, B,
                     steps=chunk.steps, want_coeffs=False,
-                    uploaded=chunk.uploaded, slots=False, route=self.route,
+                    uploaded=chunk.uploaded, slots=False,
                     fancy=self.fancy, exact=self.strict,
                     extents=chunk.extents,
                 )
@@ -1031,7 +991,7 @@ class BatchDecoder:
                         coeffs_dev, (err_mal, err_env) = \
                             fsm.decode_speculative_sync(
                                 chunk.imgs, pad_to=B, steps=chunk.steps,
-                                pending=pending, route=self.route)
+                                pending=pending)
                         chunk.out = self._pixels(geom, coeffs_dev,
                                                  chunk.quant)
                         chunk.err_mal, chunk.err_env = err_mal, err_env
@@ -1043,8 +1003,7 @@ class BatchDecoder:
                         fused.decode_spec_sync_fused(
                             pending, geom, chunk.quant, B, len(chunk.imgs),
                             want_coeffs=False, slots=slots,
-                            route=self.route, fancy=self.fancy,
-                            exact=self.strict,
+                            fancy=self.fancy, exact=self.strict,
                         )
                     )
                 chunk.slot_c = slots or 0
@@ -1067,7 +1026,6 @@ class BatchDecoder:
                     fsm.decode_speculative_batch(
                         chunk.imgs, device_out=True, pad_to=B,
                         steps=chunk.steps, device=self.device,
-                        route=self.route,
                     )
         except fsm.SpecEnvelopeError:
             if not fsm.steps_below_safe(chunk.steps):

@@ -150,7 +150,7 @@ def _sum32(*tensors) -> torch.Tensor:
 
 def _restart_tail(plan: fsm.FsmPlan, ev: torch.Tensor, err_mal: torch.Tensor,
                   quant: torch.Tensor, geom: Geometry, pad_to: int,
-                  want_coeffs: bool, slots, route: str, fancy: bool,
+                  want_coeffs: bool, slots, fancy: bool,
                   exact: bool, stop_after: str | None = None):
     """A restart plan's chain after its scan: materialize its events [N,
     L] -> DC resolve -> pixels.  Returns (rgb, risk, coeffs, dc, err_mal,
@@ -159,7 +159,7 @@ def _restart_tail(plan: fsm.FsmPlan, ev: torch.Tensor, err_mal: torch.Tensor,
     L = ev.shape[1]
     M = plan.max_blk * 64
     coeffs_t, err_mal, err_slot = fsm.materialize_checked(
-        ev, M, err_mal, slots=slots, route=route)
+        ev, M, err_mal, slots=slots)
     if stop_after == "materialize":
         return _sum32(coeffs_t), err_mal, err_slot
     per_lane = coeffs_t.T.reshape(L, plan.max_blk, 64)
@@ -182,8 +182,7 @@ def _restart_tail(plan: fsm.FsmPlan, ev: torch.Tensor, err_mal: torch.Tensor,
 def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
                        pad_to: int, steps=fsm.STEPS_PRODUCTION,
                        want_coeffs: bool = True, uploaded=None,
-                       slots: bool | int | None = False,
-                       route: str = "scatter", fancy: bool = False,
+                       slots: bool | int | None = False, fancy: bool = False,
                        exact: bool = False, stop_after: str | None = None):
     """Decode one restart plan on the device of `quant`.
 
@@ -191,7 +190,6 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     the plan's (xs, seg_n_blocks) already on that device.  slots: the
     materialize route (fsm.materialize_checked): False, the default, is
     the classic scatter; a caller that asks for slots reads err_slot.
-    route: the classic materialize's route (fsm.materialize_events).
     fancy: triangle chroma upsampling for subsampled geometries, exact:
     the reference's exact colour (pipeline.device_decode_fn).
 
@@ -224,7 +222,7 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     if stop_after == "scan":
         return _sum32(ev), err_mal, err_env
     out = _restart_tail(plan, ev, err_mal, quant, geom, pad_to, want_coeffs,
-                        slots, route, fancy, exact, stop_after)
+                        slots, fancy, exact, stop_after)
     if stop_after is not None:
         chk, err_mal, err_slot = out
         return chk, err_mal, err_env, err_slot
@@ -255,8 +253,7 @@ def decode_superchunk(plans: list, quants: torch.Tensor, geom: Geometry,
                       pad_to: int, fancy: bool = False,
                       steps=fsm.STEPS_PRODUCTION, uploaded=None,
                       want_coeffs: bool = True,
-                      slots: bool | int | None = False,
-                      route: str = "scatter", exact: bool = False):
+                      slots: bool | int | None = False, exact: bool = False):
     """N single-group restart plans of one geometry and table set, ONE
     scan: the wide-scan chain (the JAX package's
     compiled_superchunk_decoder).
@@ -266,8 +263,8 @@ def decode_superchunk(plans: list, quants: torch.Tensor, geom: Geometry,
     resolve -> pixels on its own lane columns (copied out of the wide
     event matrix: the materialize kernels read a contiguous [N, L]).
     quants: int32 [n_sub, pad_to, n_comp, 64] on the device; `uploaded`
-    is pack_superchunk's (xs, seg_n) already there; slots, route, fancy
-    and exact as in decode_chunk_fused.
+    is pack_superchunk's (xs, seg_n) already there; slots, fancy and exact
+    as in decode_chunk_fused.
 
     Returns the sub-chunks' (rgb, risk, coeffs, dc) concatenated along the
     image axis (n_sub * pad_to images), err_mal [Lw], err_env [Lw],
@@ -295,7 +292,7 @@ def decode_superchunk(plans: list, quants: torch.Tensor, geom: Geometry,
         outs.append(_restart_tail(
             plan, ev[:, base : base + Ls].contiguous(),
             err_mal[base : base + Ls], quant, geom, pad_to, want_coeffs,
-            slots, route, fancy, exact))
+            slots, fancy, exact))
         base += Ls
 
     def cat(i):
@@ -327,8 +324,8 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
                           steps=fsm.STEPS_PRODUCTION,
                           want_coeffs: bool = True, uploaded=None,
                           slots: bool | int | None = False,
-                          route: str = "scatter", fancy: bool = False,
-                          exact: bool = False, extents=None):
+                          fancy: bool = False, exact: bool = False,
+                          extents=None):
     """Decode one size-class bucket chunk of mixed exact geometries on the
     device of `quant`: scan bytes -> bucket-raster rgb, risk and errors.
 
@@ -345,7 +342,7 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
 
     quant: int32 [pad_to, n_comp, 64]; `uploaded` is the plan's (xs,
     seg_n, wrap_at, skip) and `extents` its `bucket_extents` already on
-    that device; slots, route, fancy and exact as in `decode_chunk_fused`.
+    that device; slots, fancy and exact as in `decode_chunk_fused`.
 
     Returns (rgb uint8 [pad_to, 3, Hb, Wb], riskbits uint8 [pad_to, Hb,
     Wb/8] or None when exact, coeffs int16 [pad_to, nb_b, 64] with raw DC
@@ -372,7 +369,7 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
     n_cols, S, L = events.shape
     ev = events.reshape(n_cols * S, L)
     coeffs_t, err_mal, err_slot = fsm.materialize_checked(
-        ev, max_blk * 64, err_mal, slots=slots, route=route)
+        ev, max_blk * 64, err_mal, slots=slots)
     per_lane = coeffs_t.T.reshape(L, max_blk, 64)
     dc_lane = fsm._dc_cumsum(per_lane[:, :, 0], plan.tables, max_blk)
     ext = extents if extents is not None \
@@ -407,8 +404,7 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
                            quant: torch.Tensor, pad_to: int, n_imgs: int,
                            want_coeffs: bool = True,
                            slots: bool | int | None = False,
-                           route: str = "scatter", fancy: bool = False,
-                           exact: bool = False,
+                           fancy: bool = False, exact: bool = False,
                            stop_after: str | None = None):
     """Finish a spec_sync_start chunk: the host resolve (one read; span
     `spec_resolve`), then merge -> materialize -> gather -> DC resolve ->
@@ -438,7 +434,7 @@ def decode_spec_sync_fused(pending: fsm.SpecSyncPending, geom: Geometry,
         pending.ev1, pending.anchors, pending.ablk, pending.recm,
         pending.ev2, pending.end2, pending.b1, pending.blk2,
         torch.as_tensor(quotas).to(quant.device), plan.tables, pad_to,
-        int(plan.img_blocks[0]), n_imgs, cap_w, slots=slots, route=route,
+        int(plan.img_blocks[0]), n_imgs, cap_w, slots=slots,
         stop_after=stop_after,
     )
     if stop_after is not None:

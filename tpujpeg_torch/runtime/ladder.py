@@ -55,11 +55,10 @@ def bucketed_keys(
     max_px on a side with restart segments up to max_seg_bytes.
 
     max_blk_cap drops buckets whose row capacity max_blk = k * bx * 3
-    (4:4:4) exceeds it.  The default 512 is the int16 gate of the
-    "ranked" and "full" materialize routes (max_blk * 64 <= 32768 dense
-    rows), on which the engine sends such chunks to the host-bucketed
-    route; None is the "scatter" route, which has no such gate (only the
-    packed event's 8191-block field bounds a lane).
+    (4:4:4) exceeds it.  The default 512 is the JAX engine's int16 gate
+    (max_blk * 64 <= 32768 dense rows), past which it sends such chunks to
+    the host-bucketed route; None is the port's engine, whose scatter has
+    no such gate (only the packed event's 8191-block field bounds a lane).
     """
     if max_blk_cap is None:
         max_blk_cap = fsm.MAX_BLOCKS_PER_LANE
