@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (tpujpeg_torch.runtime.host: native C++, or the numpy oracle where
      the native library does not build), two equal the numpy oracle's, no
      host fallback, no pixel repaired (strict colour is exact on the
-     card); the engine materializes packed lanes through the classic
-     scatter, and the pixel kernel reads its dense lane matrix in place;
+     card); the chunk's lane matrix is packed on the card from its scan
+     bytes (pack_lanes, lane_pack_chunks 1); the engine materializes
+     packed lanes through the classic scatter, and the pixel kernel reads its dense lane matrix in place;
      the results view a page-locked block of PyTorch's caching host
      allocator, survive, held, a call on other streams, and the call
      after a dropped one takes its block from the pool (fetch_pinned_hits);
@@ -89,7 +90,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      decode_speculative_batch / decode_speculative_sync
      (device_out=False) on the spec chunk equal the reference; the root
      decode with each backend on one golden;
-  7. each kernel against its plain PyTorch version on the chunks' real
+  7. pack_lanes (csrc/pack.cu) on the restart chunk's lanes and at the
+     two shapes the cells pack a chunk at (rst444's [10240, 3584],
+     photo444_640's [29440, 1408], seeded bytes), equal to its plain
+     version, timed beside it and its byte bound, under 0.25 ms at
+     rst444's shape; then
+     each kernel against its plain PyTorch version on the chunks' real
      inputs (torch.equal), with both times (CUDA events; kernels warm,
      median of 5; a plain version that takes seconds is timed once, the
      STEPS_SAFE and 4:2:0 plain scans on the first 1,024 lanes), its
@@ -505,7 +511,7 @@ def main() -> int:
     dec = BatchDecoder(backend="fsm", chunk_size=CHUNK, strict=True,
                        device="cuda")
     out = run_path("phase 2", lambda: dec.decode(datas),
-                   need=("fsm_scan", "place_events", "pixels"))
+                   need=("fsm_scan", "place_events", "pixels", "pack_lanes"))
     stats = dec.stats
     print(f"phase 2: stats {json.dumps(stats.as_dict())}")
     check(len(out) == CHUNK, "output count")
@@ -517,6 +523,8 @@ def main() -> int:
         check(np.array_equal(out[i], want), f"output {i} differs from oracle")
     check(stats.backend == "fsm", f"backend {stats.backend}")
     check(stats.chunks == 1, f"chunks {stats.chunks}")
+    check(stats.lane_pack_chunks == 1,
+          f"lane_pack_chunks {stats.lane_pack_chunks}")
     check(stats.fsm_malformed_fallbacks == 0, "malformed fallback")
     check(stats.fsm_envelope_fallbacks == 0, "envelope fallback")
     check(stats.repaired_pixels == 0, "repaired pixels")
@@ -564,7 +572,7 @@ def main() -> int:
     # the capacity the chunk is dispatched at (sampled or the default)
     c_used = sdec._slot_capacity(fsm_chunk_stub(pimgs))
     pout = run_path("phase 3", lambda: sdec.decode(pdatas),
-                    need=("fsm_scan", "pixels")
+                    need=("fsm_scan", "pixels", "pack_lanes")
                     + (SLOT_KERNELS if c_used else ("place_events",)))
     sstats = sdec.stats
     print(f"phase 3: stats {json.dumps(sstats.as_dict())}")
@@ -577,6 +585,8 @@ def main() -> int:
               f"spec output {i} differs from oracle")
     check(sstats.backend == "fsm-spec-sync", f"backend {sstats.backend}")
     check(sstats.chunks == 1, f"chunks {sstats.chunks}")
+    check(sstats.lane_pack_chunks == 1,
+          f"lane_pack_chunks {sstats.lane_pack_chunks}")
     check(sstats.spec_sync_misses == 0, "spec-sync miss")
     check(sstats.fsm_malformed_fallbacks == 0, "malformed fallback")
     check(sstats.fsm_envelope_fallbacks == 0, "envelope fallback")
@@ -1204,23 +1214,29 @@ def main() -> int:
             stub = SimpleNamespace(imgs=cimgs, geom=rgeom)
             plan_ms = wall_runs(lambda: fsm.build_plan(cimgs, split=False), 5)
             cplan = fsm.build_plan(cimgs, split=False)
-            arrs = [a for g in cplan.groups for a in g] \
-                + [cplan.perm, bdec._quant_host(stub)]
+            arrs = [cplan.xs, cplan.seg_n_blocks, cplan.perm,
+                    bdec._quant_host(stub)]
             up_bytes = sum(a.nbytes for a in arrs)
 
             def engine_upload():
+                # the scan bytes into a pooled page-locked block, the
+                # small arrays pinned, all copied on the copy stream, the
+                # lane matrix packed on the card
                 up = bdec._upload()
-                for a in arrs:
+                up.lanes(cplan.xs_lanes)
+                for a in arrs[1:]:
                     up(a)
-                up.done().event.synchronize()
+                up.done()
+                up.adopt()
+                torch.cuda.synchronize()
 
             def pageable():
                 [torch.from_numpy(a).to(dev) for a in arrs]
                 torch.cuda.synchronize()
 
             ups = {k: wall_runs(f, 5) for k, f in (
-                ("the engine's (each array pinned, copied on the copy "
-                 "stream)", engine_upload),
+                ("the engine's (scan bytes and arrays pinned, copied on "
+                 "the copy stream, lanes packed on the card)", engine_upload),
                 ("pageable", pageable))}
             print(f"phase 6f: one 128-image restart chunk: build_plan "
                   f"{ms3(plan_ms)}; its {up_bytes} bytes up: " + "; ".join(
@@ -1425,6 +1441,61 @@ def main() -> int:
     L, stride = plan.xs.shape
     print(f"phase 7: restart lane matrix [{L}, {stride}], max_blk "
           f"{plan.max_blk}")
+
+    # pack_lanes: the restart chunk's own lanes, then the two shapes the
+    # benchmark's cells pack a chunk at (rst444's [10240, 3584] of
+    # consecutive segments, photo444_640's [29440, 1408] of windows 1,024
+    # bytes apart) on ~30 MB of seeded bytes; the plain version on the
+    # host's CPU (wall clock), the kernel warm (CUDA events, median of 5)
+    check(torch.equal(plan.xs_lanes.to(dev).cpu(),
+                      torch.from_numpy(plan.xs)),
+          "pack_lanes on the restart chunk's lanes != its host matrix")
+    rng_pack = np.random.default_rng(2525)
+    n_src = 30_000_000
+    src_pack = rng_pack.integers(0, 256, n_src, dtype=np.uint8)
+    seg_len = rng_pack.integers(2300, 3585, 10240)
+    seg_off = np.cumsum(np.concatenate([[0], seg_len[:-1]]))
+    # the lanes past the source's end are padding lanes: no bytes, and an
+    # offset at the end, as ScanLanes holds every lane inside its bytes
+    seg_len[seg_off + seg_len > n_src] = 0
+    seg_off = np.minimum(seg_off, n_src)
+    win_off = np.arange(29440, dtype=np.int64) * 1024
+    pack_shapes = {
+        "rst444 [10240, 3584]": (seg_off, seg_len, 3584),
+        "photo444_640 [29440, 1408]": (
+            np.minimum(win_off, n_src), np.clip(n_src - win_off, 0, 1408),
+            1408),
+    }
+    src_dev = torch.from_numpy(src_pack).to(dev)
+    pk = {}
+    for shape_name, (off_a, len_a, pstride) in pack_shapes.items():
+        args = (torch.from_numpy(off_a.astype(np.int64)),
+                torch.from_numpy(len_a.astype(np.int32)))
+        PL = off_a.size
+        want = fsm.pack_lanes_plain(torch.from_numpy(src_pack), *args, PL,
+                                    pstride)
+        dargs = (src_dev, *(a.to(dev) for a in args), PL, pstride)
+        got = fsm.pack_lanes(*dargs)
+        check(torch.equal(got.cpu(), want),
+              f"pack_lanes {shape_name} != pack_lanes_plain")
+        # the source read once, the lane tables, xs written once
+        need = int(len_a.sum()) + 12 * PL + PL * pstride
+        pk[shape_name] = dict(
+            ms=cuda_ms(lambda: fsm.pack_lanes(*dargs)),
+            plain_ms=statistics.median(wall_runs(
+                lambda: fsm.pack_lanes_plain(torch.from_numpy(src_pack),
+                                             *args, PL, pstride), 3)),
+            **bound(need, 0))
+        r = pk[shape_name]
+        print(f"phase 7: pack_lanes {shape_name}: equal to the plain "
+              f"pack; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms "
+              f"(host CPU), {r['bound_bytes']} bytes, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share "
+              f"{r['bound_ms'] / r['ms']:.3f} [{card}]")
+        del got, want
+    check(pk["rst444 [10240, 3584]"]["ms"] < 0.25,
+          "pack_lanes takes 0.25 ms or more at rst444's shape")
+    del src_dev
     scan_err = 0
     scan_plain_ms = None
     for steps in (fsm.STEPS_PRODUCTION, fsm.STEPS_SAFE):
@@ -2474,6 +2545,20 @@ def main() -> int:
         bound_ms_spec_chunk=spec_seg["bound_ms"],
     ))
     del gather_kernel
+    main_pk = pk["rst444 [10240, 3584]"]
+    spec_pk = pk["photo444_640 [29440, 1408]"]
+    rows.append(dict(
+        name="pack_lanes", route="cuda", source="tpujpeg_torch/csrc/pack.cu",
+        replaces="none (tpujpeg/ops/fsm.py packs xs on the host)",
+        launches=totals["pack_lanes"],
+        launches_per_chunk=per_chunk("pack_lanes"), max_abs_err=0,
+        ms=main_pk["ms"], plain_ms=main_pk["plain_ms"],
+        **{k: main_pk[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                   "bound_ops")},
+        library_ms=None, ms_spec_chunk=spec_pk["ms"],
+        plain_ms_spec_chunk=spec_pk["plain_ms"],
+        bound_ms_spec_chunk=spec_pk["bound_ms"],
+    ))
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"phase 7: {r['name']}: kernel {r['ms']:.4f} ms, bound "

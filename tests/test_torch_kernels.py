@@ -1607,3 +1607,70 @@ def test_engine_on_a_two_shard_mesh(cuda, name):
     assert kernels.LAUNCHES["pixels"] == 2
     for g, p in zip(got, paths):
         assert np.array_equal(g, host.decode_cpu(parse_file(p)))
+
+
+# the lane matrices of rst444's 128-picture restart chunk and of
+# photo444_640's speculative chunk at 1,024 bytes a lane
+PACK_SHAPES = {"rst444": (10240, 3584), "spec": (29440, 1408)}
+
+
+@pytest.mark.parametrize("name", PACK_SHAPES)
+def test_pack_lanes_kernel_equals_plain(cuda, name):
+    L, stride = PACK_SHAPES[name]
+    rng = np.random.default_rng(L)
+    n = 30_000_000
+    src = rng.integers(0, 256, n, dtype=np.uint8)
+    # any start, odd ones included; lengths 0, stride and between
+    off = rng.integers(0, n - stride, L).astype(np.int64)
+    ln = rng.integers(0, stride + 1, L).astype(np.int32)
+    ln[::7] = 0
+    ln[1::7] = stride
+    off[-1], ln[-1] = n - stride, stride            # the source's last byte
+    ln[-2] = stride - 1
+    args = [torch.from_numpy(a) for a in (src, off, ln)]
+    want = fsm.pack_lanes_plain(*args, L, stride)
+    before = kernels.LAUNCHES["pack_lanes"]
+    dev_args = [a.to(cuda) for a in args]
+    got = fsm.pack_lanes(*dev_args, L, stride)
+    out = torch.full((L, stride), 255, dtype=torch.uint8, device=cuda)
+    fsm.pack_lanes(*dev_args, L, stride, out=out)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pack_lanes"] - before == 2
+    assert got.shape == (L, stride) and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), want) and torch.equal(out.cpu(), want)
+
+
+def test_pack_lanes_refuses_what_it_does_not_take(cuda):
+    src = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    off = torch.zeros(2, dtype=torch.int64, device=cuda)
+    ln = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fsm.pack_lanes(src, off, ln, 2, 24)
+    with pytest.raises(ValueError, match=r"\[L=3\]"):
+        fsm.pack_lanes(src, off, ln, 3, 16)
+    with pytest.raises(TypeError):
+        fsm.pack_lanes(src, off.to(torch.int32), ln, 2, 16)
+    wide = torch.empty(2 * 32 + 1, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fsm.pack_lanes(src, off, ln, 2, 32, out=wide[1:].view(2, 32))
+
+
+@pytest.mark.parametrize("corpus", ["rst640", "photo640"])
+def test_engine_packs_each_chunks_lanes_once_on_the_card(cuda, corpus):
+    from tpujpeg_torch.runtime import host
+    from tpujpeg_torch.runtime.batch import BatchDecoder
+
+    folder = CORPUS if corpus == "rst640" else PHOTO
+    paths = [os.path.join(folder, f"{i:02d}.jpg") for i in range(16)] * 2
+    datas = [open(p, "rb").read() for p in paths]
+    dec = BatchDecoder(backend="fsm", chunk_size=16, device="cuda")
+    kernels.reset_launches()
+    got = dec.decode(datas)
+    torch.cuda.synchronize()
+    dec.close()
+    st = dec.stats
+    assert st.chunks == 2 and st.lane_pack_chunks == 2
+    assert kernels.LAUNCHES["pack_lanes"] == 2
+    assert st.backend == ("fsm" if corpus == "rst640" else "fsm-spec-sync")
+    for g, p in zip(got[:16], paths):
+        assert np.array_equal(g, host.decode_cpu(parse_file(p)))

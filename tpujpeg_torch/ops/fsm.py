@@ -39,6 +39,10 @@ through the staged chain (`decode_plan`: a scan per group, the rows put
 back in lane order by `perm`; `assemble` on the host or
 `assemble_batched` on the device; `entropy_decode_fsm` over both).
 
+The plan builders describe each lane matrix (`ScanLanes`) instead of
+packing it; a device upload packs it there (`pack_lanes`, csrc/pack.cu
+on the card).
+
 Mixed-size chunks pack into bucket-raster lanes (`build_plan_bucketed`):
 every image of a size-class bucket gives the same number of lanes, and
 the scan's `pad_info` mode emits each event at its position in the
@@ -54,7 +58,7 @@ from __future__ import annotations
 
 import os
 import threading
-from dataclasses import dataclass
+from dataclasses import InitVar, dataclass
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -340,6 +344,169 @@ def scan_table_lookup(table: np.ndarray, tbl, peek) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Host-side segment packing
 # ---------------------------------------------------------------------------
+#
+# A plan describes its lane matrix xs uint8 [L, stride] (one lane a row,
+# zero padded) instead of holding it: `ScanLanes` names the chunk's scan
+# bytes and, per lane, where its bytes start and how many it copies.  The
+# matrix is made where it is read (`ScanLanes.to`, `pack_lanes`): on the
+# card by csrc/pack.cu from the scan bytes uploaded once, on the host by
+# the plain pack.  A plan's `xs` (FsmPlan's `groups`) is the host matrix,
+# made on first read and kept: byte for byte the JAX package's, which
+# packs it row by row on the host.
+
+def pack_lanes_plain(src: torch.Tensor, lane_off: torch.Tensor,
+                     lane_len: torch.Tensor, L: int, stride: int,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """pack_lanes on CPU tensors: uint8 [L, stride] whose row i is
+    src[lane_off[i] : lane_off[i] + lane_len[i]] followed by zeros."""
+    # row i: the stride bytes from lane_off[i] (the source zero padded so
+    # every window exists), then the bytes past its length zeroed
+    windows = torch.cat([src, src.new_zeros(stride)]).unfold(0, stride, 1)
+    xs = windows[lane_off]
+    xs.masked_fill_(torch.arange(stride) >= lane_len[:, None], 0)
+    return xs if out is None else out.copy_(xs)
+
+
+def pack_lanes(src: torch.Tensor, lane_off: torch.Tensor,
+               lane_len: torch.Tensor, L: int, stride: int,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The lane matrix uint8 [L, stride] made where the scan bytes are:
+    row i holds the lane_len[i] bytes of src (uint8 [n]) from lane_off[i]
+    (int64 [L]; lane_len int32 [L], at most stride), then zeros.
+
+    CUDA tensors launch csrc/pack.cu's kernel on the current stream
+    (stride a multiple of 16; `out`, when given, a contiguous uint8 [L,
+    stride] on the same card, 16-byte aligned); CPU tensors take
+    pack_lanes_plain.  The tables are not read here: ScanLanes checks
+    that each lane lies inside its bytes before they go up."""
+    if not src.is_cuda:
+        return pack_lanes_plain(src, lane_off, lane_len, L, stride, out)
+    from ..runtime import kernels
+
+    kernels.check_cuda_tensor("pack_lanes src", src, torch.uint8, 1)
+    kernels.check_cuda_tensor("lane_off", lane_off, torch.int64, 1)
+    kernels.check_cuda_tensor("lane_len", lane_len, torch.int32, 1)
+    if lane_off.shape[0] != L or lane_len.shape[0] != L:
+        raise ValueError(f"pack_lanes: the lane tables must be [L={L}]")
+    if stride <= 0 or stride % 16:
+        raise ValueError(f"pack_lanes: stride {stride} is no positive "
+                         "multiple of 16")
+    xs = torch.empty((L, stride), dtype=torch.uint8, device=src.device) \
+        if out is None else out
+    kernels.check_cuda_tensor("pack_lanes out", xs, torch.uint8, 2)
+    if tuple(xs.shape) != (L, stride) or xs.data_ptr() % 16:
+        raise ValueError(f"pack_lanes: out must be [{L}, {stride}] and "
+                         "16-byte aligned")
+    if len({t.device for t in (src, lane_off, lane_len, xs)}) != 1:
+        raise ValueError("pack_lanes: tensors on different devices")
+    if L:
+        kernels.launch("pack_lanes", src.device, src.data_ptr(),
+                       lane_off.data_ptr(), lane_len.data_ptr(),
+                       xs.data_ptr(), L, stride)
+    return xs
+
+
+@dataclass(frozen=True)
+class ScanLanes:
+    """A lane matrix uint8 [L, stride], described: row i is the
+    lane_len[i] bytes of the scan bytes from lane_off[i], then zeros (a
+    padding lane copies none).  The scan bytes are `scans` end to end,
+    scans[j] from base[j] (base[-1] their total).  Raises ValueError for
+    a lane outside its row or its bytes."""
+
+    scans: tuple              # uint8 arrays: the images' scan_data
+    base: np.ndarray          # int64 [n_scans + 1]
+    lane_off: np.ndarray      # int64 [L]
+    lane_len: np.ndarray      # int32 [L]
+    stride: int
+
+    def __post_init__(self):
+        if ((self.lane_len < 0) | (self.lane_len > self.stride)
+                | (self.lane_off < 0)
+                | (self.lane_off + self.lane_len > self.base[-1])).any():
+            raise ValueError("ScanLanes: a lane lies outside its row or "
+                             "its scan bytes")
+
+    @classmethod
+    def of_matrices(cls, mats) -> list:
+        """Matrices already packed, as lanes of one source: their bytes
+        end to end, each row a lane of its full stride."""
+        scans = tuple(np.ascontiguousarray(m, np.uint8).reshape(-1)
+                      for m in mats)
+        base = _bases(scans)
+        return [cls(scans, base, b + np.arange(m.shape[0]) * m.shape[1],
+                    np.full(m.shape[0], m.shape[1], np.int32), m.shape[1])
+                for m, b in zip(mats, base)]
+
+    @classmethod
+    def stack(cls, parts) -> "ScanLanes":
+        """Several matrices' lanes as one, rows in order, at the largest
+        stride (the narrower rows zero padded)."""
+        shift = np.cumsum([0] + [int(p.base[-1]) for p in parts])
+        return cls(
+            sum((p.scans for p in parts), ()),
+            np.concatenate([[0]] + [p.base[1:] + s
+                                    for p, s in zip(parts, shift)]),
+            np.concatenate([p.lane_off + s for p, s in zip(parts, shift)]),
+            np.concatenate([p.lane_len for p in parts]),
+            max(p.stride for p in parts))
+
+    @property
+    def shape(self) -> tuple:
+        return (self.lane_off.size, self.stride)
+
+    def source(self) -> np.ndarray:
+        """The scan bytes end to end, uint8 [base[-1]] (a copy)."""
+        return np.concatenate(self.scans or (np.zeros(0, np.uint8),))
+
+    def to(self, device, src: torch.Tensor | None = None) -> torch.Tensor:
+        """The matrix on `device`, packed there (`pack_lanes`) from the
+        scan bytes: `src` when they are already there, else `source()`
+        uploaded."""
+        if src is None:
+            src = torch.from_numpy(self.source()).to(device)
+        dev = src.device
+        return pack_lanes(src, torch.from_numpy(self.lane_off).to(dev),
+                          torch.from_numpy(self.lane_len).to(dev),
+                          *self.shape)
+
+    def host(self) -> np.ndarray:
+        """The matrix on the host (the plain pack)."""
+        return self.to("cpu").numpy()
+
+
+def _bases(scans) -> np.ndarray:
+    """int64 [n + 1]: where each array starts when laid end to end, then
+    their total."""
+    base = np.zeros(len(scans) + 1, np.int64)
+    np.cumsum([s.size for s in scans], out=base[1:])
+    return base
+
+
+class _FromLanes:
+    """A plan's lane matrix field (FsmPlan's `groups`), which its builder
+    leaves None: made from the plan's `lanes` on first read by `derive`
+    (the plain pack) and kept.  A plan made from arrays (convert,
+    dataclasses.replace) keeps those it was given.  The field has no
+    default: a descriptor that raises AttributeError on its class keeps
+    the dataclass field required."""
+
+    def __init__(self, derive):
+        self.derive = derive
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            raise AttributeError(self.name)
+        value = obj.__dict__[self.name]
+        if value is None:
+            value = obj.__dict__[self.name] = self.derive(obj.lanes)
+        return value
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.name] = value
 
 
 @dataclass(frozen=True)
@@ -351,19 +518,35 @@ class FsmPlan:
     128), its block quota (0 for padding lanes).  `perm[i]` is the row of
     original lane i in the group-concatenated per-lane output.  layout:
     per image, (first_lane, n_lanes, blocks_per_full_lane,
-    blocks_in_last_lane).
+    blocks_in_last_lane).  `lanes` holds per group (ScanLanes,
+    seg_n_blocks), every group's lanes on one source: what a device
+    upload packs (upload_plan); `groups` is made from it on first read.
     """
 
-    groups: tuple              # ((xs, seg_n_blocks), ...)
+    groups: tuple = _FromLanes(
+        lambda lanes: tuple((sl.host(), sn) for sl, sn in lanes))
     perm: np.ndarray           # int32 [n_segments]
     tables: FsmTables
     max_blk: int
     layout: tuple
     n_blocks_total: int
+    lanes: InitVar[tuple | None] = None
+
+    def __post_init__(self, lanes):
+        if lanes is None:
+            lanes = tuple(zip(ScanLanes.of_matrices(
+                [xs for xs, _ in self.groups]),
+                [sn for _, sn in self.groups]))
+        object.__setattr__(self, "lanes", lanes)
 
     # single-group views (the fused chain, the tools and the tests)
     @property
     def xs(self) -> np.ndarray:
+        self._single()
+        return self.groups[0][0]
+
+    @property
+    def xs_lanes(self) -> ScanLanes:
         return self._single()[0]
 
     @property
@@ -371,39 +554,57 @@ class FsmPlan:
         return self._single()[1]
 
     def _single(self):
-        if len(self.groups) != 1:
+        if len(self.lanes) != 1:
             raise ValueError("multi-group plan: use .groups")
-        return self.groups[0]
+        return self.lanes[0]
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _stride_bucket(longest: int) -> int:
-    """Lane stride: pow2 up to 1 KiB, then 512-byte steps."""
-    stride = 64
-    while stride < min(longest, 1024):
-        stride *= 2
-    if longest > stride:
-        stride = _round_up(longest, 512)
-    return stride
+_POW2_STRIDES = np.array([64, 128, 256, 512, 1024], np.int64)
 
 
-def _pack_group(seg_bytes, nblocks, idxs):
-    stride = _stride_bucket(max(seg_bytes[i].size for i in idxs))
-    Lg = _round_up(max(len(idxs), 8), 128)
-    xs = np.zeros((Lg, stride), np.uint8)
-    for row, i in enumerate(idxs):
-        b = seg_bytes[i]
-        xs[row, : b.size] = b
-    seg_n = np.zeros(Lg, np.int32)
-    seg_n[: len(idxs)] = np.asarray(nblocks, np.int32)[idxs]
-    return xs, seg_n
+def _stride_bucket(lens: np.ndarray) -> np.ndarray:
+    """The lane stride for each length (int64): pow2 up to 1 KiB, then
+    512-byte steps."""
+    lens = np.asarray(lens, np.int64)
+    pow2 = _POW2_STRIDES[np.searchsorted(_POW2_STRIDES,
+                                         np.minimum(lens, 1024))]
+    return np.where(lens > 1024, -(-lens // 512) * 512, pow2)
+
+
+def _padded(values, L: int, dtype, fill=0) -> np.ndarray:
+    """values, then `fill` up to L entries."""
+    out = np.full(L, fill, dtype)
+    out[: len(values)] = values
+    return out
+
+
+def _segment_lanes(imgs, needs, base):
+    """Each image's first needs[j] restart segments as lanes of the scan
+    bytes laid end to end (image j from base[j]), for the whole chunk at
+    once: (lane_off int64, lane_len int32, segment index within its image
+    int64), as slices of each image's scan bytes take them."""
+    needs = np.asarray(needs, np.int64)
+    offs = np.concatenate([img.segment_offsets[:k]
+                           for img, k in zip(imgs, needs.tolist())]
+                          ).astype(np.int64)
+    size = np.repeat([img.scan_data.size for img in imgs], needs)
+    lastseg = np.cumsum(needs) - 1
+    # a segment ends where the next one starts, an image's last at its end
+    ends = np.append(offs[1:], 0)
+    ends[lastseg] = size[lastseg]
+    lo = np.minimum(offs, size)
+    hi = np.clip(ends, lo, size)
+    seg = np.arange(offs.size) - np.repeat(lastseg + 1 - needs, needs)
+    return (np.repeat(base[: len(imgs)], needs) + lo,
+            (hi - lo).astype(np.int32), seg)
 
 
 def build_plan(imgs: list[JpegImage], split: bool = True) -> FsmPlan:
-    """Pack the restart segments of a chunk into grouped lane matrices.
+    """Describe the restart segments of a chunk as grouped lane matrices.
 
     split=True allows two stride classes: the split threshold that
     minimizes the padded bytes, taken when it saves a tenth of them and
@@ -417,70 +618,75 @@ def build_plan(imgs: list[JpegImage], split: bool = True) -> FsmPlan:
     tables = build_tables(imgs[0])
     pattern0 = imgs[0].mcu_block_pattern()
     bpm = len(pattern0)
+    scans = tuple(img.scan_data for img in imgs)
+    base = _bases(scans)
 
-    seg_bytes: list[np.ndarray] = []
-    nblocks: list[int] = []
+    n_mcus, ris, needs = [], [], []
     layout = []
-    n_blocks_total = 0
+    first = 0
     for img in imgs:
         if img.mcu_block_pattern() != pattern0 or build_tables(img) != tables:
             raise JpegError("fsm: batch mixes geometries or Huffman tables")
-        offs = img.segment_offsets
-        n_seg = offs.size
-        n_mcus = img.n_mcus
-        ri = img.restart_interval or n_mcus
-        need = -(-n_mcus // ri)
-        if need > n_seg:
+        n = img.n_mcus
+        ri = img.restart_interval or n
+        need = -(-n // ri)
+        if need > img.segment_offsets.size:
             raise JpegError("fsm: missing restart segments")
-        ends = np.append(offs[1:need], img.scan_data.size)
-        first = len(seg_bytes)
-        scan = img.scan_data
-        for s in range(need):
-            seg_bytes.append(scan[int(offs[s]) : int(ends[s])])
-            nblocks.append(min(ri, n_mcus - s * ri) * bpm)
         rib = ri * bpm
-        last = n_mcus * bpm - (need - 1) * rib
+        last = n * bpm - (need - 1) * rib
         if max(rib, last) > MAX_BLOCKS_PER_LANE:
             raise JpegError("fsm: restart interval too long for packed events")
+        n_mcus.append(n)
+        ris.append(ri)
+        needs.append(need)
         layout.append((first, need, rib, last))
-        n_blocks_total += n_mcus * bpm
+        first += need
+    lane_off, lane_len, seg = _segment_lanes(imgs, needs, base)
+    ri = np.repeat(ris, needs)
+    nblocks = np.minimum(ri, np.repeat(n_mcus, needs) - seg * ri) * bpm
+    n_blocks_total = sum(n_mcus) * bpm
 
-    lens = np.array([b.size for b in seg_bytes], np.int64)
-    top_stride = _stride_bucket(int(lens.max()))
-    group_idxs: list[list[int]] = [list(range(len(seg_bytes)))]
-    if split and len(seg_bytes) >= 192:
-        buckets = np.array([_stride_bucket(int(x)) for x in lens])
-        base_cost = len(seg_bytes) * top_stride
+    n_seg = lane_off.size
+    strides = _stride_bucket(lane_len)
+    top_stride = int(strides.max())
+    group_idxs = [np.arange(n_seg)]
+    if split and n_seg >= 192:
+        base_cost = n_seg * top_stride
         best = (base_cost, None)
-        for v in sorted(set(buckets.tolist()))[:-1]:
-            n_short = int((buckets <= v).sum())
-            if n_short < 96 or len(seg_bytes) - n_short < 8:
+        for v in np.unique(strides)[:-1].tolist():
+            n_short = int((strides <= v).sum())
+            if n_short < 96 or n_seg - n_short < 8:
                 continue
-            cost = n_short * v + (len(seg_bytes) - n_short) * top_stride
+            cost = n_short * v + (n_seg - n_short) * top_stride
             if cost < best[0]:
                 best = (cost, v)
         if best[1] is not None and best[0] < 0.9 * base_cost:
             v = best[1]
-            group_idxs = [np.flatnonzero(buckets > v).tolist(),
-                          np.flatnonzero(buckets <= v).tolist()]
+            group_idxs = [np.flatnonzero(strides > v),
+                          np.flatnonzero(strides <= v)]
 
-    groups = []
-    perm = np.zeros(len(seg_bytes), np.int32)
-    base = 0
+    lanes = []
+    perm = np.zeros(n_seg, np.int32)
+    row0 = 0
     for idxs in group_idxs:
-        groups.append(_pack_group(seg_bytes, nblocks, idxs))
-        for row, i in enumerate(idxs):
-            perm[i] = base + row
-        base += groups[-1][1].shape[0]
+        Lg = _round_up(max(idxs.size, 8), 128)
+        lanes.append((
+            ScanLanes(scans, base, _padded(lane_off[idxs], Lg, np.int64),
+                      _padded(lane_len[idxs], Lg, np.int32),
+                      int(strides[idxs].max())),
+            _padded(nblocks[idxs], Lg, np.int32)))
+        perm[idxs] = row0 + np.arange(idxs.size)
+        row0 += Lg
 
-    max_blk = max(16, _round_up(max(nblocks), 16))
+    max_blk = max(16, _round_up(int(nblocks.max()), 16))
     return FsmPlan(
-        groups=tuple(groups),
+        groups=None,
         perm=perm,
         tables=tables,
         max_blk=max_blk,
         layout=tuple(layout),
         n_blocks_total=n_blocks_total,
+        lanes=tuple(lanes),
     )
 
 
@@ -495,9 +701,11 @@ class FsmBucketPlan:
     layout and assembly is one static reshape.  Requires row-aligned
     restart intervals (ri == k * mcus_x); the batch engine keys chunks on
     (bucket, k) and sends anything else to the host-bucketed route.
+    `lanes` describes xs (what a device upload packs); xs is made from it
+    on first read.
     """
 
-    xs: np.ndarray            # uint8 [L, stride]
+    xs: np.ndarray = _FromLanes(ScanLanes.host)   # uint8 [L, stride]
     seg_n: np.ndarray         # int32 [L] real-block quotas
     wrap_at: np.ndarray       # int32 [L] blocks per real MCU row
     skip: np.ndarray          # int32 [L] padding slots after each row
@@ -507,6 +715,12 @@ class FsmBucketPlan:
     max_blk: int              # k * bucket.mcus_x * bpm (lane capacity)
     extents: np.ndarray       # int32 [n_imgs, 2] true (mcus_y, mcus_x)
     n_imgs: int
+    lanes: InitVar[ScanLanes | None] = None
+
+    def __post_init__(self, lanes):
+        if lanes is None:
+            lanes, = ScanLanes.of_matrices([self.xs])
+        object.__setattr__(self, "lanes", lanes)
 
 
 def bucket_lane_k(img: JpegImage) -> int | None:
@@ -521,7 +735,7 @@ def bucket_lane_k(img: JpegImage) -> int | None:
 
 def build_plan_bucketed(imgs: list[JpegImage], bucket,
                         pad_imgs: int | None = None) -> FsmBucketPlan:
-    """Pack a mixed-size chunk into bucket-raster lanes (FsmBucketPlan).
+    """Describe a mixed-size chunk as bucket-raster lanes (FsmBucketPlan).
 
     `bucket` is the size-class Geometry (pipeline.bucket_geometry); every
     image must fit it, share tables and subsampling, and have the same
@@ -540,11 +754,10 @@ def build_plan_bucketed(imgs: list[JpegImage], bucket,
     max_blk = k * bucket.mcus_x * bpm
     if max_blk > MAX_BLOCKS_PER_LANE:
         raise JpegError("fsm-bucket: bucket row capacity overflows events")
+    scans = tuple(img.scan_data for img in imgs)
+    base = _bases(scans)
 
-    seg_bytes: list[np.ndarray] = []
-    quotas: list[int] = []
-    wraps: list[int] = []
-    skips: list[int] = []
+    ris, needs, wraps, skips = [], [], [], []
     extents = np.zeros((len(imgs), 2), np.int32)
     for ii, img in enumerate(imgs):
         if img.mcu_block_pattern() != pattern0 or build_tables(img) != tables:
@@ -557,36 +770,34 @@ def build_plan_bucketed(imgs: list[JpegImage], bucket,
         need = -(-img.n_mcus // ri)
         if need > lanes_per_img:
             raise JpegError("fsm-bucket: image exceeds bucket row count")
-        offs = img.segment_offsets
-        ends = np.append(offs[1:need], img.scan_data.size)
-        scan = img.scan_data
         extents[ii] = (img.mcus_y, img.mcus_x)
-        for s in range(lanes_per_img):
-            if s < need:
-                seg_bytes.append(scan[int(offs[s]) : int(ends[s])])
-                quotas.append(min(ri, img.n_mcus - s * ri) * bpm)
-            else:
-                seg_bytes.append(np.zeros(0, np.uint8))
-                quotas.append(0)
-            wraps.append(max(img.mcus_x * bpm, 1))
-            skips.append((bucket.mcus_x - img.mcus_x) * bpm)
+        ris.append(ri)
+        needs.append(need)
+        wraps.append(max(img.mcus_x * bpm, 1))
+        skips.append((bucket.mcus_x - img.mcus_x) * bpm)
 
-    n_real = len(seg_bytes)
-    stride = _stride_bucket(max(max(b.size for b in seg_bytes), 64))
+    # image j's segments from row j * lanes_per_img on, then zero-quota
+    # lanes up to the next image's
+    n_real = len(imgs) * lanes_per_img
     L = _round_up(max(n_real, (pad_imgs or 0) * lanes_per_img, 8), 128)
-    xs = np.zeros((L, stride), np.uint8)
-    for row, b in enumerate(seg_bytes):
-        xs[row, : b.size] = b
+    off, n, seg = _segment_lanes(imgs, needs, base)
+    row = np.repeat(np.arange(len(imgs)) * lanes_per_img, needs) + seg
+    lane_off = np.zeros(L, np.int64)
+    lane_len = np.zeros(L, np.int32)
     seg_n = np.zeros(L, np.int32)
-    seg_n[:n_real] = quotas
-    wrap_at = np.ones(L, np.int32)
-    wrap_at[:n_real] = wraps
-    skip = np.zeros(L, np.int32)
-    skip[:n_real] = skips
+    lane_off[row], lane_len[row] = off, n
+    ri = np.repeat(ris, needs)
+    seg_n[row] = np.minimum(
+        ri, np.repeat([im.n_mcus for im in imgs], needs) - seg * ri) * bpm
+    stride = int(_stride_bucket(lane_len).max())
     return FsmBucketPlan(
-        xs=xs, seg_n=seg_n, wrap_at=wrap_at, skip=skip, tables=tables,
-        k=k, lanes_per_img=lanes_per_img, max_blk=max_blk,
+        xs=None,
+        seg_n=seg_n,
+        wrap_at=_padded(np.repeat(wraps, lanes_per_img), L, np.int32, fill=1),
+        skip=_padded(np.repeat(skips, lanes_per_img), L, np.int32),
+        tables=tables, k=k, lanes_per_img=lanes_per_img, max_blk=max_blk,
         extents=extents, n_imgs=len(imgs),
+        lanes=ScanLanes(scans, base, lane_off, lane_len, stride),
     )
 
 
@@ -1102,10 +1313,12 @@ def assemble_batched(per_lane: torch.Tensor, *, layout,
 
 def upload_plan(plan: FsmPlan, device="cuda"):
     """A plan's lane matrices and permutation on `device`:
-    (((xs, seg_n_blocks), ...), perm)."""
+    (((xs, seg_n_blocks), ...), perm); each matrix packed there from the
+    chunk's scan bytes, which go up once for every group."""
+    src = torch.from_numpy(plan.lanes[0][0].source()).to(device)
     return (
-        tuple((torch.as_tensor(xs).to(device), torch.as_tensor(sn).to(device))
-              for xs, sn in plan.groups),
+        tuple((lanes.to(device, src), torch.as_tensor(sn).to(device))
+              for lanes, sn in plan.lanes),
         torch.as_tensor(plan.perm).to(device),
     )
 
@@ -1256,9 +1469,11 @@ def build_spec_plan(img: JpegImage, chunk_bytes: int = 2048) -> SpecPlan:
 @dataclass(frozen=True)
 class SpecBatchPlan:
     """Speculative plan of a chunk: every image's equal-split lanes
-    stacked into one matrix (the JAX package's SpecBatchPlan)."""
+    stacked into one matrix (the JAX package's SpecBatchPlan).  `lanes`
+    describes xs (what a device upload packs: _upload_spec); xs is made
+    from it on first read."""
 
-    xs: np.ndarray            # uint8 [L, chunk + overlap]
+    xs: np.ndarray = _FromLanes(ScanLanes.host)  # uint8 [L, chunk + overlap]
     chunk_bits: np.ndarray    # int32 [L]
     img_first: np.ndarray     # int32 [n_imgs]
     img_lanes: np.ndarray     # int32 [n_imgs]
@@ -1268,6 +1483,12 @@ class SpecBatchPlan:
     chunk_bytes: int
     n_lanes: int
     bpm: int
+    lanes: InitVar[ScanLanes | None] = None
+
+    def __post_init__(self, lanes):
+        if lanes is None:
+            lanes, = ScanLanes.of_matrices([self.xs])
+        object.__setattr__(self, "lanes", lanes)
 
 
 def build_spec_plan_batch(imgs: list[JpegImage],
@@ -1289,23 +1510,25 @@ def build_spec_plan_batch(imgs: list[JpegImage],
         blocks.append(img.n_mcus * img.blocks_per_mcu)
         total += S
     L = _round_up(total, 128)
-    xs = np.zeros((L, stride), np.uint8)
+    scans = tuple(img.scan_data for img in imgs)
+    base = _bases(scans)
+    lane_off = np.zeros(L, np.int64)
+    lane_len = np.zeros(L, np.int32)
     chunk_bits = np.zeros(L, np.int32)
-    for img, first, S in zip(imgs, firsts, lanes):
-        scan = img.scan_data
-        for i in range(S):
-            part = scan[i * chunk_bytes : i * chunk_bytes + stride]
-            xs[first + i, : part.size] = part
-            chunk_bits[first + i] = (
-                min(chunk_bytes, scan.size - i * chunk_bytes) * 8
-            )
+    # an image's lane i: the window [i * chunk_bytes, + stride) clipped
+    # to its scan
+    start = (np.arange(total) - np.repeat(firsts, lanes)) * chunk_bytes
+    left = np.repeat(base[1:] - base[:-1], lanes) - start
+    lane_off[:total] = np.repeat(base[:-1], lanes) + start
+    lane_len[:total] = np.minimum(stride, left)
+    chunk_bits[:total] = np.minimum(chunk_bytes, left) * 8
     # counting cap: 4x the average blocks per lane, plus headroom
     cap = 8
     worst = max(4 * (nb // S + 1) + 64 for nb, S in zip(blocks, lanes))
     while cap < min(worst, MAX_BLOCKS_PER_LANE):
         cap *= 2
     return SpecBatchPlan(
-        xs=xs,
+        xs=None,
         chunk_bits=chunk_bits,
         img_first=np.asarray(firsts, np.int32),
         img_lanes=np.asarray(lanes, np.int32),
@@ -1315,6 +1538,7 @@ def build_spec_plan_batch(imgs: list[JpegImage],
         chunk_bytes=chunk_bytes,
         n_lanes=total,
         bpm=imgs[0].blocks_per_mcu,
+        lanes=ScanLanes(scans, base, lane_off, lane_len, stride),
     )
 
 
@@ -1338,11 +1562,11 @@ def spec_lane_arrays(plan: SpecBatchPlan):
 
 
 def _upload_spec(plan: SpecBatchPlan, xs_dev, device):
-    """The plan's byte matrix on the device (xs_dev when given; `device`,
-    default the card, otherwise)."""
+    """The plan's byte matrix on the device: xs_dev when given, else
+    packed on `device` (default the card) from the scan bytes."""
     if xs_dev is not None:
         return xs_dev
-    return torch.as_tensor(plan.xs).to(device or "cuda")
+    return plan.lanes.to(device or "cuda")
 
 
 def _handoff(end_bits, end_bim, inherit, chunk_bytes: int, max_start=None):

@@ -76,9 +76,12 @@ route's `entropy.build_segment_plan`) and
 every array the chunk's chain reads (the plan's, the quant tables, the
 spec lane masks, the bucket extents), staged by `_Upload`: each pinned
 and copied up on the decoder's copy stream, the compute stream ordered
-after the copies by an event.  Kernels launch only on the dispatching
-thread, the speculative scans at dispatch; the K and slot retries reuse
-the prepared plan.  A JpegError of a preparation
+after the copies by an event.  A plan's lane matrix goes up as the
+chunk's scan bytes (one host copy, into a pooled page-locked block) and
+its lane tables, and is packed on the card when the dispatch adopts the
+chunk (fsm.pack_lanes, csrc/pack.cu).  Kernels launch only on the
+dispatching thread, the speculative scans at dispatch; the K and slot
+retries reuse the prepared plan.  A JpegError of a preparation
 routes the chunk as the serial engine would; any other exception
 reaches the caller.
 
@@ -112,9 +115,10 @@ launched the planes kernel (csrc/planes.cu: the subsampled pixel stage
 on the card), spec_slot_chunks the speculative chunks dispatched with a
 slot capacity, fetch_chunks the device chunks fetched to the host,
 fetch_pinned_hits those of them whose page-locked host block came from
-the caching host allocator's pool without growing it (`_fetch`), and
-spec_sync_misses and the retry and fallback counters are the call's
-counters (utils/profiling.count).
+the caching host allocator's pool without growing it (`_fetch`),
+lane_pack_chunks the chunks whose lane matrix was packed on their device
+from its scan bytes (`_Upload.adopt`), and spec_sync_misses and the retry
+and fallback counters are the call's counters (utils/profiling.count).
 
 Several devices (mesh=, parallel/sharding.py): entropy decode and
 staging run on the mesh's first device, and the pixel stage is sharded
@@ -233,6 +237,8 @@ class BatchStats:
     fetch_chunks: int = 0             # device chunks fetched to the host
     fetch_pinned_hits: int = 0        # of them, page-locked blocks served
     #                                   from the host allocator's pool
+    lane_pack_chunks: int = 0         # chunks whose lane matrix was packed
+    #                                   on their device (csrc/pack.cu)
     spans: list = field(default_factory=list)  # logged while profiled
 
     def as_dict(self) -> dict:
@@ -340,32 +346,60 @@ class _Upload:
 
     On a card each array is pinned (PyTorch's caching host allocator: a
     block is handed out again only once the copies recorded on it are
-    done, so only a new size pays a cudaHostAlloc) and copied up
-    non-blocking on the decoder's copy stream, so a prepare on a pool
-    thread neither blocks on the copy nor queues behind the kernels of
-    the chunk before it; `done` records the event after the copies.
-    `adopt`, on the dispatching thread, makes the current (compute)
-    stream wait for that event before the chunk's first kernel and
-    records each tensor on it for the caching allocator.  On the CPU the
-    arrays are wrapped as tensors: no stream, no copy."""
+    done, so only a new size pays a cudaHostAlloc; a tensor already
+    page-locked goes as it is) and copied up non-blocking on the
+    decoder's copy stream, so a prepare on a pool thread neither blocks
+    on the copy nor queues behind the kernels of the chunk before it;
+    `done` records the event after the copies.  A lane matrix (`lanes`)
+    goes up as the chunk's scan bytes with its lane tables, and is packed
+    on the device by `adopt`.  `adopt`, on the dispatching thread, makes
+    the current (compute) stream wait for that event before the chunk's
+    first kernel, packs each lane matrix there (fsm.pack_lanes: on a card
+    csrc/pack.cu; counted in lane_pack_chunks) and records each tensor on
+    the stream for the caching allocator.  On the CPU the arrays are
+    wrapped as tensors: no stream, no copy."""
 
     def __init__(self, device: torch.device, stream):
         self.device = device
         self.stream = stream
         self.pinned: list = []       # the page-locked sources
         self.tensors: list = []      # their device copies
+        self.packs: list = []        # (xs, src, lane_off, lane_len)
         self.event = None            # torch.cuda.Event after the copies
 
-    def __call__(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
+    def __call__(self, a) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(a))
         if self.stream is None:
             return t
-        src = t.pin_memory()
+        src = t if t.is_pinned() else t.pin_memory()
         with torch.cuda.stream(self.stream):
             t = src.to(self.device, non_blocking=True)
         self.pinned.append(src)
         self.tensors.append(t)
         return t
+
+    def lanes(self, lanes) -> torch.Tensor:
+        """A lane matrix (fsm.ScanLanes) for the device: its scan bytes
+        and lane tables staged, its uint8 [L, stride] tensor allocated
+        and returned, written by `adopt`'s pack.  On a card the bytes are
+        copied once on the host, into a pooled page-locked block."""
+        if self.stream is None:
+            src = torch.from_numpy(lanes.source())
+        else:
+            src = torch.empty(max(int(lanes.base[-1]), 1),
+                              dtype=torch.uint8, pin_memory=True)
+            host = src.numpy()
+            for scan, b in zip(lanes.scans, lanes.base.tolist()):
+                host[b : b + scan.size] = scan
+        staged = (self(src), self(lanes.lane_off), self(lanes.lane_len))
+        with torch.cuda.stream(self.stream):   # None: no stream, no-op
+            xs = torch.empty(lanes.shape, dtype=torch.uint8,
+                             device=self.device)
+        if self.stream is not None:
+            self.tensors.append(xs)
+        self.packs.append((xs, *staged))
+        return xs
 
     def done(self) -> "_Upload":
         if self.stream is not None:
@@ -374,12 +408,17 @@ class _Upload:
         return self
 
     def adopt(self) -> None:
-        if self.event is None:
-            return
-        compute = torch.cuda.current_stream(self.device)
-        compute.wait_event(self.event)
-        for t in self.tensors:
-            t.record_stream(compute)
+        from ..ops import fsm
+
+        if self.event is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(self.event)
+            for t in self.tensors:
+                t.record_stream(compute)
+        for xs, src, lane_off, lane_len in self.packs:
+            fsm.pack_lanes(src, lane_off, lane_len, *xs.shape, out=xs)
+        if self.packs:
+            profiling.count("lane_pack_chunks")
 
 
 @dataclass
@@ -575,10 +614,9 @@ class BatchDecoder:
         images; padding rows are zero."""
         quant = np.zeros((self._pad(len(chunk.imgs)), len(chunk.geom.comps),
                           64), np.int32)
-        for bi, img in enumerate(chunk.imgs):
-            quant[bi] = np.stack(
-                [img.quant_tables[comp.quant_id] for comp in img.components]
-            )
+        quant[: len(chunk.imgs)] = [
+            [img.quant_tables[comp.quant_id] for comp in img.components]
+            for img in chunk.imgs]
         return quant
 
     # -- preparation (the prep pool) ----------------------------------------
@@ -592,7 +630,8 @@ class BatchDecoder:
             plan = fsm.build_plan(chunk.imgs, split=False)
         with span("stage"):
             up = self._upload()
-            arrays = (tuple((up(xs), up(sn)) for xs, sn in plan.groups),
+            arrays = (tuple((up.lanes(lanes), up(sn))
+                            for lanes, sn in plan.lanes),
                       up(plan.perm))
             quant = up(self._quant_host(chunk))
             return _Prepared("plan", plan, arrays, quant, up.done())
@@ -608,8 +647,8 @@ class BatchDecoder:
             plan = fsm.build_plan_bucketed(chunk.imgs, chunk.geom)
         with span("stage"):
             up = self._upload()
-            arrays = tuple(map(up, (plan.xs, plan.seg_n, plan.wrap_at,
-                                    plan.skip)))
+            arrays = (up.lanes(plan.lanes),
+                      *map(up, (plan.seg_n, plan.wrap_at, plan.skip)))
             quant = up(self._quant_host(chunk))
             extents = up(bucket_extents(plan, len(chunk.imgs)))
             return _Prepared("bucket", plan, arrays, quant, up.done(),
@@ -628,7 +667,8 @@ class BatchDecoder:
             plan = fsm.build_spec_plan_batch(chunk.imgs, 1024)
         with span("stage"):
             up = self._upload()
-            arrays = tuple(map(up, (plan.xs, *fsm.spec_lane_arrays(plan))))
+            arrays = (up.lanes(plan.lanes),
+                      *map(up, fsm.spec_lane_arrays(plan)))
             quant = up(self._quant_host(chunk))
             return _Prepared("spec", plan, arrays, quant, up.done())
 
@@ -1242,6 +1282,7 @@ class BatchDecoder:
             spec_slot_chunks=cnt.get("spec_slot_chunks", 0),
             fetch_chunks=cnt.get("fetch_chunks", 0),
             fetch_pinned_hits=cnt.get("fetch_pinned_hits", 0),
+            lane_pack_chunks=cnt.get("lane_pack_chunks", 0),
             spans=rec.spans,
         )
         for chunk in chunks:

@@ -213,7 +213,7 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
         raise ValueError(f"stop_after={stop_after!r}")
     dev = quant.device
     if uploaded is None:
-        uploaded = (torch.as_tensor(plan.xs).to(dev),
+        uploaded = (plan.xs_lanes.to(dev),
                     torch.as_tensor(plan.seg_n_blocks).to(dev))
     xs, seg_n = uploaded
     events, err_mal, err_env = fsm.fsm_scan(xs, seg_n, plan.tables, steps)
@@ -230,23 +230,23 @@ def decode_chunk_fused(plan: fsm.FsmPlan, quant: torch.Tensor, geom: Geometry,
     return rgb, risk, coeffs, dc, err_mal, err_env, err_slot
 
 
-def pack_superchunk(plans: list):
-    """Concatenate N single-group plans into one wide lane matrix (host).
-
-    Every sub-plan's rows are zero-padded to the largest stride (the zero
+def superchunk_lanes(plans: list):
+    """N single-group plans as one wide lane matrix, described: every
+    sub-plan's rows in order, zero-padded to the largest stride (the zero
     columns are inert: a lane is done before them and never refills).
-    Returns (xs uint8 [Lw, stride], seg_n int32 [Lw], sub_lanes tuple)."""
-    stride = max(p.groups[0][0].shape[1] for p in plans)
-    xs_parts, sn_parts, sub_lanes = [], [], []
-    for p in plans:
-        xs, sn = p.groups[0]
-        if xs.shape[1] < stride:
-            xs = np.pad(xs, ((0, 0), (0, stride - xs.shape[1])))
-        xs_parts.append(xs)
-        sn_parts.append(sn)
-        sub_lanes.append(xs.shape[0])
-    return np.concatenate(xs_parts), np.concatenate(sn_parts), \
-        tuple(sub_lanes)
+    Returns (fsm.ScanLanes of [Lw, stride], seg_n int32 [Lw], sub_lanes
+    tuple)."""
+    lanes = [p.xs_lanes for p in plans]
+    return (fsm.ScanLanes.stack(lanes),
+            np.concatenate([p.seg_n_blocks for p in plans]),
+            tuple(sl.shape[0] for sl in lanes))
+
+
+def pack_superchunk(plans: list):
+    """superchunk_lanes' matrix packed on the host: (xs uint8 [Lw,
+    stride], seg_n int32 [Lw], sub_lanes tuple)."""
+    lanes, seg_n, sub_lanes = superchunk_lanes(plans)
+    return lanes.host(), seg_n, sub_lanes
 
 
 def decode_superchunk(plans: list, quants: torch.Tensor, geom: Geometry,
@@ -271,16 +271,14 @@ def decode_superchunk(plans: list, quants: torch.Tensor, geom: Geometry,
     err_slot [Lw]; risk is None when exact, coeffs and dc when want_coeffs
     is False."""
     for p in plans:
-        if len(p.groups) != 1:
+        if len(p.lanes) != 1:
             raise ValueError("superchunk requires single-group plans")
         if p.tables != plans[0].tables:
             raise ValueError("superchunk requires one table set")
     dev = quants.device
+    lanes, sn, sub_lanes = superchunk_lanes(plans)
     if uploaded is None:
-        xs, sn, sub_lanes = pack_superchunk(plans)
-        uploaded = (torch.as_tensor(xs).to(dev), torch.as_tensor(sn).to(dev))
-    else:
-        sub_lanes = tuple(p.groups[0][0].shape[0] for p in plans)
+        uploaded = (lanes.to(dev), torch.as_tensor(sn).to(dev))
     xs, seg_n = uploaded
     events, err_mal, err_env = fsm.fsm_scan(xs, seg_n, plans[0].tables,
                                             steps)
@@ -352,9 +350,9 @@ def decode_chunk_bucketed(plan: fsm.FsmBucketPlan, quant: torch.Tensor,
     """
     dev = quant.device
     if uploaded is None:
-        uploaded = tuple(
+        uploaded = (plan.lanes.to(dev), *(
             torch.as_tensor(a).to(dev)
-            for a in (plan.xs, plan.seg_n, plan.wrap_at, plan.skip))
+            for a in (plan.seg_n, plan.wrap_at, plan.skip)))
     xs, seg_n, wrap_at, skip = uploaded
     bpm = bucket.blocks_per_mcu
     wb_bpm = bucket.mcus_x * bpm

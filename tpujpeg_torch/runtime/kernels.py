@@ -83,6 +83,8 @@ _SIGNATURES = {
     # fconsts(host), dconsts(host), stream
     "tpj_planes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _I, _LL, _P, _P, _P, _P],
+    # src, lane_off, lane_len, xs, L, stride, stream
+    "tpj_pack_lanes": [_P, _P, _P, _P, _I, _I, _P],
     # t, idx, out, R, T, K, blocks, group, stream
     "tpj_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # t, idx, out, T, N, blocks, stream
@@ -109,6 +111,7 @@ KERNELS = {
     "spread_full": "tpj_spread_full",
     "pixels": "tpj_pixels",
     "planes": "tpj_planes",
+    "pack_lanes": "tpj_pack_lanes",
     "decode_segments": "tpj_decode_segments",
     "gather_rows": "tpj_gather_rows",
     "gather_table": "tpj_gather_table",

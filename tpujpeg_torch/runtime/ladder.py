@@ -78,4 +78,4 @@ def bucketed_keys(
 
 def observed_key(plan: fsm.FsmBucketPlan, bucket) -> tuple:
     """The ladder key of a packed bucket plan."""
-    return (bucket.mcus_x, bucket.mcus_y, plan.k, plan.xs.shape[1])
+    return (bucket.mcus_x, bucket.mcus_y, plan.k, plan.lanes.stride)
