@@ -117,8 +117,15 @@ slot capacity, fetch_chunks the device chunks fetched to the host,
 fetch_pinned_hits those of them whose page-locked host block came from
 the caching host allocator's pool without growing it (`_fetch`),
 lane_pack_chunks the chunks whose lane matrix was packed on their device
-from its scan bytes (`_Upload.adopt`), and spec_sync_misses and the retry
+from its scan bytes (`_Upload.adopt`), bucket_chunks the chunks launched
+on the bucket chain ('fsm-bucketed', counted once as each is adopted:
+not on a retry, and not where it leaves for 'host-bucketed'),
+bucket_images their images, bucket_blocks those images times their
+bucket raster's blocks and bucket_real_blocks the images' own blocks
+(the rest is the raster's padding), and spec_sync_misses and the retry
 and fallback counters are the call's counters (utils/profiling.count).
+A bucketed chunk's launch span carries the attributes bucket (its
+raster's mcus_x, mcus_y) and images.
 
 Several devices (mesh=, parallel/sharding.py): entropy decode and
 staging run on the mesh's first device, and the pixel stage is sharded
@@ -239,6 +246,10 @@ class BatchStats:
     #                                   from the host allocator's pool
     lane_pack_chunks: int = 0         # chunks whose lane matrix was packed
     #                                   on their device (csrc/pack.cu)
+    bucket_chunks: int = 0            # chunks launched on the bucket chain
+    bucket_images: int = 0            # their images
+    bucket_blocks: int = 0            # their images x the bucket's blocks
+    bucket_real_blocks: int = 0       # their images' own blocks
     spans: list = field(default_factory=list)  # logged while profiled
 
     def as_dict(self) -> dict:
@@ -969,11 +980,19 @@ class BatchDecoder:
         from ..ops import fsm
         from . import fused
 
-        if chunk.plan is None and self._take_prepared(chunk) != "bucket":
-            return False
-        chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
         B = len(chunk.imgs)
-        with span("launch"):
+        if chunk.plan is None:
+            if self._take_prepared(chunk) != "bucket":
+                return False
+            # counted once a chunk, as it is adopted: never on its retry
+            profiling.count("bucket_chunks")
+            profiling.count("bucket_images", B)
+            profiling.count("bucket_blocks", B * chunk.geom.n_blocks)
+            profiling.count("bucket_real_blocks", sum(
+                im.n_mcus * im.blocks_per_mcu for im in chunk.imgs))
+        chunk.steps = fsm.STEPS_PRODUCTION if steps is None else steps
+        with span("launch", bucket=(chunk.geom.mcus_x, chunk.geom.mcus_y),
+                  images=B):
             rgb, risk, _, _, err_mal, err_env, err_slot = (
                 fused.decode_chunk_bucketed(
                     chunk.plan, chunk.quant, chunk.geom, B,
@@ -1283,6 +1302,10 @@ class BatchDecoder:
             fetch_chunks=cnt.get("fetch_chunks", 0),
             fetch_pinned_hits=cnt.get("fetch_pinned_hits", 0),
             lane_pack_chunks=cnt.get("lane_pack_chunks", 0),
+            bucket_chunks=cnt.get("bucket_chunks", 0),
+            bucket_images=cnt.get("bucket_images", 0),
+            bucket_blocks=cnt.get("bucket_blocks", 0),
+            bucket_real_blocks=cnt.get("bucket_real_blocks", 0),
             spans=rec.spans,
         )
         for chunk in chunks:
